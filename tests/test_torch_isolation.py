@@ -1,0 +1,100 @@
+"""The port stands alone: tpu_asr_torch/ and chip_smoke.py import no JAX
+and nothing of tpu_asr, and its entry points never fall back to the CPU
+quietly."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_asr")
+
+
+def _port_files():
+    root = os.path.join(REPO, "tpu_asr_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(root):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, REPO), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_package_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tpu_asr'):\n"
+        "    sys.modules[m] = None\n"
+        "import pkgutil, importlib, tpu_asr_torch\n"
+        "for m in pkgutil.walk_packages(tpu_asr_torch.__path__, "
+        "'tpu_asr_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_refuse_cpu_without_asking(monkeypatch):
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.serve import AsrServer
+    from tpu_asr_torch.utils.device import resolve_device
+    from torch_port_util import torch_cfg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = torch_cfg()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Recognizer(cfg, Transformer(cfg), mode="joint")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    rec = Recognizer(cfg, Transformer(cfg), mode="joint", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AsrServer(rec)
+    AsrServer(rec, device="cpu")
+
+
+def test_serve_cli_refuses_cpu_without_asking():
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; torch.cuda.is_available = lambda: False\n"
+         "from tpu_asr_torch.serve import main\n"
+         "main(['--random-init', '--preset', 'hybrid_dev'])"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_refuses_without_card():
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch; torch.cuda.is_available = lambda: False\n"
+         "sys.argv = ['chip_smoke.py']\n"
+         "import runpy; runpy.run_path('chip_smoke.py', "
+         "run_name='__main__')"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,151 @@
+"""Port model (tpu_asr_torch.models) vs tpu_asr.models.Transformer on the
+CPU, from the same flax params."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_asr.models import Transformer as JaxTransformer
+from tpu_asr.models.decoder import Decoder as JaxDecoder
+from tpu_asr_torch.weights import flax_to_torch, load_jax_params
+from torch_port_util import (VOCAB, flat_flax_params, flax_params, jax_cfg,
+                             torch_cfg, torch_model)
+
+ATOL = 1e-4   # float32 on both sides; sums taken in another order
+
+
+@pytest.fixture(scope="module")
+def setup():
+    rng = np.random.default_rng(1)
+    feats = rng.standard_normal((3, 41, 80)).astype(np.float32)
+    flens = np.array([41, 30, 0], np.int32)     # incl. a length-0 dummy row
+    ys = rng.integers(0, VOCAB, (3, 5)).astype(np.int32)
+    jm, params = JaxTransformer(jax_cfg()), flax_params()
+    enc, el = jm.apply(params, jnp.asarray(feats), jnp.asarray(flens),
+                       method="encode")
+    tm = torch_model()
+    with torch.no_grad():
+        tenc, tel = tm.encode(torch.from_numpy(feats), torch.from_numpy(flens))
+    return dict(feats=feats, flens=flens, ys=ys, jm=jm, params=params,
+                enc=enc, el=el, tm=tm, tenc=tenc, tel=tel)
+
+
+def test_encoder_matches(setup):
+    np.testing.assert_array_equal(np.asarray(setup["el"]),
+                                  setup["tel"].numpy())
+    assert setup["tenc"].shape == (3, 9, 64)
+    np.testing.assert_allclose(setup["tenc"].numpy(),
+                               np.asarray(setup["enc"]), atol=ATOL)
+
+
+def test_ctc_logits_match(setup):
+    want = setup["jm"].apply(setup["params"], setup["enc"],
+                             method="ctc_logits")
+    with torch.no_grad():
+        got = setup["tm"].ctc_logits(setup["tenc"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_teacher_forced_decoder_matches(setup):
+    want = setup["jm"].apply(setup["params"], setup["enc"], setup["el"],
+                             jnp.asarray(setup["ys"]),
+                             method="decode_logits")
+    with torch.no_grad():
+        got = setup["tm"].decode_logits(setup["tenc"], setup["tel"],
+                                        torch.from_numpy(setup["ys"]).long())
+    assert got.shape == (3, 5, VOCAB)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_cached_steps_match(setup):
+    """Three cached decode steps equal the reference's step API."""
+    jd = JaxDecoder(jax_cfg())
+    dp = {"params": setup["params"]["params"]["decoder"]}
+    enc = setup["enc"]
+    jcache = jd.apply(dp, 3, 6, method="init_cache")
+    jkv = jd.apply(dp, enc, method="precompute_cross_kv")
+    td = setup["tm"].decoder
+    tcache = td.init_cache(3, 6)
+    with torch.no_grad():
+        tkv = td.precompute_cross_kv(setup["tenc"])
+        for pos in range(3):
+            y = setup["ys"][:, pos]
+            jl, jcache = jd.apply(dp, jnp.asarray(y), pos, jcache, jkv,
+                                  setup["el"], method="step")
+            tl, tcache = td.step(torch.from_numpy(y).long(), pos, tcache,
+                                 tkv, setup["tel"])
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                       err_msg=f"step {pos}")
+            # step logits == teacher-forced logits at the same position
+            np.testing.assert_allclose(
+                tl.numpy(), setup["tm"].decode_logits(
+                    setup["tenc"], setup["tel"],
+                    torch.from_numpy(setup["ys"][:, :pos + 1]).long()
+                )[:, pos].numpy(), atol=ATOL)
+
+
+def test_bf16_encoder_close():
+    """bf16 compute on both sides: rounding happens at other places in
+    the two frameworks, so the bound is loose (bf16 keeps ~3 digits)."""
+    rng = np.random.default_rng(2)
+    feats = rng.standard_normal((2, 41, 80)).astype(np.float32)
+    flens = np.array([41, 33], np.int32)
+    jm = JaxTransformer(jax_cfg(dtype=jnp.bfloat16))
+    want, _ = jm.apply(flax_params(), jnp.asarray(feats), jnp.asarray(flens),
+                       method="encode")
+    tm = torch_model(dtype=torch.bfloat16)
+    with torch.no_grad():
+        got, _ = tm.encode(torch.from_numpy(feats), torch.from_numpy(flens))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=0.1)
+
+
+def test_load_rejects_missing_and_misshaped_keys():
+    from tpu_asr_torch.models.transformer import Transformer
+    flat = {k[len("params/"):]: v for k, v in flat_flax_params().items()}
+    model = Transformer(torch_cfg())
+    load_jax_params(model, flat)                       # flat form works
+    missing = dict(flat)
+    missing.pop("encoder/layer_0/ffn/w_1/bias")
+    with pytest.raises(KeyError):
+        load_jax_params(model, missing)
+    extra = dict(flat, **{"encoder/bogus/kernel": np.zeros((2, 2))})
+    with pytest.raises(KeyError):
+        load_jax_params(model, extra)
+    bad = dict(flat)
+    bad["decoder/embed/embedding"] = np.zeros((VOCAB + 1, 64), np.float32)
+    with pytest.raises(ValueError):
+        load_jax_params(model, bad)
+
+
+def test_load_from_npz(tmp_path):
+    from tpu_asr_torch.models.transformer import Transformer
+    flat = flat_flax_params()
+    path = tmp_path / "params.npz"
+    np.savez(path, **flat)
+    model = Transformer(torch_cfg())
+    load_jax_params(model, str(path))
+    ref = torch_model()
+    for (k, a), (_, b) in zip(model.state_dict().items(),
+                              ref.state_dict().items()):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("path,shape,key,tshape", [
+    ("encoder/layer_0/slf_attn/q_proj/kernel", (64, 2, 32),
+     "encoder.layers.0.slf_attn.q_proj.weight", (64, 64)),
+    ("decoder/layer_1/crs_attn/out_proj/kernel", (2, 32, 64),
+     "decoder.layers.1.crs_attn.out_proj.weight", (64, 64)),
+    ("encoder/subsample/conv2/kernel", (3, 3, 8, 16),
+     "encoder.subsample.conv2.weight", (16, 8, 3, 3)),
+    ("decoder/layer_0/post_crs/LayerNorm_0/scale", (64,),
+     "decoder.layers.0.post_crs.norm.weight", (64,)),
+    ("ctc_head/ctc_proj/kernel", (64, 32), "ctc_head.ctc_proj.weight",
+     (32, 64)),
+])
+def test_flax_key_mapping(path, shape, key, tshape):
+    k, v = flax_to_torch(path, np.zeros(shape, np.float32))
+    assert (k, v.shape) == (key, tshape)

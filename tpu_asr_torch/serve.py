@@ -1,0 +1,374 @@
+"""Model server: dynamic micro-batching onto static bucket shapes (port of
+tpu_asr/serve.py, offline /recognize path).
+
+- requests enqueue; a collector thread drains up to `batch_size` of them,
+  waiting at most `window_ms` after the first arrival;
+- each request gets the smallest static frame bucket that fits;
+- per (input kind, bucket) group, requests are padded into ONE fixed
+  [batch_size, T(, D)] batch (absent rows are length-0 dummies) and
+  decoded together.
+
+A decode failure is caught on the collector thread (which must keep
+serving), stored on each request of the batch, and raised to the
+submitter as RuntimeError. The /stream endpoint and its StreamSessions
+are not ported yet.
+
+Run as a module to serve over HTTP:
+
+  python -m tpu_asr_torch.serve --random-init --seed 0 --mode joint \\
+      --beam 5 --bucket-frames 512,1000 --batch-size 8 --port 8080
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import queue
+import sys
+import threading
+import time
+
+import numpy as np
+
+from tpu_asr_torch.frontend import FrontendConfig
+from tpu_asr_torch.utils.device import resolve_device
+
+
+class UtteranceTooLong(ValueError):
+    """Input exceeds the longest configured frame bucket (HTTP 413)."""
+
+
+@dataclasses.dataclass
+class _Request:
+    kind: str                      # "feats" | "wav"
+    data: np.ndarray               # [T, D] f32 | [S] f32
+    bucket: int
+    nbest: int
+    event: threading.Event = dataclasses.field(default_factory=threading.Event)
+    result: list | None = None
+    error: str | None = None
+    cancelled: bool = False        # submitter timed out: drop, don't decode
+
+
+class AsrServer:
+    """Micro-batching wrapper around a Recognizer.
+
+    recognizer: tpu_asr_torch.decode.recognizer.Recognizer.
+    bucket_frames: ascending static feature-frame buckets.
+    batch_size: static rows per decoded batch (and the max micro-batch).
+    window_ms: max wait after the first queued request.
+    device: where the server decodes; None means the CUDA card and raises
+        when there is none. It must be the recognizer's device.
+    """
+
+    def __init__(self, recognizer, bucket_frames=(512, 1000), batch_size=8,
+                 window_ms=15.0, device=None):
+        device = resolve_device(device)
+        if recognizer.device != device:
+            raise ValueError(f"recognizer runs on {recognizer.device}, "
+                             f"server asked for {device}")
+        self.rec = recognizer
+        self.device = device
+        self.bucket_frames = tuple(sorted(bucket_frames))
+        self.batch_size = int(batch_size)
+        self.window_s = float(window_ms) / 1000.0
+        self.frontend = getattr(recognizer, "frontend", None) or \
+            FrontendConfig()
+        self.d_input = recognizer.cfg.d_input
+        self._q: queue.Queue[_Request] = queue.Queue()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="asr-batcher")
+        self.stats = {"requests": 0, "batches": 0, "rows_decoded": 0}
+
+    # --- lifecycle ---
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+    def warmup(self, kinds=("feats", "wav")):
+        """Decode one dummy batch per (kind, bucket) before taking
+        traffic (first-use kernel build, cuBLAS handles, allocator)."""
+        for kind in kinds:
+            for b, t in enumerate(self.bucket_frames):
+                self._decode_group(kind, b, [self._dummy_request(kind, b, t)])
+        self.stats.update(requests=0, batches=0, rows_decoded=0)
+
+    def _dummy_request(self, kind, bucket, t):
+        if kind == "feats":
+            data = np.zeros((t, self.d_input), np.float32)
+        else:
+            data = np.zeros((t * self.frontend.frame_shift,), np.float32)
+        return _Request(kind=kind, data=data, bucket=bucket, nbest=1)
+
+    # --- submission ---
+
+    def _bucket_for(self, n_frames: int) -> int | None:
+        for i, t in enumerate(self.bucket_frames):
+            if n_frames <= t:
+                return i
+        return None
+
+    def submit(self, kind: str, data: np.ndarray, nbest: int = 1,
+               timeout: float = 60.0) -> list[dict]:
+        """Blocking decode of one utterance; thread-safe.
+
+        kind="feats": data [T, d_input] float32 log-mel frames.
+        kind="wav":   data [S] float32 samples at frontend.sample_rate.
+        Returns the n-best list [{'yseq': [...], 'score': ...}, ...];
+        raises RuntimeError when the batch's decode failed.
+        """
+        data = np.asarray(data, np.float32)
+        if kind == "feats":
+            if data.ndim != 2 or data.shape[1] != self.d_input:
+                raise ValueError(
+                    f"feats must be [T, {self.d_input}], got {data.shape}")
+            frames = data.shape[0]
+        elif kind == "wav":
+            if data.ndim != 1:
+                raise ValueError(f"wav must be [S], got {data.shape}")
+            frames = data.shape[0] // self.frontend.frame_shift
+        else:
+            raise ValueError(f"unknown input kind {kind!r}")
+        if frames < 1:
+            raise ValueError("empty utterance")
+        bucket = self._bucket_for(frames)
+        if bucket is None:
+            raise UtteranceTooLong(
+                f"utterance is ~{frames} frames; longest bucket is "
+                f"{self.bucket_frames[-1]}")
+        req = _Request(kind=kind, data=data, bucket=bucket, nbest=nbest)
+        self._q.put(req)
+        if not req.event.wait(timeout):
+            req.cancelled = True
+            raise TimeoutError("decode timed out")
+        if req.error is not None:
+            raise RuntimeError(req.error)
+        return req.result
+
+    # --- collector ---
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                first = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.monotonic() + self.window_s
+            cap = self.batch_size * max(2, len(self.bucket_frames))
+            while len(batch) < cap:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    batch.append(self._q.get(timeout=left))
+                except queue.Empty:
+                    break
+            groups: dict[tuple[str, int], list[_Request]] = {}
+            for r in batch:
+                groups.setdefault((r.kind, r.bucket), []).append(r)
+            for (kind, bucket), reqs in groups.items():
+                for s in range(0, len(reqs), self.batch_size):
+                    chunk = [r for r in reqs[s: s + self.batch_size]
+                             if not r.cancelled]
+                    if not chunk:
+                        continue
+                    try:
+                        self._decode_group(kind, bucket, chunk)
+                    except Exception as e:  # surface, don't kill the loop
+                        for r in chunk:
+                            r.error = f"{type(e).__name__}: {e}"
+                    finally:
+                        for r in chunk:
+                            r.event.set()
+
+    def _decode_group(self, kind: str, bucket: int, reqs: list[_Request]):
+        """Pad a group into the bucket's STATIC [batch_size, ...] shape and
+        decode it; absent rows are length-0 dummies."""
+        t = self.bucket_frames[bucket]
+        b = self.batch_size
+        if kind == "feats":
+            arr = np.zeros((b, t, self.d_input), np.float32)
+        else:
+            arr = np.zeros((b, t * self.frontend.frame_shift), np.float32)
+        lens = np.zeros((b,), np.int32)
+        for i, r in enumerate(reqs):
+            arr[i, : r.data.shape[0]] = r.data
+            lens[i] = r.data.shape[0]
+        batch = ({"feats": arr, "feat_lengths": lens} if kind == "feats"
+                 else {"wav": arr, "wav_lengths": lens})
+        nbest = self.rec.decode_batch_nbest(batch)
+        for r, nb in zip(reqs, nbest):
+            r.result = nb[: max(r.nbest, 1)]
+        self.stats["requests"] += len(reqs)
+        self.stats["batches"] += 1
+        self.stats["rows_decoded"] += b
+
+
+def make_http_server(host: str, port: int, server: AsrServer,
+                     char_list: list[str] | None = None):
+    """stdlib ThreadingHTTPServer with two endpoints:
+
+    GET  /healthz    -> model/server info + stats
+    POST /recognize  -> {"feats": [[...]]} | {"wav": [...]} (+ "nbest": k)
+                        -> n-best hypotheses
+    """
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    def ids_to_text(ids):
+        if not char_list:
+            return None
+        return "".join(char_list[i] if 0 <= i < len(char_list) else "<unk>"
+                       for i in ids)
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):      # quiet: stats live in /healthz
+            pass
+
+        def _json(self, code: int, obj: dict):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path != "/healthz":
+                return self._json(404, {"error": "not found"})
+            self._json(200, {
+                "status": "ok",
+                "mode": server.rec.mode,
+                "model_type": server.rec.cfg.model_type,
+                "device": str(server.device),
+                "bucket_frames": list(server.bucket_frames),
+                "batch_size": server.batch_size,
+                "window_ms": server.window_s * 1000.0,
+                "stats": dict(server.stats),
+            })
+
+        def do_POST(self):
+            try:
+                n = int(self.headers.get("Content-Length", "0"))
+                req = json.loads(self.rfile.read(n) or b"{}")
+            except (ValueError, json.JSONDecodeError) as e:
+                return self._json(400, {"error": f"bad json: {e}"})
+            if self.path != "/recognize":
+                return self._json(404, {"error": "not found"})
+            if ("feats" in req) == ("wav" in req):
+                return self._json(
+                    400, {"error": "send exactly one of 'feats'/'wav'"})
+            kind = "feats" if "feats" in req else "wav"
+            try:
+                nb = server.submit(kind, np.asarray(req[kind], np.float32),
+                                   nbest=int(req.get("nbest", 1)))
+            except UtteranceTooLong as e:
+                return self._json(413, {"error": str(e)})
+            except ValueError as e:
+                return self._json(400, {"error": str(e)})
+            except TimeoutError as e:
+                return self._json(503, {"error": str(e)})
+            except Exception as e:
+                return self._json(500, {"error": str(e)})
+            out = [{"tokens": h["yseq"], "score": h["score"],
+                    "text": ids_to_text(h["yseq"])} for h in nb]
+            return self._json(200, {"nbest": out, "tokens": out[0]["tokens"],
+                                    "text": out[0]["text"]})
+
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    httpd.daemon_threads = True
+    return httpd
+
+
+# --- command line ---
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m tpu_asr_torch.serve",
+        description="Serve the PyTorch port over HTTP (/healthz, "
+                    "/recognize) with micro-batched decode.")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--params-npz",
+                     help="flax params of tpu_asr.models.Transformer saved "
+                          "as .npz with '/'-joined keys")
+    src.add_argument("--random-init", action="store_true",
+                     help="seeded random weights (no checkpoint)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--preset", default="aishell",
+                   help="model preset (aishell | hybrid_dev)")
+    p.add_argument("--mode", default="joint",
+                   choices=["greedy_ctc", "beam", "joint"])
+    p.add_argument("--beam", type=int, default=5)
+    p.add_argument("--max-len", type=int, default=100)
+    p.add_argument("--ctc-weight", type=float, default=0.3)
+    p.add_argument("--bucket-frames", default="512,1000",
+                   help="comma-separated static frame buckets")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--window-ms", type=float, default=15.0)
+    p.add_argument("--inputs", default="feats,wav",
+                   help="input kinds to warm up (feats,wav)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def build_server(args) -> AsrServer:
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.weights import init_random, load_jax_params
+
+    device = resolve_device(args.device)
+    cfg = get_preset(args.preset).model
+    model = Transformer(cfg)
+    if args.params_npz:
+        load_jax_params(model, args.params_npz)
+    else:
+        init_random(model, args.seed)
+    rec = Recognizer(
+        cfg, model, mode=args.mode, device=device,
+        beam=BeamConfig(beam=args.beam, max_len=args.max_len,
+                        nbest=args.beam,   # requests slice their own nbest
+                        ctc_weight=args.ctc_weight if args.mode == "joint"
+                        else 0.0))
+    buckets = tuple(int(x) for x in args.bucket_frames.split(","))
+    return AsrServer(rec, bucket_frames=buckets, batch_size=args.batch_size,
+                     window_ms=args.window_ms, device=device)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    server = build_server(args)
+    kinds = tuple(k.strip() for k in args.inputs.split(",") if k.strip())
+    print(f"warming up {len(kinds)}x{len(server.bucket_frames)} decode "
+          f"shapes on {server.device} (mode={args.mode}, "
+          f"batch={args.batch_size})...", file=sys.stderr, flush=True)
+    server.warmup(kinds=kinds)
+    server.start()
+    httpd = make_http_server(args.host, args.port, server)
+    print(json.dumps({"serving": f"http://{args.host}:{args.port}",
+                      "mode": args.mode, "device": str(server.device),
+                      "buckets": list(server.bucket_frames),
+                      "batch_size": args.batch_size}), flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        server.stop()
+
+
+if __name__ == "__main__":
+    main()
