@@ -2,8 +2,7 @@
 tpu_asr.decode.ctc_prefix.CTCPrefixScorer(use_pallas=False).
 
 The CUDA kernel is held against the plain version on the card by
-chip_smoke.py, and here by the `gpu`-marked test, which skips on a
-machine without a card.
+chip_smoke.py and tests/test_torch_gpu.py.
 """
 
 import jax
@@ -141,31 +140,3 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
     assert torch.equal(got[1][1, 3:], got[1][1, 2:3].expand(3, k))
     assert torch.equal(got[1][:, 0], x[:, 0])
     assert torch.equal(got[0][2], init[2])
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain_version():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    rng = np.random.default_rng(1)
-    for n, t, k in [(40, 249, 11), (13, 9, 21), (3, 1, 11)]:
-        dev = "cuda"
-        x = torch.log_softmax(torch.from_numpy(
-            rng.standard_normal((n, t, k + 1)).astype(np.float32)), -1)
-        xc, xb = x[..., 1:].contiguous(), x[..., 0].contiguous()
-        phi = xc.flip(-1).contiguous()
-        nb0 = xc[:, 0].contiguous()
-        b0 = torch.full((n, k), -1e30)
-        lens = torch.from_numpy(rng.integers(0, t + 1, n).astype(np.int32))
-        args = [a.to(dev) for a in (xc, phi, xb, nb0, b0, nb0.clone(), lens)]
-        for hist in (True, False):
-            before = ctc_prefix_scan.launches
-            got = ctc_prefix_scan(*args, return_hist=hist)
-            want = ctc_prefix_scan_reference(*args, return_hist=hist)
-            torch.cuda.synchronize()
-            assert ctc_prefix_scan.launches == before + 1
-            for g, w in zip(got, want):
-                if w is not None:
-                    _close(g.cpu(), w.cpu(), f"N={n} T={t} K={k}")
-        with pytest.raises(TypeError):
-            ctc_prefix_scan(args[0].double(), *args[1:])

@@ -76,6 +76,28 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
         AsrServer(rec)
     AsrServer(rec, device="cpu")
 
+    from tpu_asr_torch.train import EvalStep, NoamAdam, TrainStep
+    model = Transformer(cfg)
+    opt = NoamAdam(model.parameters(), cfg.d_model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainStep(model, opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EvalStep(model)
+    TrainStep(model, opt, device="cpu")
+
+
+def test_train_cli_refuses_cpu_without_asking(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; torch.cuda.is_available = lambda: False\n"
+         "from tpu_asr_torch.train.__main__ import main\n"
+         f"main(['--synthetic', '4', '--preset', 'hybrid_dev', "
+         f"'--save-folder', {str(tmp_path)!r}])"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not os.listdir(tmp_path)          # nothing trained or written
+
 
 def test_serve_cli_refuses_cpu_without_asking():
     out = subprocess.run(

@@ -149,3 +149,52 @@ def test_load_from_npz(tmp_path):
 def test_flax_key_mapping(path, shape, key, tshape):
     k, v = flax_to_torch(path, np.zeros(shape, np.float32))
     assert (k, v.shape) == (key, tshape)
+
+
+@pytest.mark.parametrize("shape", [(512, 2048), (3, 3, 32, 128)])
+def test_init_random_draws_flax_lecun_normal(shape):
+    """Dense [in, out] and Conv HWIO kernels: the port's draws have flax's
+    std within 2% and, like flax's truncated normal, none beyond 2 sigma
+    (sigma = sqrt(1/fan_in) / 0.8796, the untruncated scale)."""
+    import jax
+    from flax import linen as fnn
+    from torch import nn as tnn
+    from tpu_asr_torch.weights import TRUNC_STD, init_random
+    want = np.asarray(fnn.initializers.lecun_normal()(
+        jax.random.PRNGKey(0), shape))
+    if len(shape) == 2:
+        m = tnn.Linear(*shape)
+    else:
+        m = tnn.Conv2d(shape[2], shape[3], shape[:2])
+    w = init_random(tnn.Sequential(m), 0)[0].weight.detach().numpy()
+    fan_in = int(np.prod(shape[:-1]))
+    sigma = 1.0 / (fan_in ** 0.5 * TRUNC_STD)
+    np.testing.assert_allclose(w.std(), want.std(), rtol=0.02)
+    np.testing.assert_allclose(w.std(), fan_in ** -0.5, rtol=0.02)
+    assert np.abs(w).max() <= 2 * sigma * (1 + 1e-6)
+    assert np.abs(want).max() <= 2 * sigma * (1 + 1e-6)
+
+
+def test_dropout_only_in_train_mode():
+    """Dropout sits where the reference puts it: eval mode (the decoders'
+    mode) is deterministic and equals the reference's deterministic pass;
+    train mode with dropout > 0 drops."""
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.standard_normal((2, 41, 80)).astype(
+        np.float32))
+    flens = torch.tensor([41, 30], dtype=torch.int32)
+    model = torch_model(dropout=0.3)
+    n_drop = sum(isinstance(m, torch.nn.Dropout) for m in model.modules())
+    assert n_drop == 1 + 2 * 3 + 1 + 2 * 4    # encoder PE, 2 enc layers,
+    #                                           decoder emb, 2 dec layers
+    with torch.no_grad():
+        a, _ = model.encode(feats, flens)
+        b, _ = model.encode(feats, flens)
+        jm = JaxTransformer(jax_cfg(dropout=0.3))
+        want, _ = jm.apply(flax_params(), jnp.asarray(feats.numpy()),
+                           jnp.asarray(flens.numpy()), method="encode")
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), atol=ATOL)
+        model.train()
+        c, _ = model.encode(feats, flens)
+    assert not torch.allclose(a, c, atol=1e-3)

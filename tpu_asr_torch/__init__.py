@@ -5,17 +5,23 @@ so that each module's counterpart sits under the same path. It imports
 torch and numpy only: nothing of JAX and nothing of `tpu_asr`.
 
 Entry points (`decode.recognizer.Recognizer`, `serve.AsrServer`,
-`python -m tpu_asr_torch.serve`) run on the CUDA card unless the caller
-asks for `device="cpu"`; with no card and no explicit CPU request they
-raise. Kernels that the JAX package wrote in Pallas are CUDA C++ sources
-under `csrc/`, built with nvcc at first use into `_build/` (ignored by
-git); on CPU tensors each wrapper runs its plain PyTorch version.
+`train.TrainStep`, `python -m tpu_asr_torch.serve`, `python -m
+tpu_asr_torch.train`) run on the CUDA card unless the caller asks for
+`device="cpu"`; with no card and no explicit CPU request they raise.
+Kernels that the JAX package wrote in Pallas are CUDA C++ sources under
+`csrc/`, built with nvcc at first use into `_build/` (ignored by git); on
+CPU tensors each wrapper runs its plain PyTorch version.
 
-Ported so far (the serving slice of the hybrid CTC/attention model):
+Ported so far (serving and training of the hybrid CTC/attention model):
   tpu_asr_torch.frontend   waveform -> log-mel + per-utterance CMVN
-  tpu_asr_torch.models     conv2d subsampling, transformer encoder/decoder
-  tpu_asr_torch.ops        exact top-k, greedy collapse, CTC prefix-scan kernel
+  tpu_asr_torch.augment    SpecAugment (masks, time warp) on the device
+  tpu_asr_torch.models     conv2d subsampling, transformer encoder/decoder,
+                           the hybrid CTC/attention objective
+  tpu_asr_torch.ops        exact top-k, CTC lattice, CTC loss kernels,
+                           CTC prefix-scan kernel, label-smoothed CE
   tpu_asr_torch.decode     greedy CTC, joint CTC/attention beam, Recognizer
+  tpu_asr_torch.train      Noam/Adam, TrainStep/Solver, checkpoints, CLI
+  tpu_asr_torch.data       manifests, length buckets, batch loader
   tpu_asr_torch.serve      micro-batching server + HTTP front end
   tpu_asr_torch.weights    flax params -> torch modules, seeded random init
 """

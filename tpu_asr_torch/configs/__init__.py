@@ -1,3 +1,3 @@
-from tpu_asr_torch.configs.presets import PRESETS, Preset, get_preset
+from tpu_asr_torch.configs.presets import PRESETS, TrainConfig, get_preset
 
-__all__ = ["PRESETS", "Preset", "get_preset"]
+__all__ = ["PRESETS", "TrainConfig", "get_preset"]

@@ -1,0 +1,52 @@
+"""Dataset manifests (copy of tpu_asr/data/manifest.py).
+
+Native format: JSONL, one utterance per line:
+    {"id": ..., "text": ..., "tokens": [ids...],
+     "wav": path-or-null, "feat": path-or-null (npy [T,80] or kaldi ark
+     offset spec "file.ark:123"), "num_frames": T, "num_samples": S}
+
+The reader of the reference's espnet-style data.json is not copied: only
+bin/prepare_data.py uses it, which is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+
+@dataclasses.dataclass
+class Utterance:
+    id: str
+    tokens: list[int]
+    text: str = ""
+    wav: str | None = None
+    feat: str | None = None
+    num_frames: int = 0      # feature frames (pre-subsampling)
+    num_samples: int = 0     # raw waveform samples (wav mode)
+
+    @property
+    def num_tokens(self) -> int:
+        return len(self.tokens)
+
+
+def load_manifest(path: str) -> list[Utterance]:
+    utts = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            d = json.loads(line)
+            utts.append(Utterance(
+                id=d["id"], tokens=list(d["tokens"]), text=d.get("text", ""),
+                wav=d.get("wav"), feat=d.get("feat"),
+                num_frames=int(d.get("num_frames", 0)),
+                num_samples=int(d.get("num_samples", 0))))
+    return utts
+
+
+def save_manifest(utts: list[Utterance], path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        for u in utts:
+            f.write(json.dumps(dataclasses.asdict(u)) + "\n")

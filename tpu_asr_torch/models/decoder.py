@@ -31,11 +31,13 @@ class DecoderLayer(nn.Module):
                                          c.dtype, c.param_dtype)
         self.slf_attn = mha()
         self.crs_attn = mha()
-        self.ffn = PositionwiseFeedForward(c.d_model, c.d_inner, c.dtype,
-                                           c.param_dtype)
-        self.post_slf = PostNormBlock(c.d_model, c.dtype, c.param_dtype)
-        self.post_crs = PostNormBlock(c.d_model, c.dtype, c.param_dtype)
-        self.post_ffn = PostNormBlock(c.d_model, c.dtype, c.param_dtype)
+        self.ffn = PositionwiseFeedForward(c.d_model, c.d_inner, c.dropout,
+                                           c.dtype, c.param_dtype)
+        post = lambda: PostNormBlock(c.d_model, c.dropout,  # noqa: E731
+                                     c.dtype, c.param_dtype)
+        self.post_slf = post()
+        self.post_crs = post()
+        self.post_ffn = post()
 
     def forward(self, y, enc, self_bias, cross_bias):
         y = self.post_slf(y, self.slf_attn(y, y, self_bias))
@@ -62,6 +64,7 @@ class Decoder(nn.Module):
         self.emb_scale = float(torch.tensor(math.sqrt(c.d_model),
                                             dtype=torch.float32).to(c.dtype))
         self.pe = PositionalEncoding(c.d_model, c.pe_maxlen, c.dtype)
+        self.dropout = nn.Dropout(c.dropout)
         self.layers = nn.ModuleList(DecoderLayer(c)
                                     for _ in range(c.num_dec_layers))
         if not c.tie_embedding:
@@ -70,7 +73,7 @@ class Decoder(nn.Module):
 
     def _embed_in(self, ys, offset: int = 0):
         emb = self.embed.weight.to(self.cfg.dtype)[ys] * self.emb_scale
-        return self.pe(emb, offset=offset)
+        return self.dropout(self.pe(emb, offset=offset))
 
     def _project_out(self, y):
         if self.cfg.tie_embedding:

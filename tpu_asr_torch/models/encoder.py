@@ -23,10 +23,12 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.slf_attn = MultiHeadAttention(c.num_heads, c.d_model, c.dtype,
                                            c.param_dtype)
-        self.ffn = PositionwiseFeedForward(c.d_model, c.d_inner, c.dtype,
-                                           c.param_dtype)
-        self.post_attn = PostNormBlock(c.d_model, c.dtype, c.param_dtype)
-        self.post_ffn = PostNormBlock(c.d_model, c.dtype, c.param_dtype)
+        self.ffn = PositionwiseFeedForward(c.d_model, c.d_inner, c.dropout,
+                                           c.dtype, c.param_dtype)
+        self.post_attn = PostNormBlock(c.d_model, c.dropout, c.dtype,
+                                       c.param_dtype)
+        self.post_ffn = PostNormBlock(c.d_model, c.dropout, c.dtype,
+                                      c.param_dtype)
 
     def forward(self, x, bias):
         x = self.post_attn(x, self.slf_attn(x, x, bias))
@@ -49,13 +51,14 @@ class Encoder(nn.Module):
                                            c.conv_channels, c.dtype,
                                            c.param_dtype)
         self.pe = PositionalEncoding(c.d_model, c.pe_maxlen, c.dtype)
+        self.dropout = nn.Dropout(c.dropout)
         self.layers = nn.ModuleList(EncoderLayer(c)
                                     for _ in range(c.num_enc_layers))
 
     def forward(self, feats, feat_lengths):
         """[B, T, D_in] + [B] -> ([B, T', d_model], [B] lengths)."""
         x, out_lengths = self.subsample(feats, feat_lengths)
-        x = self.pe(x)
+        x = self.dropout(self.pe(x))
         valid = make_valid_mask(out_lengths, x.shape[1])        # [B, T']
         bias = mask_to_bias(valid[:, None, None, :], self.cfg.dtype)
         for layer in self.layers:

@@ -71,26 +71,28 @@ class PositionalEncoding(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
-    def __init__(self, d_model: int, d_inner: int, dtype=torch.float32,
-                 param_dtype=torch.float32):
+    def __init__(self, d_model: int, d_inner: int, dropout: float = 0.1,
+                 dtype=torch.float32, param_dtype=torch.float32):
         super().__init__()
         self.w_1 = Dense(d_model, d_inner, dtype=dtype,
                          param_dtype=param_dtype)
+        self.dropout = nn.Dropout(dropout)
         self.w_2 = Dense(d_inner, d_model, dtype=dtype,
                          param_dtype=param_dtype)
 
     def forward(self, x):
-        return self.w_2(F.relu(self.w_1(x)))
+        return self.w_2(self.dropout(F.relu(self.w_1(x))))
 
 
 class PostNormBlock(nn.Module):
-    """residual + LayerNorm (post-norm, reference convention). Inference
-    only: dropout is the identity here."""
+    """residual + dropout + LayerNorm (post-norm, reference convention):
+    LN(residual + dropout(sublayer_out))."""
 
-    def __init__(self, d_model: int, dtype=torch.float32,
-                 param_dtype=torch.float32):
+    def __init__(self, d_model: int, dropout: float = 0.1,
+                 dtype=torch.float32, param_dtype=torch.float32):
         super().__init__()
+        self.dropout = nn.Dropout(dropout)
         self.norm = LayerNorm(d_model, dtype, param_dtype)
 
     def forward(self, residual, sublayer_out):
-        return self.norm(residual + sublayer_out)
+        return self.norm(residual + self.dropout(sublayer_out))

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from tpu_asr_torch.ops.cuda_build import KernelLibrary
+from tpu_asr_torch.ops.cuda_build import KernelLibrary, check_tensor
 
 NEG_INF = -1e30
 
@@ -62,18 +62,6 @@ def ctc_prefix_scan_reference(x_cand, phi, x_blank, r_nb0, r_b0, psi0,
     return psi, torch.stack(nb_steps, dim=1), torch.stack(b_steps, dim=1)
 
 
-def _check(name, x, shape, dtype, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def ctc_prefix_scan(x_cand, phi, x_blank, r_nb0, r_b0, psi0, lengths,
                     return_hist: bool = True):
     """Run the prefix recursion for K candidates per beam.
@@ -88,12 +76,12 @@ def ctc_prefix_scan(x_cand, phi, x_blank, r_nb0, r_b0, psi0, lengths,
         raise ValueError(f"no ctc_prefix_scan for device {x_cand.device}")
     n, t, k = x_cand.shape
     dev, f32 = x_cand.device, torch.float32
-    _check("x_cand", x_cand, (n, t, k), f32, dev)
-    _check("phi", phi, (n, t, k), f32, dev)
-    _check("x_blank", x_blank, (n, t), f32, dev)
+    check_tensor("x_cand", x_cand, (n, t, k), f32, dev)
+    check_tensor("phi", phi, (n, t, k), f32, dev)
+    check_tensor("x_blank", x_blank, (n, t), f32, dev)
     for name, x in (("r_nb0", r_nb0), ("r_b0", r_b0), ("psi0", psi0)):
-        _check(name, x, (n, k), f32, dev)
-    _check("lengths", lengths, (n,), torch.int32, dev)
+        check_tensor(name, x, (n, k), f32, dev)
+    check_tensor("lengths", lengths, (n,), torch.int32, dev)
     fn = _bind(LIBRARY.load())
     psi = torch.empty((n, k), dtype=f32, device=dev)
     if return_hist:

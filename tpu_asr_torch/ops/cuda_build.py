@@ -9,6 +9,7 @@ built when a module is imported; a failed build raises.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -22,6 +23,20 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def check_tensor(name: str, x, shape: tuple, dtype, device) -> None:
+    """Raise unless x is a contiguous `dtype` tensor of `shape` on
+    `device`: what a kernel's wrapper checks before passing a pointer."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 class KernelBuildError(RuntimeError):
@@ -85,3 +100,11 @@ class KernelLibrary:
                     self._build(target)
                 self._lib = ctypes.CDLL(target)
             return self._lib
+
+
+def load_all(*libraries: KernelLibrary) -> None:
+    """Build (one nvcc per source, all at once) and load the libraries;
+    raises the first build error."""
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        for future in [pool.submit(lib.load) for lib in libraries]:
+            future.result()

@@ -17,6 +17,7 @@ Run as a module to serve over HTTP:
 
   python -m tpu_asr_torch.serve --random-init --seed 0 --mode joint \\
       --beam 5 --bucket-frames 512,1000 --batch-size 8 --port 8080
+  python -m tpu_asr_torch.serve --ckpt exp/aishell --mode joint --beam 10
 """
 
 from __future__ import annotations
@@ -301,9 +302,13 @@ def parse_args(argv=None):
                           "as .npz with '/'-joined keys")
     src.add_argument("--random-init", action="store_true",
                      help="seeded random weights (no checkpoint)")
+    src.add_argument("--ckpt",
+                     help="checkpoint folder of python -m tpu_asr_torch."
+                          "train: its config, frontend and best step")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--preset", default="aishell",
-                   help="model preset (aishell | hybrid_dev)")
+                   help="model preset (aishell | hybrid_dev); not read "
+                        "with --ckpt")
     p.add_argument("--mode", default="joint",
                    choices=["greedy_ctc", "beam", "joint"])
     p.add_argument("--beam", type=int, default=5)
@@ -327,17 +332,26 @@ def build_server(args) -> AsrServer:
     from tpu_asr_torch.decode.beam import BeamConfig
     from tpu_asr_torch.decode.recognizer import Recognizer
     from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.train.checkpoints import Checkpointer
     from tpu_asr_torch.weights import init_random, load_jax_params
 
     device = resolve_device(args.device)
-    cfg = get_preset(args.preset).model
-    model = Transformer(cfg)
-    if args.params_npz:
-        load_jax_params(model, args.params_npz)
+    frontend = FrontendConfig()
+    if args.ckpt:
+        ck = Checkpointer(args.ckpt)
+        cfg = ck.load_config()
+        frontend = ck.load_frontend() or frontend
+        model = Transformer(cfg)
+        model.load_state_dict(ck.restore(ck.best_step())["model"])
     else:
-        init_random(model, args.seed)
+        cfg = get_preset(args.preset).model
+        model = Transformer(cfg)
+        if args.params_npz:
+            load_jax_params(model, args.params_npz)
+        else:
+            init_random(model, args.seed)
     rec = Recognizer(
-        cfg, model, mode=args.mode, device=device,
+        cfg, model, mode=args.mode, device=device, frontend=frontend,
         beam=BeamConfig(beam=args.beam, max_len=args.max_len,
                         nbest=args.beam,   # requests slice their own nbest
                         ctc_weight=args.ctc_weight if args.mode == "joint"

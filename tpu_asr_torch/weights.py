@@ -95,13 +95,19 @@ def load_jax_params(model: nn.Module, params) -> None:
             dst.copy_(torch.tensor(arr))
 
 
-def init_random(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded random init on the CPU (flax-like: weights ~ N(0, 1/fan_in),
-    biases 0, LayerNorm scale 1). Same seed, same weights, on any machine."""
-    g = torch.Generator().manual_seed(seed)
+# std of a unit normal truncated to [-2, 2]; flax's variance_scaling
+# divides by it so that the truncated draws keep variance 1 / fan_in
+TRUNC_STD = 0.87962566103423978
 
-    def normal_(p: torch.Tensor, fan_in: int):
-        p.copy_(torch.randn(p.shape, generator=g) / fan_in ** 0.5)
+
+def init_random(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded random init on the CPU with flax's default initializers:
+    Dense and Conv weights lecun_normal (a normal truncated at +-2 sigma,
+    sigma = 1 / (sqrt(fan_in) * TRUNC_STD), so the variance is 1/fan_in),
+    Embed N(0, 1/D), biases 0, LayerNorm scale 1. fan_in is the input
+    width (a conv's in_channels * kh * kw). Same seed, same weights, on
+    any machine."""
+    g = torch.Generator().manual_seed(seed)
 
     with torch.no_grad():
         for m in model.modules():
@@ -109,11 +115,16 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, (nn.Linear, nn.Conv2d)):
-                normal_(m.weight, m.weight[0].numel())
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(w / (fan_in ** 0.5 * TRUNC_STD))
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.Embedding):
-                normal_(m.weight, m.weight.shape[1])
+                d = m.weight.shape[1]
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               / d ** 0.5)
     return model
 
 
