@@ -11,12 +11,17 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      card, at the main paths' shapes and at ragged ones, with timings:
      ctc_prefix_scan (serving) and the CTC loss pair ctc_loss_fwd /
      ctc_loss_bwd (training), the latter also beside torch's own CTC loss
-     (F.ctc_loss, timed as a yardstick and used as a value check only).
+     (F.ctc_loss, timed as a yardstick and used as a value check only);
+     cif_fire (CIF serving and training) on 10 cases (serving's two
+     buckets, the bench shape, ragged ones) and its autograd Function's
+     gradients against autograd of the plain version.
   4. agreement: a small hybrid model decodes the same batch on the card and
      on the CPU (plain versions), tokens equal; and takes two train steps
      from the same init on one batch on both: losses of both steps within
      1e-4, step 1's grad norms within 1e-3 relative, and >= 99% of the
-     entries of step 1's update within 0.1 lr.
+     entries of step 1's update within 0.1 lr. A small CIF model (cif_dev)
+     likewise: cif_greedy and cif_beam tokens equal, one train step's
+     losses within 1e-4 and grad norm within 1e-3 relative.
   5. serving: the aishell-width hybrid model (d512, h8, 6+6 layers, conv
      (32, 128), vocab 4233, bf16; random weights from a seed) in joint
      CTC/attention beam-5 mode behind AsrServer; 16 wav requests from
@@ -24,7 +29,11 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      table of device time by kernel is printed), then one greedy_ctc
      batch. The kernels' launch counts must show the path went through
      them.
-  6. HTTP: POST /recognize one wav through make_http_server.
+  6. HTTP: POST /recognize one wav through make_http_server. Then CIF
+     serving: the cif preset at full width (d512, h8, 6+6 layers, conv 256,
+     vocab 4233, float32; random weights) in cif_greedy behind AsrServer,
+     the same 16 requests (and again under torch.profiler); cif_fire
+     launches once per decode batch.
   7. training: the aishell preset at full width (dropout 0.1, SpecAugment,
      Noam/Adam, clip 5, 32000-frame batches) through the Solver that
      `python -m tpu_asr_torch.train` builds, on 512 synthetic AISHELL-like
@@ -32,7 +41,13 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      finite, the CTC kernels launched once per step (forward also once per
      cv batch); step times, throughput, peak memory; a few steps under
      torch.profiler; 20 steps at the fixed shape feats [32, 1000, 80],
-     U = 24; the epoch checkpoint restores to equal parameters.
+     U = 24; the epoch checkpoint restores to equal parameters. Then the
+     same for the cif preset (16000-frame batches, no SpecAugment), where
+     cif_fire also launches once per train step and cv batch.
+  8. cif_fire on the main paths' inputs: the first batch of each serving
+     bucket and the first CIF train and cv batch, as model.fire received
+     them, against the plain version, timed beside one torch.bmm on a
+     materialized weight matrix (training's also checks the gradients).
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -40,6 +55,7 @@ Then one JSON line for the kernels, the card line, and the last line
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -60,6 +76,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 TOL = dict(atol=1e-4, rtol=1e-5)
 CTC_GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
+CIF_TOL = dict(atol=1e-5, rtol=1e-5)
 MIN_TRAIN_STEPS = 20
 BUCKETS = (512, 1000)
 BATCH = 8
@@ -76,6 +93,23 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[torch.cuda.current_device()].strip()
+
+
+def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean device time per fn() call of the kernels whose name contains
+    `name` (torch.profiler): the kernel alone, without the wrapper's other
+    launches and host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and name in e.key)
+    return total_us / 1e3 / reps
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -332,6 +366,186 @@ def check_ctc_loss():
     return errs, timings, library
 
 
+# ---- phase 3: the CIF fire kernel vs its plain version ----
+
+def cif_case(b, t, d, u_max, kind, seed):
+    """(hidden [B, T, D], alphas [B, T]) on the card. kinds: `scaled`
+    (assigner-like alphas scaled to sum to u_max), `serving` (each row
+    scaled to its own 40-95 fires, below u_max, as cif_greedy scales them
+    to the rounded fire count), `raw` (sigmoid-like, unscaled), `big`
+    (alphas up to 3), `zero_rows` (rows of length 0), `few` (far fewer
+    fires than u_max)."""
+    g = torch.Generator().manual_seed(seed)
+    hidden = torch.randn(b, t, d, generator=g)
+    hi = {"big": 3.0, "few": 0.05}.get(kind, 1.0)
+    alphas = torch.rand(b, t, generator=g) * hi
+    if kind == "zero_rows":
+        lens = torch.randint(1, t + 1, (b,), generator=g)
+        lens[::3] = 0
+        alphas = torch.where(torch.arange(t)[None, :] < lens[:, None],
+                             alphas, 0.0)
+    if kind == "scaled":
+        alphas = alphas * (u_max / alphas.sum(-1, keepdim=True))
+    if kind == "serving":
+        fires = torch.randint(40, 96, (b, 1), generator=g).float()
+        alphas = alphas * (fires / alphas.sum(-1, keepdim=True))
+    return hidden.to(DEVICE), alphas.to(DEVICE)
+
+
+def cif_bound_ms(hidden, alphas, u_max):
+    """Least time for the same work on an H100. Bytes: h, alpha and c read
+    once, the output written once. Operations: one multiply-add per
+    non-zero weight (this data's) and column."""
+    from tpu_asr_torch.ops.cif import cif_weights
+    b, t, d = hidden.shape
+    nnz = int((cif_weights(alphas, u_max) != 0).sum())
+    nbytes = 4 * (b * t * d + 2 * b * t + b * u_max * d)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * nnz * d / FP32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def compare_cif(hidden, alphas, u, what):
+    """cif_fire_fwd against the plain cif_fire on the same inputs (the same
+    c, so the same weights bit for bit; only the order of the sum
+    differs): atol 1e-5, rtol 1e-5. -> max abs error."""
+    from tpu_asr_torch.ops.cif import cif_fire
+    from tpu_asr_torch.ops.cif_fire import cif_fire_fwd
+    got = cif_fire_fwd(hidden, alphas, u)
+    want = cif_fire(hidden, alphas, u)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, **CIF_TOL):
+        raise AssertionError(f"cif_fire at {what}: kernel disagrees with "
+                             f"plain version (max abs diff "
+                             f"{(got - want).abs().max().item()})")
+    return (got - want).abs().max().item()
+
+
+def time_cif(hidden, alphas, u, what):
+    """cif_fire's times at one shape: the wrapper (cumsum + kernel), the
+    kernel alone, the plain version, and one torch.bmm on the weight matrix
+    W built beforehand; the bound from these inputs."""
+    from tpu_asr_torch.ops.cif import cif_fire, cif_weights
+    from tpu_asr_torch.ops.cif_fire import cif_fire_fwd
+    w_t = cif_weights(alphas, u).transpose(1, 2).contiguous()
+    if not torch.allclose(torch.bmm(w_t, hidden), cif_fire(hidden, alphas, u),
+                          **CIF_TOL):
+        raise AssertionError(f"torch.bmm on W disagrees with cif_fire at "
+                             f"{what}")
+    ms = cuda_ms(lambda: cif_fire_fwd(hidden, alphas, u))
+    alone = kernel_device_ms(lambda: cif_fire_fwd(hidden, alphas, u),
+                             "cif_fire_kernel")
+    plain = cuda_ms(lambda: cif_fire(hidden, alphas, u))
+    library = cuda_ms(lambda: torch.bmm(w_t, hidden))
+    bound, by = cif_bound_ms(hidden, alphas, u)
+    log(f"cif_fire {what}: wrapper (cumsum + kernel) {ms:.4f} ms, the kernel "
+        f"alone {alone:.4f} ms (profiler), plain {plain:.4f} ms, torch.bmm "
+        f"on a materialized W {library:.4f} ms, bound {bound * 1e3:.3f} us "
+        f"({by})")
+    return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
+                library_ms=library, bound_ms=bound, bound_by=by)
+
+
+def check_cif_fire():
+    """cif_fire_fwd against the plain cif_fire at serving-like, bench and
+    ragged shapes; the autograd Function's gradients against autograd of
+    the plain version. Times at the bench shape (B=32, T=249, D=512,
+    U=25). The main paths' own inputs are held after they run
+    (check_cif_fire_on_paths)."""
+    cases = [  # (b, t, d, u_max, kind): serving's two buckets, bench, ragged
+        (BATCH, 249, 512, 100, "serving"),
+        (BATCH, 124, 512, 100, "serving"),
+        (32, 249, 512, 25, "scaled"),
+        (32, 249, 512, 25, "raw"),
+        (8, 60, 512, 100, "big"),
+        (9, 249, 512, 40, "zero_rows"),
+        (4, 249, 512, 25, "few"),
+        (5, 1, 512, 4, "big"),
+        (6, 249, 512, 1, "raw"),
+        (32, 249, 64, 25, "scaled"),
+    ]
+    max_err, timing = 0.0, None
+    for i, (b, t, d, u, kind) in enumerate(cases):
+        hidden, alphas = cif_case(b, t, d, u, kind, SEED + i)
+        what = f"B={b} T={t} D={d} U={u} {kind}"
+        max_err = max(max_err, compare_cif(hidden, alphas, u, what))
+        if (b, t, d, u, kind) == (32, 249, 512, 25, "scaled"):
+            timing = time_cif(hidden, alphas, u, what)
+    log(f"cif_fire vs plain: {len(cases)} cases agree, max abs err "
+        f"{max_err:.3e} (atol {CIF_TOL['atol']}, rtol {CIF_TOL['rtol']})")
+
+    # gradients: the Function (kernel forward, plain backward) vs autograd
+    hidden, alphas = cif_case(8, 249, 512, 25, "scaled", SEED)
+    check_cif_grads(hidden, alphas, 25, "B=8 T=249 D=512 U=25 scaled")
+    return max_err, timing
+
+
+def check_cif_grads(hidden, alphas, u, what):
+    from tpu_asr_torch.ops.cif import cif_fire
+    from tpu_asr_torch.ops.cif_fire import cif_fire_kernel
+    g = torch.randn(hidden.shape[0], u, hidden.shape[2], device=DEVICE,
+                    generator=torch.Generator(DEVICE).manual_seed(SEED))
+    grads = []
+    for fire in (cif_fire_kernel, cif_fire):
+        h = hidden.clone().requires_grad_(True)
+        a = alphas.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad((fire(h, a, u) * g).sum(), (h, a)))
+    grad_err = 0.0
+    for name, got, want in zip(("hidden", "alphas"), *grads):
+        if not torch.allclose(got, want, **CIF_TOL):
+            raise AssertionError(f"cif_fire grad of {name} at {what} "
+                                 f"disagrees: max abs diff "
+                                 f"{(got - want).abs().max().item()}")
+        grad_err = max(grad_err, (got - want).abs().max().item())
+    log(f"cif_fire gradients (hidden, alphas) at {what} == autograd of the "
+        f"plain version: max abs err {grad_err:.3e}")
+
+
+@contextlib.contextmanager
+def record_fire_inputs(model, captures, label):
+    """While the main path runs, keep a copy of the inputs of the first
+    model.fire call under each label(hidden, u_max), so the kernel is then
+    held against its plain version on the path's own inputs. The call
+    itself, and the wrapper's launch count, are unchanged."""
+    fire = model.fire
+
+    def recording(hidden, alphas, u_max):
+        key = label(hidden, u_max)
+        if key not in captures:
+            captures[key] = (hidden.detach().clone(), alphas.detach().clone(),
+                             u_max)
+        return fire(hidden, alphas, u_max)
+
+    model.fire = recording
+    try:
+        yield
+    finally:
+        del model.fire
+
+
+def check_cif_fire_on_paths(captures):
+    """The kernel against its plain version, timed, on the inputs that CIF
+    serving and CIF training gave model.fire (after both ran, so these
+    launches are not counted). Training's inputs also check the
+    gradients. -> (max abs err, {label: timings})."""
+    max_err, timings = 0.0, {}
+    for label, (hidden, alphas, u) in captures.items():
+        hidden, alphas = hidden.clone(), alphas.clone()   # not inference
+        b, t, d = hidden.shape
+        fires = alphas.sum(-1)
+        what = (f"{label}: B={b} T={t} D={d} U={u}, alphas sum to "
+                f"{fires.min().item():.1f}-{fires.max().item():.1f}")
+        max_err = max(max_err, compare_cif(hidden, alphas, u, what))
+        timings[label] = dict(time_cif(hidden, alphas, u, what),
+                              shape=f"B={b} T={t} D={d} U={u}")
+        if "training" in label:
+            check_cif_grads(hidden, alphas, u, what)
+    log(f"cif_fire vs plain on the main paths' inputs: {len(captures)} "
+        f"batches agree, max abs err {max_err:.3e}")
+    return max_err, timings
+
+
 # ---- phases 4-6 ----
 
 def request_lengths(n, seed):
@@ -442,6 +656,64 @@ def check_train_agreement():
                       "noop_within_0.1lr": float(noop)}))
 
 
+def check_cif_agreement():
+    """cif_dev in float32 (dropout 0): the same batch decodes to the same
+    tokens on the card (the CIF kernel) and on the CPU (its plain
+    version) in cif_greedy and cif_beam; one TrainStep from the same init
+    gives losses within 1e-4 and grad norms within 1e-3 relative."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.cif import CifModel
+    from tpu_asr_torch.train import NoamAdam, TrainStep
+    from tpu_asr_torch.weights import init_random
+
+    cfg = dataclasses.replace(get_preset("cif_dev").model, vocab_size=64)
+    rng = np.random.default_rng(SEED)
+    lens = np.array([16000, 12000, 7000, 0], np.int32)
+    wav = np.zeros((4, 16000), np.float32)
+    for i, n in enumerate(lens):
+        wav[i, :n] = synth_wav(int(n), rng)
+    batch = {"wav": wav, "wav_lengths": lens}
+    out = {}
+    for mode in ("cif_greedy", "cif_beam"):
+        for dev in ("cuda", "cpu"):
+            rec = Recognizer(cfg, init_random(CifModel(cfg), SEED),
+                             mode=mode, device=dev,
+                             beam=BeamConfig(beam=4, max_len=40))
+            out[mode, dev] = rec.decode_batch(batch)
+        if out[mode, "cuda"] != out[mode, "cpu"]:
+            raise AssertionError(f"{mode}: card {out[mode, 'cuda']} != CPU "
+                                 f"{out[mode, 'cpu']}")
+
+    flens = np.array([200, 151, 0, 97], np.int32)
+    tlens = np.array([8, 5, 0, 3], np.int32)
+    targets = np.full((4, 8), -1, np.int32)
+    for i, n in enumerate(tlens):
+        targets[i, :n] = rng.integers(2, 62, n)
+    tbatch = {"feats": rng.standard_normal((4, 200, 80)).astype(np.float32),
+              "feat_lengths": flens, "targets": targets,
+              "target_lengths": tlens}
+    step = {}
+    for dev in ("cuda", "cpu"):
+        model = init_random(CifModel(cfg), SEED).to(dev)
+        ts = TrainStep(model, NoamAdam(model.parameters(), cfg.d_model, 100),
+                       device=dev, seed=SEED)
+        step[dev] = {k: float(v) for k, v in ts(tbatch).items()}
+    card, cpu = step["cuda"], step["cpu"]
+    bad = [k for k in ("loss", "loss_att", "loss_qty", "loss_ctc", "acc")
+           if abs(card[k] - cpu[k]) > 1e-4]
+    if bad or abs(card["grad_norm"] - cpu["grad_norm"]) > \
+            1e-3 * abs(cpu["grad_norm"]):
+        raise AssertionError(f"CIF train step on the card {card} != on the "
+                             f"CPU {cpu}: {bad}")
+    log("agreement: cif_dev cif_greedy and cif_beam-4 on the card == on the "
+        "CPU (tokens equal: " + json.dumps(out["cif_greedy", "cuda"][:2])
+        + "); train step losses within 1e-4, grad norm within 1e-3 "
+        "relative: "
+        + json.dumps({k: [card[k], cpu[k]] for k in sorted(card)}))
+
+
 def profile_device(fn, what, card):
     """Run fn() under torch.profiler: device time by kernel, and the
     device's busy share of the wall time. Only device-side events
@@ -469,13 +741,88 @@ def profile_device(fn, what, card):
             f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count}")
 
 
-def profile_serving(server, wavs, card):
+def profile_serving(server, wavs, card, what="serving"):
     """The same requests again under torch.profiler (not counted above)."""
     def run():
         with concurrent.futures.ThreadPoolExecutor(8) as pool:
             list(pool.map(lambda w: server.submit("wav", w, timeout=600.0),
                           wavs))
-    profile_device(run, "serving", card)
+    profile_device(run, what, card)
+
+
+def serve_requests(server, wavs):
+    """The requests from 8 threads -> ([(nbest, latency s)], wall s)."""
+    def one(wav):
+        start = time.perf_counter()
+        nbest = server.submit("wav", wav, timeout=600.0)
+        return nbest, time.perf_counter() - start
+
+    wall0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        results = list(pool.map(one, wavs))
+    return results, time.perf_counter() - wall0
+
+
+def run_cif_serving(card, captures):
+    """The cif preset at full width behind AsrServer in cif_greedy: 16
+    wav requests; the CIF kernel launches once per decode batch. The first
+    batch's firing inputs of each bucket go into `captures`."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.cif import CifModel
+    from tpu_asr_torch.ops.cif_fire import cif_fire_fwd
+    from tpu_asr_torch.serve import AsrServer
+    from tpu_asr_torch.weights import init_random
+
+    tc = get_preset("cif")
+    cfg = tc.model
+    t0 = time.perf_counter()
+    rec = Recognizer(cfg, init_random(CifModel(cfg), SEED), mode="cif_greedy",
+                     device=DEVICE, beam=tc.beam)
+    server = AsrServer(rec, bucket_frames=BUCKETS, batch_size=BATCH,
+                       device=DEVICE)
+    server.warmup(kinds=("wav",))
+    torch.cuda.synchronize()
+    log(f"cif serving: cif model (d{cfg.d_model}, h{cfg.num_heads}, "
+        f"{cfg.num_enc_layers}+{cfg.num_dec_layers} layers, conv "
+        f"{cfg.conv_channels}, vocab {cfg.vocab_size}, {cfg.dtype}) built "
+        f"and warmed up in {time.perf_counter() - t0:.1f} s")
+    server.start()
+    rng = np.random.default_rng(SEED)
+    wavs = [synth_wav(n, rng) for n in request_lengths(N_REQUESTS, SEED)]
+    audio_s = sum(len(w) for w in wavs) / 16000.0
+
+    # main path: counts from 0 just before, read just after
+    cif_fire_fwd.launches = 0
+    rec.decode_steps = 0
+    with record_fire_inputs(rec.model, captures,
+                            lambda h, u: f"cif serving T'={h.shape[1]}"):
+        results, wall = serve_requests(server, wavs)
+    launches, steps = cif_fire_fwd.launches, rec.decode_steps
+    batches = server.stats["batches"]
+    try:
+        v = cfg.vocab_size
+        lengths = [len(nb[0]["yseq"]) for nb, _ in results]
+        if not all(0 <= x <= v - 3 for nb, _ in results
+                   for x in nb[0]["yseq"]):
+            raise AssertionError("cif_greedy token outside the vocabulary")
+        if batches <= 0 or launches != batches:
+            raise AssertionError(f"cif_fire launched {launches} times for "
+                                 f"{batches} decode batches")
+        lat = sorted(dt for _, dt in results)
+        log(f"cif serving: {N_REQUESTS} requests ({audio_s:.1f} s of audio) "
+            f"in {wall:.3f} s; {batches} batches, {steps} decode steps, "
+            f"{launches} cif_fire launches; latency p50 "
+            f"{statistics.median(lat) * 1e3:.1f} ms, max "
+            f"{lat[-1] * 1e3:.1f} ms; inverse RTF {audio_s / wall:.2f} "
+            f"[{card}]; random weights: hypothesis lengths {lengths}, "
+            f"{lengths.count(tc.beam.max_len)} of {len(lengths)} at max_len "
+            f"{tc.beam.max_len}")
+        profile_serving(server, wavs, card, "cif serving")
+    finally:
+        server.stop()
+    return launches
 
 
 def run_serving(card):
@@ -507,18 +854,10 @@ def run_serving(card):
     wavs = [synth_wav(n, rng) for n in request_lengths(N_REQUESTS, SEED)]
     audio_s = sum(len(w) for w in wavs) / 16000.0
 
-    def one(wav):
-        start = time.perf_counter()
-        nbest = server.submit("wav", wav, timeout=600.0)
-        return nbest, time.perf_counter() - start
-
     # main path: counts from 0 just before, read just after
     ctc_prefix_scan.launches = 0
     rec.decode_steps = 0
-    wall0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        results = list(pool.map(one, wavs))
-    wall = time.perf_counter() - wall0
+    results, wall = serve_requests(server, wavs)
     launches, steps = ctc_prefix_scan.launches, rec.decode_steps
 
     for nbest, _ in results:
@@ -624,16 +963,19 @@ def fixed_shape_batch(b=32, t=1000, u=24, v=4233):
             "target_lengths": np.full(b, u, np.int32)}
 
 
-def run_training(card, workdir):
-    from tpu_asr_torch.models.transformer import Transformer
+def run_training(card, workdir, preset, data, captures):
+    """The Solver that `python -m tpu_asr_torch.train --preset <preset>`
+    builds, on `data`, for >= MIN_TRAIN_STEPS steps; then a checkpoint
+    restore, a profile and 20 steps at the fixed shape. A CIF model's
+    firing inputs of its first train and cv batch go into `captures`.
+    -> {kernel name: launches in the Solver run}."""
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.ops.cif_fire import cif_fire_fwd
     from tpu_asr_torch.ops.ctc_loss import ctc_loss_bwd, ctc_loss_fwd
     from tpu_asr_torch.train.__main__ import build_solver, parse_args
 
-    t0 = time.perf_counter()
-    data = synthetic_aishell()
-    log(f"training: {len(data[0])} + {len(data[1])} synthetic utterances "
-        f"made in {time.perf_counter() - t0:.1f} s")
-    args = parse_args(["--preset", PRESET, "--save-folder", workdir])
+    what = f"{preset} training"
+    args = parse_args(["--preset", preset, "--save-folder", workdir])
     solver = build_solver(args, data)
     epochs = max(2, -(-MIN_TRAIN_STEPS // len(solver.train_loader)))
     solver.epochs = epochs
@@ -645,12 +987,20 @@ def run_training(card, workdir):
     torch.cuda.reset_peak_memory_stats()
 
     # main path: counts from 0 just before, read just after
-    ctc_loss_fwd.launches = ctc_loss_bwd.launches = 0
+    counters = {"ctc_loss_fwd": ctc_loss_fwd, "ctc_loss_bwd": ctc_loss_bwd,
+                "cif_fire": cif_fire_fwd}
+    model = ts.model
+    record = (record_fire_inputs(model, captures, lambda h, u: (
+        f"{what}, {'train' if model.training else 'cv'} batch"))
+        if cfg.model_type == "cif" else contextlib.nullcontext())
+    for fn in counters.values():
+        fn.launches = 0
     wall0 = time.perf_counter()
-    solver.train()
+    with record:
+        solver.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
-    fwd_launches, bwd_launches = ctc_loss_fwd.launches, ctc_loss_bwd.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
     steps = sum(h["train_steps"] for h in solver.history)
@@ -661,23 +1011,29 @@ def run_training(card, workdir):
             np.isfinite([h["loss"], h["train_loss"], h["grad_norm_max"]]).all()
             for h in solver.history):
         raise AssertionError(f"non-finite training: {solver.history}")
-    if bwd_launches != steps or fwd_launches != steps + cv_batches:
-        raise AssertionError(
-            f"CTC kernels: {fwd_launches} forward / {bwd_launches} backward "
-            f"launches for {steps} train steps + {cv_batches} cv batches")
+    # forward kernels run in every train step and cv batch, the CTC
+    # backward in every train step
+    expect = {"ctc_loss_fwd": steps + cv_batches, "ctc_loss_bwd": steps,
+              "cif_fire": (steps + cv_batches if cfg.model_type == "cif"
+                           else 0)}
+    if launches != expect:
+        raise AssertionError(f"{what}: kernel launches {launches}, expected "
+                             f"{expect} for {steps} train steps + "
+                             f"{cv_batches} cv batches")
     step_ms = [a.elapsed_time(b) for a, b, _, _ in timed.steps]
     steady = timed.steps[1:]              # the first step warms up
     steady_s = sum(a.elapsed_time(b) for a, b, _, _ in steady) / 1e3
     utts = sum(n for _, _, n, _ in steady)
     audio_s = sum(x for _, _, _, x in steady) / 16000.0
-    log(f"training: {PRESET} model (d{cfg.d_model}, h{cfg.num_heads}, "
-        f"{cfg.num_enc_layers}+{cfg.num_dec_layers} layers, conv "
+    log(f"{what}: {cfg.model_type} model (d{cfg.d_model}, h{cfg.num_heads},"
+        f" {cfg.num_enc_layers}+{cfg.num_dec_layers} layers, conv "
         f"{cfg.conv_channels}, vocab {cfg.vocab_size}, {cfg.dtype}, "
-        f"dropout {cfg.dropout}, SpecAugment on) {epochs} epochs, {steps} "
-        f"steps + {cv_batches} cv batches in {wall:.2f} s; CTC kernels "
-        f"{fwd_launches} forward / {bwd_launches} backward launches")
-    log("training: per epoch " + json.dumps(solver.history))
-    log(f"training: step ms median {statistics.median(step_ms):.2f}, min "
+        f"dropout {cfg.dropout}, SpecAugment "
+        f"{'on' if ts.specaug else 'off'}) {epochs} epochs, {steps} steps + "
+        f"{cv_batches} cv batches in {wall:.2f} s; kernel launches "
+        f"{json.dumps(launches)}")
+    log(f"{what}: per epoch " + json.dumps(solver.history))
+    log(f"{what}: step ms median {statistics.median(step_ms):.2f}, min "
         f"{min(step_ms):.2f}, max {max(step_ms):.2f}; steady (steps 2..): "
         f"{len(steady) / steady_s:.2f} steps/s, {utts / steady_s:.1f} "
         f"utterances/s, {audio_s / steady_s:.1f} audio s/s; peak memory "
@@ -685,19 +1041,19 @@ def run_training(card, workdir):
 
     # the epoch checkpoint restores to equal parameters
     ck = solver.checkpointer
-    restored = Transformer(cfg)
+    restored = build_model(cfg)
     restored.load_state_dict(ck.restore(ck.latest_step())["model"])
     for (k, a), b in zip(ts.model.state_dict().items(),
                          restored.state_dict().values()):
         if not torch.equal(a.cpu(), b):
             raise AssertionError(f"checkpoint restore differs at {k}")
-    log(f"training: checkpoint step {ck.latest_step()} restores equal "
+    log(f"{what}: checkpoint step {ck.latest_step()} restores equal "
         f"parameters ({len(restored.state_dict())} tensors)")
 
     it = iter(solver.train_loader.loader)
     batches = [next(it) for _ in range(4)]
     it.close()
-    profile_device(lambda: [ts(b) for b in batches], "training", card)
+    profile_device(lambda: [ts(b) for b in batches], what, card)
 
     batch = fixed_shape_batch()
     for _ in range(3):
@@ -710,12 +1066,12 @@ def run_training(card, workdir):
     torch.cuda.synchronize()
     fixed = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     total_s = events[0].elapsed_time(events[-1]) / 1e3
-    log(f"training: fixed shape feats [32, 1000, 80], U=24: 20 steps, "
+    log(f"{what}: fixed shape feats [32, 1000, 80], U=24: 20 steps, "
         f"step ms median {statistics.median(fixed):.2f}, min "
         f"{min(fixed):.2f}; {20 / total_s:.2f} steps/s, "
         f"{20 * 32 / total_s:.1f} utterances/s, {20 * 32 * 10 / total_s:.1f}"
         f" audio s/s [{card}]")
-    return fwd_launches, bwd_launches
+    return launches
 
 
 def main() -> int:
@@ -723,7 +1079,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 1
-    from tpu_asr_torch.ops import ctc_loss, ctc_prefix
+    from tpu_asr_torch.ops import cif_fire, ctc_loss, ctc_prefix
     from tpu_asr_torch.ops.cuda_build import load_all
 
     card = card_line()
@@ -734,7 +1090,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libraries = (ctc_prefix.LIBRARY, ctc_loss.LIBRARY)
+    libraries = (ctc_prefix.LIBRARY, ctc_loss.LIBRARY, cif_fire.LIBRARY)
     load_all(*libraries)
     log(f"build: {', '.join(lib.name for lib in libraries)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -745,11 +1101,23 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     max_err, timings = check_prefix_scan(gen)
     ctc_errs, ctc_timings, ctc_library = check_ctc_loss()
+    cif_err, cif_timing = check_cif_fire()
     check_agreement()
     check_train_agreement()
+    check_cif_agreement()
     launches = run_serving(card)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
-        fwd_launches, bwd_launches = run_training(card, workdir)
+    captures = {}
+    cif_serving = run_cif_serving(card, captures)
+    t0 = time.perf_counter()
+    data = synthetic_aishell()
+    log(f"training: {len(data[0])} + {len(data[1])} synthetic utterances "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    training = {}
+    for preset in (PRESET, "cif"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as wd:
+            training[preset] = run_training(card, wd, preset, data,
+                                            captures)
+    path_err, path_timings = check_cif_fire_on_paths(captures)
 
     main_t = timings[(249, True)]          # 1000-frame bucket, one-pass
     kernels = [{
@@ -770,15 +1138,17 @@ def main() -> int:
         "other_shapes": {f"T={t} hist={h}": v for (t, h), v
                          in timings.items() if (t, h) != (249, True)},
     }]
-    for name, line, n in (("fwd", 176, fwd_launches),
-                          ("bwd", 211, bwd_launches)):
+    for name, line in (("fwd", 176), ("bwd", 211)):
         t = ctc_timings[(name, 49)]
+        by_path = {f"{p} training": training[p][f"ctc_loss_{name}"]
+                   for p in training}
         kernels.append({
             "name": f"ctc_loss_{name}",
             "route": "cuda",
             "source": "tpu_asr_torch/csrc/ctc_loss.cu",
             "replaces": f"tpu_asr/ops/pallas/ctc.py:{line}",
-            "launches": n,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": ctc_errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -791,6 +1161,32 @@ def main() -> int:
             "ctc_loss_kernel_e2e_ms": ctc_library[49]["port_e2e"],
             "library_e2e_ms": ctc_library[49]["lib_e2e"],
         })
+    by_path = {"cif serving": cif_serving,
+               "cif training": training["cif"]["cif_fire"]}
+    # the main numbers at serving's 1000-frame bucket, as served
+    main_label = max((k for k in path_timings if k.startswith("cif serving")),
+                     key=lambda k: captures[k][0].shape[1])
+    cif_t = path_timings[main_label]
+    other = {k: v for k, v in path_timings.items() if k != main_label}
+    other["bench B=32 T=249 D=512 U=25 scaled"] = cif_timing
+    kernels.append({
+        "name": "cif_fire",
+        "route": "cuda",
+        "source": "tpu_asr_torch/csrc/cif_fire.cu",
+        "replaces": "tpu_asr/ops/pallas/cif.py:54",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(cif_err, path_err),
+        "ms": cif_t["ms"],
+        "plain_ms": cif_t["plain_ms"],
+        "bound_ms": cif_t["bound_ms"],
+        "bound_by": cif_t["bound_by"],
+        "library_ms": cif_t["library_ms"],
+        "library_call": "torch.bmm(W^T, h), W materialized beforehand",
+        "kernel_device_ms": cif_t["kernel_device_ms"],
+        "shape": f"{main_label}: {cif_t['shape']}",
+        "other_shapes": other,
+    })
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

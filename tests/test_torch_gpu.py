@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_asr_torch.ops.cif import cif_fire
+from tpu_asr_torch.ops.cif_fire import cif_fire_fwd, cif_fire_kernel
 from tpu_asr_torch.ops.ctc import (_interleave_blanks, lattice_emissions,
                                    lattice_masks)
 from tpu_asr_torch.ops.ctc_loss import (ctc_loss_bwd, ctc_loss_bwd_reference,
@@ -108,3 +110,44 @@ def test_ctc_loss_kernels_match_plain_versions(b, t, u, v):
     assert not grad[1].any() and not grad[2].any()   # dummy, infeasible
     with pytest.raises(TypeError):
         ctc_loss_fwd(args[0].double(), *args[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d,u,top", [
+    (32, 249, 512, 25, 1.0),     # the path's shape (raw alphas)
+    (8, 60, 64, 100, 3.0),       # alphas up to 3, u_max past the fires
+    (5, 1, 512, 4, 2.5),         # T = 1
+    (6, 249, 512, 1, 1.0),       # u_max = 1
+])
+def test_cif_fire_kernel_matches_plain_version(b, t, d, u, top):
+    """Same c rows, so the same weights bit for bit: only the order of the
+    sum differs (atol 1e-5, rtol 1e-5). Row 1 is a zero-length row."""
+    _need_card()
+    rng = np.random.default_rng(b + t + d)
+    hidden = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
+        np.float32)).cuda()
+    alphas = torch.from_numpy(rng.uniform(0, top, (b, t)).astype(
+        np.float32)).cuda()
+    if b > 1:
+        alphas[1] = 0.0
+    before = cif_fire_fwd.launches
+    got = cif_fire_fwd(hidden, alphas, u)
+    want = cif_fire(hidden, alphas, u)
+    torch.cuda.synchronize()
+    assert cif_fire_fwd.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    if b > 1:
+        assert not got[1].any()
+    h = hidden.clone().requires_grad_(True)
+    a = alphas.clone().requires_grad_(True)
+    gh, ga = torch.autograd.grad(cif_fire_kernel(h, a, u).square().sum(),
+                                 (h, a))
+    wh, wa = torch.autograd.grad(cif_fire(h, a, u).square().sum(), (h, a))
+    np.testing.assert_allclose(gh.cpu().numpy(), wh.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    # the alpha gradient is a reverse cumsum over frames: its rounding
+    # error scales with its largest entry
+    wa = wa.cpu().numpy()
+    np.testing.assert_allclose(ga.cpu().numpy(), wa, rtol=1e-4,
+                               atol=1e-5 * np.abs(wa).max())

@@ -77,8 +77,8 @@ def test_feats_input_matches_wav_input():
     assert rec.decode_steps > 0
 
 
-@pytest.mark.parametrize("mode", ["attn_rescore", "ctc_beam", "cif_greedy",
-                                  "transducer_greedy"])
+@pytest.mark.parametrize("mode", ["attn_rescore", "ctc_beam",
+                                  "transducer_greedy", "transducer_beam"])
 def test_unported_modes_raise(mode):
     with pytest.raises(NotImplementedError):
         Recognizer(torch_cfg(), torch_model(), mode=mode, device="cpu")

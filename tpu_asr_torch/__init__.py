@@ -12,14 +12,18 @@ Kernels that the JAX package wrote in Pallas are CUDA C++ sources under
 `csrc/`, built with nvcc at first use into `_build/` (ignored by git); on
 CPU tensors each wrapper runs its plain PyTorch version.
 
-Ported so far (serving and training of the hybrid CTC/attention model):
+Ported so far (serving and training of the hybrid CTC/attention model
+and of the CIF model):
   tpu_asr_torch.frontend   waveform -> log-mel + per-utterance CMVN
   tpu_asr_torch.augment    SpecAugment (masks, time warp) on the device
   tpu_asr_torch.models     conv2d subsampling, transformer encoder/decoder,
-                           the hybrid CTC/attention objective
+                           the hybrid CTC/attention objective, the CIF
+                           model (assigner, fire, causal decoder)
   tpu_asr_torch.ops        exact top-k, CTC lattice, CTC loss kernels,
-                           CTC prefix-scan kernel, label-smoothed CE
-  tpu_asr_torch.decode     greedy CTC, joint CTC/attention beam, Recognizer
+                           CTC prefix-scan kernel, CIF fire kernel,
+                           label-smoothed CE
+  tpu_asr_torch.decode     greedy CTC, joint CTC/attention beam, CIF
+                           greedy/beam, Recognizer
   tpu_asr_torch.train      Noam/Adam, TrainStep/Solver, checkpoints, CLI
   tpu_asr_torch.data       manifests, length buckets, batch loader
   tpu_asr_torch.serve      micro-batching server + HTTP front end

@@ -1,9 +1,9 @@
 """Named experiment presets (port of tpu_asr/configs/presets.py).
 
-Only the hybrid CTC/attention presets that the port runs are here; the
-other families' presets come with their ports. Each preset is a
-TrainConfig with the reference's field names and values; the CLIs
-override fields from flags.
+Only the presets of the families the port runs are here (hybrid
+CTC/attention and CIF); the other families' presets come with their
+ports. Each preset is a TrainConfig with the reference's field names and
+values; the CLIs override fields from flags.
 """
 
 from __future__ import annotations
@@ -63,6 +63,21 @@ PRESETS: dict[str, TrainConfig] = {
         specaug=SpecAugmentConfig(),
         decode_mode="joint",
         beam=BeamConfig(beam=10, max_len=100, ctc_weight=0.3)),
+    # CPU-runnable CIF slice (tests, demos)
+    "cif_dev": TrainConfig(
+        model=dataclasses.replace(
+            _BASE, model_type="cif", ctc_weight=0.5,
+            cif_quantity_weight=1.0, d_model=64, d_inner=128, num_heads=2,
+            num_enc_layers=2, num_dec_layers=2, dropout=0.0),
+        epochs=30, warmup_steps=100, lr_k=1.0, batch_frames=8000,
+        num_buckets=2, decode_mode="cif_greedy",
+        beam=BeamConfig(beam=1, max_len=24)),
+    # CIF (the reference's config #4): d512/h8/6+6, conv 256, float32
+    "cif": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="cif", ctc_weight=0.5,
+                                  cif_quantity_weight=1.0),
+        decode_mode="cif_greedy",
+        beam=BeamConfig(beam=1, max_len=100)),
 }
 
 

@@ -2,9 +2,10 @@
 (port of tpu_asr/decode/recognizer.py).
 
 Ported modes: greedy_ctc, joint (CTC/attention beam) and beam (the same
-loop with ctc_weight = 0). The reference's other modes (ctc_beam,
-attn_rescore, cif_*, transducer_*) and LM fusion are not ported yet and
-raise NotImplementedError.
+loop with ctc_weight = 0) for the Transformer families, cif_greedy and
+cif_beam for the CIF model. The reference's other modes (ctc_beam,
+attn_rescore, transducer_*) and LM fusion are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,16 +16,17 @@ import numpy as np
 import torch
 
 from tpu_asr_torch.decode.beam import BeamConfig, attention_beam_search
+from tpu_asr_torch.decode.cif_decode import cif_beam_decode, cif_greedy_decode
 from tpu_asr_torch.decode.greedy_ctc import ctc_greedy_decode
 from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
+from tpu_asr_torch.models.cif import CifModel
 from tpu_asr_torch.models.transformer import Transformer
 from tpu_asr_torch.utils.device import resolve_device
 from tpu_asr_torch.weights import cast_for_inference
 
-PORTED_MODES = ("greedy_ctc", "beam", "joint")
-REFERENCE_MODES = ("ctc_beam", "attn_rescore", "cif_greedy", "cif_beam",
-                   "transducer_greedy", "transducer_beam",
-                   "transducer_rescore")
+PORTED_MODES = ("greedy_ctc", "beam", "joint", "cif_greedy", "cif_beam")
+REFERENCE_MODES = ("ctc_beam", "attn_rescore", "transducer_greedy",
+                   "transducer_beam", "transducer_rescore")
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
@@ -43,17 +45,21 @@ def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
 
 @dataclasses.dataclass(eq=False)
 class Recognizer:
-    """cfg + a tpu_asr_torch Transformer -> batched decode on `device`.
+    """cfg + a tpu_asr_torch Transformer or CifModel -> batched decode on
+    `device`.
 
     device None means the CUDA card (RuntimeError when there is none);
     pass device="cpu" to run on the CPU. The model is moved to the device
     and its matmul weights are stored in the compute dtype."""
     cfg: object
-    model: Transformer
+    model: Transformer | CifModel
     beam: BeamConfig = BeamConfig()
-    mode: str = "beam"   # greedy_ctc | beam | joint
+    mode: str = "beam"   # greedy_ctc | beam | joint | cif_greedy | cif_beam
     frontend: FrontendConfig = FrontendConfig()
     device: str | torch.device | None = None
+    # CIF fire-time alphas: True = scaled to the rounded fire count (the
+    # boundary geometry of training); False = the reference's raw alphas
+    cif_scale_fire: bool = True
 
     def __post_init__(self):
         if self.mode in REFERENCE_MODES:
@@ -71,10 +77,13 @@ class Recognizer:
                                                          "hybrid"):
             raise ValueError(f"mode {self.mode} needs an attention decoder "
                              f"(model_type={mt})")
+        if self.mode in ("cif_greedy", "cif_beam") and mt != "cif":
+            raise ValueError(f"mode {self.mode} needs model_type=cif "
+                             f"(model_type={mt})")
         self.device = resolve_device(self.device)
         self.model = cast_for_inference(self.model.to(self.device).eval(),
                                         self.cfg.dtype)
-        self.decode_steps = 0    # beam-search steps taken, all batches
+        self.decode_steps = 0    # decoder steps taken, all batches
 
     # --- device work ---
 
@@ -111,6 +120,18 @@ class Recognizer:
         self.decode_steps += out["steps"]
         return out["tokens"], out["lengths"], out["scores"]
 
+    def _cif(self, feats, flens):
+        if self.mode == "cif_beam":
+            toks, lens, steps = cif_beam_decode(
+                self.model, feats, flens, beam=self.beam.beam,
+                max_len=self.beam.max_len, scale_fire=self.cif_scale_fire)
+        else:
+            toks, lens, steps = cif_greedy_decode(
+                self.model, feats, flens, max_len=self.beam.max_len,
+                scale_fire=self.cif_scale_fire)
+        self.decode_steps += steps
+        return toks, lens
+
     # --- public API ---
 
     def decode_batch(self, batch) -> list[list[int]]:
@@ -127,6 +148,9 @@ class Recognizer:
         if self.mode == "greedy_ctc":
             return self._finalize("greedy", _to_host(
                 *self._greedy_ctc(feats, flens)))
+        if isinstance(self.model, CifModel):   # no times or confidences
+            return self._finalize("greedy", _to_host(
+                *self._cif(feats, flens)) + [None, None])
         return self._finalize("beam", _to_host(*self._beam(feats, flens)))
 
     def _finalize(self, kind: str, fetched) -> list[list[dict]]:
@@ -148,11 +172,14 @@ class Recognizer:
         toks, lens, times, confs = fetched
         out = []
         for i in range(toks.shape[0]):
-            row, tr, cr = toks[i], times[i], confs[i]
+            row = toks[i]
             keep = [j for j in range(int(lens[i]))
                     if int(row[j]) >= 0 and int(row[j]) != eos]
-            out.append([{"yseq": [int(row[j]) for j in keep], "score": 0.0,
-                         "times": [int(tr[j]) for j in keep],
-                         "confidence": [round(float(cr[j]), 4)
-                                        for j in keep]}])
+            hyp = {"yseq": [int(row[j]) for j in keep], "score": 0.0}
+            if times is not None:
+                hyp["times"] = [int(times[i][j]) for j in keep]
+            if confs is not None:
+                hyp["confidence"] = [round(float(confs[i][j]), 4)
+                                     for j in keep]
+            out.append([hyp])
         return out

@@ -33,7 +33,7 @@ class ModelConfig:
     lfr_m: int = 4
     lfr_n: int = 3
     tie_embedding: bool = True        # share decoder embedding + output proj
-    model_type: str = "hybrid"        # transformer | ctc | hybrid (ported)
+    model_type: str = "hybrid"        # transformer | ctc | hybrid | cif
     ctc_weight: float = 0.3
     cif_quantity_weight: float = 1.0
     cif_tail_threshold: float = 0.5

@@ -54,7 +54,12 @@ class DecoderLayer(nn.Module):
         return self.post_ffn(y, self.ffn(y))
 
 
-class Decoder(nn.Module):
+class TokenDecoder(nn.Module):
+    """What the attention decoder and the CIF decoder share: the token
+    embedding (scaled by sqrt(d_model)), positional encoding, dropout, the
+    (tied) output projection and the stacked self-attention caches. A
+    subclass adds `layers`."""
+
     def __init__(self, c: ModelConfig):
         super().__init__()
         self.cfg = c
@@ -65,21 +70,34 @@ class Decoder(nn.Module):
                                             dtype=torch.float32).to(c.dtype))
         self.pe = PositionalEncoding(c.d_model, c.pe_maxlen, c.dtype)
         self.dropout = nn.Dropout(c.dropout)
-        self.layers = nn.ModuleList(DecoderLayer(c)
-                                    for _ in range(c.num_dec_layers))
         if not c.tie_embedding:
             self.out_proj = Dense(c.d_model, c.vocab_size, bias=False,
                                   dtype=c.dtype, param_dtype=c.param_dtype)
 
-    def _embed_in(self, ys, offset: int = 0):
-        emb = self.embed.weight.to(self.cfg.dtype)[ys] * self.emb_scale
-        return self.dropout(self.pe(emb, offset=offset))
+    def _embed(self, ys):
+        return self.embed.weight.to(self.cfg.dtype)[ys] * self.emb_scale
 
     def _project_out(self, y):
         if self.cfg.tie_embedding:
             # flax Embed.attend: y @ embedding.T in the compute dtype
             return y @ self.embed.weight.to(self.cfg.dtype).T
         return self.out_proj(y)
+
+    def init_cache(self, batch: int, u_max: int, device=None):
+        c = self.cfg
+        shape = (c.num_dec_layers, batch, u_max, c.num_heads, c.d_head)
+        return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+                "v": torch.zeros(shape, dtype=c.dtype, device=device)}
+
+
+class Decoder(TokenDecoder):
+    def __init__(self, c: ModelConfig):
+        super().__init__(c)
+        self.layers = nn.ModuleList(DecoderLayer(c)
+                                    for _ in range(c.num_dec_layers))
+
+    def _embed_in(self, ys, offset: int = 0):
+        return self.dropout(self.pe(self._embed(ys), offset=offset))
 
     def forward(self, enc_out, enc_lengths, ys_in):
         """Teacher-forced: enc_out [B,T,D], ys_in [B,U] -> logits [B,U,V]."""
@@ -98,12 +116,6 @@ class Decoder(nn.Module):
         return mask_to_bias(valid[:, None, None, :], self.cfg.dtype)
 
     # ---- cached decode-step API (used by tpu_asr_torch.decode) ----
-
-    def init_cache(self, batch: int, u_max: int, device=None):
-        c = self.cfg
-        shape = (c.num_dec_layers, batch, u_max, c.num_heads, c.d_head)
-        return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
-                "v": torch.zeros(shape, dtype=c.dtype, device=device)}
 
     def precompute_cross_kv(self, enc_out):
         """Cross-attention K/V of every layer, stacked [L, B, T, H, dh],

@@ -34,6 +34,18 @@ class EncoderLayer(nn.Module):
         x = self.post_attn(x, self.slf_attn(x, x, bias))
         return self.post_ffn(x, self.ffn(x))
 
+    def step(self, x_t, pos: int, k_self, v_self, self_bias):
+        """Cached causal step (the CIF decoder's decode loop): x_t
+        [B, 1, D] -> [B, 1, D]. Writes this step's K/V into row `pos` of
+        the caches k_self/v_self [B, U_max, H, dh] in place; self_bias
+        masks the rows after pos."""
+        k_t, v_t = self.slf_attn.project_kv(x_t)
+        k_self[:, pos] = k_t[:, 0]
+        v_self[:, pos] = v_t[:, 0]
+        x = self.post_attn(x_t, self.slf_attn.step(x_t, k_self, v_self,
+                                                   self_bias))
+        return self.post_ffn(x, self.ffn(x))
+
 
 class Encoder(nn.Module):
     def __init__(self, c: ModelConfig):

@@ -1,7 +1,8 @@
 """Model glue: encoder + decoder + CTC head, and the joint objective (port
 of tpu_asr/models/transformer.py).
 
-Covers model_type in {transformer, ctc, hybrid}. `forward` returns the
+Covers model_type in {transformer, ctc, hybrid}; cif has its own module
+(models/cif.py, picked by models.build_model). `forward` returns the
 losses of a batch as a dict of 0-d tensors, L = lambda * ctc +
 (1 - lambda) * att. Dropout follows torch's train/eval mode; the module
 starts in eval mode, so decoding never drops anything.
@@ -60,7 +61,9 @@ class Transformer(nn.Module):
         super().__init__()
         if cfg.model_type not in ("transformer", "ctc", "hybrid"):
             raise NotImplementedError(
-                f"model_type={cfg.model_type!r} is not ported yet")
+                f"Transformer has no model_type={cfg.model_type!r} (cif is "
+                f"a CifModel: models.build_model; the others are not ported"
+                f" yet)")
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.has_decoder = cfg.model_type in ("transformer", "hybrid")

@@ -18,6 +18,7 @@ Run as a module to serve over HTTP:
   python -m tpu_asr_torch.serve --random-init --seed 0 --mode joint \\
       --beam 5 --bucket-frames 512,1000 --batch-size 8 --port 8080
   python -m tpu_asr_torch.serve --ckpt exp/aishell --mode joint --beam 10
+  python -m tpu_asr_torch.serve --random-init --preset cif --mode cif_greedy
 """
 
 from __future__ import annotations
@@ -298,8 +299,9 @@ def parse_args(argv=None):
                     "/recognize) with micro-batched decode.")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--params-npz",
-                     help="flax params of tpu_asr.models.Transformer saved "
-                          "as .npz with '/'-joined keys")
+                     help="flax params of the preset's tpu_asr model "
+                          "(Transformer or CifModel) saved as .npz with "
+                          "'/'-joined keys")
     src.add_argument("--random-init", action="store_true",
                      help="seeded random weights (no checkpoint)")
     src.add_argument("--ckpt",
@@ -307,10 +309,14 @@ def parse_args(argv=None):
                           "train: its config, frontend and best step")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--preset", default="aishell",
-                   help="model preset (aishell | hybrid_dev); not read "
-                        "with --ckpt")
-    p.add_argument("--mode", default="joint",
-                   choices=["greedy_ctc", "beam", "joint"])
+                   help="model preset (aishell | hybrid_dev | cif | "
+                        "cif_dev); not read with --ckpt")
+    p.add_argument("--mode", default=None,
+                   choices=["greedy_ctc", "beam", "joint", "cif_greedy",
+                            "cif_beam"],
+                   help="default: by model type (hybrid -> joint, "
+                        "transformer -> beam, ctc -> greedy_ctc, cif -> "
+                        "cif_greedy)")
     p.add_argument("--beam", type=int, default=5)
     p.add_argument("--max-len", type=int, default=100)
     p.add_argument("--ctc-weight", type=float, default=0.3)
@@ -331,7 +337,7 @@ def build_server(args) -> AsrServer:
     from tpu_asr_torch.configs.presets import get_preset
     from tpu_asr_torch.decode.beam import BeamConfig
     from tpu_asr_torch.decode.recognizer import Recognizer
-    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.models import build_model
     from tpu_asr_torch.train.checkpoints import Checkpointer
     from tpu_asr_torch.weights import init_random, load_jax_params
 
@@ -341,20 +347,23 @@ def build_server(args) -> AsrServer:
         ck = Checkpointer(args.ckpt)
         cfg = ck.load_config()
         frontend = ck.load_frontend() or frontend
-        model = Transformer(cfg)
+        model = build_model(cfg)
         model.load_state_dict(ck.restore(ck.best_step())["model"])
     else:
         cfg = get_preset(args.preset).model
-        model = Transformer(cfg)
+        model = build_model(cfg)
         if args.params_npz:
             load_jax_params(model, args.params_npz)
         else:
             init_random(model, args.seed)
+    mode = args.mode or {"ctc": "greedy_ctc", "transformer": "beam",
+                         "hybrid": "joint", "cif": "cif_greedy"}[
+                             cfg.model_type]
     rec = Recognizer(
-        cfg, model, mode=args.mode, device=device, frontend=frontend,
+        cfg, model, mode=mode, device=device, frontend=frontend,
         beam=BeamConfig(beam=args.beam, max_len=args.max_len,
                         nbest=args.beam,   # requests slice their own nbest
-                        ctc_weight=args.ctc_weight if args.mode == "joint"
+                        ctc_weight=args.ctc_weight if mode == "joint"
                         else 0.0))
     buckets = tuple(int(x) for x in args.bucket_frames.split(","))
     return AsrServer(rec, bucket_frames=buckets, batch_size=args.batch_size,
@@ -366,13 +375,14 @@ def main(argv=None):
     server = build_server(args)
     kinds = tuple(k.strip() for k in args.inputs.split(",") if k.strip())
     print(f"warming up {len(kinds)}x{len(server.bucket_frames)} decode "
-          f"shapes on {server.device} (mode={args.mode}, "
+          f"shapes on {server.device} (mode={server.rec.mode}, "
           f"batch={args.batch_size})...", file=sys.stderr, flush=True)
     server.warmup(kinds=kinds)
     server.start()
     httpd = make_http_server(args.host, args.port, server)
     print(json.dumps({"serving": f"http://{args.host}:{args.port}",
-                      "mode": args.mode, "device": str(server.device),
+                      "mode": server.rec.mode,
+                      "device": str(server.device),
                       "buckets": list(server.bucket_frames),
                       "batch_size": args.batch_size}), flush=True)
     try:

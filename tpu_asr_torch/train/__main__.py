@@ -4,12 +4,16 @@
       --cv-manifest dev.jsonl --save-folder exp/aishell --vocab-size 4233
   python -m tpu_asr_torch.train --preset hybrid_dev --synthetic 200 \\
       --save-folder exp/dev --device cpu
+  python -m tpu_asr_torch.train --preset cif_dev --synthetic 32 --epochs 2 \\
+      --save-folder exp/cif_dev --device cpu
 
 Preset + flag overrides -> bucketed loaders -> TrainStep/Solver with a
 checkpoint per epoch and JSONL metrics in the save folder. Runs on the
 CUDA card unless given --device cpu; with no card and no such flag it
-raises. `--params-npz` starts from flax params of tpu_asr (see
-tpu_asr_torch.weights); otherwise the weights are a seeded random init.
+raises. The preset's model_type picks the model (models.build_model:
+the hybrid Transformer or the CIF model). `--params-npz` starts from
+flax params of tpu_asr (see tpu_asr_torch.weights); otherwise the
+weights are a seeded random init.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ import torch
 from tpu_asr_torch.configs.presets import TrainConfig, get_preset
 from tpu_asr_torch.data import (DataLoader, Utterance, load_manifest,
                                 make_buckets)
+from tpu_asr_torch.models import build_model
 from tpu_asr_torch.models.config import ModelConfig
-from tpu_asr_torch.models.transformer import Transformer
 from tpu_asr_torch.train.checkpoints import Checkpointer
 from tpu_asr_torch.train.loop import Solver, TrainStep
 from tpu_asr_torch.train.metrics import MetricsWriter
@@ -38,7 +42,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m tpu_asr_torch.train",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="aishell",
-                   help="aishell | hybrid_dev")
+                   help="aishell | hybrid_dev | cif | cif_dev")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic utterances (demo/smoke)")
     p.add_argument("--train-manifest")
@@ -63,8 +67,9 @@ def parse_args(argv=None):
                    help="seed of the init, data order, SpecAugment and "
                         "dropout (preset default if unset)")
     p.add_argument("--params-npz",
-                   help="start from flax params of tpu_asr.models."
-                        "Transformer saved as .npz with '/'-joined keys")
+                   help="start from flax params of the preset's tpu_asr "
+                        "model (Transformer or CifModel) saved as .npz "
+                        "with '/'-joined keys")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -127,7 +132,7 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
                            shuffle=False)
 
     torch.manual_seed(tc.seed)            # dropout draws from this
-    model = Transformer(mc)
+    model = build_model(mc)
     if args.params_npz:
         load_jax_params(model, args.params_npz)
     else:

@@ -61,7 +61,8 @@ class TrainStep:
         self.steps = 0       # calls taken (micro-batches)
 
     def __call__(self, batch: dict) -> dict[str, torch.Tensor]:
-        """-> metrics: loss, loss_att, loss_ctc, acc, grad_norm (0-d
+        """-> metrics: the model's loss dict (loss, loss_att, acc and
+        loss_ctc or loss_qty as the model has them) and grad_norm (0-d
         device tensors; grad_norm of the raw, unclipped gradients)."""
         self.model.train()
         feats, flens, targets, tlens = batch_features(batch, self.frontend,

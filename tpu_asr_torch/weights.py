@@ -2,7 +2,7 @@
 seeded random init.
 
 `load_jax_params(model, params)` takes the flax variable tree of
-tpu_asr.models.Transformer as nested dicts of numpy arrays (what
+tpu_asr.models.Transformer or CifModel as nested dicts of numpy arrays (what
 `jax.device_get(variables)` returns), or an .npz file / flat dict whose
 keys are the "/"-joined flax paths. The port's module names follow the
 flax paths, so each key maps mechanically:
@@ -13,6 +13,7 @@ flax paths, so each key maps mechanically:
   DenseGeneral q/k/v kernel [D,H,dh] -> [H*dh, D]; bias [H, dh] -> [H*dh]
   out_proj kernel [H, dh, D]         -> [D, H*dh]
   Conv kernel HWIO (3,3,I,O)         -> OIHW
+  assigner/conv kernel WIO (3,I,O)   -> Conv1d OIW
   embed/embedding [V, D]             -> embed.weight (tied output proj)
 
 Any missing key, extra key or shape mismatch raises.
@@ -50,6 +51,8 @@ def flax_to_torch(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "kernel":
         if v.ndim == 4:                                  # Conv HWIO -> OIHW
             v = v.transpose(3, 2, 0, 1)
+        elif owner == "conv" and v.ndim == 3:            # Conv WIO -> OIW
+            v = v.transpose(2, 1, 0)
         elif owner == "out_proj" and v.ndim == 3:        # [H, dh, D]
             v = v.reshape(-1, v.shape[-1]).T
         elif v.ndim == 3:                                # [D, H, dh]
@@ -68,9 +71,10 @@ def flax_to_torch(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def load_jax_params(model: nn.Module, params) -> None:
-    """Fill `model` (a tpu_asr_torch Transformer) from flax params; see the
-    module docstring for the accepted forms. Strict: raises KeyError on a
-    missing or extra key and ValueError on a shape mismatch."""
+    """Fill `model` (a tpu_asr_torch Transformer or CifModel) from flax
+    params; see the module docstring for the accepted forms. Strict:
+    raises KeyError on a missing or extra key and ValueError on a shape
+    mismatch."""
     if isinstance(params, (str, os.PathLike)):
         with np.load(params) as z:
             params = {k: z[k] for k in z.files}
@@ -105,8 +109,8 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
     Dense and Conv weights lecun_normal (a normal truncated at +-2 sigma,
     sigma = 1 / (sqrt(fan_in) * TRUNC_STD), so the variance is 1/fan_in),
     Embed N(0, 1/D), biases 0, LayerNorm scale 1. fan_in is the input
-    width (a conv's in_channels * kh * kw). Same seed, same weights, on
-    any machine."""
+    width (a conv's in_channels times its kernel size). Same seed, same
+    weights, on any machine."""
     g = torch.Generator().manual_seed(seed)
 
     with torch.no_grad():
@@ -114,7 +118,7 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
             if isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-            elif isinstance(m, (nn.Linear, nn.Conv2d)):
+            elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 w = torch.empty(m.weight.shape)
                 nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
                 fan_in = m.weight[0].numel()
@@ -135,6 +139,6 @@ def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     work on every decode step. LayerNorm params stay float32 (its
     statistics are float32)."""
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Embedding)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Embedding)):
             m.to(dtype)
     return model
