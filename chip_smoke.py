@@ -14,14 +14,23 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      (F.ctc_loss, timed as a yardstick and used as a value check only);
      cif_fire (CIF serving and training) on 10 cases (serving's two
      buckets, the bench shape, ragged ones) and its autograd Function's
-     gradients against autograd of the plain version.
+     gradients against autograd of the plain version; flash_attention_fwd
+     (use_pallas serving: encoder self-attention, decoder causal
+     self-attention and cross-attention at the served shapes, ragged key
+     lengths with a length-0 row, Tk >= 600, float32 and bfloat16; timed
+     beside F.scaled_dot_product_attention with the same boolean mask as a
+     yardstick) and layer_norm_residual_fwd (the served row counts, 1 to
+     8080 rows, D 64 to 2048).
   4. agreement: a small hybrid model decodes the same batch on the card and
      on the CPU (plain versions), tokens equal; and takes two train steps
      from the same init on one batch on both: losses of both steps within
      1e-4, step 1's grad norms within 1e-3 relative, and >= 99% of the
      entries of step 1's update within 0.1 lr. A small CIF model (cif_dev)
      likewise: cif_greedy and cif_beam tokens equal, one train step's
-     losses within 1e-4 and grad norm within 1e-3 relative.
+     losses within 1e-4 and grad norm within 1e-3 relative. The small
+     hybrid model with use_pallas in attn_rescore and ctc_beam: tokens
+     equal on the card (flash attention and fused LN kernels) and on the
+     CPU.
   5. serving: the aishell-width hybrid model (d512, h8, 6+6 layers, conv
      (32, 128), vocab 4233, bf16; random weights from a seed) in joint
      CTC/attention beam-5 mode behind AsrServer; 16 wav requests from
@@ -34,7 +43,12 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      vocab 4233, float32; random weights) in cif_greedy behind AsrServer,
      the same 16 requests (and again under torch.profiler); cif_fire
      launches once per decode batch.
-  7. training: the aishell preset at full width (dropout 0.1, SpecAugment,
+  7. use_pallas serving: the aishell model with use_pallas in the preset's
+     attn_rescore (beam 10, max_len 100, ctc weight 0.3) behind AsrServer,
+     the same 16 requests (and again under torch.profiler); per decode
+     batch the flash kernel launches once per attention of the encoder
+     and the decoder pass, the LN kernel once per post-norm block.
+  8. training: the aishell preset at full width (dropout 0.1, SpecAugment,
      Noam/Adam, clip 5, 32000-frame batches) through the Solver that
      `python -m tpu_asr_torch.train` builds, on 512 synthetic AISHELL-like
      wav utterances, for at least 20 optimizer steps; losses and grad norms
@@ -44,10 +58,13 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      U = 24; the epoch checkpoint restores to equal parameters. Then the
      same for the cif preset (16000-frame batches, no SpecAugment), where
      cif_fire also launches once per train step and cv batch.
-  8. cif_fire on the main paths' inputs: the first batch of each serving
-     bucket and the first CIF train and cv batch, as model.fire received
-     them, against the plain version, timed beside one torch.bmm on a
-     materialized weight matrix (training's also checks the gradients).
+  9. kernels on the main paths' inputs: cif_fire on the first batch of
+     each CIF serving bucket and the first CIF train and cv batch, as
+     model.fire received them, against the plain version, timed beside one
+     torch.bmm on a materialized weight matrix (training's also checks the
+     gradients); flash_attention_fwd and layer_norm_residual_fwd on the
+     first inputs of each kind in each bucket of phase 7, as the kernels
+     received them, against their plain versions, timed.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -74,9 +91,13 @@ DEVICE = "cuda"
 PRESET = "aishell"            # the flagship model's widths
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM, bf16 dense tensor cores
 TOL = dict(atol=1e-4, rtol=1e-5)
 CTC_GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 CIF_TOL = dict(atol=1e-5, rtol=1e-5)
+F32_TOL = dict(atol=1e-5, rtol=1e-5)     # flash and LN kernels, float32
+FLASH_BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 MIN_TRAIN_STEPS = 20
 BUCKETS = (512, 1000)
 BATCH = 8
@@ -503,25 +524,37 @@ def check_cif_grads(hidden, alphas, u, what):
 
 
 @contextlib.contextmanager
-def record_fire_inputs(model, captures, label):
+def record_inputs(owner, name, captures, label):
     """While the main path runs, keep a copy of the inputs of the first
-    model.fire call under each label(hidden, u_max), so the kernel is then
-    held against its plain version on the path's own inputs. The call
-    itself, and the wrapper's launch count, are unchanged."""
-    fire = model.fire
+    call of owner.<name> (model.fire, or a kernel wrapper in its module)
+    under each label(*args), so the kernel is then held against its plain
+    version on the path's own inputs. The call itself, and the wrapper's
+    launch count, are unchanged."""
+    fn = getattr(owner, name)
+    own = name in vars(owner)          # a module's function, not a method
 
-    def recording(hidden, alphas, u_max):
-        key = label(hidden, u_max)
+    def recording(*args):
+        key = label(*args)
         if key not in captures:
-            captures[key] = (hidden.detach().clone(), alphas.detach().clone(),
-                             u_max)
-        return fire(hidden, alphas, u_max)
+            captures[key] = tuple(a.detach().clone()
+                                  if isinstance(a, torch.Tensor) else a
+                                  for a in args)
+        return fn(*args)
 
-    model.fire = recording
+    # a kernel wrapper counts its launches on its module's name for it,
+    # which is `recording` while this runs: its count goes back to fn
+    counted = hasattr(fn, "launches")
+    recording.launches = start = getattr(fn, "launches", 0)
+    setattr(owner, name, recording)
     try:
         yield
     finally:
-        del model.fire
+        if counted:
+            fn.launches += recording.launches - start
+        if own:
+            setattr(owner, name, fn)
+        else:
+            delattr(owner, name)
 
 
 def check_cif_fire_on_paths(captures):
@@ -546,7 +579,275 @@ def check_cif_fire_on_paths(captures):
     return max_err, timings
 
 
-# ---- phases 4-6 ----
+# ---- phase 3: the flash attention and fused LayerNorm kernels ----
+
+def flash_case(b, tq, tk, h, dh, dtype, lens, seed):
+    """q [B, Tq, H, dh], k/v [B, Tk, H, dh] and kv_valid [B, Tk] on the
+    card; lens[i] valid keys in row i."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, tq, h, dh, generator=g)
+    k = torch.randn(b, tk, h, dh, generator=g)
+    v = torch.randn(b, tk, h, dh, generator=g)
+    valid = torch.arange(tk)[None, :] < torch.as_tensor(lens)[:, None]
+    return [x.to(DEVICE, dtype) for x in (q, k, v)] + [valid.to(DEVICE)]
+
+
+def flash_bound_ms(q, k, valid, causal):
+    """Least time for the same work on an H100. Bytes: q, k, v and valid
+    read once, out and lse written once. Operations: 4 dh flops (QK^T and
+    PV) per (query, key, head) that this data's mask lets through, at the
+    bf16 tensor-core rate for bf16 inputs, the float32 rate otherwise."""
+    from tpu_asr_torch.ops.flash_attention import _mask
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
+    pairs = int(_mask(valid, causal, tq).expand(b, 1, tq, tk).sum()) * h
+    nbytes = (q.element_size() * 2 * h * dh * (b * tq + b * tk)
+              + 4 * b * h * tq + b * tk)
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * dh * pairs / rate * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def compare_flash(q, k, v, valid, causal, what):
+    """flash_attention_fwd against its plain version: out within atol/rtol
+    1e-5 in float32, 2e-2 in bf16; lse within 1e-4; rows whose keys are
+    all masked give zeros and lse -1e30. -> (max abs err of out, of lse)."""
+    from tpu_asr_torch.ops.flash_attention import (NEG_INF,
+                                                   flash_attention_fwd,
+                                                   flash_attention_reference)
+    out, lse = flash_attention_fwd(q, k, v, valid, causal)
+    w_out, w_lse = flash_attention_reference(q, k, v, valid, causal)
+    torch.cuda.synchronize()
+    tol = F32_TOL if q.dtype == torch.float32 else FLASH_BF16_TOL
+    if not torch.allclose(out.float(), w_out.float(), **tol):
+        raise AssertionError(f"flash attention out at {what}: kernel "
+                             f"disagrees with plain version (max abs diff "
+                             f"{(out.float() - w_out.float()).abs().max()})")
+    g, w = lse.clamp(min=-1e31), w_lse.clamp(min=-1e31)
+    if not torch.allclose(g, w, **LSE_TOL):
+        raise AssertionError(f"flash attention lse at {what}: max abs diff "
+                             f"{(g - w).abs().max().item()}")
+    live = w > -1e29
+    lse_err = (g - w).abs()[live].max().item() if live.any() else 0.0
+    dead = ~valid.any(dim=1)
+    if dead.any() and (out[dead].any() or (lse[dead] != NEG_INF).any()):
+        raise AssertionError(f"flash attention at {what}: a row with every "
+                             f"key masked is not zeros with lse -1e30")
+    return (out.float() - w_out.float()).abs().max().item(), lse_err
+
+
+def time_flash(q, k, v, valid, causal, what):
+    """flash_attention_fwd's times at one shape: the wrapper, the kernel
+    alone (profiler), the plain version, and one
+    F.scaled_dot_product_attention call with the same boolean mask on
+    [B, H, T, dh] copies made beforehand (a yardstick the port never
+    calls; it is checked against the plain version on the rows with a
+    valid key); the bound from these inputs."""
+    import torch.nn.functional as F
+    from tpu_asr_torch.ops.flash_attention import (_mask, flash_attention_fwd,
+                                                   flash_attention_reference)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = _mask(valid, causal, q.shape[1])
+    want = flash_attention_reference(q, k, v, valid, causal)[0]
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    b, tq, _, _ = q.shape
+    live = mask.expand(b, 1, tq, k.shape[1]).any(dim=-1)[:, 0]   # [B, Tq]
+    lib_err = (lib.transpose(1, 2)[live].float()
+               - want[live].float()).abs().max().item()
+    if lib_err > 0.1:
+        raise AssertionError(f"scaled_dot_product_attention disagrees with "
+                             f"the plain version at {what}: {lib_err}")
+    ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, valid, causal))
+    alone = kernel_device_ms(lambda: flash_attention_fwd(q, k, v, valid,
+                                                         causal),
+                             "flash_attention_fwd_kernel")
+    plain = cuda_ms(lambda: flash_attention_reference(q, k, v, valid,
+                                                      causal))
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    bound, by = flash_bound_ms(q, k, valid, causal)
+    log(f"flash_attention_fwd {what}: wrapper {ms:.4f} ms, the kernel alone "
+        f"{alone:.4f} ms (profiler), plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention {library:.4f} ms (max abs diff to "
+        f"plain {lib_err:.2e}), bound {bound * 1e3:.3f} us ({by})")
+    return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
+                library_ms=library, bound_ms=bound, bound_by=by)
+
+
+def check_flash_attention():
+    """flash_attention_fwd against its plain version at the served shapes
+    (the aishell model's dh 64, bf16; the encoder of a 1000-frame bucket,
+    the decoder pass over 8 x 10 hypotheses of 101 positions) with ragged
+    key lengths and a length-0 row, and at float32, dh 32 / 128, Tq = 1
+    and Tk >= 600. -> (max abs err out, max abs err lse, {shape: times})."""
+    rng = np.random.default_rng(3)
+
+    def ragged(b, tk):
+        lens = rng.integers(1, tk + 1, b)
+        lens[0], lens[-1] = tk, 0
+        return lens.tolist()
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (b, tq, tk, h, dh, causal, dtype, lens, timed)
+        (BATCH, 248, 248, 8, 64, False, bf16, ragged(BATCH, 248), True),
+        (80, 101, 101, 8, 64, True, bf16, [101] * 80, True),
+        (80, 101, 248, 8, 64, False, bf16, ragged(80, 248), True),
+        (BATCH, 126, 126, 8, 64, False, bf16, ragged(BATCH, 126), False),
+        (BATCH, 248, 248, 8, 64, False, f32, ragged(BATCH, 248), False),
+        (80, 101, 101, 8, 64, True, f32, [101] * 80, False),
+        (4, 33, 600, 8, 64, False, bf16, [600, 517, 3, 0], False),
+        (3, 1, 600, 2, 32, False, f32, [600, 1, 0], False),
+        (4, 24, 24, 2, 32, True, f32, [24, 24, 10, 0], False),
+        (3, 70, 70, 4, 128, True, f32, [70, 33, 0], False),
+    ]
+    out_err = lse_err = 0.0
+    timings = {}
+    for i, (b, tq, tk, h, dh, causal, dt, lens, timed) in enumerate(cases):
+        q, k, v, valid = flash_case(b, tq, tk, h, dh, dt, lens, SEED + i)
+        what = (f"B={b} Tq={tq} Tk={tk} H={h} dh={dh} "
+                f"{'causal' if causal else 'key padding'} {dt}")
+        oe, le = compare_flash(q, k, v, valid, causal, what)
+        out_err, lse_err = max(out_err, oe), max(lse_err, le)
+        if timed:
+            timings[what] = time_flash(q, k, v, valid, causal, what)
+    log(f"flash_attention_fwd vs plain: {len(cases)} cases agree, max abs "
+        f"err out {out_err:.3e} (float32 atol/rtol {F32_TOL['atol']}, bf16 "
+        f"{FLASH_BF16_TOL['atol']}), lse {lse_err:.3e} (atol "
+        f"{LSE_TOL['atol']})")
+    return out_err, lse_err, timings
+
+
+def raw_bf16_ulps(got, want) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors, element by
+    element (bit patterns of equal-signed values order like the values)."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return int((key(got) - key(want)).abs().max())
+
+
+def ln_bound_ms(r):
+    """Least time for the same work on an H100. Bytes: residual and h read
+    once, out written once, gamma/beta read and mean/rstd written once.
+    Operations: ~10 float32 operations an element (add, two reductions,
+    centre, square, scale, affine) on the SIMT units."""
+    d = r.shape[-1]
+    rows = r.numel() // d
+    nbytes = 3 * r.element_size() * rows * d + 8 * d + 8 * rows
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 10 * rows * d / FP32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def compare_ln(r, h, g, b, what):
+    """layer_norm_residual_fwd against its plain version: float32 within
+    atol/rtol 1e-5, bf16 within one bf16 ulp at the output's scale
+    (bf16_ulp_error); mean and rstd within 1e-5. -> (max abs err of out,
+    bf16 ulp error at the output's scale, largest raw bf16 ulp distance)."""
+    from tpu_asr_torch.ops.layernorm import (bf16_ulp_error,
+                                             layer_norm_residual_fwd,
+                                             layer_norm_residual_reference)
+    got = layer_norm_residual_fwd(r, h, g, b)
+    want = layer_norm_residual_reference(r, h, g, b)
+    torch.cuda.synchronize()
+    for name, x, w in zip(("mean", "rstd"), got[1:], want[1:]):
+        if not torch.allclose(x, w, **F32_TOL):
+            raise AssertionError(f"layer_norm_residual {name} at {what}: max "
+                                 f"abs diff {(x - w).abs().max().item()}")
+    out, w_out = got[0], want[0]
+    ulp_err = raw = 0.0
+    if r.dtype == torch.float32:
+        if not torch.allclose(out, w_out, **F32_TOL):
+            raise AssertionError(f"layer_norm_residual out at {what}: max abs"
+                                 f" diff {(out - w_out).abs().max().item()}")
+    else:
+        ulp_err, raw = bf16_ulp_error(out, w_out), raw_bf16_ulps(out, w_out)
+        if ulp_err > 1.0:
+            raise AssertionError(f"layer_norm_residual out at {what}: "
+                                 f"{ulp_err:.2f} bf16 ulps from the plain "
+                                 f"version")
+    return (out.float() - w_out.float()).abs().max().item(), ulp_err, raw
+
+
+def time_ln(r, h, g, b, what):
+    from tpu_asr_torch.ops.layernorm import (layer_norm_residual_fwd,
+                                             layer_norm_residual_reference)
+    ms = cuda_ms(lambda: layer_norm_residual_fwd(r, h, g, b))
+    alone = kernel_device_ms(lambda: layer_norm_residual_fwd(r, h, g, b),
+                             "layer_norm_residual_kernel")
+    plain = cuda_ms(lambda: layer_norm_residual_reference(r, h, g, b))
+    bound, by = ln_bound_ms(r)
+    log(f"layer_norm_residual_fwd {what}: wrapper {ms:.4f} ms, the kernel "
+        f"alone {alone:.4f} ms (profiler), plain {plain:.4f} ms, bound "
+        f"{bound * 1e3:.3f} us ({by}); no single torch call adds and "
+        f"normalizes, so no library time")
+    return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
+                library_ms=None, bound_ms=bound, bound_by=by)
+
+
+def check_layer_norm():
+    """layer_norm_residual_fwd against its plain version at the served row
+    counts (bf16, D 512: the decoder pass's 8080 rows, the encoder's 1984
+    and 1008), and float32 / other D at ragged row counts."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (rows, d, dtype, timed)
+        (8080, 512, bf16, True), (1984, 512, bf16, True),
+        (1008, 512, bf16, False), (1984, 512, f32, False),
+        (511, 512, f32, False), (1000, 64, f32, False), (1, 64, f32, False),
+        (7, 2048, bf16, False), (513, 96, bf16, False),
+    ]
+    err = ulps = 0.0
+    raw = 0
+    timings = {}
+    for i, (rows, d, dt, timed) in enumerate(cases):
+        g = torch.Generator().manual_seed(SEED + i)
+        r, h = (torch.randn(rows, d, generator=g).to(DEVICE, dt)
+                for _ in range(2))
+        gamma = (1 + 0.5 * torch.randn(d, generator=g)).to(DEVICE)
+        beta = torch.randn(d, generator=g).to(DEVICE)
+        what = f"rows={rows} D={d} {dt}"
+        e, u, w = compare_ln(r, h, gamma, beta, what)
+        err, ulps, raw = max(err, e), max(ulps, u), max(raw, w)
+        if timed:
+            timings[what] = time_ln(r, h, gamma, beta, what)
+    log(f"layer_norm_residual_fwd vs plain: {len(cases)} cases agree, max "
+        f"abs err {err:.3e}; bf16 within {ulps:.3f} ulp at the output's "
+        f"scale (largest raw ulp distance {raw}, at outputs near 0)")
+    return err, ulps, raw, timings
+
+
+def check_flash_ln_on_paths(flash_caps, ln_caps):
+    """Both kernels against their plain versions, timed, on the inputs the
+    use_pallas serving path gave them (after its counts were read).
+    -> ({label: flash timings}, {label: LN timings}, errors)."""
+    errs = dict(flash=0.0, lse=0.0, ln=0.0, ln_ulps=0.0, ln_raw=0)
+    flash_t, ln_t = {}, {}
+    for label, (q, k, v, valid, causal) in flash_caps.items():
+        what = (f"{label}: q {list(q.shape)} k {list(k.shape)} {q.dtype}, "
+                f"{int(valid.sum(1).min())}-{int(valid.sum(1).max())} "
+                f"valid keys a row")
+        oe, le = compare_flash(q, k, v, valid, causal, what)
+        errs["flash"], errs["lse"] = max(errs["flash"], oe), max(errs["lse"],
+                                                                  le)
+        flash_t[label] = dict(time_flash(q, k, v, valid, causal, what),
+                              shape=what)
+    for label, (r, h, g, b, _eps) in ln_caps.items():
+        what = f"{label}: {list(r.shape)} {r.dtype}"
+        e, u, w = compare_ln(r, h, g, b, what)
+        errs["ln"], errs["ln_ulps"] = max(errs["ln"], e), max(errs["ln_ulps"],
+                                                              u)
+        errs["ln_raw"] = max(errs["ln_raw"], w)
+        ln_t[label] = dict(time_ln(r, h, g, b, what), shape=what)
+    log(f"flash_attention_fwd and layer_norm_residual_fwd vs plain on the "
+        f"use_pallas serving path's inputs: {len(flash_caps)} + "
+        f"{len(ln_caps)} calls agree: " + json.dumps(errs))
+    return flash_t, ln_t, errs
+
+
+# ---- phases 4-7 ----
 
 def request_lengths(n, seed):
     """Utterance lengths in samples: lognormal around 4.3 s, clipped to
@@ -714,6 +1015,59 @@ def check_cif_agreement():
         + json.dumps({k: [card[k], cpu[k]] for k in sorted(card)}))
 
 
+def check_pallas_agreement():
+    """hybrid_dev in float32 with use_pallas (flash attention, fused LN):
+    attn_rescore and ctc_beam decode the same batch to the same tokens
+    on the card (the kernels) and on the CPU (their plain versions). With
+    beam 8 the rescoring pass has 4 x 8 x 24 = 768 rows, so the LN kernel
+    runs as well as the flash kernel."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
+    from tpu_asr_torch.weights import init_random
+
+    cfg = dataclasses.replace(get_preset("hybrid_dev").model, vocab_size=64,
+                              use_pallas=True)
+    rng = np.random.default_rng(SEED)
+    lens = np.array([16000, 12000, 7000, 0], np.int32)
+    wav = np.zeros((4, 16000), np.float32)
+    for i, n in enumerate(lens):
+        wav[i, :n] = synth_wav(int(n), rng)
+    batch = {"wav": wav, "wav_lengths": lens}
+    launches = {}
+    for mode in ("attn_rescore", "ctc_beam"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            rec = Recognizer(cfg, init_random(Transformer(cfg), SEED),
+                             mode=mode, device=dev,
+                             beam=BeamConfig(beam=8, max_len=24,
+                                             ctc_weight=0.3, nbest=8))
+            before = (fa.flash_attention_fwd.launches,
+                      ln.layer_norm_residual_fwd.launches)
+            out[dev] = rec.decode_batch_nbest(batch)
+            launches[mode, dev] = (
+                fa.flash_attention_fwd.launches - before[0],
+                ln.layer_norm_residual_fwd.launches - before[1])
+        for a, b in zip(out["cuda"], out["cpu"]):
+            for ha, hb in zip(a, b):
+                if ha["yseq"] != hb["yseq"] or abs(ha["score"]
+                                                   - hb["score"]) > 1e-3:
+                    raise AssertionError(f"use_pallas {mode}: card {ha} != "
+                                         f"CPU {hb}")
+    flash_n, ln_n = launches["attn_rescore", "cuda"]
+    if not (flash_n == cfg.num_enc_layers + 2 * cfg.num_dec_layers
+            and ln_n == 3 * cfg.num_dec_layers
+            and launches["ctc_beam", "cuda"] == (cfg.num_enc_layers, 0)
+            and launches["attn_rescore", "cpu"] == (0, 0)):
+        raise AssertionError(f"use_pallas agreement launches: {launches}")
+    log(f"agreement: hybrid_dev use_pallas attn_rescore and ctc_beam-8 on "
+        f"the card == on the CPU (tokens equal, scores within 1e-3); "
+        f"(flash, LN) launches on the card {launches['attn_rescore', 'cuda']}"
+        f" and {launches['ctc_beam', 'cuda']}")
+
+
 def profile_device(fn, what, card):
     """Run fn() under torch.profiler: device time by kernel, and the
     device's busy share of the wall time. Only device-side events
@@ -796,8 +1150,8 @@ def run_cif_serving(card, captures):
     # main path: counts from 0 just before, read just after
     cif_fire_fwd.launches = 0
     rec.decode_steps = 0
-    with record_fire_inputs(rec.model, captures,
-                            lambda h, u: f"cif serving T'={h.shape[1]}"):
+    with record_inputs(rec.model, "fire", captures,
+                       lambda h, a, u: f"cif serving T'={h.shape[1]}"):
         results, wall = serve_requests(server, wavs)
     launches, steps = cif_fire_fwd.launches, rec.decode_steps
     batches = server.stats["batches"]
@@ -823,6 +1177,91 @@ def run_cif_serving(card, captures):
     finally:
         server.stop()
     return launches
+
+
+def run_pallas_serving(card, flash_caps, ln_caps):
+    """The aishell model with use_pallas behind AsrServer in the preset's
+    attn_rescore: 16 wav requests. Per decode batch the flash kernel
+    launches once per attention of the encoder (self) and of the decoder
+    pass (self and cross), the LN kernel once per post-norm block (every
+    call has >= 512 rows). The first kernel inputs of each kind in each
+    bucket go into flash_caps / ln_caps. -> (flash launches, LN
+    launches)."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
+    from tpu_asr_torch.serve import AsrServer
+    from tpu_asr_torch.weights import init_random
+
+    tc = get_preset(PRESET)
+    cfg = dataclasses.replace(tc.model, use_pallas=True)
+    t0 = time.perf_counter()
+    rec = Recognizer(cfg, init_random(Transformer(cfg), SEED),
+                     mode=tc.decode_mode, device=DEVICE, beam=tc.beam)
+    server = AsrServer(rec, bucket_frames=BUCKETS, batch_size=BATCH,
+                       device=DEVICE)
+    server.warmup(kinds=("wav",))
+    torch.cuda.synchronize()
+    log(f"use_pallas serving: {PRESET} model with use_pallas (flash "
+        f"attention {cfg.attention_pallas}, fused LN {cfg.layernorm_pallas},"
+        f" bf16) in {rec.mode}, beam {tc.beam.beam}, max_len "
+        f"{tc.beam.max_len}, ctc weight {tc.beam.ctc_weight}; built and "
+        f"warmed up in {time.perf_counter() - t0:.1f} s")
+    server.start()
+    rng = np.random.default_rng(SEED)
+    wavs = [synth_wav(n, rng) for n in request_lengths(N_REQUESTS, SEED)]
+    audio_s = sum(len(w) for w in wavs) / 16000.0
+
+    bucket = {}     # the encoder T' of the batch being decoded
+
+    def flash_label(q, k, v, valid, causal):
+        if causal:
+            kind = "decoder self-attention (causal)"
+        elif q.shape[1] == k.shape[1] and q.shape[0] == BATCH:
+            bucket["t"] = q.shape[1]
+            kind = "encoder self-attention"
+        else:
+            kind = "decoder cross-attention"
+        return f"T'={bucket.get('t')} {kind}"
+
+    def ln_label(r, *_):
+        return (f"T'={bucket.get('t')} "
+                f"{'encoder' if r.shape[0] == BATCH else 'decoder'} LN")
+
+    # main path: counts from 0 just before, read just after
+    flash_fwd, ln_fwd = fa.flash_attention_fwd, ln.layer_norm_residual_fwd
+    flash_fwd.launches = ln_fwd.launches = 0
+    with record_inputs(fa, "flash_attention_fwd", flash_caps, flash_label), \
+            record_inputs(ln, "layer_norm_residual_fwd", ln_caps, ln_label):
+        results, wall = serve_requests(server, wavs)
+    flash_n, ln_n = flash_fwd.launches, ln_fwd.launches
+    batches = server.stats["batches"]
+    try:
+        v = cfg.vocab_size
+        if not all(0 <= x <= v - 3 for nb, _ in results
+                   for x in nb[0]["yseq"]):
+            raise AssertionError("attn_rescore token outside the vocabulary")
+        per_batch = (cfg.num_enc_layers + 2 * cfg.num_dec_layers,
+                     2 * cfg.num_enc_layers + 3 * cfg.num_dec_layers)
+        if batches <= 0 or (flash_n, ln_n) != (per_batch[0] * batches,
+                                               per_batch[1] * batches):
+            raise AssertionError(f"use_pallas serving: {flash_n} flash and "
+                                 f"{ln_n} LN launches for {batches} batches,"
+                                 f" expected {per_batch} a batch")
+        lengths = [len(nb[0]["yseq"]) for nb, _ in results]
+        lat = sorted(dt for _, dt in results)
+        log(f"use_pallas serving: {N_REQUESTS} requests ({audio_s:.1f} s of "
+            f"audio) in {wall:.3f} s; {batches} batches, {flash_n} "
+            f"flash_attention_fwd and {ln_n} layer_norm_residual_fwd "
+            f"launches ({per_batch[0]} and {per_batch[1]} a batch); latency "
+            f"p50 {statistics.median(lat) * 1e3:.1f} ms, max "
+            f"{lat[-1] * 1e3:.1f} ms; inverse RTF {audio_s / wall:.2f} "
+            f"[{card}]; random weights: hypothesis lengths {lengths}")
+        profile_serving(server, wavs, card, "use_pallas serving")
+    finally:
+        server.stop()
+    return flash_n, ln_n
 
 
 def run_serving(card):
@@ -917,7 +1356,7 @@ def run_serving(card):
     return launches
 
 
-# ---- phase 7: training ----
+# ---- phase 8: training ----
 
 class TimedLoader:
     """A train loader that records a CUDA event (no sync) at every batch
@@ -990,7 +1429,7 @@ def run_training(card, workdir, preset, data, captures):
     counters = {"ctc_loss_fwd": ctc_loss_fwd, "ctc_loss_bwd": ctc_loss_bwd,
                 "cif_fire": cif_fire_fwd}
     model = ts.model
-    record = (record_fire_inputs(model, captures, lambda h, u: (
+    record = (record_inputs(model, "fire", captures, lambda h, a, u: (
         f"{what}, {'train' if model.training else 'cv'} batch"))
         if cfg.model_type == "cif" else contextlib.nullcontext())
     for fn in counters.values():
@@ -1079,7 +1518,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 1
-    from tpu_asr_torch.ops import cif_fire, ctc_loss, ctc_prefix
+    from tpu_asr_torch.ops import (cif_fire, ctc_loss, ctc_prefix,
+                                   flash_attention, layernorm)
     from tpu_asr_torch.ops.cuda_build import load_all
 
     card = card_line()
@@ -1090,7 +1530,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libraries = (ctc_prefix.LIBRARY, ctc_loss.LIBRARY, cif_fire.LIBRARY)
+    libraries = (ctc_prefix.LIBRARY, ctc_loss.LIBRARY, cif_fire.LIBRARY,
+                 flash_attention.LIBRARY, layernorm.LIBRARY)
     load_all(*libraries)
     log(f"build: {', '.join(lib.name for lib in libraries)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1102,12 +1543,17 @@ def main() -> int:
     max_err, timings = check_prefix_scan(gen)
     ctc_errs, ctc_timings, ctc_library = check_ctc_loss()
     cif_err, cif_timing = check_cif_fire()
+    flash_err, lse_err, flash_timings = check_flash_attention()
+    ln_err, ln_ulps, ln_raw, ln_timings = check_layer_norm()
     check_agreement()
     check_train_agreement()
     check_cif_agreement()
+    check_pallas_agreement()
     launches = run_serving(card)
     captures = {}
     cif_serving = run_cif_serving(card, captures)
+    flash_caps, ln_caps = {}, {}
+    flash_serving, ln_serving = run_pallas_serving(card, flash_caps, ln_caps)
     t0 = time.perf_counter()
     data = synthetic_aishell()
     log(f"training: {len(data[0])} + {len(data[1])} synthetic utterances "
@@ -1118,6 +1564,8 @@ def main() -> int:
             training[preset] = run_training(card, wd, preset, data,
                                             captures)
     path_err, path_timings = check_cif_fire_on_paths(captures)
+    flash_path, ln_path, path_errs = check_flash_ln_on_paths(flash_caps,
+                                                             ln_caps)
 
     main_t = timings[(249, True)]          # 1000-frame bucket, one-pass
     kernels = [{
@@ -1187,6 +1635,44 @@ def main() -> int:
         "shape": f"{main_label}: {cif_t['shape']}",
         "other_shapes": other,
     })
+    # the main numbers: the largest call of each kernel in use_pallas
+    # serving's 1000-frame bucket, as served
+    for name, source, replaces, path_t, synthetic, n, err, extra in (
+            ("flash_attention_fwd", "flash_attention.cu",
+             "flash_attention.py:110", flash_path, flash_timings,
+             flash_serving, max(flash_err, path_errs["flash"]),
+             {"lse_max_abs_err": max(lse_err, path_errs["lse"]),
+              "library_call": "F.scaled_dot_product_attention, boolean "
+                              "attn_mask, [B, H, T, dh] inputs"}),
+            ("layer_norm_residual_fwd", "layer_norm_residual.cu",
+             "layernorm.py:79", ln_path, ln_timings, ln_serving,
+             max(ln_err, path_errs["ln"]),
+             {"bf16_ulps_at_output_scale": max(ln_ulps,
+                                               path_errs["ln_ulps"]),
+              "bf16_raw_ulps_max": max(ln_raw, path_errs["ln_raw"]),
+              "library_call": None})):
+        main_label = max(path_t, key=lambda k: (    # labels "T'=<t> ..."
+            int(k.split()[0][3:]), path_t[k]["bound_ms"]))
+        t = path_t[main_label]
+        other = {k: v for k, v in path_t.items() if k != main_label}
+        other.update({f"synthetic {k}": v for k, v in synthetic.items()})
+        kernels.append(dict({
+            "name": name,
+            "route": "cuda",
+            "source": f"tpu_asr_torch/csrc/{source}",
+            "replaces": f"tpu_asr/ops/pallas/{replaces}",
+            "launches": n,
+            "launches_by_path": {"use_pallas serving": n},
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "kernel_device_ms": t["kernel_device_ms"],
+            "shape": t["shape"],
+            "other_shapes": other,
+        }, **extra))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,149 @@
+"""Port flash attention (ops/flash_attention.py) vs
+tpu_asr.ops.pallas.flash_attention on the CPU: the plain version against
+the Pallas kernel in interpret mode (out and lse), the dispatcher's
+reading of mask biases, and the fallback against `_xla_attention`.
+
+Tolerances are those of tests/unit/test_flash_attention.py: float32
+within atol 1e-5 / rtol 1e-4, bfloat16 within 2e-2 (p is rounded to
+bf16 before the product with V, and the two sides sum in other orders);
+lse within 1e-4.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_asr.models.attention import mask_to_bias as jax_mask_to_bias
+from tpu_asr.ops.pallas.flash_attention import _fwd_impl, _xla_attention
+from tpu_asr.ops.pallas.flash_attention import \
+    flash_attention as jax_flash_attention
+from tpu_asr_torch.models.attention import mask_to_bias
+from tpu_asr_torch.ops.flash_attention import (NEG_INF, flash_attention,
+                                               flash_attention_fwd,
+                                               flash_attention_reference,
+                                               xla_attention)
+
+DTYPES = {"float32": (torch.float32, jnp.float32,
+                      dict(atol=1e-5, rtol=1e-4)),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16,
+                       dict(atol=2e-2, rtol=2e-2))}
+
+
+def _qkv(b, tq, tk, h, dh, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, tq, h, dh)).astype(np.float32),
+            rng.standard_normal((b, tk, h, dh)).astype(np.float32),
+            rng.standard_normal((b, tk, h, dh)).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    tdt, jdt, _ = DTYPES[dtype]
+    return ([torch.from_numpy(a).to(tdt) for a in arrays],
+            [jnp.asarray(a, jdt) for a in arrays])
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,tq,tk,h,dh,causal,lens", [
+    (3, 20, 20, 2, 32, False, [20, 11, 0]),      # key padding, a length-0 row
+    (2, 24, 24, 2, 32, True, [24, 24]),          # causal
+    (3, 18, 18, 2, 64, True, [18, 9, 0]),        # causal and key padding
+    (3, 1, 9, 2, 32, False, [9, 4, 0]),          # Tq = 1 (a decode step)
+    (2, 5, 600, 2, 32, False, [600, 517]),       # Tk > the 512-key tile
+])
+def test_plain_version_matches_pallas_kernel(b, tq, tk, h, dh, causal, lens,
+                                             dtype):
+    (tq_, tk_, tv_), (jq, jk, jv) = _both(_qkv(b, tq, tk, h, dh, tq + tk),
+                                          dtype)
+    valid = np.arange(tk)[None, :] < np.asarray(lens)[:, None]
+    want_out, want_lse = _fwd_impl(jq, jk, jv, jnp.asarray(valid, jnp.float32),
+                                   causal, True)
+    out, lse = flash_attention_reference(tq_, tk_, tv_,
+                                         torch.from_numpy(valid), causal)
+    assert out.dtype == DTYPES[dtype][0] and lse.shape == (b, h, tq)
+    np.testing.assert_allclose(_np(out), _np(want_out), **DTYPES[dtype][2])
+    want_lse = np.asarray(want_lse)[:, :, :tq, 0]
+    np.testing.assert_allclose(np.maximum(lse.numpy(), -1e31),
+                               np.maximum(want_lse, -1e31), atol=1e-4,
+                               rtol=1e-5)
+    dead = np.asarray(lens) == 0
+    if dead.any():         # every key masked: zeros and lse NEG_INF
+        assert not out[dead].any()
+        assert (lse[dead] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bias_kind", ["padding", "padding_broadcast",
+                                       "causal"])
+def test_dispatcher_reads_mask_biases_like_reference(bias_kind, dtype):
+    """The public function with the model's biases equals the reference's
+    public function (which picks the same masks)."""
+    b, t, h, dh = 3, 21, 2, 32
+    (tq_, tk_, tv_), (jq, jk, jv) = _both(_qkv(b, t, t, h, dh, 7), dtype)
+    if bias_kind == "causal":
+        mask = np.tril(np.ones((t, t), bool))[None, None]
+    elif bias_kind == "padding":
+        mask = (np.arange(t)[None, :] < np.array([21, 8, 0])[:, None]
+                )[:, None, None, :]
+    else:
+        mask = (np.arange(t) < 15)[None, None, None, :]
+    tdt, jdt, tol = DTYPES[dtype]
+    want = jax_flash_attention(jq, jk, jv, bias=jax_mask_to_bias(
+        jnp.asarray(mask), jdt), interpret=True)
+    got = flash_attention(tq_, tk_, tv_, mask_to_bias(torch.from_numpy(mask),
+                                                      tdt))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_other_bias_falls_back_to_xla_attention(dtype):
+    """A bias of another shape ([B, 1, Tq, Tk]) takes xla_attention, which
+    equals the reference's _xla_attention; so does xla_attention itself
+    with key padding and a causal mask."""
+    b, t, h, dh = 2, 13, 2, 32
+    (tq_, tk_, tv_), (jq, jk, jv) = _both(_qkv(b, t, t, h, dh, 3), dtype)
+    tdt, jdt, tol = DTYPES[dtype]
+    bias = np.where(np.random.default_rng(0).random((b, 1, t, t)) < 0.3,
+                    NEG_INF, 0.0).astype(np.float32)
+    want = jax_flash_attention(jq, jk, jv, bias=jnp.asarray(bias, jdt),
+                               interpret=True)
+    got = flash_attention(tq_, tk_, tv_, torch.from_numpy(bias).to(tdt))
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    valid = np.arange(t)[None, :] < np.array([13, 6])[:, None]
+    want = _xla_attention(jq, jk, jv, jnp.asarray(valid, jnp.float32), True)
+    got = xla_attention(tq_, tk_, tv_, torch.from_numpy(valid), True)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_float_kv_valid_and_defaults():
+    """kv_valid may be float (> 0.5 valid); with neither mask nor bias
+    every key is valid."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 6, 9, 2, 32, 5))
+    valid = torch.arange(9)[None, :] < torch.tensor([[9], [4]])
+    np.testing.assert_array_equal(
+        flash_attention(q, k, v, kv_valid=valid.float()).numpy(),
+        flash_attention(q, k, v, kv_valid=valid).numpy())
+    np.testing.assert_array_equal(
+        flash_attention(q, k, v).numpy(),
+        flash_attention_reference(q, k, v, torch.ones(2, 9, dtype=torch.bool)
+                                  )[0].numpy())
+
+
+def test_cpu_runs_plain_version_under_autograd_without_launching():
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(2, 5, 7, 2, 32, 9))
+    before = flash_attention_fwd.launches
+    out = flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert flash_attention_fwd.launches == before
+    assert all(torch.isfinite(g).all() for g in grads)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q.detach(), k.detach(), v.detach(),
+                            torch.ones(2, 7, dtype=torch.bool))

@@ -151,3 +151,84 @@ def test_cif_fire_kernel_matches_plain_version(b, t, d, u, top):
     wa = wa.cpu().numpy()
     np.testing.assert_allclose(ga.cpu().numpy(), wa, rtol=1e-4,
                                atol=1e-5 * np.abs(wa).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,dtype", [
+    (1, 64, torch.float32), (511, 512, torch.float32),
+    (1000, 64, torch.float32), (8080, 512, torch.bfloat16),
+    (1984, 512, torch.bfloat16), (7, 2048, torch.bfloat16),
+])
+def test_layer_norm_residual_kernel_matches_plain_version(rows, d, dtype):
+    """float32 within 1e-5; bfloat16 within one bf16 ulp of the plain
+    version at the output's scale (the float32 statistics differ in their
+    last bits and may flip a rounding; see bf16_ulp_error); mean and rstd
+    within 1e-5."""
+    from tpu_asr_torch.ops.layernorm import (bf16_ulp_error,
+                                             layer_norm_residual,
+                                             layer_norm_residual_fwd,
+                                             layer_norm_residual_reference)
+    _need_card()
+    rng = np.random.default_rng(rows + d)
+    r, h = (torch.from_numpy(rng.standard_normal((rows, d)).astype(
+        np.float32)).cuda().to(dtype) for _ in range(2))
+    g, b = (torch.from_numpy(rng.standard_normal(d).astype(
+        np.float32)).cuda() for _ in range(2))
+    before = layer_norm_residual_fwd.launches
+    out, mean, rstd = layer_norm_residual_fwd(r, h, g, b)
+    w_out, w_mean, w_rstd = layer_norm_residual_reference(r, h, g, b)
+    torch.cuda.synchronize()
+    assert layer_norm_residual_fwd.launches == before + 1
+    assert out.dtype == dtype and mean.shape == (rows,)
+    for got, want in ((mean, w_mean), (rstd, w_rstd)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out.cpu().numpy(), w_out.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        assert bf16_ulp_error(out, w_out) <= 1.0
+    with pytest.raises(NotImplementedError):
+        layer_norm_residual(r, h, g.clone().requires_grad_(True), b)
+    with pytest.raises(ValueError):
+        layer_norm_residual_fwd(r[:, :30], h[:, :30], g[:30], b[:30])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,tq,tk,h,dh,causal,dtype", [
+    (8, 248, 248, 8, 64, False, torch.bfloat16),    # encoder self
+    (80, 101, 101, 8, 64, True, torch.bfloat16),    # decoder self
+    (80, 101, 248, 8, 64, False, torch.bfloat16),   # decoder cross
+    (3, 1, 600, 2, 32, False, torch.float32),       # Tq = 1, Tk > 512
+    (3, 70, 70, 4, 128, True, torch.float32),
+    (4, 33, 600, 2, 64, False, torch.float32),
+])
+def test_flash_attention_kernel_matches_plain_version(b, tq, tk, h, dh,
+                                                      causal, dtype):
+    """Ragged key lengths with a length-0 row (zeros, lse -1e30): float32
+    within atol 1e-5 / rtol 1e-4, bfloat16 within 2e-2; lse within 1e-4."""
+    from tpu_asr_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_fwd,
+                                                   flash_attention_reference)
+    _need_card()
+    rng = np.random.default_rng(b + tq + tk)
+    q = torch.from_numpy(rng.standard_normal((b, tq, h, dh)).astype(
+        np.float32)).cuda().to(dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, tk, h, dh)).astype(
+        np.float32)).cuda().to(dtype) for _ in range(2))
+    lens = torch.from_numpy(rng.integers(1, tk + 1, b)).cuda()
+    lens[0], lens[-1] = tk, 0
+    valid = torch.arange(tk, device="cuda")[None, :] < lens[:, None]
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, valid, causal)
+    w_out, w_lse = flash_attention_reference(q, k, v, valid, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    tol = (dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               w_out.float().cpu().numpy(), **tol)
+    _close(lse, w_lse, "lse", dict(atol=1e-4, rtol=1e-5))
+    assert not out[-1].any() and (lse[-1] == -1e30).all()
+    with pytest.raises(NotImplementedError):
+        flash_attention(q.clone().requires_grad_(True), k, v, kv_valid=valid)

@@ -198,3 +198,106 @@ def test_dropout_only_in_train_mode():
         model.train()
         c, _ = model.encode(feats, flens)
     assert not torch.allclose(a, c, atol=1e-3)
+
+
+# ---- the use_pallas configuration (flash attention, fused residual+LN) ----
+
+@pytest.mark.parametrize("flags", [
+    {}, {"use_pallas": True}, {"use_pallas": True, "pallas_ctc": False},
+    {"pallas_attention": True}, {"use_pallas": True,
+                                 "pallas_layernorm": False}])
+def test_pallas_flags_resolve_like_reference(flags):
+    j, t = jax_cfg(**flags), torch_cfg(**flags)
+    for name in ("attention_pallas", "ctc_pallas", "cif_pallas",
+                 "layernorm_pallas"):
+        assert getattr(t, name) == getattr(j, name), name
+
+
+def _pallas_pair(dtype=None, **batch):
+    """The JAX model and the port with use_pallas, from the same params
+    (the reference keeps one param tree under the flag, so load_jax_params
+    needs no key added or missing)."""
+    kw = {"use_pallas": True}
+    jkw = dict(kw, **({} if dtype is None else {"dtype": jnp.bfloat16}))
+    tkw = dict(kw, **({} if dtype is None else {"dtype": torch.bfloat16}))
+    return JaxTransformer(jax_cfg(**jkw)), torch_model(**tkw)
+
+
+def _pallas_batch(b, t, u, flens, seed):
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((b, t, 80)).astype(np.float32)
+    ys = rng.integers(0, VOCAB - 2, (b, u)).astype(np.int32)
+    return feats, np.asarray(flens, np.int32), ys
+
+
+@pytest.mark.parametrize("dtype,atol", [(None, ATOL), ("bf16", 0.05)])
+def test_use_pallas_encode_and_decoder_match(dtype, atol):
+    """encode and the teacher-forced decoder logits within 1e-4 in
+    float32; in bf16 within 0.05, a few bf16 ulps at their scale (~1-4):
+    the fused forms round at the reference's places, but sums run in
+    other orders."""
+    feats, flens, ys = _pallas_batch(3, 41, 5, [41, 30, 0], 1)
+    jm, tm = _pallas_pair(dtype)
+    assert tm.cfg.attention_pallas and tm.cfg.layernorm_pallas
+    params = flax_params()
+    enc, el = jm.apply(params, jnp.asarray(feats), jnp.asarray(flens),
+                       method="encode")
+    want = jm.apply(params, enc, el, jnp.asarray(ys), method="decode_logits")
+    with torch.no_grad():
+        tenc, tel = tm.encode(torch.from_numpy(feats),
+                              torch.from_numpy(flens))
+        got = tm.decode_logits(tenc, tel, torch.from_numpy(ys).long())
+    np.testing.assert_allclose(tenc.float().numpy(),
+                               np.asarray(enc.astype(jnp.float32)),
+                               atol=atol)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol)
+
+
+def test_use_pallas_forward_loss_matches():
+    """The training objective of the use_pallas model on the CPU (plain
+    versions under autograd) equals the reference's within rtol 1e-5."""
+    feats, flens, _ = _pallas_batch(3, 61, 5, [61, 50, 0], 2)
+    rng = np.random.default_rng(2)
+    targets = np.full((3, 5), -1, np.int32)
+    tlens = np.array([5, 3, 0], np.int32)
+    for i, n in enumerate(tlens):
+        targets[i, :n] = rng.integers(2, VOCAB - 2, n)
+    jm, tm = _pallas_pair()
+    args = (feats, flens, targets, tlens)
+    want = jm.apply(flax_params(), *(jnp.asarray(a) for a in args))
+    got = tm(*(torch.from_numpy(a) for a in args))
+    for k in ("loss", "loss_att", "loss_ctc"):
+        np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    got["loss"].backward()
+    assert all(torch.isfinite(p.grad).all() for p in tm.parameters()
+               if p.grad is not None)
+
+
+def test_use_pallas_batch_straddles_the_512_row_switch(monkeypatch):
+    """bf16, 4 x 131 = 524 encoder rows (fused LN) and 4 x 5 = 20 decoder
+    rows (plain LN): both equal the reference, which switches at the same
+    row count; the fused form runs exactly at the encoder's blocks."""
+    from tpu_asr_torch.models import modules
+    feats, flens, ys = _pallas_batch(4, 527, 5, [527, 400, 300, 0], 3)
+    jm, tm = _pallas_pair("bf16")
+    calls = []
+    fused = modules.layer_norm_residual
+    monkeypatch.setattr(modules, "layer_norm_residual",
+                        lambda r, *a: calls.append(r.shape) or fused(r, *a))
+    params = flax_params()
+    enc, el = jm.apply(params, jnp.asarray(feats), jnp.asarray(flens),
+                       method="encode")
+    want = jm.apply(params, enc, el, jnp.asarray(ys), method="decode_logits")
+    with torch.no_grad():
+        tenc, tel = tm.encode(torch.from_numpy(feats),
+                              torch.from_numpy(flens))
+        got = tm.decode_logits(tenc, tel, torch.from_numpy(ys).long())
+    assert tenc.shape[:2] == (4, 131)
+    assert calls == [(4, 131, 64)] * (2 * tm.cfg.num_enc_layers)
+    np.testing.assert_allclose(tenc.float().numpy(),
+                               np.asarray(enc.astype(jnp.float32)), atol=0.05)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), atol=0.05)

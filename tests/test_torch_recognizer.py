@@ -12,18 +12,21 @@ from tpu_asr.decode.beam import BeamConfig as JaxBeam
 from tpu_asr.decode.recognizer import Recognizer as JaxRecognizer
 from tpu_asr_torch.decode.beam import BeamConfig
 from tpu_asr_torch.decode.recognizer import Recognizer
-from torch_port_util import (VOCAB, flax_params, jax_cfg, torch_cfg,
-                             torch_model, wav_batch)
+from torch_port_util import (VOCAB, cif_flax_params, cif_jax_cfg,
+                             cif_torch_cfg, cif_torch_model, flax_params,
+                             jax_cfg, torch_cfg, torch_model, wav_batch)
 
 # a short row, a longer row and a length-0 dummy row, padded to 0.6 s
 BATCH = wav_batch([9600, 6400, 3000, 0], seed=5)
 
 
-def _decode_both(mode, **beam_kw):
-    jrec = JaxRecognizer(cfg=jax_cfg(), params=flax_params(), mode=mode,
+def _decode_both(mode, use_pallas=False, **beam_kw):
+    jrec = JaxRecognizer(cfg=jax_cfg(use_pallas=use_pallas),
+                         params=flax_params(), mode=mode,
                          beam=JaxBeam(**beam_kw))
-    trec = Recognizer(torch_cfg(), torch_model(), mode=mode, device="cpu",
-                      beam=BeamConfig(**beam_kw))
+    trec = Recognizer(torch_cfg(use_pallas=use_pallas),
+                      torch_model(use_pallas=use_pallas), mode=mode,
+                      device="cpu", beam=BeamConfig(**beam_kw))
     return jrec.decode_batch_nbest(BATCH), trec.decode_batch_nbest(BATCH)
 
 
@@ -77,8 +80,38 @@ def test_feats_input_matches_wav_input():
     assert rec.decode_steps > 0
 
 
-@pytest.mark.parametrize("mode", ["attn_rescore", "ctc_beam",
-                                  "transducer_greedy", "transducer_beam"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("mode", ["ctc_beam", "attn_rescore"])
+def test_nbest_modes_match_jax(mode, use_pallas):
+    """The CTC prefix beam n-best, and that n-best rescored by one
+    teacher-forced decoder pass, with use_pallas off (attend, LayerNorm)
+    and on (flash attention, fused LN) on both sides."""
+    want, got = _decode_both(mode, use_pallas=use_pallas, beam=3, max_len=8,
+                             ctc_weight=0.3, nbest=3)
+    _assert_same(want, got)
+    assert any(h[0]["yseq"] for h in got)
+    assert got[3][0]["yseq"] == []                    # the length-0 row
+
+
+def test_cif_greedy_with_use_pallas_matches_jax():
+    """The CIF model shares the encoder layers, so use_pallas reaches its
+    encoder and its decoder's full passes; its cached steps stay on
+    attend."""
+    wavs = wav_batch([12000, 9600, 4800, 0], seed=7)
+    jrec = JaxRecognizer(cfg=cif_jax_cfg(use_pallas=True),
+                         params=cif_flax_params(), mode="cif_greedy",
+                         beam=JaxBeam(beam=1, max_len=10))
+    trec = Recognizer(cif_torch_cfg(use_pallas=True),
+                      cif_torch_model(use_pallas=True), mode="cif_greedy",
+                      device="cpu", beam=BeamConfig(beam=1, max_len=10))
+    want = jrec.decode_batch_nbest(wavs)
+    got = trec.decode_batch_nbest(wavs)
+    assert [h[0]["yseq"] for h in got] == [h[0]["yseq"] for h in want]
+    assert any(h[0]["yseq"] for h in got)
+
+
+@pytest.mark.parametrize("mode", ["transducer_greedy", "transducer_beam",
+                                  "transducer_rescore"])
 def test_unported_modes_raise(mode):
     with pytest.raises(NotImplementedError):
         Recognizer(torch_cfg(), torch_model(), mode=mode, device="cpu")
@@ -89,6 +122,16 @@ def test_mode_needs_matching_heads():
     from tpu_asr_torch.models.transformer import Transformer
     with pytest.raises(ValueError):
         Recognizer(cfg, Transformer(cfg), mode="joint", device="cpu")
+    for mode in ("ctc_beam", "attn_rescore"):
+        with pytest.raises(ValueError):
+            Recognizer(cfg, Transformer(cfg), mode=mode, device="cpu")
+    ctc = dataclasses.replace(torch_cfg(), model_type="ctc")
+    with pytest.raises(ValueError):
+        Recognizer(ctc, Transformer(ctc), mode="attn_rescore", device="cpu")
+    for mode in ("ctc_beam", "attn_rescore"):
+        with pytest.raises(NotImplementedError):
+            Recognizer(torch_cfg(), torch_model(), mode=mode, device="cpu",
+                       beam=BeamConfig(lm_weight=0.5)).decode_batch(BATCH)
     with pytest.raises(NotImplementedError):
         Recognizer(torch_cfg(), torch_model(), mode="beam", device="cpu",
                    beam=BeamConfig(lm_weight=0.5)).decode_batch(BATCH)

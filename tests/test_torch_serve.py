@@ -107,3 +107,63 @@ def test_cli_builds_cpu_server():
     srv = build_server(args)
     assert srv.rec.mode == "joint" and srv.rec.cfg.d_model == 64
     srv.warmup(kinds=("wav",))
+
+
+def test_cli_serves_attn_rescore_over_http():
+    """--mode attn_rescore on the CPU answers /recognize with the decode
+    of its Recognizer; --ctc-weight reaches the rescoring."""
+    from tpu_asr_torch.serve import build_server
+    args = parse_args(["--random-init", "--seed", "1", "--preset",
+                       "hybrid_dev", "--device", "cpu", "--mode",
+                       "attn_rescore", "--beam", "3", "--ctc-weight", "0.4",
+                       "--bucket-frames", "64", "--batch-size", "2",
+                       "--max-len", "6"])
+    srv = build_server(args)
+    assert srv.rec.mode == "attn_rescore"
+    assert srv.rec.beam.ctc_weight == 0.4
+    srv.warmup(kinds=("wav",))
+    srv.start()
+    httpd = make_http_server("127.0.0.1", 0, srv)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        wav = wav_batch([8000], seed=3)["wav"][0]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/recognize",
+            data=json.dumps({"wav": wav.tolist(), "nbest": 2}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200
+            body = json.loads(r.read())
+        want = _direct(srv.rec, wav, 64)
+        assert body["tokens"] == want[0]["yseq"]
+        assert [h["tokens"] for h in body["nbest"]] == \
+            [h["yseq"] for h in want[:2]]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        srv.stop()
+
+
+def test_ckpt_carries_use_pallas_to_the_server(tmp_path):
+    """A checkpoint whose model_config.json sets use_pallas serves the
+    fused forms (no CLI flag: the config carries it, as in tpu_asr);
+    its decode equals a Recognizer built on that model directly."""
+    from tpu_asr_torch.serve import build_server
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    cfg = torch_cfg(use_pallas=True)
+    model = torch_model(use_pallas=True)
+    ck = Checkpointer(str(tmp_path))
+    ck.save_config(cfg)
+    ck.save({"model": model.state_dict()}, step=1, is_best=True)
+    srv = build_server(parse_args([
+        "--ckpt", str(tmp_path), "--device", "cpu", "--mode", "attn_rescore",
+        "--beam", "2", "--max-len", "6", "--bucket-frames", "64",
+        "--batch-size", "2"]))
+    assert srv.rec.cfg.attention_pallas and srv.rec.cfg.layernorm_pallas
+    assert srv.rec.model.encoder.layers[0].slf_attn.use_pallas
+    wav = wav_batch([8000], seed=4)["wav"][0]
+    direct = Recognizer(cfg, model, mode="attn_rescore", device="cpu",
+                        beam=BeamConfig(beam=2, max_len=6, ctc_weight=0.3,
+                                        nbest=2))
+    assert _direct(srv.rec, wav, 64) == _direct(direct, wav, 64)

@@ -52,16 +52,14 @@ PRESETS: dict[str, TrainConfig] = {
         epochs=30, warmup_steps=100, lr_k=1.0, batch_frames=8000,
         num_buckets=2, decode_mode="joint",
         beam=BeamConfig(beam=5, max_len=24, ctc_weight=0.3)),
-    # full-scale AISHELL hybrid model (the flagship the bench measures);
-    # the reference preset decodes with attn_rescore by default, which is
-    # not ported yet — the port serves it in joint mode.
+    # full-scale AISHELL hybrid model (the flagship the bench measures)
     "aishell": TrainConfig(
         model=dataclasses.replace(_BASE, model_type="hybrid",
                                   ctc_weight=0.3, dtype=torch.bfloat16,
                                   conv_channels=(32, 128), pallas_ctc=True),
         epochs=80, batch_frames=32000, num_buckets=6,
         specaug=SpecAugmentConfig(),
-        decode_mode="joint",
+        decode_mode="attn_rescore",
         beam=BeamConfig(beam=10, max_len=100, ctc_weight=0.3)),
     # CPU-runnable CIF slice (tests, demos)
     "cif_dev": TrainConfig(

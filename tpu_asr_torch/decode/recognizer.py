@@ -1,11 +1,13 @@
 """High-level batched recognizer: padded batches -> hypothesis tokens
 (port of tpu_asr/decode/recognizer.py).
 
-Ported modes: greedy_ctc, joint (CTC/attention beam) and beam (the same
-loop with ctc_weight = 0) for the Transformer families, cif_greedy and
-cif_beam for the CIF model. The reference's other modes (ctc_beam,
-attn_rescore, transducer_*) and LM fusion are not ported yet and raise
-NotImplementedError.
+Ported modes: greedy_ctc and ctc_beam (CTC prefix beam search) for the
+models with a CTC head, joint (CTC/attention beam) and beam (the same
+loop with ctc_weight = 0) for those with an attention decoder,
+attn_rescore (the CTC n-best rescored by one teacher-forced decoder
+pass) for the hybrid model, cif_greedy and cif_beam for the CIF model.
+The reference's transducer_* modes and LM fusion are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,16 +19,19 @@ import torch
 
 from tpu_asr_torch.decode.beam import BeamConfig, attention_beam_search
 from tpu_asr_torch.decode.cif_decode import cif_beam_decode, cif_greedy_decode
+from tpu_asr_torch.decode.ctc_beam import ctc_prefix_beam_search
 from tpu_asr_torch.decode.greedy_ctc import ctc_greedy_decode
+from tpu_asr_torch.decode.rescore import attention_rescore
 from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
 from tpu_asr_torch.models.cif import CifModel
 from tpu_asr_torch.models.transformer import Transformer
 from tpu_asr_torch.utils.device import resolve_device
 from tpu_asr_torch.weights import cast_for_inference
 
-PORTED_MODES = ("greedy_ctc", "beam", "joint", "cif_greedy", "cif_beam")
-REFERENCE_MODES = ("ctc_beam", "attn_rescore", "transducer_greedy",
-                   "transducer_beam", "transducer_rescore")
+PORTED_MODES = ("greedy_ctc", "ctc_beam", "beam", "joint", "attn_rescore",
+                "cif_greedy", "cif_beam")
+REFERENCE_MODES = ("transducer_greedy", "transducer_beam",
+                   "transducer_rescore")
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
@@ -54,7 +59,7 @@ class Recognizer:
     cfg: object
     model: Transformer | CifModel
     beam: BeamConfig = BeamConfig()
-    mode: str = "beam"   # greedy_ctc | beam | joint | cif_greedy | cif_beam
+    mode: str = "beam"   # one of PORTED_MODES
     frontend: FrontendConfig = FrontendConfig()
     device: str | torch.device | None = None
     # CIF fire-time alphas: True = scaled to the rounded fire count (the
@@ -69,10 +74,13 @@ class Recognizer:
         if self.mode not in PORTED_MODES:
             raise ValueError(f"unknown decode mode {self.mode!r}")
         mt = self.cfg.model_type
-        if self.mode in ("greedy_ctc", "joint") and mt not in ("ctc",
-                                                               "hybrid"):
+        if self.mode in ("greedy_ctc", "ctc_beam", "joint") and \
+                mt not in ("ctc", "hybrid"):
             raise ValueError(f"mode {self.mode} needs a CTC head "
                              f"(model_type={mt})")
+        if self.mode == "attn_rescore" and mt != "hybrid":
+            raise ValueError(f"mode attn_rescore needs a CTC head and a "
+                             f"decoder (model_type={mt})")
         if self.mode in ("beam", "joint") and mt not in ("transformer",
                                                          "hybrid"):
             raise ValueError(f"mode {self.mode} needs an attention decoder "
@@ -120,6 +128,23 @@ class Recognizer:
         self.decode_steps += out["steps"]
         return out["tokens"], out["lengths"], out["scores"]
 
+    def _ctc_beam(self, feats, flens):
+        enc_out, el = self.model.encode(feats, flens)
+        logits = self.model.ctc_logits(enc_out)
+        return ctc_prefix_beam_search(
+            logits, el, beam=self.beam.beam,
+            max_len=min(self.beam.max_len, logits.shape[1]),
+            lm_weight=self.beam.lm_weight)
+
+    def _attn_rescore(self, feats, flens):
+        enc_out, el = self.model.encode(feats, flens)
+        out = attention_rescore(
+            self.model.decoder, enc_out, el, self.model.ctc_logits(enc_out),
+            self.cfg.vocab_size - 2, self.cfg.vocab_size - 1,
+            beam=self.beam.beam, max_len=self.beam.max_len,
+            ctc_weight=self.beam.ctc_weight, lm_weight=self.beam.lm_weight)
+        return out["tokens"], out["lengths"], out["scores"]
+
     def _cif(self, feats, flens):
         if self.mode == "cif_beam":
             toks, lens, steps = cif_beam_decode(
@@ -151,7 +176,9 @@ class Recognizer:
         if isinstance(self.model, CifModel):   # no times or confidences
             return self._finalize("greedy", _to_host(
                 *self._cif(feats, flens)) + [None, None])
-        return self._finalize("beam", _to_host(*self._beam(feats, flens)))
+        run = {"ctc_beam": self._ctc_beam,
+               "attn_rescore": self._attn_rescore}.get(self.mode, self._beam)
+        return self._finalize("beam", _to_host(*run(feats, flens)))
 
     def _finalize(self, kind: str, fetched) -> list[list[dict]]:
         """Host post-processing -> per-utterance n-best; eos and pads

@@ -6,6 +6,10 @@ additive bias (NEG_INF = -1e30, never -inf): a length-0 dummy row, which
 the server pads its static batches with, then softmaxes to a uniform row
 instead of NaN. Softmax runs in float32 and is cast back to the compute
 dtype, as in the reference.
+
+With use_pallas (the config's `attention_pallas`), the full passes take
+the flash formulation (ops/flash_attention.py); cached decode steps
+always take `attend`, as in the reference.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 from torch import nn
 
 from tpu_asr_torch.models.modules import Dense
+from tpu_asr_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -36,11 +41,12 @@ def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, num_heads: int, d_model: int, dtype=torch.float32,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, use_pallas: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.d_head = d_model // num_heads
         self.compute_dtype = dtype
+        self.use_pallas = use_pallas
         dense = lambda: Dense(d_model, d_model, dtype=dtype,     # noqa: E731
                               param_dtype=param_dtype)
         self.q_proj = dense()
@@ -57,6 +63,8 @@ class MultiHeadAttention(nn.Module):
     def forward(self, q_in, kv_in, bias=None):
         q = self._heads(self.q_proj(q_in))
         k, v = self.project_kv(kv_in)
+        if self.use_pallas:
+            return self._merge(flash_attention(q, k, v, bias))
         return self._merge(attend(q, k, v, bias, dtype=self.compute_dtype))
 
     def project_kv(self, kv_in):

@@ -12,7 +12,10 @@ L = att + cif_quantity_weight * qty + ctc_weight * ctc.
 
 Firing always goes through ops.cif_fire.cif_fire_kernel (the CUDA kernel
 on the card, its plain version on the CPU), and the CTC branch through
-ops.ctc_loss.ctc_loss_kernel.
+ops.ctc_loss.ctc_loss_kernel. The encoder and the decoder share
+EncoderLayer, so with use_pallas their full passes take flash attention
+and the fused residual+LayerNorm as the hybrid model's do; the decoder's
+cached steps stay on attend.
 """
 
 from __future__ import annotations

@@ -2,10 +2,19 @@
 
 Same field names and defaults as the JAX ModelConfig, so a config
 round-trips between the two packages. `dtype`/`param_dtype` are torch
-dtypes. The `use_pallas`/`pallas_*` flags are kept only so configs
-round-trip: the port picks its kernel by the device of the tensors (the
-CUDA kernel on a card, the plain PyTorch version on the CPU) and reads
-none of them.
+dtypes.
+
+`use_pallas` is the master switch and the per-op `pallas_*` flags
+override it (None = follow the master), resolved as the reference
+resolves them. `attention_pallas` and `layernorm_pallas` choose the
+*formulation* of attention and of the post-norm LayerNorm: the fused
+forms (flash attention, LN(residual + h) with a float32 add) differ from
+the plain ones in bf16 and on rows whose keys are all masked. Which
+implementation of a formulation runs is still chosen by the device of
+the tensors: the CUDA kernel on a card, its plain PyTorch version on the
+CPU. `ctc_pallas` and `cif_pallas` are resolved but not read: the CTC
+loss and the CIF fire always go through their kernel dispatchers, since
+the two forms of each agree.
 """
 
 from __future__ import annotations
@@ -45,12 +54,31 @@ class ModelConfig:
     # numerics
     dtype: torch.dtype = torch.float32        # compute dtype
     param_dtype: torch.dtype = torch.float32
-    # kept for round-tripping only (see module docstring)
+    # fused formulations (see module docstring)
     use_pallas: bool = False
     pallas_attention: bool | None = None
     pallas_ctc: bool | None = None
     pallas_cif: bool | None = None
     pallas_layernorm: bool | None = None
+
+    def _resolve(self, flag):
+        return self.use_pallas if flag is None else flag
+
+    @property
+    def attention_pallas(self) -> bool:
+        return self._resolve(self.pallas_attention)
+
+    @property
+    def ctc_pallas(self) -> bool:
+        return self._resolve(self.pallas_ctc)
+
+    @property
+    def cif_pallas(self) -> bool:
+        return self._resolve(self.pallas_cif)
+
+    @property
+    def layernorm_pallas(self) -> bool:
+        return self._resolve(self.pallas_layernorm)
 
     @property
     def d_head(self) -> int:

@@ -28,13 +28,15 @@ class DecoderLayer(nn.Module):
     def __init__(self, c: ModelConfig):
         super().__init__()
         mha = lambda: MultiHeadAttention(c.num_heads, c.d_model,  # noqa: E731
-                                         c.dtype, c.param_dtype)
+                                         c.dtype, c.param_dtype,
+                                         c.attention_pallas)
         self.slf_attn = mha()
         self.crs_attn = mha()
         self.ffn = PositionwiseFeedForward(c.d_model, c.d_inner, c.dropout,
                                            c.dtype, c.param_dtype)
         post = lambda: PostNormBlock(c.d_model, c.dropout,  # noqa: E731
-                                     c.dtype, c.param_dtype)
+                                     c.dtype, c.param_dtype,
+                                     c.layernorm_pallas)
         self.post_slf = post()
         self.post_crs = post()
         self.post_ffn = post()

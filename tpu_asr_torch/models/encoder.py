@@ -22,13 +22,13 @@ class EncoderLayer(nn.Module):
     def __init__(self, c: ModelConfig):
         super().__init__()
         self.slf_attn = MultiHeadAttention(c.num_heads, c.d_model, c.dtype,
-                                           c.param_dtype)
+                                           c.param_dtype, c.attention_pallas)
         self.ffn = PositionwiseFeedForward(c.d_model, c.d_inner, c.dropout,
                                            c.dtype, c.param_dtype)
         self.post_attn = PostNormBlock(c.d_model, c.dropout, c.dtype,
-                                       c.param_dtype)
+                                       c.param_dtype, c.layernorm_pallas)
         self.post_ffn = PostNormBlock(c.d_model, c.dropout, c.dtype,
-                                      c.param_dtype)
+                                      c.param_dtype, c.layernorm_pallas)
 
     def forward(self, x, bias):
         x = self.post_attn(x, self.slf_attn(x, x, bias))

@@ -3,7 +3,9 @@
 `Dense` and `LayerNorm` reproduce flax's numerics: a Dense casts its
 input and weights to the compute dtype; a LayerNorm takes its statistics
 in float32 with flax's eps of 1e-6 (torch's default is 1e-5) and casts
-the result back to the compute dtype.
+the result back to the compute dtype. `PostNormBlock(use_pallas=True)`
+takes the fused residual+LayerNorm (ops/layernorm.py) on calls of at
+least 512 rows, as the reference does.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_asr_torch.ops.layernorm import layer_norm_residual
+
 LN_EPS = 1e-6   # flax nn.LayerNorm default
+FUSED_LN_MIN_ROWS = 512   # the reference's switch (smaller: decode steps)
 
 
 def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
@@ -86,13 +91,26 @@ class PositionwiseFeedForward(nn.Module):
 
 class PostNormBlock(nn.Module):
     """residual + dropout + LayerNorm (post-norm, reference convention):
-    LN(residual + dropout(sublayer_out))."""
+    LN(residual + dropout(sublayer_out)).
+
+    With use_pallas, a call of at least FUSED_LN_MIN_ROWS rows takes the
+    fused form (the add in float32, output in residual's dtype); smaller
+    calls (decode steps) and use_pallas=False add in the compute dtype and
+    normalize with LayerNorm. The parameters are `norm.weight/bias` either
+    way, as the reference keeps its tree under the flag."""
 
     def __init__(self, d_model: int, dropout: float = 0.1,
-                 dtype=torch.float32, param_dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 use_pallas: bool = False):
         super().__init__()
         self.dropout = nn.Dropout(dropout)
         self.norm = LayerNorm(d_model, dtype, param_dtype)
+        self.use_pallas = use_pallas
 
     def forward(self, residual, sublayer_out):
-        return self.norm(residual + self.dropout(sublayer_out))
+        h = self.dropout(sublayer_out)
+        if self.use_pallas and \
+                residual.numel() // residual.shape[-1] >= FUSED_LN_MIN_ROWS:
+            return layer_norm_residual(residual, h, self.norm.weight,
+                                       self.norm.bias, LN_EPS)
+        return self.norm(residual + h)

@@ -1,0 +1,167 @@
+"""Flash attention forward through a hand-written CUDA kernel (port of
+tpu_asr/ops/pallas/flash_attention.py, the forward).
+
+q [B, Tq, H, dh], k/v [B, Tk, H, dh] -> out [B, Tq, H, dh], the layout of
+the reference's public function. The flash formulation differs from
+models.attention.attend, and the model picks it with `attention_pallas`:
+the scores are a float32 dot scaled afterwards (attend scales in the
+compute dtype), p is rounded to the input dtype before the product with
+V, and a row whose keys are all masked gives 0 (attend gives the uniform
+average).
+
+`flash_attention` reads the reference's two mask biases (key padding,
+causal) and falls back to `xla_attention`, the reference's
+`_xla_attention`, for any other bias. On CUDA tensors it launches
+csrc/flash_attention.cu (counted in `flash_attention_fwd.launches`) or
+raises; on CPU tensors it runs the plain version. The kernel's backward
+(dq and dk/dv) is the next slice of the port: on CUDA tensors that need
+a gradient the dispatcher raises NotImplementedError instead of running
+the plain version quietly. On the CPU the plain version runs under
+autograd.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpu_asr_torch.ops.cuda_build import KernelLibrary, check_tensor
+
+LIBRARY = KernelLibrary("flash_attention")
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+MAX_GRID = 65535       # grid y (heads) and z (batch) extents
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _mask(kv_valid: torch.Tensor, causal: bool, tq: int) -> torch.Tensor:
+    """[B, 1, Tq|1, Tk] boolean: True where query i may attend key j."""
+    mask = kv_valid[:, None, None, :]
+    if causal:
+        tk = kv_valid.shape[1]
+        rows = torch.arange(tq, device=kv_valid.device)[:, None]
+        cols = torch.arange(tk, device=kv_valid.device)[None, :]
+        mask = mask & (rows >= cols)
+    return mask
+
+
+def flash_attention_reference(q, k, v, kv_valid: torch.Tensor,
+                              causal: bool = False):
+    """Plain version of the kernel: (out [B, Tq, H, dh] in q's dtype,
+    lse [B, H, Tq] float32). kv_valid [B, Tk] boolean."""
+    dh = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        1.0 / dh ** 0.5)
+    s = torch.where(_mask(kv_valid, causal, q.shape[1]), s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)                       # [B, H, Tq, 1]
+    p = torch.where(s <= NEG_INF / 2, 0.0,
+                    torch.exp(s - m.clamp(min=NEG_INF / 2)))
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = (pv / l.permute(0, 2, 1, 3)).to(q.dtype)
+    lse = torch.where(m <= NEG_INF / 2, NEG_INF, m + torch.log(l))
+    return out, lse[..., 0]
+
+
+def xla_attention(q, k, v, kv_valid: torch.Tensor, causal: bool = False):
+    """The reference's fallback (`_xla_attention`): float32 scores divided
+    by sqrt(dh), a where-mask, float32 softmax into the product with V."""
+    dh = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / dh ** 0.5
+    s = torch.where(_mask(kv_valid, causal, q.shape[1]), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _bind(lib: ctypes.CDLL):
+    if lib.flash_attention_fwd_launch.argtypes is None:
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.flash_attention_fwd_launch.argtypes = (
+            [p] * 6 + [i] * 5 + [i64] * 9 + [ctypes.c_float, i, i, p])
+        lib.flash_attention_fwd_launch.restype = i
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_fwd(q, k, v, kv_valid: torch.Tensor,
+                        causal: bool = False):
+    """The kernel on CUDA tensors: (out, lse) as the plain version gives
+    them. q/k/v one of float32, bfloat16, with dh in HEAD_DIMS and the head
+    axis contiguous (any batch, time and head strides); kv_valid [B, Tk]
+    boolean. Launches on the current stream."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for device {q.device}")
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel needs dh in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if b > MAX_GRID or h > MAX_GRID:
+        raise ValueError(f"flash attention kernel needs B and H <= "
+                         f"{MAX_GRID}, got {b}, {h}")
+    dev, dt = q.device, q.dtype
+    checked = []
+    for name, x, t in (("q", q, tq), ("k", k, tk), ("v", v, tk)):
+        if tuple(x.shape) != (b, t, h, dh) or x.dtype != dt or \
+                x.device != dev:
+            raise ValueError(f"{name} must be a {dt} tensor of shape "
+                             f"{(b, t, h, dh)} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        checked.append(x if x.stride(-1) == 1 else x.contiguous())
+    q, k, v = checked
+    valid = kv_valid.to(torch.bool).contiguous().view(torch.uint8)
+    check_tensor("kv_valid", valid, (b, tk), torch.uint8, dev)
+    out = torch.empty((b, tq, h, dh), dtype=dt, device=dev)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
+    lib = _bind(LIBRARY.load())
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, tq, tk, h, dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            1.0 / dh ** 0.5, int(causal), DTYPES[dt],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash attention launch failed: {msg} ({err})")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0   # kernel launches (not CPU calls)
+
+
+def flash_attention(q, k, v, bias=None, kv_valid=None, causal=False):
+    """q [B, Tq, H, dh], k/v [B, Tk, H, dh] -> [B, Tq, H, dh].
+
+    kv_valid [B, Tk] (bool or float, > 0.5 = valid) and/or causal. A
+    `bias` [B|1, 1, 1, Tk] is read as a key-padding mask (entries above
+    NEG_INF / 2 valid), a [1, 1, Tk, Tk] bias as the causal mask; any
+    other bias takes xla_attention."""
+    b, tk = k.shape[0], k.shape[1]
+    ones = lambda: torch.ones((b, tk), dtype=torch.bool,  # noqa: E731
+                              device=k.device)
+    if bias is not None:
+        if bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1:
+            kv_valid = (bias[:, 0, 0, :] > NEG_INF / 2).expand(b, tk)
+        elif (bias.ndim == 4 and bias.shape[0] == 1 and bias.shape[1] == 1
+              and bias.shape[2] == bias.shape[3] == tk):
+            causal, kv_valid = True, ones()
+        else:
+            return xla_attention(q, k, v, ones(), causal)
+    if kv_valid is None:
+        kv_valid = ones()
+    elif kv_valid.dtype != torch.bool:
+        kv_valid = kv_valid > 0.5
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, kv_valid, causal)[0]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "the flash attention kernel's backward is not ported yet (the "
+            "use_pallas training slice); train with pallas_attention=False")
+    return flash_attention_fwd(q, k, v, kv_valid, causal)[0]

@@ -17,7 +17,8 @@ Run as a module to serve over HTTP:
 
   python -m tpu_asr_torch.serve --random-init --seed 0 --mode joint \\
       --beam 5 --bucket-frames 512,1000 --batch-size 8 --port 8080
-  python -m tpu_asr_torch.serve --ckpt exp/aishell --mode joint --beam 10
+  python -m tpu_asr_torch.serve --ckpt exp/aishell --mode attn_rescore \\
+      --beam 10
   python -m tpu_asr_torch.serve --random-init --preset cif --mode cif_greedy
 """
 
@@ -312,8 +313,8 @@ def parse_args(argv=None):
                    help="model preset (aishell | hybrid_dev | cif | "
                         "cif_dev); not read with --ckpt")
     p.add_argument("--mode", default=None,
-                   choices=["greedy_ctc", "beam", "joint", "cif_greedy",
-                            "cif_beam"],
+                   choices=["greedy_ctc", "ctc_beam", "beam", "joint",
+                            "attn_rescore", "cif_greedy", "cif_beam"],
                    help="default: by model type (hybrid -> joint, "
                         "transformer -> beam, ctc -> greedy_ctc, cif -> "
                         "cif_greedy)")
@@ -363,8 +364,8 @@ def build_server(args) -> AsrServer:
         cfg, model, mode=mode, device=device, frontend=frontend,
         beam=BeamConfig(beam=args.beam, max_len=args.max_len,
                         nbest=args.beam,   # requests slice their own nbest
-                        ctc_weight=args.ctc_weight if mode == "joint"
-                        else 0.0))
+                        ctc_weight=args.ctc_weight
+                        if mode in ("joint", "attn_rescore") else 0.0))
     buckets = tuple(int(x) for x in args.bucket_frames.split(","))
     return AsrServer(rec, bucket_frames=buckets, batch_size=args.batch_size,
                      window_ms=args.window_ms, device=device)
