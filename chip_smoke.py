@@ -20,14 +20,24 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      lengths with a length-0 row, Tk >= 600, float32 and bfloat16; timed
      beside F.scaled_dot_product_attention with the same boolean mask as a
      yardstick) and layer_norm_residual_fwd (the served row counts, 1 to
-     8080 rows, D 64 to 2048).
+     8080 rows, D 64 to 2048). The backward kernels of use_pallas
+     training against the plain backward: flash_attention_bwd_dq and
+     flash_attention_bwd_dkv (csrc/flash_attention_bwd.cu) at the training
+     shapes (encoder self [32, 249], decoder causal [32, 25], cross
+     [32, 25] x [32, 249], h8 dh64 bf16; timed beside torch.autograd.grad
+     of F.scaled_dot_product_attention) and at ragged ones, and
+     layer_norm_residual_bwd at 7968 and 800 rows x 512 (timed beside
+     aten.native_layer_norm_backward) and 1 to 8080 rows, D 64 to 2048.
   4. agreement: a small hybrid model decodes the same batch on the card and
      on the CPU (plain versions), tokens equal; and takes two train steps
      from the same init on one batch on both: losses of both steps within
      1e-4, step 1's grad norms within 1e-3 relative, and >= 99% of the
-     entries of step 1's update within 0.1 lr. A small CIF model (cif_dev)
+     entries of step 1's update within 0.1 lr; the same with use_pallas
+     on a batch of >= 512 encoder and decoder rows, where the flash and
+     LN kernels run forward and backward. A small CIF model (cif_dev)
      likewise: cif_greedy and cif_beam tokens equal, one train step's
-     losses within 1e-4 and grad norm within 1e-3 relative. The small
+     losses within 1e-4 and grad norm within 1e-3 relative, without and
+     with use_pallas. The small
      hybrid model with use_pallas in attn_rescore and ctc_beam: tokens
      equal on the card (flash attention and fused LN kernels) and on the
      CPU.
@@ -57,14 +67,20 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      torch.profiler; 20 steps at the fixed shape feats [32, 1000, 80],
      U = 24; the epoch checkpoint restores to equal parameters. Then the
      same for the cif preset (16000-frame batches, no SpecAugment), where
-     cif_fire also launches once per train step and cv batch.
+     cif_fire also launches once per train step and cv batch; and for the
+     aishell preset with use_pallas (build_solver's model_overrides),
+     where per train step the flash forward, dq and dk/dv kernels launch
+     once per full-pass attention (18; the forward also per cv batch) and
+     the LN forward and backward once per post-norm call of >= 512 rows.
   9. kernels on the main paths' inputs: cif_fire on the first batch of
      each CIF serving bucket and the first CIF train and cv batch, as
      model.fire received them, against the plain version, timed beside one
      torch.bmm on a materialized weight matrix (training's also checks the
      gradients); flash_attention_fwd and layer_norm_residual_fwd on the
      first inputs of each kind in each bucket of phase 7, as the kernels
-     received them, against their plain versions, timed.
+     received them, against their plain versions, timed; the backward
+     kernels likewise on the first train batch of each bucket of the
+     use_pallas training, as the Functions' backward received them.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -96,6 +112,7 @@ TOL = dict(atol=1e-4, rtol=1e-5)
 CTC_GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 CIF_TOL = dict(atol=1e-5, rtol=1e-5)
 F32_TOL = dict(atol=1e-5, rtol=1e-5)     # flash and LN kernels, float32
+F32_GRAD_TOL = dict(atol=1e-5, rtol=1e-4)  # their backward kernels
 FLASH_BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 MIN_TRAIN_STEPS = 20
@@ -117,9 +134,12 @@ def card_line() -> str:
 
 
 def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
-    """Mean device time per fn() call of the kernels whose name contains
-    `name` (torch.profiler): the kernel alone, without the wrapper's other
-    launches and host time."""
+    """Mean device time of one launch of the kernel whose name contains
+    `name` (torch.profiler; fn() launches it once): the kernel alone,
+    without the wrapper's other launches and host time. The mean is over
+    the launches the trace holds, not over `reps`: late in a long run the
+    trace came back with some of them missing (a flash backward kernel
+    read 0.27 ms by reps and 0.59 ms alone in a fresh process)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -128,9 +148,14 @@ def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and name in e.key)
-    return total_us / 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in events)
+    if not count:
+        raise AssertionError(f"the profiler saw no launch of {name}")
+    if count != reps:
+        log(f"profiler: {count} of {reps} launches of {name} traced")
+    return sum(e.self_device_time_total for e in events) / 1e3 / count
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -847,6 +872,369 @@ def check_flash_ln_on_paths(flash_caps, ln_caps):
     return flash_t, ln_t, errs
 
 
+# ---- phase 3: the backward kernels (flash dq, dk/dv; LN) ----
+
+def cosine(a, b) -> float:
+    """Cosine similarity of two tensors as flat float64 vectors: how a
+    library call's gradient is held to the plain one. Gradients of real
+    inputs are sums that cancel (a softmax row's ds sums to 0), where the
+    library's other rounding points move small entries by a large part of
+    their size, but not the vector's direction."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp(min=1e-300))
+
+
+def flash_bwd_bound_ms(q, k, valid, causal, which):
+    """Least time for the same work on an H100. Bytes: q, k, v, dO, lse,
+    delta and valid read once; dq (which="dq") or dk and dv ("dkv")
+    written once. Operations per (query, key, head) that this data's mask
+    lets through: s, dp and ds K (6 dh flops) for dq; s, dp, p^T dO and
+    ds^T q (8 dh) for dk/dv; at the bf16 tensor-core rate for bf16
+    inputs, the float32 rate otherwise."""
+    from tpu_asr_torch.ops.flash_attention import _mask
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
+    pairs = int(_mask(valid, causal, tq).expand(b, 1, tq, tk).sum()) * h
+    e = q.element_size()
+    read = e * h * dh * (2 * b * tq + 2 * b * tk) + 8 * b * h * tq + b * tk
+    written = e * h * dh * (b * tq if which == "dq" else 2 * b * tk)
+    flops = (6 if which == "dq" else 8) * dh * pairs
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    bytes_ms = (read + written) / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / rate * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def flash_bwd_inputs(q, k, v, valid, causal, seed):
+    """What FlashAttentionFunction's backward receives: the forward
+    kernel's out and lse, and an output gradient dO (seeded)."""
+    from tpu_asr_torch.ops.flash_attention import flash_attention_fwd
+    out, lse = flash_attention_fwd(q, k, v, valid, causal)
+    g = torch.Generator().manual_seed(seed)
+    dout = torch.randn(q.shape, generator=g).to(DEVICE, q.dtype)
+    return out, dout, lse
+
+
+def compare_flash_bwd(q, k, v, out, dout, lse, valid, causal, what):
+    """dq, dk, dv of the kernels against the plain backward: float32
+    within atol 1e-5 / rtol 1e-4, bf16 within one bf16 ulp at the
+    gradient's scale (the ulp of its largest magnitude: ds and p are
+    rounded to bf16 before their products on both sides, and where the
+    two float32 scores differ in their last bit such a rounding may flip,
+    moving a sum by an ulp of one term); a query row whose keys are all
+    masked and a masked key get exactly 0. -> {name: (max abs err, bf16
+    ulps at the gradient's scale)}."""
+    from tpu_asr_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference)
+    from tpu_asr_torch.ops.layernorm import bf16_ulp_error
+    got = flash_attention_bwd(q, k, v, out, dout, lse, valid, causal)
+    want = flash_attention_bwd_reference(q, k, v, out, dout, lse, valid,
+                                         causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"flash {name} at {what}: {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        ulps = 0.0
+        if q.dtype == torch.float32:
+            ok = torch.allclose(g, w, **F32_GRAD_TOL)
+        else:
+            ulps = bf16_ulp_error(g, w, floor=1.0)
+            ok = ulps <= 1.0
+        err = (g.float() - w.float()).abs().max().item()
+        if not ok:
+            raise AssertionError(f"flash {name} at {what}: kernel disagrees "
+                                 f"with the plain backward (max abs diff "
+                                 f"{err}, {ulps:.2f} bf16 ulps)")
+        errs[name] = (err, ulps)
+    dead = ~valid.any(dim=1)
+    if got[0][dead].any() or got[1][~valid].any() or got[2][~valid].any():
+        raise AssertionError(f"flash backward at {what}: a masked row or "
+                             f"key has a nonzero gradient")
+    return errs
+
+
+def time_flash_bwd(q, k, v, out, dout, lse, valid, causal, what):
+    """The backward kernels' times at one shape: each wrapper (CUDA
+    events), each kernel alone (profiler), the whole backward (delta and
+    both kernels), the plain backward, and one torch.autograd.grad of
+    F.scaled_dot_product_attention with the same boolean mask on
+    [B, H, T, dh] copies, its forward outside the timed region (a
+    yardstick the port never calls; its dq is checked against the plain
+    version on the rows with a valid key, by cosine); the bounds from
+    these inputs. -> {"dq": times, "dkv": times}."""
+    import torch.nn.functional as F
+    from tpu_asr_torch.ops.flash_attention import (
+        _mask, flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_reference,
+        flash_attention_delta)
+    delta = flash_attention_delta(out, dout).contiguous()
+    want = flash_attention_bwd_reference(q, k, v, out, dout, lse, valid,
+                                         causal)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+    mask = _mask(valid, causal, q.shape[1])
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    lib_dq = library()[0].transpose(1, 2)
+    b, tq, _, _ = q.shape
+    live = mask.expand(b, 1, tq, k.shape[1]).any(dim=-1)[:, 0]   # [B, Tq]
+    lib_err = (lib_dq[live].float() - want[0][live].float()).abs().max()
+    cos = cosine(lib_dq[live], want[0][live])
+    if not cos >= 0.99:
+        raise AssertionError(f"scaled_dot_product_attention's dq disagrees "
+                             f"with the plain backward at {what}: cosine "
+                             f"{cos}, max abs diff {lib_err}")
+    library_ms = cuda_ms(library)
+    plain = cuda_ms(lambda: flash_attention_bwd_reference(
+        q, k, v, out, dout, lse, valid, causal))
+    whole = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse,
+                                              valid, causal))
+    times = {}
+    for which, fn in (
+            ("dq", lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                                  valid, causal)),
+            ("dkv", lambda: flash_attention_bwd_dkv(q, k, v, dout, lse,
+                                                    delta, valid, causal))):
+        bound, by = flash_bwd_bound_ms(q, k, valid, causal, which)
+        times[which] = dict(
+            ms=cuda_ms(fn),
+            kernel_device_ms=kernel_device_ms(
+                fn, f"flash_attention_bwd_{which}_kernel"),
+            plain_ms=plain, library_ms=library_ms, bound_ms=bound,
+            bound_by=by, backward_ms=whole)
+        t = times[which]
+        log(f"flash_attention_bwd_{which} {what}: wrapper {t['ms']:.4f} ms,"
+            f" the kernel alone {t['kernel_device_ms']:.4f} ms (profiler), "
+            f"bound {bound * 1e3:.3f} us ({by})")
+    log(f"flash backward {what}: delta + both kernels {whole:.4f} ms, plain "
+        f"backward {plain:.4f} ms, autograd.grad of "
+        f"scaled_dot_product_attention {library_ms:.4f} ms (dq max abs "
+        f"diff to plain {lib_err:.2e}, cosine {cos:.6f})")
+    return times
+
+
+def check_flash_bwd():
+    """The dq and dk/dv kernels against the plain backward at the training
+    shapes (aishell, fixed shape feats [32, 1000, 80], U = 24: encoder
+    self-attention [32, 249] x [32, 249], decoder causal self-attention
+    [32, 25], cross-attention [32, 25] x [32, 249]; h8 dh64 bf16, timed),
+    and at ragged key lengths with a length-0 row, Tq != Tk, Tk >= 600,
+    dh 32 / 128, float32 and bf16. -> (errors, {shape: times})."""
+    rng = np.random.default_rng(5)
+
+    def ragged(b, tk):
+        lens = rng.integers(1, tk + 1, b)
+        lens[0], lens[-1] = tk, 0
+        return lens.tolist()
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (b, tq, tk, h, dh, causal, dtype, lens, timed)
+        (32, 249, 249, 8, 64, False, bf16, [249] * 32, True),
+        (32, 25, 25, 8, 64, True, bf16, [25] * 32, True),
+        (32, 25, 249, 8, 64, False, bf16, [249] * 32, True),
+        (32, 249, 249, 8, 64, False, bf16, ragged(32, 249), False),
+        (32, 25, 25, 8, 64, True, bf16, ragged(32, 25), False),
+        (8, 249, 249, 8, 64, False, f32, ragged(8, 249), False),
+        (8, 25, 249, 8, 64, False, f32, ragged(8, 249), False),
+        (4, 33, 600, 8, 64, False, bf16, [600, 517, 3, 0], False),
+        (3, 1, 600, 2, 32, False, f32, [600, 1, 0], False),
+        (4, 24, 24, 2, 32, True, f32, [24, 24, 10, 0], False),
+        (3, 70, 70, 4, 128, True, f32, [70, 33, 0], False),
+        (3, 100, 40, 2, 64, True, bf16, [40, 17, 0], False),
+    ]
+    errs = {n: [0.0, 0.0] for n in ("dq", "dk", "dv")}
+    timings = {}
+    for i, (b, tq, tk, h, dh, causal, dt, lens, timed) in enumerate(cases):
+        q, k, v, valid = flash_case(b, tq, tk, h, dh, dt, lens, SEED + 50 + i)
+        out, dout, lse = flash_bwd_inputs(q, k, v, valid, causal, SEED + i)
+        what = (f"B={b} Tq={tq} Tk={tk} H={h} dh={dh} "
+                f"{'causal' if causal else 'key padding'} {dt}")
+        for name, (e, u) in compare_flash_bwd(q, k, v, out, dout, lse, valid,
+                                              causal, what).items():
+            errs[name] = [max(errs[name][0], e), max(errs[name][1], u)]
+        if timed:
+            timings[what] = time_flash_bwd(q, k, v, out, dout, lse, valid,
+                                           causal, what)
+    log(f"flash_attention_bwd_dq / _dkv vs the plain backward: {len(cases)} "
+        f"cases agree, max abs err and bf16 ulps at the gradient's scale: "
+        f"{json.dumps(errs)} (float32 atol {F32_GRAD_TOL['atol']} rtol "
+        f"{F32_GRAD_TOL['rtol']}; bf16 one ulp)")
+    return errs, timings
+
+
+def ln_bwd_bound_ms(r):
+    """Least time for the same work on an H100. Bytes: residual, h and dy
+    read once, dx written once; gamma, mean and rstd read and dgamma,
+    dbeta written once. Operations: ~14 float32 operations an element
+    (the add, x_hat, a, two row sums, two column sums, dx) on the SIMT
+    units."""
+    d = r.shape[-1]
+    rows = r.numel() // d
+    nbytes = 4 * r.element_size() * rows * d + 12 * d + 8 * rows
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 14 * rows * d / FP32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def compare_ln_bwd(r, h, g, mean, rstd, dy, what):
+    """layer_norm_residual_bwd against the plain backward: dx float32
+    within atol 1e-5 / rtol 1e-4, bf16 within one bf16 ulp at its scale;
+    dgamma and dbeta (float32 sums over the rows, in another order) within
+    1e-5 of their largest magnitude. -> (max abs err of dx, bf16 ulps,
+    max error of dgamma/dbeta relative to their largest magnitude)."""
+    from tpu_asr_torch.ops.layernorm import (bf16_ulp_error,
+                                             layer_norm_residual_bwd,
+                                             layer_norm_residual_bwd_reference)
+    got = layer_norm_residual_bwd(r, h, g, mean, rstd, dy)
+    want = layer_norm_residual_bwd_reference(r, h, g, mean, rstd, dy)
+    torch.cuda.synchronize()
+    dx, w_dx = got[0], want[0]
+    ulps = 0.0
+    if r.dtype == torch.float32:
+        ok = torch.allclose(dx, w_dx, **F32_GRAD_TOL)
+    else:
+        ulps = bf16_ulp_error(dx, w_dx)
+        ok = ulps <= 1.0
+    err = (dx.float() - w_dx.float()).abs().max().item()
+    if not ok or dx.dtype != r.dtype:
+        raise AssertionError(f"layer_norm_residual_bwd dx at {what}: max abs "
+                             f"diff {err}, {ulps:.2f} bf16 ulps")
+    rel = 0.0
+    for name, x, w in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+        e = ((x - w).abs().max() / w.abs().max()).item()
+        if not e <= 1e-5:
+            raise AssertionError(f"layer_norm_residual_bwd {name} at {what}:"
+                                 f" {e:.2e} of its largest magnitude")
+        rel = max(rel, e)
+    return err, ulps, rel
+
+
+def time_ln_bwd(r, h, g, mean, rstd, dy, what):
+    """The LN backward's times: the wrapper (kernel + the sum of its
+    partials), the kernel alone (profiler), the plain backward, and one
+    torch.ops.aten.native_layer_norm_backward on x = residual + h (made
+    beforehand, in the input dtype) with the forward's mean and rstd (a
+    yardstick the port never calls; its dx is checked against the plain
+    version, by cosine); the bound from these inputs."""
+    from tpu_asr_torch.ops.layernorm import (layer_norm_residual_bwd,
+                                             layer_norm_residual_bwd_reference)
+    d = r.shape[-1]
+    x = (r.float() + h.float()).to(r.dtype)
+    gt = g.to(r.dtype)
+    bias = torch.zeros_like(gt)
+    m2, r2 = mean.reshape(-1, 1), rstd.reshape(-1, 1)
+
+    def library():
+        return torch.ops.aten.native_layer_norm_backward(
+            dy, x, [d], m2, r2, gt, bias, [True, True, True])
+    want = layer_norm_residual_bwd_reference(r, h, g, mean, rstd, dy)[0]
+    lib_dx = library()[0]
+    lib_err = (lib_dx.float() - want.float()).abs().max()
+    cos = cosine(lib_dx, want)
+    if not cos >= 0.99:
+        raise AssertionError(f"native_layer_norm_backward's dx disagrees "
+                             f"with the plain backward at {what}: cosine "
+                             f"{cos}, max abs diff {lib_err}")
+    fn = lambda: layer_norm_residual_bwd(r, h, g, mean, rstd, dy)  # noqa: E731
+    ms = cuda_ms(fn)
+    alone = kernel_device_ms(fn, "layer_norm_residual_bwd_kernel")
+    plain = cuda_ms(lambda: layer_norm_residual_bwd_reference(
+        r, h, g, mean, rstd, dy))
+    library_ms = cuda_ms(library)
+    bound, by = ln_bwd_bound_ms(r)
+    log(f"layer_norm_residual_bwd {what}: wrapper {ms:.4f} ms, the kernel "
+        f"alone {alone:.4f} ms (profiler), plain {plain:.4f} ms, "
+        f"native_layer_norm_backward {library_ms:.4f} ms (dx max abs diff "
+        f"to plain {lib_err:.2e}, cosine {cos:.6f}), bound "
+        f"{bound * 1e3:.3f} us ({by})")
+    return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
+                library_ms=library_ms, bound_ms=bound, bound_by=by)
+
+
+def check_ln_bwd():
+    """layer_norm_residual_bwd against the plain backward at the training
+    row counts (bf16, D 512: the encoder's 32 x 249 = 7968 rows and the
+    decoder's 32 x 25 = 800, timed), and at 1-8080 rows, D 64-2048,
+    float32 and bf16; mean and rstd from the forward kernel. -> (errors,
+    {shape: times})."""
+    from tpu_asr_torch.ops.layernorm import layer_norm_residual_fwd
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (rows, d, dtype, timed)
+        (7968, 512, bf16, True), (800, 512, bf16, True),
+        (7968, 512, f32, False), (8080, 512, bf16, False),
+        (511, 512, f32, False), (1000, 64, f32, False), (1, 64, f32, False),
+        (7, 2048, bf16, False), (33, 2048, f32, False), (513, 96, bf16, False),
+    ]
+    errs = dict(dx=0.0, dx_bf16_ulps=0.0, dgamma_dbeta_rel=0.0)
+    timings = {}
+    for i, (rows, d, dt, timed) in enumerate(cases):
+        g = torch.Generator().manual_seed(SEED + 70 + i)
+        r, h, dy = (torch.randn(rows, d, generator=g).to(DEVICE, dt)
+                    for _ in range(3))
+        gamma = (1 + 0.5 * torch.randn(d, generator=g)).to(DEVICE)
+        beta = torch.randn(d, generator=g).to(DEVICE)
+        _, mean, rstd = layer_norm_residual_fwd(r, h, gamma, beta)
+        what = f"rows={rows} D={d} {dt}"
+        e, u, rel = compare_ln_bwd(r, h, gamma, mean, rstd, dy, what)
+        errs = dict(dx=max(errs["dx"], e),
+                    dx_bf16_ulps=max(errs["dx_bf16_ulps"], u),
+                    dgamma_dbeta_rel=max(errs["dgamma_dbeta_rel"], rel))
+        if timed:
+            timings[what] = time_ln_bwd(r, h, gamma, mean, rstd, dy, what)
+    log(f"layer_norm_residual_bwd vs the plain backward: {len(cases)} cases "
+        f"agree: {json.dumps(errs)}")
+    return errs, timings
+
+
+def check_bwd_on_paths(bwd_caps):
+    """The backward kernels against the plain backward, timed, on the
+    inputs that use_pallas training gave them (the first train batch of
+    each bucket, recorded as the Functions' backward received them, after
+    the run's counts were read). -> ({label: {"dq", "dkv": times}},
+    {label: LN times}, errors)."""
+    errs = dict(flash={n: [0.0, 0.0] for n in ("dq", "dk", "dv")},
+                ln=dict(dx=0.0, dx_bf16_ulps=0.0, dgamma_dbeta_rel=0.0))
+    flash_t, ln_t = {}, {}
+    for label, (q, k, v, out, dout, lse, valid, causal) in \
+            bwd_caps["flash"].items():
+        what = (f"use_pallas training, {label} {q.dtype}, "
+                f"{int(valid.sum(1).min())}-{int(valid.sum(1).max())} valid "
+                f"keys a row")
+        for name, (e, u) in compare_flash_bwd(q, k, v, out, dout, lse, valid,
+                                              causal, what).items():
+            errs["flash"][name] = [max(errs["flash"][name][0], e),
+                                   max(errs["flash"][name][1], u)]
+        flash_t[label] = {
+            which: dict(t, shape=f"use_pallas training, {label} {q.dtype}")
+            for which, t in time_flash_bwd(q, k, v, out, dout, lse, valid,
+                                           causal, what).items()}
+    for label, (r, h, g, mean, rstd, dy) in bwd_caps["ln"].items():
+        what = f"use_pallas training, {label} {r.dtype}"
+        e, u, rel = compare_ln_bwd(r, h, g, mean, rstd, dy, what)
+        errs["ln"] = dict(dx=max(errs["ln"]["dx"], e),
+                          dx_bf16_ulps=max(errs["ln"]["dx_bf16_ulps"], u),
+                          dgamma_dbeta_rel=max(
+                              errs["ln"]["dgamma_dbeta_rel"], rel))
+        ln_t[label] = dict(time_ln_bwd(r, h, g, mean, rstd, dy, what),
+                           shape=what)
+    if not flash_t or not ln_t:
+        raise AssertionError(f"use_pallas training recorded no backward "
+                             f"inputs: {len(flash_t)} flash, {len(ln_t)} LN")
+    log(f"backward kernels vs the plain backward on use_pallas training's "
+        f"inputs: {len(flash_t)} flash + {len(ln_t)} LN calls agree: "
+        + json.dumps(errs))
+    return flash_t, ln_t, errs
+
+
 # ---- phases 4-7 ----
 
 def request_lengths(n, seed):
@@ -898,75 +1286,142 @@ def check_agreement():
         "(tokens equal, scores within 1e-3)")
 
 
-def check_train_agreement():
-    """hybrid_dev in float32 (dropout 0, no SpecAugment): two TrainSteps
-    from the same init on one batch on the card (the CTC kernels) and on
-    the CPU (their plain versions). Step 1's losses and raw grad norm, the
-    update it applies (clip, Adam, Noam lr), and step 2's losses agree."""
-    from tpu_asr_torch.configs.presets import get_preset
-    from tpu_asr_torch.models.transformer import Transformer
-    from tpu_asr_torch.train import NoamAdam, TrainStep, noam_schedule
-    from tpu_asr_torch.weights import init_random
+def kernel_counters():
+    """{name: wrapper} of every kernel of the port, by the name the
+    kernels line gives it."""
+    from tpu_asr_torch.ops import (cif_fire, ctc_loss, ctc_prefix,
+                                   flash_attention as fa, layernorm as ln)
+    return {"ctc_prefix_scan": ctc_prefix.ctc_prefix_scan,
+            "ctc_loss_fwd": ctc_loss.ctc_loss_fwd,
+            "ctc_loss_bwd": ctc_loss.ctc_loss_bwd,
+            "cif_fire": cif_fire.cif_fire_fwd,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "layer_norm_residual_fwd": ln.layer_norm_residual_fwd,
+            "layer_norm_residual_bwd": ln.layer_norm_residual_bwd}
 
-    cfg = dataclasses.replace(get_preset("hybrid_dev").model, vocab_size=64)
-    rng = np.random.default_rng(SEED)
-    flens = np.array([200, 151, 0, 97], np.int32)
-    tlens = np.array([8, 5, 0, 3], np.int32)
-    targets = np.full((4, 8), -1, np.int32)
+
+def train_batch(rng, b, t, flens, tlens, u, v=64):
+    """feats [b, t, 80] with the given lengths, targets [b, u] padded."""
+    targets = np.full((b, u), -1, np.int32)
     for i, n in enumerate(tlens):
-        targets[i, :n] = rng.integers(2, 62, n)
-    batch = {"feats": rng.standard_normal((4, 200, 80)).astype(np.float32),
-             "feat_lengths": flens, "targets": targets,
-             "target_lengths": tlens}
-    out, step2, update = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        model = init_random(Transformer(cfg), SEED).to(dev)
+        targets[i, :n] = rng.integers(2, v - 2, n)
+    return {"feats": rng.standard_normal((b, t, 80)).astype(np.float32),
+            "feat_lengths": np.asarray(flens, np.int32), "targets": targets,
+            "target_lengths": np.asarray(tlens, np.int32)}
+
+
+def pallas_train_batch(rng):
+    """16 utterances of up to 527 frames (one of length 0; T' = 131, so
+    2096 encoder rows) with 2-31 tokens padded to U = 31 (U + 1 = 32, so
+    512 decoder rows): every post-norm block takes the fused LN."""
+    flens = rng.integers(300, 528, 16)
+    flens[0], flens[-1] = 527, 0
+    tlens = rng.integers(2, 32, 16)
+    tlens[0], tlens[-1] = 31, 0
+    return train_batch(rng, 16, 527, flens, tlens, 31)
+
+
+def train_on_both(model_cls, cfg, batch, steps):
+    """`steps` TrainSteps from the same seeded init on one batch, on the
+    card and on the CPU. -> {"card" | "cpu": (metrics of each step, step
+    1's update, kernel launches)}."""
+    from tpu_asr_torch.train import NoamAdam, TrainStep
+    from tpu_asr_torch.weights import init_random
+    out = {}
+    for key, dev in (("card", DEVICE), ("cpu", "cpu")):
+        model = init_random(model_cls(cfg), SEED).to(dev)
         ts = TrainStep(model, NoamAdam(model.parameters(), cfg.d_model, 100),
                        device=dev, seed=SEED)
         p0 = torch.cat([p.detach().flatten() for p in model.parameters()])
-        out[dev] = {k: float(v) for k, v in ts(batch).items()}
-        update[dev] = torch.cat([p.detach().flatten() for p in
-                                 model.parameters()]).cpu() - p0.cpu()
-        step2[dev] = {k: float(v) for k, v in ts(batch).items()}
-    card, cpu = out["cuda"], out["cpu"]
+        counters = kernel_counters()
+        before = {k: f.launches for k, f in counters.items()}
+        metrics, update = [], None
+        for _ in range(steps):
+            metrics.append({k: float(v) for k, v in ts(batch).items()})
+            if update is None:
+                update = torch.cat([p.detach().flatten() for p in
+                                    model.parameters()]).cpu() - p0.cpu()
+        out[key] = (metrics, update, {k: f.launches - before[k]
+                                      for k, f in counters.items()})
+    return out
+
+
+def check_train_agreement(use_pallas=False):
+    """hybrid_dev in float32 (dropout 0, no SpecAugment): two TrainSteps
+    from the same init on one batch on the card (the kernels) and on the
+    CPU (their plain versions). Step 1's losses and raw grad norm, the
+    update it applies (clip, Adam, Noam lr), and step 2's losses agree.
+    With use_pallas the batch puts >= 512 rows through the encoder and the
+    decoder, and every kernel of the Functions (flash forward, dq, dk/dv;
+    LN forward and backward) launches once per attention or post-norm
+    block and step on the card, never on the CPU."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.train import noam_schedule
+
+    cfg = dataclasses.replace(get_preset("hybrid_dev").model, vocab_size=64,
+                              use_pallas=use_pallas)
+    rng = np.random.default_rng(SEED)
+    batch = (pallas_train_batch(rng) if use_pallas else
+             train_batch(rng, 4, 200, [200, 151, 0, 97], [8, 5, 0, 3], 8))
+    runs = train_on_both(Transformer, cfg, batch, 2)
+    (card, card2), (cpu, cpu2) = (runs[d][0] for d in ("card", "cpu"))
+    what = "use_pallas " if use_pallas else ""
     losses = ("loss", "loss_att", "loss_ctc", "acc")
     bad = [k for k in losses if abs(card[k] - cpu[k]) > 1e-4]
-    bad += [f"step 2 {k}" for k in losses
-            if abs(step2["cuda"][k] - step2["cpu"][k]) > 1e-4]
+    bad += [f"step 2 {k}" for k in losses if abs(card2[k] - cpu2[k]) > 1e-4]
     if bad or abs(card["grad_norm"] - cpu["grad_norm"]) > \
             1e-3 * abs(cpu["grad_norm"]):
-        raise AssertionError(f"train step on the card {card} {step2['cuda']}"
-                             f" != on the CPU {cpu} {step2['cpu']}: {bad}")
+        raise AssertionError(f"{what}train step on the card {card} {card2} "
+                             f"!= on the CPU {cpu} {cpu2}: {bad}")
     # Adam's first update is about lr * sign(g) per weight; a gradient
     # near 0 may round to either sign, so hold 99% of the entries, not all.
     lr = noam_schedule(cfg.d_model, 100)(0)
     near = 0.1 * lr
-    agree = ((update["cuda"] - update["cpu"]).abs() <= near).float().mean()
+    update = {d: runs[d][1] for d in runs}
+    agree = ((update["card"] - update["cpu"]).abs() <= near).float().mean()
     noop = (update["cpu"].abs() <= near).float().mean()
     if not agree >= 0.99 > noop:
-        raise AssertionError(f"update on the card != on the CPU: {agree:.6f}"
-                             f" of the entries within 0.1 lr ({noop:.6f} "
-                             f"for a no-op update)")
-    log("agreement: hybrid_dev train step on the card == on the CPU "
+        raise AssertionError(f"{what}update on the card != on the CPU: "
+                             f"{agree:.6f} of the entries within 0.1 lr "
+                             f"({noop:.6f} for a no-op update)")
+    launches = runs["card"][2]
+    if use_pallas:
+        n_attn = cfg.num_enc_layers + 2 * cfg.num_dec_layers
+        n_ln = 2 * cfg.num_enc_layers + 3 * cfg.num_dec_layers
+        expect = {"flash_attention_fwd": 2 * n_attn,
+                  "flash_attention_bwd_dq": 2 * n_attn,
+                  "flash_attention_bwd_dkv": 2 * n_attn,
+                  "layer_norm_residual_fwd": 2 * n_ln,
+                  "layer_norm_residual_bwd": 2 * n_ln}
+        got = {k: launches[k] for k in expect}
+        if got != expect or any(runs["cpu"][2].values()):
+            raise AssertionError(f"use_pallas train agreement launches: card "
+                                 f"{launches}, expected {expect}; CPU "
+                                 f"{runs['cpu'][2]}")
+    log(f"agreement: hybrid_dev {what}train step on the card == on the CPU "
         "(losses of steps 1 and 2 within 1e-4, grad norm within 1e-3 "
         "relative, >= 99% of the update within 0.1 lr): "
         + json.dumps({"step1": {k: [card[k], cpu[k]] for k in sorted(card)},
-                      "step2": {k: [step2["cuda"][k], step2["cpu"][k]]
-                                for k in losses},
+                      "step2": {k: [card2[k], cpu2[k]] for k in losses},
                       "update_within_0.1lr": float(agree),
-                      "noop_within_0.1lr": float(noop)}))
+                      "noop_within_0.1lr": float(noop),
+                      "card_launches": {k: n for k, n in launches.items()
+                                        if n}}))
 
 
 def check_cif_agreement():
     """cif_dev in float32 (dropout 0): the same batch decodes to the same
     tokens on the card (the CIF kernel) and on the CPU (its plain
     version) in cif_greedy and cif_beam; one TrainStep from the same init
-    gives losses within 1e-4 and grad norms within 1e-3 relative."""
+    gives losses within 1e-4 and grad norms within 1e-3 relative, without
+    and with use_pallas."""
     from tpu_asr_torch.configs.presets import get_preset
     from tpu_asr_torch.decode.beam import BeamConfig
     from tpu_asr_torch.decode.recognizer import Recognizer
     from tpu_asr_torch.models.cif import CifModel
-    from tpu_asr_torch.train import NoamAdam, TrainStep
     from tpu_asr_torch.weights import init_random
 
     cfg = dataclasses.replace(get_preset("cif_dev").model, vocab_size=64)
@@ -987,32 +1442,40 @@ def check_cif_agreement():
             raise AssertionError(f"{mode}: card {out[mode, 'cuda']} != CPU "
                                  f"{out[mode, 'cpu']}")
 
-    flens = np.array([200, 151, 0, 97], np.int32)
-    tlens = np.array([8, 5, 0, 3], np.int32)
-    targets = np.full((4, 8), -1, np.int32)
-    for i, n in enumerate(tlens):
-        targets[i, :n] = rng.integers(2, 62, n)
-    tbatch = {"feats": rng.standard_normal((4, 200, 80)).astype(np.float32),
-              "feat_lengths": flens, "targets": targets,
-              "target_lengths": tlens}
-    step = {}
-    for dev in ("cuda", "cpu"):
-        model = init_random(CifModel(cfg), SEED).to(dev)
-        ts = TrainStep(model, NoamAdam(model.parameters(), cfg.d_model, 100),
-                       device=dev, seed=SEED)
-        step[dev] = {k: float(v) for k, v in ts(tbatch).items()}
-    card, cpu = step["cuda"], step["cpu"]
+    log("agreement: cif_dev cif_greedy and cif_beam-4 on the card == on the "
+        "CPU (tokens equal: " + json.dumps(out["cif_greedy", "cuda"][:2])
+        + ")")
+    check_cif_train_agreement(cfg, rng, False)
+    check_cif_train_agreement(cfg, rng, True)
+
+
+def check_cif_train_agreement(cfg, rng, use_pallas):
+    """One cif_dev TrainStep from the same init on the card and on the CPU:
+    losses within 1e-4, grad norm within 1e-3 relative. With use_pallas
+    (the batch has >= 512 encoder and decoder rows) the flash and LN
+    kernels, forward and backward, launch on the card."""
+    from tpu_asr_torch.models.cif import CifModel
+    cfg = dataclasses.replace(cfg, use_pallas=use_pallas)
+    batch = (pallas_train_batch(rng) if use_pallas else
+             train_batch(rng, 4, 200, [200, 151, 0, 97], [8, 5, 0, 3], 8))
+    runs = train_on_both(CifModel, cfg, batch, 1)
+    card, cpu = runs["card"][0][0], runs["cpu"][0][0]
+    launches = runs["card"][2]
+    what = "use_pallas " if use_pallas else ""
     bad = [k for k in ("loss", "loss_att", "loss_qty", "loss_ctc", "acc")
            if abs(card[k] - cpu[k]) > 1e-4]
     if bad or abs(card["grad_norm"] - cpu["grad_norm"]) > \
             1e-3 * abs(cpu["grad_norm"]):
-        raise AssertionError(f"CIF train step on the card {card} != on the "
-                             f"CPU {cpu}: {bad}")
-    log("agreement: cif_dev cif_greedy and cif_beam-4 on the card == on the "
-        "CPU (tokens equal: " + json.dumps(out["cif_greedy", "cuda"][:2])
-        + "); train step losses within 1e-4, grad norm within 1e-3 "
-        "relative: "
-        + json.dumps({k: [card[k], cpu[k]] for k in sorted(card)}))
+        raise AssertionError(f"CIF {what}train step on the card {card} != on "
+                             f"the CPU {cpu}: {bad}")
+    names = [k for k in launches if k.startswith(("flash", "layer_norm"))]
+    if use_pallas and not all(launches[k] > 0 for k in names):
+        raise AssertionError(f"CIF use_pallas train step launches {launches}")
+    log(f"agreement: cif_dev {what}train step on the card == on the CPU "
+        "(losses within 1e-4, grad norm within 1e-3 relative): "
+        + json.dumps({k: [card[k], cpu[k]] for k in sorted(card)})
+        + "; card launches "
+        + json.dumps({k: n for k, n in launches.items() if n}))
 
 
 def check_pallas_agreement():
@@ -1402,45 +1865,84 @@ def fixed_shape_batch(b=32, t=1000, u=24, v=4233):
             "target_lengths": np.full(b, u, np.int32)}
 
 
-def run_training(card, workdir, preset, data, captures):
+def flash_bwd_label(q, k, v, out, dout, lse, valid, causal):
+    """A backward call's kind and shapes (one bucket of training is one
+    static shape)."""
+    kind = ("decoder self-attention (causal)" if causal else
+            "encoder self-attention" if q.shape[1] == k.shape[1] else
+            "decoder cross-attention")
+    return f"{kind}: q {list(q.shape)} k {list(k.shape)}"
+
+
+def ln_bwd_label(r, *_):
+    return f"LN {list(r.shape)}"
+
+
+def run_training(card, workdir, preset, data, captures,
+                 model_overrides=None, bwd_caps=None):
     """The Solver that `python -m tpu_asr_torch.train --preset <preset>`
-    builds, on `data`, for >= MIN_TRAIN_STEPS steps; then a checkpoint
-    restore, a profile and 20 steps at the fixed shape. A CIF model's
-    firing inputs of its first train and cv batch go into `captures`.
-    -> {kernel name: launches in the Solver run}."""
+    builds (with `model_overrides` to its ModelConfig, as
+    build_solver takes them), on `data`, for >= MIN_TRAIN_STEPS steps;
+    then a checkpoint restore, a profile and 20 steps at the fixed shape.
+    A CIF model's firing inputs of its first train and cv batch go into
+    `captures`; with use_pallas, the inputs of the flash and LN backward
+    of the first train batch of each bucket into bwd_caps["flash"] and
+    bwd_caps["ln"]. -> {kernel name: launches in the Solver run}."""
     from tpu_asr_torch.models import build_model
-    from tpu_asr_torch.ops.cif_fire import cif_fire_fwd
-    from tpu_asr_torch.ops.ctc_loss import ctc_loss_bwd, ctc_loss_fwd
+    from tpu_asr_torch.models.modules import FUSED_LN_MIN_ROWS, PostNormBlock
+    from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
     from tpu_asr_torch.train.__main__ import build_solver, parse_args
 
-    what = f"{preset} training"
     args = parse_args(["--preset", preset, "--save-folder", workdir])
-    solver = build_solver(args, data)
+    solver = build_solver(args, data, model_overrides)
     epochs = max(2, -(-MIN_TRAIN_STEPS // len(solver.train_loader)))
     solver.epochs = epochs
     timed = TimedLoader(solver.train_loader)
     solver.train_loader = timed
     ts = solver.train_step
     cfg = ts.model.cfg
+    what = f"{preset} training" + (" with use_pallas" if cfg.use_pallas
+                                   else "")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    # the post-norm calls that take the fused LN (>= 512 rows), counted
+    # as they happen: the expected LN launches
+    fused = {"fwd": 0, "bwd": 0}
+
+    def count_fused(block, inputs):
+        rows = inputs[0].numel() // inputs[0].shape[-1]
+        if block.use_pallas and rows >= FUSED_LN_MIN_ROWS:
+            fused["fwd"] += 1
+            fused["bwd"] += int(torch.is_grad_enabled())
+    hooks = [m.register_forward_pre_hook(count_fused)
+             for m in ts.model.modules() if isinstance(m, PostNormBlock)]
+
     # main path: counts from 0 just before, read just after
-    counters = {"ctc_loss_fwd": ctc_loss_fwd, "ctc_loss_bwd": ctc_loss_bwd,
-                "cif_fire": cif_fire_fwd}
+    counters = {k: f for k, f in kernel_counters().items()
+                if k != "ctc_prefix_scan"}
     model = ts.model
-    record = (record_inputs(model, "fire", captures, lambda h, a, u: (
-        f"{what}, {'train' if model.training else 'cv'} batch"))
-        if cfg.model_type == "cif" else contextlib.nullcontext())
+    records = contextlib.ExitStack()
+    if cfg.model_type == "cif":
+        records.enter_context(record_inputs(
+            model, "fire", captures, lambda h, a, u: (
+                f"{what}, {'train' if model.training else 'cv'} batch")))
+    if cfg.use_pallas and bwd_caps is not None:
+        records.enter_context(record_inputs(
+            fa, "flash_attention_bwd", bwd_caps["flash"], flash_bwd_label))
+        records.enter_context(record_inputs(
+            ln, "layer_norm_residual_bwd", bwd_caps["ln"], ln_bwd_label))
     for fn in counters.values():
         fn.launches = 0
     wall0 = time.perf_counter()
-    with record:
+    with records:
         solver.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
+    for h in hooks:
+        h.remove()
 
     steps = sum(h["train_steps"] for h in solver.history)
     cv_batches = sum(h["cv_batches"] for h in solver.history)
@@ -1450,11 +1952,20 @@ def run_training(card, workdir, preset, data, captures):
             np.isfinite([h["loss"], h["train_loss"], h["grad_norm_max"]]).all()
             for h in solver.history):
         raise AssertionError(f"non-finite training: {solver.history}")
-    # forward kernels run in every train step and cv batch, the CTC
-    # backward in every train step
+    # forward kernels run in every train step and cv batch, the backward
+    # kernels in every train step: the flash pair once per full-pass
+    # attention (encoder self, decoder self and cross), the LN pair once
+    # per post-norm call of >= 512 rows
+    n_attn = (cfg.num_enc_layers + 2 * cfg.num_dec_layers
+              if cfg.attention_pallas else 0)
     expect = {"ctc_loss_fwd": steps + cv_batches, "ctc_loss_bwd": steps,
               "cif_fire": (steps + cv_batches if cfg.model_type == "cif"
-                           else 0)}
+                           else 0),
+              "flash_attention_fwd": n_attn * (steps + cv_batches),
+              "flash_attention_bwd_dq": n_attn * steps,
+              "flash_attention_bwd_dkv": n_attn * steps,
+              "layer_norm_residual_fwd": fused["fwd"],
+              "layer_norm_residual_bwd": fused["bwd"]}
     if launches != expect:
         raise AssertionError(f"{what}: kernel launches {launches}, expected "
                              f"{expect} for {steps} train steps + "
@@ -1470,7 +1981,8 @@ def run_training(card, workdir, preset, data, captures):
         f"dropout {cfg.dropout}, SpecAugment "
         f"{'on' if ts.specaug else 'off'}) {epochs} epochs, {steps} steps + "
         f"{cv_batches} cv batches in {wall:.2f} s; kernel launches "
-        f"{json.dumps(launches)}")
+        f"{json.dumps(launches)}; post-norm calls of >= {FUSED_LN_MIN_ROWS}"
+        f" rows {json.dumps(fused)}")
     log(f"{what}: per epoch " + json.dumps(solver.history))
     log(f"{what}: step ms median {statistics.median(step_ms):.2f}, min "
         f"{min(step_ms):.2f}, max {max(step_ms):.2f}; steady (steps 2..): "
@@ -1531,7 +2043,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libraries = (ctc_prefix.LIBRARY, ctc_loss.LIBRARY, cif_fire.LIBRARY,
-                 flash_attention.LIBRARY, layernorm.LIBRARY)
+                 flash_attention.LIBRARY, flash_attention.BWD_LIBRARY,
+                 layernorm.LIBRARY)
     load_all(*libraries)
     log(f"build: {', '.join(lib.name for lib in libraries)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1545,8 +2058,11 @@ def main() -> int:
     cif_err, cif_timing = check_cif_fire()
     flash_err, lse_err, flash_timings = check_flash_attention()
     ln_err, ln_ulps, ln_raw, ln_timings = check_layer_norm()
+    flash_bwd_errs, flash_bwd_timings = check_flash_bwd()
+    ln_bwd_errs, ln_bwd_timings = check_ln_bwd()
     check_agreement()
     check_train_agreement()
+    check_train_agreement(use_pallas=True)
     check_cif_agreement()
     check_pallas_agreement()
     launches = run_serving(card)
@@ -1558,14 +2074,18 @@ def main() -> int:
     data = synthetic_aishell()
     log(f"training: {len(data[0])} + {len(data[1])} synthetic utterances "
         f"made in {time.perf_counter() - t0:.1f} s")
-    training = {}
-    for preset in (PRESET, "cif"):
+    training, bwd_caps = {}, {"flash": {}, "ln": {}}
+    pallas = f"{PRESET} use_pallas"
+    for key, preset, overrides in ((PRESET, PRESET, None),
+                                   ("cif", "cif", None),
+                                   (pallas, PRESET, {"use_pallas": True})):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as wd:
-            training[preset] = run_training(card, wd, preset, data,
-                                            captures)
+            training[key] = run_training(card, wd, preset, data, captures,
+                                         overrides, bwd_caps)
     path_err, path_timings = check_cif_fire_on_paths(captures)
     flash_path, ln_path, path_errs = check_flash_ln_on_paths(flash_caps,
                                                              ln_caps)
+    flash_bwd_path, ln_bwd_path, bwd_path_errs = check_bwd_on_paths(bwd_caps)
 
     main_t = timings[(249, True)]          # 1000-frame bucket, one-pass
     kernels = [{
@@ -1640,12 +2160,17 @@ def main() -> int:
     for name, source, replaces, path_t, synthetic, n, err, extra in (
             ("flash_attention_fwd", "flash_attention.cu",
              "flash_attention.py:110", flash_path, flash_timings,
-             flash_serving, max(flash_err, path_errs["flash"]),
+             {"use_pallas serving": flash_serving,
+              "use_pallas training": training[pallas]["flash_attention_fwd"]},
+             max(flash_err, path_errs["flash"]),
              {"lse_max_abs_err": max(lse_err, path_errs["lse"]),
               "library_call": "F.scaled_dot_product_attention, boolean "
                               "attn_mask, [B, H, T, dh] inputs"}),
             ("layer_norm_residual_fwd", "layer_norm_residual.cu",
-             "layernorm.py:79", ln_path, ln_timings, ln_serving,
+             "layernorm.py:79", ln_path, ln_timings,
+             {"use_pallas serving": ln_serving,
+              "use_pallas training":
+                  training[pallas]["layer_norm_residual_fwd"]},
              max(ln_err, path_errs["ln"]),
              {"bf16_ulps_at_output_scale": max(ln_ulps,
                                                path_errs["ln_ulps"]),
@@ -1661,8 +2186,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"tpu_asr_torch/csrc/{source}",
             "replaces": f"tpu_asr/ops/pallas/{replaces}",
-            "launches": n,
-            "launches_by_path": {"use_pallas serving": n},
+            "launches": sum(n.values()),
+            "launches_by_path": n,
             "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1673,6 +2198,72 @@ def main() -> int:
             "shape": t["shape"],
             "other_shapes": other,
         }, **extra))
+    # the backward kernels' main numbers: their largest call in use_pallas
+    # training (by bound), on the inputs it gave them
+    on_path = bwd_path_errs["flash"]
+    flash_bwd_rows = (
+        ("flash_attention_bwd_dq", "dq", "flash_attention.py:171",
+         {"dq": flash_bwd_errs["dq"], "path dq": on_path["dq"]}),
+        ("flash_attention_bwd_dkv", "dkv", "flash_attention.py:203",
+         {"dk": flash_bwd_errs["dk"], "dv": flash_bwd_errs["dv"],
+          "path dk": on_path["dk"], "path dv": on_path["dv"]}))
+    for name, which, replaces, errs in flash_bwd_rows:
+        path_t = {k: v[which] for k, v in flash_bwd_path.items()}
+        main_label = max(path_t, key=lambda k: path_t[k]["bound_ms"])
+        t = path_t[main_label]
+        other = {k: v for k, v in path_t.items() if k != main_label}
+        other.update({f"synthetic {k}": v[which]
+                      for k, v in flash_bwd_timings.items()})
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_asr_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"tpu_asr/ops/pallas/{replaces}",
+            "launches": training[pallas][name],
+            "launches_by_path": {"use_pallas training":
+                                 training[pallas][name]},
+            "max_abs_err": max(e for e, _ in errs.values()),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": "torch.autograd.grad of "
+                            "F.scaled_dot_product_attention (dq, dk, dv "
+                            "together), boolean attn_mask, forward outside",
+            "plain_computes": "dq, dk and dv together",
+            "kernel_device_ms": t["kernel_device_ms"],
+            "backward_ms": t["backward_ms"],
+            "bf16_ulps_at_gradient_scale": {k: u for k, (_, u)
+                                            in errs.items()},
+            "shape": t["shape"],
+            "other_shapes": other,
+        })
+    main_label = max(ln_bwd_path, key=lambda k: ln_bwd_path[k]["bound_ms"])
+    t = ln_bwd_path[main_label]
+    other = {k: v for k, v in ln_bwd_path.items() if k != main_label}
+    other.update({f"synthetic {k}": v for k, v in ln_bwd_timings.items()})
+    n = training[pallas]["layer_norm_residual_bwd"]
+    kernels.append({
+        "name": "layer_norm_residual_bwd",
+        "route": "cuda",
+        "source": "tpu_asr_torch/csrc/layer_norm_residual.cu",
+        "replaces": "tpu_asr/ops/pallas/layernorm.py:51",
+        "launches": n,
+        "launches_by_path": {"use_pallas training": n},
+        "max_abs_err": max(ln_bwd_errs["dx"], bwd_path_errs["ln"]["dx"]),
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "library_call": "torch.ops.aten.native_layer_norm_backward on x = "
+                        "residual + h made beforehand",
+        "kernel_device_ms": t["kernel_device_ms"],
+        "errors": {"synthetic": ln_bwd_errs, "path": bwd_path_errs["ln"]},
+        "shape": t["shape"],
+        "other_shapes": other,
+    })
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

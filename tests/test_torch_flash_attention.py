@@ -1,28 +1,42 @@
 """Port flash attention (ops/flash_attention.py) vs
 tpu_asr.ops.pallas.flash_attention on the CPU: the plain version against
-the Pallas kernel in interpret mode (out and lse), the dispatcher's
-reading of mask biases, and the fallback against `_xla_attention`.
+the Pallas kernel in interpret mode (out and lse), the plain backward
+against the Pallas backward (dq, dk/dv) in interpret mode, the
+dispatcher's gradients against jax.grad of the reference's custom VJP,
+the dispatcher's reading of mask biases, and the fallback against
+`_xla_attention`.
 
-Tolerances are those of tests/unit/test_flash_attention.py: float32
-within atol 1e-5 / rtol 1e-4, bfloat16 within 2e-2 (p is rounded to
-bf16 before the product with V, and the two sides sum in other orders);
-lse within 1e-4.
+Tolerances are those of tests/unit/test_flash_attention.py for the
+forward: float32 within atol 1e-5 / rtol 1e-4, bfloat16 within 2e-2 (p
+is rounded to bf16 before the product with V, and the two sides sum in
+other orders); lse within 1e-4. Gradients: float32 within atol 1e-5 /
+rtol 1e-4; bfloat16 within one bf16 ulp at the gradient's scale
+(bf16_ulp_error) for the backward alone, since both sides round ds and p
+at the same points. Through the dispatcher the backward reads each
+side's own bf16 forward output (delta = rowsum(dO * out)), which may
+differ by an ulp, so there the bf16 gradients are held at two ulps.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import tpu_asr.ops.pallas.flash_attention as jax_fa
 from tpu_asr.models.attention import mask_to_bias as jax_mask_to_bias
 from tpu_asr.ops.pallas.flash_attention import _fwd_impl, _xla_attention
 from tpu_asr.ops.pallas.flash_attention import \
     flash_attention as jax_flash_attention
 from tpu_asr_torch.models.attention import mask_to_bias
 from tpu_asr_torch.ops.flash_attention import (NEG_INF, flash_attention,
+                                               flash_attention_bwd_dkv,
+                                               flash_attention_bwd_dq,
+                                               flash_attention_bwd_reference,
                                                flash_attention_fwd,
                                                flash_attention_reference,
                                                xla_attention)
+from tpu_asr_torch.ops.layernorm import bf16_ulp_error
 
 DTYPES = {"float32": (torch.float32, jnp.float32,
                       dict(atol=1e-5, rtol=1e-4)),
@@ -139,11 +153,106 @@ def test_float_kv_valid_and_defaults():
 def test_cpu_runs_plain_version_under_autograd_without_launching():
     q, k, v = (torch.from_numpy(a).requires_grad_(True)
                for a in _qkv(2, 5, 7, 2, 32, 9))
-    before = flash_attention_fwd.launches
+    counters = (flash_attention_fwd, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    before = [f.launches for f in counters]
     out = flash_attention(q, k, v, causal=True)
     grads = torch.autograd.grad(out.square().sum(), (q, k, v))
-    assert flash_attention_fwd.launches == before
+    assert [f.launches for f in counters] == before
     assert all(torch.isfinite(g).all() for g in grads)
+    valid = torch.ones(2, 7, dtype=torch.bool)
     with pytest.raises(ValueError):
-        flash_attention_fwd(q.detach(), k.detach(), v.detach(),
-                            torch.ones(2, 7, dtype=torch.bool))
+        flash_attention_fwd(q.detach(), k.detach(), v.detach(), valid)
+    d, lse = q.detach(), torch.zeros(2, 2, 5)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_dq(d, k.detach(), v.detach(), d, lse, lse, valid)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_dkv(d, k.detach(), v.detach(), d, lse, lse,
+                                valid)
+
+
+# ---- the backward (the reference's custom VJP) ----
+
+def _assert_grads_close(got, want, dtype, what="", bf16_ulps=1.0):
+    """float32 within atol 1e-5 / rtol 1e-4; bf16 within `bf16_ulps` bf16
+    ulps at the gradient's scale."""
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.array(jnp.asarray(w, jnp.float32))
+        assert g.dtype == DTYPES[dtype][0], name
+        if dtype == "float32":
+            np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=1e-4,
+                                       err_msg=f"{name} {what}")
+        else:
+            err = bf16_ulp_error(g, torch.from_numpy(w).bfloat16())
+            assert err <= bf16_ulps, f"{name} {what}: {err} bf16 ulps"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,tq,tk,causal,lens,tile", [
+    (3, 37, 45, False, [45, 20, 0], None),   # Tq != Tk, a length-0 row
+    (3, 37, 37, True, [37, 20, 0], None),    # causal and key padding
+    (2, 40, 40, True, [40, 23], 16),         # 3 x 3 tiles of 16, padded
+    (3, 9, 40, False, [40, 17, 0], 16),      # Tq < one tile, 3 key tiles
+])
+def test_plain_backward_matches_pallas_backward(b, tq, tk, causal, lens,
+                                                tile, dtype, monkeypatch):
+    """flash_attention_bwd_reference against the reference's
+    _flash_backward (dq and dk/dv kernels) in interpret mode, with its
+    inputs prepared by _flash_bwd, from the reference forward's out and
+    lse; multi-tile grids by shrinking the reference's tiles, as
+    tests/unit/test_flash_attention.py does."""
+    if tile:
+        for attr in ("DEFAULT_TQ", "DEFAULT_TK", "DEFAULT_BWD_TQ",
+                     "DEFAULT_BWD_TK"):
+            monkeypatch.setattr(jax_fa, attr, tile)
+    h, dh = 2, 32
+    q, k, v = _qkv(b, tq, tk, h, dh, tq + tk)
+    dout = np.random.default_rng(tk).standard_normal(q.shape).astype(
+        np.float32)
+    (tq_, tk_, tv_, tdo), (jq, jk, jv, jdo) = _both((q, k, v, dout), dtype)
+    valid = np.arange(tk)[None, :] < np.asarray(lens)[:, None]
+    out, res = jax_fa._flash_fwd(jq, jk, jv, jnp.asarray(valid, jnp.float32),
+                                 causal, True)
+    want = jax_fa._flash_bwd(causal, True, res, jdo)[:3]
+    lse = torch.from_numpy(np.array(res[5])[:, :, :tq, 0])
+    tout = torch.from_numpy(_np(out).copy()).to(DTYPES[dtype][0])
+    got = flash_attention_bwd_reference(tq_, tk_, tv_, tout, tdo, lse,
+                                        torch.from_numpy(valid), causal)
+    _assert_grads_close(got, want, dtype)
+    dead = np.asarray(lens) == 0
+    for g in got:                # a length-0 row's gradients are exactly 0
+        assert not g[dead].any()
+    for g in got[1:]:            # and so are a masked key's
+        assert not g[torch.from_numpy(~valid)].any()
+
+
+@pytest.mark.parametrize("dtype,causal,lens", [
+    ("float32", True, [24, 24, 9]),
+    ("float32", False, [31, 12, 0]),
+    ("bfloat16", False, [31, 12, 0]),
+])
+def test_dispatcher_grads_match_jax_grad(dtype, causal, lens):
+    """torch.autograd.grad through the dispatcher (FlashAttentionFunction
+    on the CPU) against jax.grad of the reference's public function in
+    interpret mode, for the loss sum(out * g). bf16 within two ulps: each
+    side's backward reads its own forward's bf16 out (see the module
+    docstring)."""
+    b, h, dh = 3, 2, 32
+    t = max(lens)
+    q, k, v = _qkv(b, 17, t, h, dh, 21) if not causal else \
+        _qkv(b, t, t, h, dh, 21)
+    g = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    (tq_, tk_, tv_, tg), (jq, jk, jv, jg) = _both((q, k, v, g), dtype)
+    valid = np.arange(t)[None, :] < np.asarray(lens)[:, None]
+    jvalid = jnp.asarray(valid, jnp.float32)
+
+    def loss(q, k, v):
+        out = jax_flash_attention(q, k, v, kv_valid=jvalid, causal=causal,
+                                  interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jg.astype(jnp.float32))
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    xs = [x.requires_grad_(True) for x in (tq_, tk_, tv_)]
+    out = flash_attention(*xs, kv_valid=torch.from_numpy(valid),
+                          causal=causal)
+    got = torch.autograd.grad((out.float() * tg.float()).sum(), xs)
+    _assert_grads_close(got, want, dtype, bf16_ulps=2.0)

@@ -163,11 +163,11 @@ def test_layer_norm_residual_kernel_matches_plain_version(rows, d, dtype):
     """float32 within 1e-5; bfloat16 within one bf16 ulp of the plain
     version at the output's scale (the float32 statistics differ in their
     last bits and may flip a rounding; see bf16_ulp_error); mean and rstd
-    within 1e-5."""
-    from tpu_asr_torch.ops.layernorm import (bf16_ulp_error,
-                                             layer_norm_residual,
-                                             layer_norm_residual_fwd,
-                                             layer_norm_residual_reference)
+    within 1e-5. Then the backward kernel and the autograd Function."""
+    from tpu_asr_torch.ops.layernorm import (
+        bf16_ulp_error, layer_norm_residual, layer_norm_residual_bwd,
+        layer_norm_residual_bwd_reference, layer_norm_residual_fwd,
+        layer_norm_residual_reference)
     _need_card()
     rng = np.random.default_rng(rows + d)
     r, h = (torch.from_numpy(rng.standard_normal((rows, d)).astype(
@@ -188,10 +188,49 @@ def test_layer_norm_residual_kernel_matches_plain_version(rows, d, dtype):
                                    rtol=1e-5, atol=1e-5)
     else:
         assert bf16_ulp_error(out, w_out) <= 1.0
-    with pytest.raises(NotImplementedError):
-        layer_norm_residual(r, h, g.clone().requires_grad_(True), b)
     with pytest.raises(ValueError):
         layer_norm_residual_fwd(r[:, :30], h[:, :30], g[:30], b[:30])
+
+    # the backward kernel against the plain backward from the kernel's
+    # statistics: dx as out above; dgamma, dbeta (float32 sums over the
+    # rows) within 1e-5 of their largest magnitude
+    dy = torch.from_numpy(rng.standard_normal((rows, d)).astype(
+        np.float32)).cuda().to(dtype)
+    before = layer_norm_residual_bwd.launches
+    got = layer_norm_residual_bwd(r, h, g, mean, rstd, dy)
+    want = layer_norm_residual_bwd_reference(r, h, g, mean, rstd, dy)
+    torch.cuda.synchronize()
+    assert layer_norm_residual_bwd.launches == before + 1
+    _close_ln_grads(got, want, dtype)
+
+    # the Function: the forward and backward kernels, the same dx for both
+    # addends, and the plain backward's gradients
+    xs = [x.clone().requires_grad_(True) for x in (r, h, g, b)]
+    before = (layer_norm_residual_fwd.launches,
+              layer_norm_residual_bwd.launches)
+    grads = torch.autograd.grad(
+        (layer_norm_residual(*xs).float() * dy.float()).sum(), xs)
+    torch.cuda.synchronize()
+    assert (layer_norm_residual_fwd.launches,
+            layer_norm_residual_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert torch.equal(grads[0], grads[1])
+    _close_ln_grads((grads[0], grads[2], grads[3]), want, dtype)
+
+
+def _close_ln_grads(got, want, dtype):
+    from tpu_asr_torch.ops.layernorm import bf16_ulp_error
+    (dx, dg, db), (w_dx, w_dg, w_db) = got, want
+    assert dx.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(dx.cpu().numpy(), w_dx.cpu().numpy(),
+                                   **GRAD_TOL)
+    else:
+        assert bf16_ulp_error(dx, w_dx) <= 1.0
+    for x, w in ((dg, w_dg), (db, w_db)):
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(x.cpu().numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
 
 
 @pytest.mark.gpu
@@ -206,10 +245,12 @@ def test_layer_norm_residual_kernel_matches_plain_version(rows, d, dtype):
 def test_flash_attention_kernel_matches_plain_version(b, tq, tk, h, dh,
                                                       causal, dtype):
     """Ragged key lengths with a length-0 row (zeros, lse -1e30): float32
-    within atol 1e-5 / rtol 1e-4, bfloat16 within 2e-2; lse within 1e-4."""
-    from tpu_asr_torch.ops.flash_attention import (flash_attention,
-                                                   flash_attention_fwd,
-                                                   flash_attention_reference)
+    within atol 1e-5 / rtol 1e-4, bfloat16 within 2e-2; lse within 1e-4.
+    Then the backward kernels and the autograd Function."""
+    from tpu_asr_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_reference, flash_attention_delta,
+        flash_attention_fwd, flash_attention_reference)
     _need_card()
     rng = np.random.default_rng(b + tq + tk)
     q = torch.from_numpy(rng.standard_normal((b, tq, h, dh)).astype(
@@ -230,5 +271,51 @@ def test_flash_attention_kernel_matches_plain_version(b, tq, tk, h, dh,
                                w_out.float().cpu().numpy(), **tol)
     _close(lse, w_lse, "lse", dict(atol=1e-4, rtol=1e-5))
     assert not out[-1].any() and (lse[-1] == -1e30).all()
-    with pytest.raises(NotImplementedError):
-        flash_attention(q.clone().requires_grad_(True), k, v, kv_valid=valid)
+
+    # the dq and dk/dv kernels against the plain backward, from the
+    # forward kernel's out and lse: float32 within atol 1e-5 / rtol 1e-4,
+    # bfloat16 within one bf16 ulp of the gradient's largest entry; a
+    # length-0 row and a masked key get exactly 0
+    dout = torch.from_numpy(rng.standard_normal((b, tq, h, dh)).astype(
+        np.float32)).cuda().to(dtype)
+    delta = flash_attention_delta(out, dout).contiguous()
+    before = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    got = (flash_attention_bwd_dq(q, k, v, dout, lse, delta, valid, causal),
+           *flash_attention_bwd_dkv(q, k, v, dout, lse, delta, valid, causal))
+    want = flash_attention_bwd_reference(q, k, v, out, dout, lse, valid,
+                                         causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    _close_flash_grads(got, want, dtype)
+    assert not got[0][-1].any()
+    assert not got[1][~valid].any() and not got[2][~valid].any()
+
+    # the Function: forward kernel, then both backward kernels, and the
+    # plain backward's gradients
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (flash_attention_fwd.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    grads = torch.autograd.grad(
+        (flash_attention(*xs, kv_valid=valid, causal=causal).float()
+         * dout.float()).sum(), xs)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    _close_flash_grads(grads, want, dtype)
+
+
+def _close_flash_grads(got, want, dtype):
+    from tpu_asr_torch.ops.layernorm import bf16_ulp_error
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype, name
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       err_msg=name, **GRAD_TOL)
+        else:
+            # one ulp of the largest |w|: ds and p are rounded to bf16 on
+            # both sides, and a last-bit difference of the float32 scores
+            # may flip such a rounding, moving a sum by an ulp of a term
+            assert bf16_ulp_error(g, w, floor=1.0) <= 1.0, name

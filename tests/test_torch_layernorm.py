@@ -1,25 +1,33 @@
 """Port fused residual+LayerNorm (ops/layernorm.py, PostNormBlock) vs
 tpu_asr.ops.pallas.layernorm and tpu_asr.models.modules.PostNormBlock on
 the CPU: the plain version against the Pallas forward in interpret mode
-(out, mean, rstd), and the 512-row switch of the post-norm block.
+(out, mean, rstd), the plain backward against the Pallas backward (dx and
+the summed dgamma/dbeta partials), the dispatcher's gradients against
+jax.grad of the reference's custom VJP, and the 512-row switch of the
+post-norm block, whose gradients reach norm.weight and norm.bias.
 
-float32 within 1e-5; bfloat16 within one bf16 ulp of the reference output
-at the output's scale (bf16_ulp_error: the float32 statistics differ in
-their last bits and may flip a rounding).
+float32 within 1e-5 (dx: atol 1e-5 / rtol 1e-4); bfloat16 within one bf16
+ulp of the reference at the tensor's scale (bf16_ulp_error: the float32
+statistics differ in their last bits and may flip a rounding). dgamma and
+dbeta are sums over the rows: within rtol 1e-5 of their largest
+magnitude.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tpu_asr.models.modules import PostNormBlock as JaxPostNormBlock
-from tpu_asr.ops.pallas.layernorm import _fwd
+from tpu_asr.ops.pallas.layernorm import _bwd, _fwd
 from tpu_asr.ops.pallas.layernorm import \
     layer_norm_residual as jax_layer_norm_residual
 from tpu_asr_torch.models import modules
 from tpu_asr_torch.models.modules import LN_EPS, PostNormBlock
 from tpu_asr_torch.ops.layernorm import (bf16_ulp_error, layer_norm_residual,
+                                         layer_norm_residual_bwd,
+                                         layer_norm_residual_bwd_reference,
                                          layer_norm_residual_fwd,
                                          layer_norm_residual_reference)
 
@@ -131,3 +139,114 @@ def test_fused_and_plain_forms_differ_in_bf16():
         a = fused(r.bfloat16(), h.bfloat16())
         c = plain(r.bfloat16(), h.bfloat16())
     assert not torch.equal(a, c)
+
+
+# ---- the backward (the reference's custom VJP) ----
+
+def _assert_grads_close(got, want, dtype):
+    """(dx, dgamma, dbeta) against the reference's: dx float32 within atol
+    1e-5 / rtol 1e-4, bf16 within one ulp at its scale; dgamma and dbeta
+    (float32 sums over the rows) within rtol 1e-5 of their largest
+    magnitude."""
+    dx, dg, db = got
+    want = [np.array(jnp.asarray(w, jnp.float32)) for w in want]
+    if dtype == "float32":
+        np.testing.assert_allclose(dx.numpy(), want[0], atol=1e-5, rtol=1e-4)
+    else:
+        assert dx.dtype == torch.bfloat16
+        assert bf16_ulp_error(dx, torch.from_numpy(want[0]).bfloat16()) <= 1
+    for got_, w in ((dg, want[1]), (db, want[2])):
+        assert got_.dtype == torch.float32
+        np.testing.assert_allclose(got_.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [100, 512, 700])
+def test_plain_backward_matches_pallas_backward(rows, dtype):
+    """layer_norm_residual_bwd_reference against the reference's _bwd (its
+    _bwd_kernel in interpret mode, partials summed) from the reference
+    forward's mean and rstd: rows below, at and across the 512-row tile
+    (one and two reference programs)."""
+    tdt, jdt = DTYPES[dtype]
+    d = 64
+    r, h, g, b = _inputs((rows, d), rows)
+    dy = np.random.default_rng(rows + 1).standard_normal((rows, d)).astype(
+        np.float32)
+    jr, jh, jdy = (jnp.asarray(x, jdt) for x in (r, h, dy))
+    _, mean, rstd = _fwd(jr, jh, jnp.asarray(g), jnp.asarray(b), LN_EPS, True)
+    want = _bwd(jr, jh, jnp.asarray(g), mean, rstd, jdy, True)
+    got = layer_norm_residual_bwd_reference(
+        *(torch.from_numpy(x).to(tdt) for x in (r, h)), torch.from_numpy(g),
+        torch.from_numpy(np.array(mean)[:rows, 0]),
+        torch.from_numpy(np.array(rstd)[:rows, 0]),
+        torch.from_numpy(dy).to(tdt))
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 7, 64), (4, 150, 64)])
+def test_dispatcher_grads_match_jax_grad(shape, dtype):
+    """torch.autograd.grad through the dispatcher (the Function on the
+    CPU) against jax.grad of the reference's public function in interpret
+    mode, for the loss sum(out * w): 21 and 600 rows; residual and h get
+    the same dx."""
+    tdt, jdt = DTYPES[dtype]
+    r, h, g, b = _inputs(shape, shape[1])
+    w = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+
+    def loss(r, h, g, b):
+        out = jax_layer_norm_residual(r, h, g, b, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(w))
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        jnp.asarray(r, jdt), jnp.asarray(h, jdt), jnp.asarray(g),
+        jnp.asarray(b))
+    xs = [torch.from_numpy(r).to(tdt).requires_grad_(True),
+          torch.from_numpy(h).to(tdt).requires_grad_(True),
+          torch.from_numpy(g).requires_grad_(True),
+          torch.from_numpy(b).requires_grad_(True)]
+    before = (layer_norm_residual_fwd.launches,
+              layer_norm_residual_bwd.launches)
+    out = layer_norm_residual(*xs)
+    got = torch.autograd.grad((out.float() * torch.from_numpy(w)).sum(), xs)
+    assert (layer_norm_residual_fwd.launches,
+            layer_norm_residual_bwd.launches) == before
+    assert torch.equal(got[0], got[1])
+    d = shape[-1]
+    _assert_grads_close((got[0].reshape(-1, d), got[2], got[3]),
+                        (want[0].reshape(-1, d), want[2], want[3]), dtype)
+    with pytest.raises(ValueError):
+        layer_norm_residual_bwd(*(x.detach() for x in xs[:3]),
+                                torch.zeros(shape[:-1]),
+                                torch.ones(shape[:-1]), xs[0].detach())
+
+
+def test_post_norm_block_grads_reach_norm_params_through_fused_form():
+    """With use_pallas at >= 512 rows the block's gradients (residual,
+    sublayer output, norm.weight, norm.bias) come from the fused form's
+    backward and equal jax.grad of the reference's block."""
+    rows, d = 600, 64
+    r, h, g, b = _inputs((rows, d), 9)
+    w = np.random.default_rng(9).standard_normal((rows, d)).astype(
+        np.float32)
+    jm = JaxPostNormBlock(d, dropout=0.0, dtype=jnp.float32, use_pallas=True)
+
+    def loss(params, r, h):
+        return jnp.sum(jm.apply(params, r, h) * jnp.asarray(w))
+    params = {"params": {"LayerNorm_0": {"scale": jnp.asarray(g),
+                                         "bias": jnp.asarray(b)}}}
+    gp, gr, gh = jax.grad(loss, argnums=(0, 1, 2))(params, jnp.asarray(r),
+                                                    jnp.asarray(h))
+    block = PostNormBlock(d, dropout=0.0, use_pallas=True)
+    with torch.no_grad():
+        block.norm.weight.copy_(torch.from_numpy(g))
+        block.norm.bias.copy_(torch.from_numpy(b))
+    tr, th = (torch.from_numpy(x).requires_grad_(True) for x in (r, h))
+    out = block(tr, th)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                              (tr, th, block.norm.weight, block.norm.bias))
+    ln = gp["params"]["LayerNorm_0"]
+    _assert_grads_close((got[0], got[2], got[3]),
+                        (gr, ln["scale"], ln["bias"]), "float32")
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(gh), atol=1e-5,
+                               rtol=1e-4)

@@ -1,0 +1,456 @@
+// Flash attention backward (dq, and dk/dv) for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernels _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel
+// of tpu_asr/ops/pallas/flash_attention.py, reached through
+// _flash_backward (the custom VJP of flash_attention). For utterance b,
+// head h, query row i and key j of [B, T, H, dh] that the mask lets
+// through (kv_valid[b, j], and j <= i when causal):
+//
+//   s     = (q[i] . k[j]) * scale      the forward's float32 dot (four
+//                                       partial sums, the same order), then
+//                                       the scale: bitwise the forward's s
+//   p     = exp(s - max(lse[i], NEG_INF / 2)), 0 where the mask bars j
+//   dp    = dO[i] . v[j]                float32
+//   ds    = p * (dp - delta[i]) * scale
+//   dq[i] = sum_j T(ds) k[j]            (T = the input type, as the TPU
+//   dk[j] = sum_i T(ds) q[i]             kernel rounds ds and p before
+//   dv[j] = sum_i T(p) dO[i]             its MXU products)
+//
+// with delta[i] = sum_d dO[i, d] out[i, d] (float32, computed by the
+// caller, as the reference computes it in XLA outside its kernels) and
+// lse the forward's float32 [B, H, Tq]. A query row whose keys are all
+// masked and a masked key get exactly 0; nothing of [Tq, Tk] reaches
+// device memory. Sums accumulate in float32; the outputs are cast to T.
+//
+// What bounds it on this card: at the training shapes, the SIMT float32
+// arithmetic of this first version. For one head of one utterance in
+// bf16, dq reads q, k, v, dO once and writes dq, 2 dh (3 Tq + 2 Tk) bytes
+// (plus lse and delta), for 6 dh flops a pair that the mask lets through
+// (s, dp, ds k); dk/dv moves 2 dh (2 Tq + 4 Tk) bytes for 8 dh flops a
+// pair. At the encoder's T' = 249 that is ~150 flops a byte, below the
+// bf16 tensor-core ridge (~295): on tensor cores both would be bound by
+// bytes. These kernels do their products in float32 on the SIMT units
+// (67 TFLOP/s), which puts their floor at the operation count. They are
+// correct and simple first; wgmma, TMA and a pipelined ring are later
+// work.
+//
+// Design. Like the reference, two kernels and no atomics, so a run on the
+// card is bitwise repeatable:
+//   dq    one block per (64 query rows, head, utterance), walking key tiles
+//         of 32 (causal: only up to the block's last row);
+//   dk/dv one block per (64 key rows, head, utterance), walking query
+//         tiles of 32 (causal: only from the block's first key).
+// A block has 2 dh threads. The block's own 64 rows of two operands sit in
+// shared memory as float32 with a padded row stride (dh + 1), so 32 threads
+// reading 32 rows at one column hit 32 banks; the walked tile's rows are
+// read by a whole warp at one address (a broadcast). Each step has two
+// phases:
+//   A  every thread computes s, p and ds for 1024 / dh pairs (row r =
+//      thread % 64) and writes the rounded p / ds into a shared tile;
+//   B  thread (r, c) adds the tile's contribution to columns
+//      [32 c, 32 c + 32) of row r's accumulators, held in registers.
+// So a thread holds 32 float32 accumulators (dq) or 64 (dk and dv) for any
+// dh in {32, 64, 128}: no spills, and no key loop unrolled in full (the
+// forward's unrolled loops took 92.6 s of nvcc). Shared memory is dynamic:
+// 33-108 KB (dq) and 37-116 KB (dk/dv) by dh. Operands are read from the
+// strided [B, T, H, dh] layout with the strides the caller gives (the
+// head axis contiguous); the outputs are contiguous [B, T, H, dh].
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRows = 64;        // rows of the block's own side
+constexpr int kTile = 32;        // rows of the walked side per step
+constexpr int kChunk = 32;       // accumulator columns a thread owns
+constexpr float kHalfNegInf = -5e29f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);                    // round to nearest even
+}
+template <typename T>
+__device__ __forceinline__ float rounded(float x) {   // x in the type T
+  return to_float(from_float<T>(x));
+}
+
+struct Strides {      // in elements; the head dimension is contiguous
+  int64_t b, t, h;
+};
+
+// Rows [r0, r0 + n) of one head (`head` points at [b, 0, h, 0]) into a
+// float32 tile with row stride ld; rows at or past t_len are zeros.
+template <typename T, int DH>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* head,
+                                          int64_t st, int r0, int n,
+                                          int t_len) {
+  for (int idx = threadIdx.x; idx < n * DH; idx += 2 * DH) {
+    const int r = idx / DH, d = idx % DH;
+    const int row = r0 + r;
+    dst[r * ld + d] =
+        row < t_len ? to_float(head[static_cast<int64_t>(row) * st + d]) : 0.0f;
+  }
+}
+
+// The forward kernel's dot: four partial sums over d = 0, 4, 8, ... (and
+// 1, 5, ...), added pairwise. fmaf(a, b, acc) is symmetric in a and b.
+template <int DH>
+__device__ __forceinline__ float dot(const float* a, const float* b) {
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int d = 0; d < DH; d += 4) {
+    acc[0] = fmaf(a[d], b[d], acc[0]);
+    acc[1] = fmaf(a[d + 1], b[d + 1], acc[1]);
+    acc[2] = fmaf(a[d + 2], b[d + 2], acc[2]);
+    acc[3] = fmaf(a[d + 3], b[d + 3], acc[3]);
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// acc[0..32) += w * row[0..32) (row 16-byte aligned, read as float4)
+__device__ __forceinline__ void axpy_chunk(float* acc, float w,
+                                           const float* row) {
+#pragma unroll
+  for (int d = 0; d < kChunk; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(row + d);
+    acc[d] = fmaf(w, x.x, acc[d]);
+    acc[d + 1] = fmaf(w, x.y, acc[d + 1]);
+    acc[d + 2] = fmaf(w, x.z, acc[d + 2]);
+    acc[d + 3] = fmaf(w, x.w, acc[d + 3]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* dst, const float* acc) {
+#pragma unroll
+  for (int d = 0; d < kChunk; ++d) dst[d] = from_float<T>(acc[d]);
+}
+
+template <int DH>
+constexpr size_t dq_smem_floats() {
+  return 2 * kRows * (DH + 1) + 2 * kTile * DH + kTile * kRows + 2 * kRows +
+         kTile;
+}
+
+template <int DH>
+constexpr size_t dkv_smem_floats() {
+  return 2 * kRows * (DH + 1) + 2 * kTile * DH + 2 * kTile * kRows +
+         2 * kTile + kRows;
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(2 * DH)
+flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,    // [B, H, Tq]
+                              const float* __restrict__ delta,  // [B, H, Tq]
+                              const uint8_t* __restrict__ kv_valid,
+                              T* __restrict__ dq,     // [B, Tq, H, DH]
+                              int tq, int tk, int heads, Strides qs,
+                              Strides ks, Strides vs, Strides os, float scale,
+                              int causal) {
+  constexpr int LD = DH + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                          // [kRows][LD], own queries
+  float* do_s = q_s + kRows * LD;             // [kRows][LD]
+  float* k_t = do_s + kRows * LD;             // [kTile][DH], walked keys
+  float* v_t = k_t + kTile * DH;              // [kTile][DH]
+  float* ds_s = v_t + kTile * DH;             // [kTile][kRows], T(ds)
+  float* lse_s = ds_s + kTile * kRows;        // [kRows], clamped lse
+  float* delta_s = lse_s + kRows;             // [kRows]
+  float* valid_s = delta_s + kRows;           // [kTile], 1 = valid key
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
+  const int r = threadIdx.x % kRows;          // this thread's query row
+  const int c = threadIdx.x / kRows;          // its column chunk (phase B)
+  const int i = q0 + r;
+
+  load_rows<T, DH>(q_s, LD, q + b * qs.b + h * qs.h, qs.t, q0, kRows, tq);
+  load_rows<T, DH>(do_s, LD, dout + b * os.b + h * os.h, os.t, q0, kRows,
+                   tq);
+  if (c == 0) {
+    const int64_t at = (static_cast<int64_t>(b) * heads + h) * tq + i;
+    lse_s[r] = i < tq ? fmaxf(lse[at], kHalfNegInf) : 0.0f;
+    delta_s[r] = i < tq ? delta[at] : 0.0f;
+  }
+
+  float acc[kChunk];
+#pragma unroll
+  for (int d = 0; d < kChunk; ++d) acc[d] = 0.0f;
+
+  // with the causal flag, keys past the block's last row are all masked
+  const int last_row = min(q0 + kRows, tq) - 1;
+  const int k_end = causal ? min(tk, last_row + 1) : tk;
+  const T* k_head = k + b * ks.b + h * ks.h;
+  const T* v_head = v + b * vs.b + h * vs.h;
+  const uint8_t* valid_row = kv_valid + static_cast<int64_t>(b) * tk;
+
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();                 // the previous tile is consumed
+    load_rows<T, DH>(k_t, DH, k_head, ks.t, k0, kTile, tk);
+    load_rows<T, DH>(v_t, DH, v_head, vs.t, k0, kTile, tk);
+    if (threadIdx.x < kTile) {
+      const int kj = k0 + threadIdx.x;
+      valid_s[threadIdx.x] = (kj < tk && valid_row[kj]) ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+
+    // phase A: T(ds) of (row r, keys c, c + DH/32, ...) of this tile
+#pragma unroll 1
+    for (int j = c; j < kTile; j += DH / kChunk) {
+      const int kj = k0 + j;
+      float ds = 0.0f;
+      if (i < tq && valid_s[j] != 0.0f && (!causal || kj <= i)) {
+        const float s = dot<DH>(q_s + r * LD, k_t + j * DH) * scale;
+        const float p = s <= kHalfNegInf ? 0.0f : expf(s - lse_s[r]);
+        const float dp = dot<DH>(do_s + r * LD, v_t + j * DH);
+        ds = p * (dp - delta_s[r]) * scale;
+      }
+      ds_s[j * kRows + r] = rounded<T>(ds);
+    }
+    __syncthreads();
+
+    // phase B: dq[r, chunk c] += sum_j T(ds[r, j]) k[j, chunk c]
+#pragma unroll 2
+    for (int j = 0; j < kTile; ++j) {
+      axpy_chunk(acc, ds_s[j * kRows + r], k_t + j * DH + c * kChunk);
+    }
+  }
+
+  if (i < tq) {
+    store_chunk<T>(dq + (static_cast<int64_t>(b) * tq + i) * heads * DH +
+                       static_cast<int64_t>(h) * DH + c * kChunk,
+                   acc);
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(2 * DH)
+flash_attention_bwd_dkv_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const uint8_t* __restrict__ kv_valid,
+                               T* __restrict__ dk,    // [B, Tk, H, DH]
+                               T* __restrict__ dv,    // [B, Tk, H, DH]
+                               int tq, int tk, int heads, Strides qs,
+                               Strides ks, Strides vs, Strides os,
+                               float scale, int causal) {
+  constexpr int LD = DH + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                          // [kRows][LD], own keys
+  float* v_s = k_s + kRows * LD;              // [kRows][LD]
+  float* q_t = v_s + kRows * LD;              // [kTile][DH], walked queries
+  float* do_t = q_t + kTile * DH;             // [kTile][DH]
+  float* p_s = do_t + kTile * DH;             // [kTile][kRows], T(p)
+  float* ds_s = p_s + kTile * kRows;          // [kTile][kRows], T(ds)
+  float* lse_t = ds_s + kTile * kRows;        // [kTile], clamped lse
+  float* delta_t = lse_t + kTile;             // [kTile]
+  float* valid_s = delta_t + kTile;           // [kRows], 1 = valid key
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int k0 = blockIdx.x * kRows;
+  const int r = threadIdx.x % kRows;          // this thread's key row
+  const int c = threadIdx.x / kRows;          // its column chunk (phase B)
+  const int j = k0 + r;
+
+  load_rows<T, DH>(k_s, LD, k + b * ks.b + h * ks.h, ks.t, k0, kRows, tk);
+  load_rows<T, DH>(v_s, LD, v + b * vs.b + h * vs.h, vs.t, k0, kRows, tk);
+  if (c == 0) {
+    valid_s[r] =
+        (j < tk && kv_valid[static_cast<int64_t>(b) * tk + j]) ? 1.0f : 0.0f;
+  }
+
+  float dk_acc[kChunk], dv_acc[kChunk];
+#pragma unroll
+  for (int d = 0; d < kChunk; ++d) dk_acc[d] = dv_acc[d] = 0.0f;
+
+  // with the causal flag, queries before the block's first key see none
+  // of its keys
+  const int q_begin = causal ? k0 : 0;
+  const T* q_head = q + b * qs.b + h * qs.h;
+  const T* do_head = dout + b * os.b + h * os.h;
+  const int64_t row_at = (static_cast<int64_t>(b) * heads + h) * tq;
+
+  for (int q0 = q_begin; q0 < tq; q0 += kTile) {
+    __syncthreads();                 // the previous tile is consumed
+    load_rows<T, DH>(q_t, DH, q_head, qs.t, q0, kTile, tq);
+    load_rows<T, DH>(do_t, DH, do_head, os.t, q0, kTile, tq);
+    if (threadIdx.x < kTile) {
+      const int qi = q0 + threadIdx.x;
+      lse_t[threadIdx.x] = qi < tq ? fmaxf(lse[row_at + qi], kHalfNegInf)
+                                   : 0.0f;
+      delta_t[threadIdx.x] = qi < tq ? delta[row_at + qi] : 0.0f;
+    }
+    __syncthreads();
+
+    // phase A: T(p), T(ds) of (queries c, c + DH/32, ..., key row r)
+    const bool key_ok = valid_s[r] != 0.0f;
+#pragma unroll 1
+    for (int ii = c; ii < kTile; ii += DH / kChunk) {
+      const int qi = q0 + ii;
+      float p = 0.0f, ds = 0.0f;
+      if (key_ok && qi < tq && (!causal || j <= qi)) {
+        const float s = dot<DH>(q_t + ii * DH, k_s + r * LD) * scale;
+        p = s <= kHalfNegInf ? 0.0f : expf(s - lse_t[ii]);
+        const float dp = dot<DH>(do_t + ii * DH, v_s + r * LD);
+        ds = p * (dp - delta_t[ii]) * scale;
+      }
+      p_s[ii * kRows + r] = rounded<T>(p);
+      ds_s[ii * kRows + r] = rounded<T>(ds);
+    }
+    __syncthreads();
+
+    // phase B: dv[r, chunk c] += sum_i T(p) dO[i, chunk c];
+    //          dk[r, chunk c] += sum_i T(ds) q[i, chunk c]
+#pragma unroll 2
+    for (int ii = 0; ii < kTile; ++ii) {
+      axpy_chunk(dv_acc, p_s[ii * kRows + r], do_t + ii * DH + c * kChunk);
+      axpy_chunk(dk_acc, ds_s[ii * kRows + r], q_t + ii * DH + c * kChunk);
+    }
+  }
+
+  if (j < tk) {
+    const int64_t at = (static_cast<int64_t>(b) * tk + j) * heads * DH +
+                       static_cast<int64_t>(h) * DH + c * kChunk;
+    store_chunk<T>(dk + at, dk_acc);
+    store_chunk<T>(dv + at, dv_acc);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const uint8_t* kv_valid;
+  int b, tq, tk, heads;
+  Strides qs, ks, vs, os;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename T, int DH>
+int launch_dq(const Args& a, void* dq) {
+  const size_t smem = dq_smem_floats<DH>() * sizeof(float);
+  auto kernel = flash_attention_bwd_dq_kernel<T, DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.tq + kRows - 1) / kRows, a.heads, a.b);
+  kernel<<<grid, 2 * DH, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.kv_valid, static_cast<T*>(dq), a.tq, a.tk, a.heads, a.qs,
+      a.ks, a.vs, a.os, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DH>
+int launch_dkv(const Args& a, void* dk, void* dv) {
+  const size_t smem = dkv_smem_floats<DH>() * sizeof(float);
+  auto kernel = flash_attention_bwd_dkv_kernel<T, DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.tk + kRows - 1) / kRows, a.heads, a.b);
+  kernel<<<grid, 2 * DH, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.kv_valid, static_cast<T*>(dk), static_cast<T*>(dv), a.tq,
+      a.tk, a.heads, a.qs, a.ks, a.vs, a.os, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// which = 0: dq into out0; which = 1: dk, dv into out0, out1
+template <typename T>
+int launch_dh(int dh, int which, const Args& a, void* out0, void* out1) {
+  switch (dh) {
+    case 32:
+      return which == 0 ? launch_dq<T, 32>(a, out0)
+                        : launch_dkv<T, 32>(a, out0, out1);
+    case 64:
+      return which == 0 ? launch_dq<T, 64>(a, out0)
+                        : launch_dkv<T, 64>(a, out0, out1);
+    case 128:
+      return which == 0 ? launch_dq<T, 128>(a, out0)
+                        : launch_dkv<T, 128>(a, out0, out1);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch(int which, const void* q, const void* k, const void* v,
+           const void* dout, const float* lse, const float* delta,
+           const uint8_t* kv_valid, void* out0, void* out1, int b, int tq,
+           int tk, int heads, int dh, const int64_t* st, float scale,
+           int causal, int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  // an empty side: dq of no queries, or dk/dv of no keys, is empty
+  if (b == 0 || heads == 0 || (which == 0 ? tq : tk) == 0) return 0;
+  const Args a{q, k, v, dout, lse, delta, kv_valid, b, tq, tk, heads,
+               Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+               Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+               scale, causal, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_dh<float>(dh, which, a, out0, out1);
+  return launch_dh<__nv_bfloat16>(dh, which, a, out0, out1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both launch on `stream` (PyTorch's current stream) without synchronising
+// and return the cudaError_t of the launch (0 = cudaSuccess), or
+// cudaErrorInvalidValue for an unsupported dtype or head size. dtype: 0 =
+// float32, 1 = bfloat16 (q, k, v, dO and the outputs); dh in {32, 64,
+// 128}. q and dO [B, Tq, H, dh], k and v [B, Tk, H, dh] are given by their
+// batch, time and head strides in elements (the head dimension contiguous):
+// strides = {q_b, q_t, q_h, k_b, k_t, k_h, v_b, v_t, v_h, do_b, do_t,
+// do_h}. lse and delta [B, H, Tq] float32 and kv_valid [B, Tk] one byte
+// each (non-zero = valid) are contiguous, and so are the outputs: dq
+// [B, Tq, H, dh], dk and dv [B, Tk, H, dh]. The caller guarantees b and
+// heads <= 65535.
+
+int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse,
+                                  const float* delta, const uint8_t* kv_valid,
+                                  void* dq, int b, int tq, int tk, int heads,
+                                  int dh, const int64_t* strides, float scale,
+                                  int causal, int dtype, void* stream) {
+  return launch(0, q, k, v, dout, lse, delta, kv_valid, dq, nullptr, b, tq,
+                tk, heads, dh, strides, scale, causal, dtype, stream);
+}
+
+int flash_attention_bwd_dkv_launch(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, const float* delta,
+                                   const uint8_t* kv_valid, void* dk,
+                                   void* dv, int b, int tq, int tk, int heads,
+                                   int dh, const int64_t* strides,
+                                   float scale, int causal, int dtype,
+                                   void* stream) {
+  return launch(1, q, k, v, dout, lse, delta, kv_valid, dk, dv, b, tq, tk,
+                heads, dh, strides, scale, causal, dtype, stream);
+}
+
+const char* flash_attention_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -8,8 +8,10 @@ instead of NaN. Softmax runs in float32 and is cast back to the compute
 dtype, as in the reference.
 
 With use_pallas (the config's `attention_pallas`), the full passes take
-the flash formulation (ops/flash_attention.py); cached decode steps
-always take `attend`, as in the reference.
+the flash formulation (ops/flash_attention.py: on the card its forward
+kernel, and in training its dq and dk/dv kernels through the autograd
+Function); cached decode steps always take `attend`, as in the
+reference.
 """
 
 from __future__ import annotations

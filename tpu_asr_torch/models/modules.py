@@ -4,8 +4,10 @@
 input and weights to the compute dtype; a LayerNorm takes its statistics
 in float32 with flax's eps of 1e-6 (torch's default is 1e-5) and casts
 the result back to the compute dtype. `PostNormBlock(use_pallas=True)`
-takes the fused residual+LayerNorm (ops/layernorm.py) on calls of at
-least 512 rows, as the reference does.
+takes the fused residual+LayerNorm (ops/layernorm.py: its forward
+kernel, and in training its backward kernel, whose dgamma and dbeta
+reach `norm.weight` and `norm.bias`) on calls of at least 512 rows, as
+the reference does.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Flash attention forward through a hand-written CUDA kernel (port of
-tpu_asr/ops/pallas/flash_attention.py, the forward).
+"""Flash attention, forward and backward, through hand-written CUDA
+kernels (port of tpu_asr/ops/pallas/flash_attention.py).
 
 q [B, Tq, H, dh], k/v [B, Tk, H, dh] -> out [B, Tq, H, dh], the layout of
 the reference's public function. The flash formulation differs from
@@ -7,17 +7,21 @@ models.attention.attend, and the model picks it with `attention_pallas`:
 the scores are a float32 dot scaled afterwards (attend scales in the
 compute dtype), p is rounded to the input dtype before the product with
 V, and a row whose keys are all masked gives 0 (attend gives the uniform
-average).
+average). The backward is the reference's custom VJP (`_flash_bwd` with
+`_rebuild_p_ds`): p rebuilt as exp(s - lse), ds = p (dO V^T - delta)
+scale with delta = rowsum(dO * out), and ds and p rounded to the input
+dtype before the products that give dq, dk and dv.
 
 `flash_attention` reads the reference's two mask biases (key padding,
 causal) and falls back to `xla_attention`, the reference's
-`_xla_attention`, for any other bias. On CUDA tensors it launches
-csrc/flash_attention.cu (counted in `flash_attention_fwd.launches`) or
-raises; on CPU tensors it runs the plain version. The kernel's backward
-(dq and dk/dv) is the next slice of the port: on CUDA tensors that need
-a gradient the dispatcher raises NotImplementedError instead of running
-the plain version quietly. On the CPU the plain version runs under
-autograd.
+`_xla_attention`, for any other bias. Without a gradient it runs the
+forward alone: on CUDA tensors the kernel of csrc/flash_attention.cu
+(counted in `flash_attention_fwd.launches`), on CPU tensors the plain
+version. When a gradient is wanted it goes through
+`FlashAttentionFunction`: on the card the forward kernel, then the dq and
+dk/dv kernels of csrc/flash_attention_bwd.cu (`flash_attention_bwd_dq`,
+`flash_attention_bwd_dkv`); on the CPU the plain forward and the plain
+backward (`flash_attention_bwd_reference`). Other devices raise.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from tpu_asr_torch.ops.cuda_build import KernelLibrary, check_tensor
 
 LIBRARY = KernelLibrary("flash_attention")
+BWD_LIBRARY = KernelLibrary("flash_attention_bwd")
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 MAX_GRID = 65535       # grid y (heads) and z (batch) extents
@@ -62,6 +67,34 @@ def flash_attention_reference(q, k, v, kv_valid: torch.Tensor,
     out = (pv / l.permute(0, 2, 1, 3)).to(q.dtype)
     lse = torch.where(m <= NEG_INF / 2, NEG_INF, m + torch.log(l))
     return out, lse[..., 0]
+
+
+def flash_attention_delta(out: torch.Tensor,
+                          dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * out) in float32, [B, H, Tq] (the reference's
+    `_flash_bwd` computes it in XLA outside its kernels)."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+
+
+def flash_attention_bwd_reference(q, k, v, out, dout, lse: torch.Tensor,
+                                  kv_valid: torch.Tensor,
+                                  causal: bool = False):
+    """Plain backward: (dq, dk, dv), each in its input's dtype, from the
+    forward's out (in q's dtype) and lse [B, H, Tq] float32."""
+    dh = q.shape[-1]
+    scale = 1.0 / dh ** 0.5
+    delta = flash_attention_delta(out, dout)[..., None]      # [B, H, Tq, 1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(_mask(kv_valid, causal, q.shape[1]), s, NEG_INF)
+    p = torch.exp(s - lse.clamp(min=NEG_INF / 2)[..., None])
+    p = torch.where(s <= NEG_INF / 2, 0.0, p)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(),
+                      dout.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def xla_attention(q, k, v, kv_valid: torch.Tensor, causal: bool = False):
@@ -136,6 +169,136 @@ def flash_attention_fwd(q, k, v, kv_valid: torch.Tensor,
 flash_attention_fwd.launches = 0   # kernel launches (not CPU calls)
 
 
+def _bwd_bind(lib: ctypes.CDLL):
+    if lib.flash_attention_bwd_dq_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn, n_out in ((lib.flash_attention_bwd_dq_launch, 1),
+                          (lib.flash_attention_bwd_dkv_launch, 2)):
+            fn.argtypes = ([p] * (7 + n_out) + [i] * 5
+                           + [p, ctypes.c_float, i, i, p])
+            fn.restype = i
+        lib.flash_attention_bwd_error_string.argtypes = [i]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_launch(name, q, k, v, dout, lse, delta, kv_valid, causal, outs):
+    """Checks shared by the two backward wrappers, then the launch of
+    `name` on the current stream writing `outs`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for device {q.device}")
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel needs dh in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if b > MAX_GRID or h > MAX_GRID:
+        raise ValueError(f"flash attention kernel needs B and H <= "
+                         f"{MAX_GRID}, got {b}, {h}")
+    dev, dt = q.device, q.dtype
+    checked = []
+    for nm, x, t in (("q", q, tq), ("k", k, tk), ("v", v, tk),
+                     ("dout", dout, tq)):
+        if tuple(x.shape) != (b, t, h, dh) or x.dtype != dt or \
+                x.device != dev:
+            raise ValueError(f"{nm} must be a {dt} tensor of shape "
+                             f"{(b, t, h, dh)} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        checked.append(x if x.stride(-1) == 1 else x.contiguous())
+    check_tensor("lse", lse, (b, h, tq), torch.float32, dev)
+    check_tensor("delta", delta, (b, h, tq), torch.float32, dev)
+    valid = kv_valid.to(torch.bool).contiguous().view(torch.uint8)
+    check_tensor("kv_valid", valid, (b, tk), torch.uint8, dev)
+    strides = (ctypes.c_int64 * 12)(*(s for x in checked
+                                      for s in x.stride()[:3]))
+    lib = _bwd_bind(BWD_LIBRARY.load())
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"{name}_launch")(
+            *(x.data_ptr() for x in checked), lse.data_ptr(),
+            delta.data_ptr(), valid.data_ptr(),
+            *(o.data_ptr() for o in outs), b, tq, tk, h, dh, strides,
+            1.0 / dh ** 0.5, int(causal), DTYPES[dt],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        msg = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse: torch.Tensor,
+                           delta: torch.Tensor, kv_valid: torch.Tensor,
+                           causal: bool = False) -> torch.Tensor:
+    """The dq kernel on CUDA tensors: dq [B, Tq, H, dh] in q's dtype, as
+    the plain backward gives it. q/k/v/dout in one dtype (float32 or
+    bfloat16) with the head axis contiguous; lse and delta
+    (flash_attention_delta) [B, H, Tq] float32; kv_valid [B, Tk]."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_attention_bwd_dq", q, k, v, dout, lse, delta,
+                kv_valid, causal, (dq,))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0   # kernel launches (not CPU calls)
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse: torch.Tensor,
+                            delta: torch.Tensor, kv_valid: torch.Tensor,
+                            causal: bool = False):
+    """The dk/dv kernel on CUDA tensors: (dk, dv) [B, Tk, H, dh] in k's
+    dtype, as the plain backward gives them; inputs as for
+    flash_attention_bwd_dq."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch("flash_attention_bwd_dkv", q, k, v, dout, lse, delta,
+                kv_valid, causal, (dk, dv))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0   # kernel launches (not CPU calls)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: the kernels on the
+    card, the plain versions on the CPU. Saves q, k, v, out, lse and the
+    boolean key mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, causal):
+        valid = kv_valid.to(torch.bool).contiguous()
+        fwd = (flash_attention_reference if q.device.type == "cpu"
+               else flash_attention_fwd)
+        out, lse = fwd(q, k, v, valid, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse, valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, valid = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, valid,
+                                         ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse: torch.Tensor,
+                        kv_valid: torch.Tensor, causal: bool = False):
+    """FlashAttentionFunction's backward, from what it saved and dO:
+    (dq, dk, dv). On CUDA tensors delta, then the dq and the dk/dv
+    kernels; on CPU tensors the plain backward."""
+    if dout.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, dout, lse,
+                                             kv_valid, causal)
+    delta = flash_attention_delta(out, dout).contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_valid, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_valid,
+                                     causal)
+    return dq, dk, dv
+
+
 def flash_attention(q, k, v, bias=None, kv_valid=None, causal=False):
     """q [B, Tq, H, dh], k/v [B, Tk, H, dh] -> [B, Tq, H, dh].
 
@@ -158,10 +321,8 @@ def flash_attention(q, k, v, bias=None, kv_valid=None, causal=False):
         kv_valid = ones()
     elif kv_valid.dtype != torch.bool:
         kv_valid = kv_valid > 0.5
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, kv_valid, causal)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_valid, causal)[0]
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "the flash attention kernel's backward is not ported yet (the "
-            "use_pallas training slice); train with pallas_attention=False")
     return flash_attention_fwd(q, k, v, kv_valid, causal)[0]

@@ -1,18 +1,23 @@
-"""Fused residual-add + LayerNorm forward through a hand-written CUDA
-kernel (port of tpu_asr/ops/pallas/layernorm.py, the forward).
+"""Fused residual-add + LayerNorm, forward and backward, through
+hand-written CUDA kernels (port of tpu_asr/ops/pallas/layernorm.py).
 
 LN(residual + h) over the last axis with the TPU kernel's numerics
 (`_fwd_kernel`): the add in float32 (not in the input dtype), a two-pass
 mean and variance in float32, rsqrt(var + eps), out = x_hat * gamma +
-beta cast to the input dtype; mean and rstd float32, one per row.
+beta cast to the input dtype; mean and rstd float32, one per row. The
+backward is the reference's custom VJP (`_bwd_kernel` + `_vjp_bwd`): x_hat
+rebuilt from the saved inputs and statistics, dx = rstd (a - mean(a) -
+x_hat mean(a x_hat)) with a = dy gamma, the same dx for residual and h,
+and dgamma, dbeta as float32 sums over the rows cast to gamma's dtype.
 
-`layer_norm_residual` is the dispatcher: on CUDA tensors it launches
-csrc/layer_norm_residual.cu (counted in `layer_norm_residual_fwd.launches`)
-or raises; on CPU tensors it runs the plain version. The kernel's
-backward is the next slice of the port: on CUDA tensors that need a
-gradient the dispatcher raises NotImplementedError instead of running
-the plain version quietly. On the CPU the plain version runs under
-autograd.
+`layer_norm_residual` is the dispatcher. Without a gradient it runs the
+forward alone: on CUDA tensors the kernel of csrc/layer_norm_residual.cu
+(counted in `layer_norm_residual_fwd.launches`), on CPU tensors the plain
+version. When a gradient is wanted it goes through
+`LayerNormResidualFunction`: on the card the forward kernel, then the
+backward kernel (`layer_norm_residual_bwd.launches`); on the CPU the plain
+forward and the plain backward (`layer_norm_residual_bwd_reference`).
+Other devices raise.
 """
 
 from __future__ import annotations
@@ -43,6 +48,26 @@ def layer_norm_residual_reference(residual: torch.Tensor, h: torch.Tensor,
     return out.to(residual.dtype), mean[..., 0], rstd[..., 0]
 
 
+def layer_norm_residual_bwd_reference(residual: torch.Tensor,
+                                      h: torch.Tensor, gamma: torch.Tensor,
+                                      mean: torch.Tensor, rstd: torch.Tensor,
+                                      dy: torch.Tensor):
+    """Plain backward: (dx [..., D] in residual's dtype, dgamma [D],
+    dbeta [D] in gamma's dtype) from the forward's mean and rstd."""
+    x = residual.float() + h.float()
+    m, r = mean.float()[..., None], rstd.float()[..., None]
+    xhat = (x - m) * r
+    g = dy.float()
+    a = g * gamma.float()
+    m1 = a.mean(dim=-1, keepdim=True)
+    m2 = (a * xhat).mean(dim=-1, keepdim=True)
+    dx = (r * (a - m1 - xhat * m2)).to(residual.dtype)
+    d = residual.shape[-1]
+    dgamma = (g * xhat).reshape(-1, d).sum(dim=0).to(gamma.dtype)
+    dbeta = g.reshape(-1, d).sum(dim=0).to(gamma.dtype)
+    return dx, dgamma, dbeta
+
+
 def bf16_ulp_error(got: torch.Tensor, want: torch.Tensor,
                    floor: float = 2.0 ** -8) -> float:
     """Largest |got - want| in bf16 ulps of `want`, each ulp taken at
@@ -58,21 +83,21 @@ def bf16_ulp_error(got: torch.Tensor, want: torch.Tensor,
 
 def _bind(lib: ctypes.CDLL):
     if lib.layer_norm_residual_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.layer_norm_residual_launch.argtypes = (
-            [p] * 7 + [ctypes.c_int64, i, ctypes.c_float, i, p])
+            [p] * 7 + [i64, i, ctypes.c_float, i, p])
         lib.layer_norm_residual_launch.restype = i
+        lib.layer_norm_residual_bwd_launch.argtypes = (
+            [p] * 9 + [i64, i, i, p])
+        lib.layer_norm_residual_bwd_launch.restype = i
+        lib.layer_norm_residual_bwd_blocks.argtypes = [i64]
+        lib.layer_norm_residual_bwd_blocks.restype = i
         lib.layer_norm_residual_error_string.argtypes = [i]
         lib.layer_norm_residual_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def layer_norm_residual_fwd(residual: torch.Tensor, h: torch.Tensor,
-                            gamma: torch.Tensor, beta: torch.Tensor,
-                            eps: float = LN_EPS):
-    """The kernel on CUDA tensors: (out, mean, rstd) as the plain version
-    gives them. residual/h [..., D] float32 or bfloat16 (one dtype),
-    gamma/beta [D] (read as float32). Launches on the current stream."""
+def _check_kernel_input(residual: torch.Tensor) -> None:
     if residual.device.type != "cuda":
         raise ValueError(f"no LayerNorm kernel for device {residual.device}")
     d = residual.shape[-1]
@@ -82,7 +107,23 @@ def layer_norm_residual_fwd(residual: torch.Tensor, h: torch.Tensor,
     if residual.dtype not in DTYPES:
         raise TypeError(f"layer_norm_residual kernel takes float32 or "
                         f"bfloat16, got {residual.dtype}")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        msg = lib.layer_norm_residual_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
+def layer_norm_residual_fwd(residual: torch.Tensor, h: torch.Tensor,
+                            gamma: torch.Tensor, beta: torch.Tensor,
+                            eps: float = LN_EPS):
+    """The kernel on CUDA tensors: (out, mean, rstd) as the plain version
+    gives them. residual/h [..., D] float32 or bfloat16 (one dtype),
+    gamma/beta [D] (read as float32). Launches on the current stream."""
+    _check_kernel_input(residual)
     shape, dev, dt = tuple(residual.shape), residual.device, residual.dtype
+    d = shape[-1]
     rows = residual.numel() // d
     residual = residual.contiguous()
     h = h.contiguous()
@@ -102,10 +143,7 @@ def layer_norm_residual_fwd(residual: torch.Tensor, h: torch.Tensor,
             beta.data_ptr(), out.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), rows, d, eps, DTYPES[dt],
             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        msg = lib.layer_norm_residual_error_string(err).decode()
-        raise RuntimeError(f"layer_norm_residual launch failed: {msg} "
-                           f"({err})")
+    _raise_on(lib, err, "layer_norm_residual")
     layer_norm_residual_fwd.launches += 1
     return out, mean, rstd
 
@@ -113,16 +151,79 @@ def layer_norm_residual_fwd(residual: torch.Tensor, h: torch.Tensor,
 layer_norm_residual_fwd.launches = 0   # kernel launches (not CPU calls)
 
 
+def layer_norm_residual_bwd(residual: torch.Tensor, h: torch.Tensor,
+                            gamma: torch.Tensor, mean: torch.Tensor,
+                            rstd: torch.Tensor, dy: torch.Tensor):
+    """The backward kernel on CUDA tensors: (dx, dgamma, dbeta) as the
+    plain backward gives them. residual/h/dy [..., D] in one dtype
+    (float32 or bfloat16), gamma [D], mean/rstd [...] float32 from the
+    forward. The kernel writes dx and per-block float32 partials of
+    dgamma and dbeta; one torch.sum each adds them up in a fixed order."""
+    _check_kernel_input(residual)
+    shape, dev, dt = tuple(residual.shape), residual.device, residual.dtype
+    d = shape[-1]
+    rows = residual.numel() // d
+    residual, h, dy = residual.contiguous(), h.contiguous(), dy.contiguous()
+    g32 = gamma.float().contiguous()
+    for name, x in (("residual", residual), ("h", h), ("dy", dy)):
+        check_tensor(name, x, shape, dt, dev)
+    check_tensor("gamma", g32, (d,), torch.float32, dev)
+    check_tensor("mean", mean, shape[:-1], torch.float32, dev)
+    check_tensor("rstd", rstd, shape[:-1], torch.float32, dev)
+    lib = _bind(LIBRARY.load())
+    blocks = lib.layer_norm_residual_bwd_blocks(rows)
+    dx = torch.empty(shape, dtype=dt, device=dev)
+    parts = torch.empty((2, blocks, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.layer_norm_residual_bwd_launch(
+            residual.data_ptr(), h.data_ptr(), dy.data_ptr(),
+            g32.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+            parts[0].data_ptr(), parts[1].data_ptr(), rows, d, DTYPES[dt],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "layer_norm_residual_bwd")
+    layer_norm_residual_bwd.launches += 1
+    dgamma, dbeta = parts.sum(dim=1).to(gamma.dtype)
+    return dx, dgamma, dbeta
+
+
+layer_norm_residual_bwd.launches = 0   # kernel launches (not CPU calls)
+
+
+class LayerNormResidualFunction(torch.autograd.Function):
+    """LN(residual + h) with the reference's custom VJP: the kernels on the
+    card, the plain versions on the CPU. Saves residual, h, gamma and the
+    forward's mean and rstd."""
+
+    @staticmethod
+    def forward(ctx, residual, h, gamma, beta, eps):
+        if residual.device.type == "cpu":
+            out, mean, rstd = layer_norm_residual_reference(
+                residual, h, gamma, beta, eps)
+        else:
+            out, mean, rstd = layer_norm_residual_fwd(residual, h, gamma,
+                                                      beta, eps)
+        ctx.save_for_backward(residual, h, gamma, mean, rstd)
+        ctx.beta_dtype = beta.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        residual, h, gamma, mean, rstd = ctx.saved_tensors
+        bwd = (layer_norm_residual_bwd_reference
+               if dy.device.type == "cpu" else layer_norm_residual_bwd)
+        dx, dgamma, dbeta = bwd(residual, h, gamma, mean, rstd, dy)
+        # d(residual + h) flows identically to both addends
+        return dx, dx.to(h.dtype), dgamma, dbeta.to(ctx.beta_dtype), None
+
+
 def layer_norm_residual(residual: torch.Tensor, h: torch.Tensor,
                         gamma: torch.Tensor, beta: torch.Tensor,
                         eps: float = LN_EPS) -> torch.Tensor:
     """LN(residual + h) over the last axis -> out in residual's dtype."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (residual, h, gamma, beta)):
+        return LayerNormResidualFunction.apply(residual, h, gamma, beta, eps)
     if residual.device.type == "cpu":
         return layer_norm_residual_reference(residual, h, gamma, beta,
                                              eps)[0]
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (residual, h, gamma, beta)):
-        raise NotImplementedError(
-            "the fused LayerNorm kernel's backward is not ported yet (the "
-            "use_pallas training slice); train with pallas_layernorm=False")
     return layer_norm_residual_fwd(residual, h, gamma, beta, eps)[0]

@@ -13,7 +13,9 @@ CUDA card unless given --device cpu; with no card and no such flag it
 raises. The preset's model_type picks the model (models.build_model:
 the hybrid Transformer or the CIF model). `--params-npz` starts from
 flax params of tpu_asr (see tpu_asr_torch.weights); otherwise the
-weights are a seeded random init.
+weights are a seeded random init. A caller in Python may also change
+the preset's ModelConfig (`build_solver(..., model_overrides=...)`, e.g.
+{"use_pallas": True}); as in bin/train.py no flag does that.
 """
 
 from __future__ import annotations
@@ -74,8 +76,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def configure(args) -> tuple[TrainConfig, ModelConfig]:
-    """The preset with the flags' overrides applied."""
+def configure(args, model_overrides: dict | None = None
+              ) -> tuple[TrainConfig, ModelConfig]:
+    """The preset with the flags' overrides applied, and then
+    `model_overrides` (ModelConfig fields) to its model."""
     tc = get_preset(args.preset)
     vocab = args.vocab_size or (64 if args.synthetic else
                                 tc.model.vocab_size)
@@ -88,7 +92,8 @@ def configure(args) -> tuple[TrainConfig, ModelConfig]:
     if args.no_specaug:
         overrides["specaug"] = None
     tc = dataclasses.replace(tc, **overrides)
-    return tc, dataclasses.replace(tc.model, vocab_size=vocab)
+    return tc, dataclasses.replace(tc.model, vocab_size=vocab,
+                                   **(model_overrides or {}))
 
 
 def load_data(args, tc: TrainConfig, vocab: int):
@@ -109,12 +114,14 @@ def load_data(args, tc: TrainConfig, vocab: int):
 
 
 def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
-                                   dict | None] | None = None) -> Solver:
+                                   dict | None] | None = None,
+                 model_overrides: dict | None = None) -> Solver:
     """Everything `main` trains with, built from the flags. `data`
     replaces the flags' data source with (train utterances, cv
-    utterances, mode, in-memory waves)."""
+    utterances, mode, in-memory waves); `model_overrides` replaces fields
+    of the preset's ModelConfig (saved with the checkpoint)."""
     device = resolve_device(args.device)
-    tc, mc = configure(args)
+    tc, mc = configure(args, model_overrides)
     train_utts, cv_utts, mode, waves = data or load_data(args, tc,
                                                          mc.vocab_size)
     scale = tc.frontend.frame_shift if mode == "wav" else 1
