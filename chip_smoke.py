@@ -6,7 +6,12 @@
 Phases (any failure ends the run with a nonzero exit before the last line):
   1. device: require CUDA; print the card's name and power limit; TF32 off.
   2. build: compile every kernel from tpu_asr_torch/csrc (one nvcc per
-     source, all at once) and print nvcc's -Xptxas -v report.
+     source, all at once) and print nvcc's -Xptxas -v report when this
+     run built them; read each library's HGMMA (wgmma) instructions and
+     the kernels' registers, stack frame and local memory from the
+     library itself (cuobjdump, so a cached library is checked alike) and
+     fail unless every bf16 flash forward and dk/dv kernel has HGMMA and
+     none of them spills registers.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, at the main paths' shapes and at ragged ones, with timings:
      ctc_prefix_scan (serving) and the CTC loss pair ctc_loss_fwd /
@@ -17,15 +22,19 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      gradients against autograd of the plain version; flash_attention_fwd
      (use_pallas serving: encoder self-attention, decoder causal
      self-attention and cross-attention at the served shapes, ragged key
-     lengths with a length-0 row, Tk >= 600, float32 and bfloat16; timed
-     beside F.scaled_dot_product_attention with the same boolean mask as a
-     yardstick) and layer_norm_residual_fwd (the served row counts, 1 to
-     8080 rows, D 64 to 2048). The backward kernels of use_pallas
-     training against the plain backward: flash_attention_bwd_dq and
-     flash_attention_bwd_dkv (csrc/flash_attention_bwd.cu) at the training
-     shapes (encoder self [32, 249], decoder causal [32, 25], cross
-     [32, 25] x [32, 249], h8 dh64 bf16; timed beside torch.autograd.grad
-     of F.scaled_dot_product_attention) and at ragged ones, and
+     lengths with a length-0 row, Tk >= 600, float32 and bfloat16; in
+     bf16 (the wgmma kernel) also dh 32 and 128, Tq = 1, batches whose
+     padding masks whole 64-key tiles, and q/k/v as strided views of one
+     [B, T, 3, H, dh] tensor; timed beside F.scaled_dot_product_attention
+     with the same boolean mask as a yardstick) and
+     layer_norm_residual_fwd (the served row counts, 1 to 8080 rows, D 64
+     to 2048). The backward kernels of use_pallas training against the
+     plain backward: flash_attention_bwd_dq and flash_attention_bwd_dkv
+     (csrc/flash_attention_bwd.cu) at the training shapes (encoder self
+     [32, 249], decoder causal [32, 25], cross [32, 25] x [32, 249], h8
+     dh64 bf16; timed beside torch.autograd.grad of
+     F.scaled_dot_product_attention), at ragged ones and at the forward's
+     new bf16 cases, and
      layer_norm_residual_bwd at 7968 and 800 rows x 512 (timed beside
      aten.native_layer_norm_backward) and 1 to 8080 rows, D 64 to 2048.
   4. agreement: a small hybrid model decodes the same batch on the card and
@@ -91,6 +100,8 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -115,7 +126,14 @@ F32_TOL = dict(atol=1e-5, rtol=1e-5)     # flash and LN kernels, float32
 F32_GRAD_TOL = dict(atol=1e-5, rtol=1e-4)  # their backward kernels
 FLASH_BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+FLIP_REPORT_ULPS = 0.75   # a bf16 flash gradient this near its bound logs
+                          # what rounding flips of p and ds can explain
 MIN_TRAIN_STEPS = 20
+# the redesigned kernels' times alone before this design (SIMT float32):
+# the served cross shape (forward) and training's encoder self shape
+# (dk/dv), run E of PERF.md, NVIDIA H100 80GB HBM3, 700 W
+PREVIOUS_ALONE_MS = {"flash_attention_fwd": 0.6092,
+                     "flash_attention_bwd_dkv": 0.6672}
 BUCKETS = (512, 1000)
 BATCH = 8
 N_REQUESTS = 16
@@ -139,20 +157,27 @@ def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
     without the wrapper's other launches and host time. The mean is over
     the launches the trace holds, not over `reps`: late in a long run the
     trace came back with some of them missing (a flash backward kernel
-    read 0.27 ms by reps and 0.59 ms alone in a fresh process)."""
+    read 0.27 ms by reps and 0.59 ms alone in a fresh process), and once
+    with none of an LN backward's 20, so an empty trace is taken again, up
+    to 3 times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in events)
-    if not count:
-        raise AssertionError(f"the profiler saw no launch of {name}")
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in events)
+        if count:
+            break
+        log(f"profiler: no launch of {name} traced (trace {attempt} of 3)")
+    else:
+        raise AssertionError(f"the profiler saw no launch of {name} in 3 "
+                             f"traces")
     if count != reps:
         log(f"profiler: {count} of {reps} launches of {name} traced")
     return sum(e.self_device_time_total for e in events) / 1e3 / count
@@ -172,6 +197,84 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# ---- phase 2: what the build made ----
+
+def parse_hgmma(sass: str) -> dict:
+    """{mangled kernel name: HGMMA instructions} from `cuobjdump
+    --dump-sass` of a library."""
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        counts[name] = counts.get(name, 0) + chunk.count("HGMMA")
+    return counts
+
+
+def parse_resource_usage(text: str) -> dict:
+    """{mangled kernel name: {"REG", "STACK", "SHARED", "LOCAL", ...}} from
+    `cuobjdump --dump-resource-usage` of a library: what ptxas gave each
+    kernel, read from the built library itself, so it holds whether or
+    not this process ran nvcc. Spills go to the stack frame (STACK) or
+    local memory (LOCAL)."""
+    usage = {}
+    for name, fields in re.findall(r"Function ([^\s:]+):\s*\n\s*([^\n]*)",
+                                   text):
+        usage[name] = {k: int(v) for k, v in
+                       re.findall(r"([A-Z][A-Z0-9_\[\]]*):(\d+)", fields)}
+    return usage
+
+
+def sass_report(path: str) -> dict:
+    """{mangled kernel name: {"hgmma", "registers", "stack_bytes",
+    "local_bytes", "static_smem_bytes"}} of the shared library at `path`,
+    by the cuobjdump of the toolkit that built it."""
+    from tpu_asr_torch.ops.cuda_build import find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, path], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+    hgmma = parse_hgmma(dump("--dump-sass"))
+    usage = parse_resource_usage(dump("--dump-resource-usage"))
+    return {name: dict(hgmma=hgmma.get(name, 0),
+                       registers=usage.get(name, {}).get("REG"),
+                       stack_bytes=usage.get(name, {}).get("STACK"),
+                       local_bytes=usage.get(name, {}).get("LOCAL"),
+                       static_smem_bytes=usage.get(name, {}).get("SHARED"))
+            for name in {**hgmma, **usage}}
+
+
+WGMMA_KERNELS = ("flash_attention_fwd_wgmma_kernel",
+                 "flash_attention_bwd_dkv_wgmma_kernel")
+
+
+def check_build(libraries, report=sass_report) -> dict:
+    """Print each library's HGMMA count and, for the bf16 flash kernels on
+    wgmma, their registers, stack frame, local memory, static shared
+    memory (their tiles are dynamic shared memory) and HGMMA instructions,
+    all read from the built libraries; fail unless each of those (every
+    head size) has HGMMA and neither a stack frame nor local memory (no
+    spills). -> {kernel: that report}."""
+    found = {}
+    for lib in libraries:
+        kernels = report(lib._target())
+        log(f"SASS {lib.name}: "
+            f"{sum(k['hgmma'] for k in kernels.values())} HGMMA in "
+            f"{len(kernels)} kernels")
+        found.update({name: r for name, r in kernels.items()
+                      if any(w in name for w in WGMMA_KERNELS)})
+    log("wgmma kernels (cuobjdump): " + json.dumps(found))
+    for w in WGMMA_KERNELS:
+        mine = {k: v for k, v in found.items() if w in k}
+        if len(mine) != 3 or any(not v["hgmma"] for v in mine.values()):
+            raise AssertionError(f"{w}: expected 3 head sizes with HGMMA "
+                                 f"instructions, got {mine}")
+        if any(v["registers"] is None or v["stack_bytes"] != 0
+               or v["local_bytes"] != 0 for v in mine.values()):
+            raise AssertionError(f"{w} spills registers (or its resource "
+                                 f"usage was not read): {mine}")
+    return found
 
 
 # ---- phase 3: ctc_prefix_scan vs its plain version ----
@@ -606,27 +709,64 @@ def check_cif_fire_on_paths(captures):
 
 # ---- phase 3: the flash attention and fused LayerNorm kernels ----
 
-def flash_case(b, tq, tk, h, dh, dtype, lens, seed):
+def flash_case(b, tq, tk, h, dh, dtype, lens, seed, packed=False):
     """q [B, Tq, H, dh], k/v [B, Tk, H, dh] and kv_valid [B, Tk] on the
-    card; lens[i] valid keys in row i."""
+    card; lens[i] valid keys in row i. packed (Tq = Tk): q, k and v are
+    strided views of one [B, T, 3, H, dh] tensor, as a fused projection
+    gives them."""
     g = torch.Generator().manual_seed(seed)
+    valid = torch.arange(tk)[None, :] < torch.as_tensor(lens)[:, None]
+    if packed:
+        qkv = torch.randn(b, tq, 3, h, dh, generator=g).to(DEVICE, dtype)
+        return list(qkv.unbind(2)) + [valid.to(DEVICE)]
     q = torch.randn(b, tq, h, dh, generator=g)
     k = torch.randn(b, tk, h, dh, generator=g)
     v = torch.randn(b, tk, h, dh, generator=g)
-    valid = torch.arange(tk)[None, :] < torch.as_tensor(lens)[:, None]
     return [x.to(DEVICE, dtype) for x in (q, k, v)] + [valid.to(DEVICE)]
 
 
+def flash_symbol(which, dtype):
+    """A substring of the symbol of the kernel that a flash wrapper
+    launches for `dtype` (which = "fwd", "dq" or "dkv"), for
+    kernel_device_ms: it matches that kernel alone."""
+    from tpu_asr_torch.ops.flash_attention import kernel_route
+    if which == "dq":
+        return "flash_attention_bwd_dq_kernel"
+    prefix = ("flash_attention_fwd" if which == "fwd"
+              else "flash_attention_bwd_dkv")
+    return f"{prefix}_{kernel_route(dtype, 64)}_kernel"
+
+
+# bf16 cases for the wgmma kernels beside the served and training shapes,
+# (b, tq, tk, h, dh, causal, lens, packed): dh 32 (64-byte swizzle), dh
+# 128 (two panels; dk/dv on two warpgroups), Tq = 1 with Tk >= 600, a
+# batch whose padding masks whole 64-key tiles, q/k/v as strided views of
+# one [B, T, 3, H, dh]
+WGMMA_CASES = [
+    (4, 70, 90, 2, 32, False, [90, 41, 7, 0], False),
+    (3, 90, 90, 2, 32, True, [90, 64, 0], True),
+    (3, 70, 70, 4, 128, True, [70, 33, 0], False),
+    (3, 100, 190, 2, 128, False, [190, 129, 0], False),
+    (3, 1, 600, 2, 64, False, [600, 1, 0], False),
+    (3, 1, 700, 2, 128, False, [700, 650, 0], False),
+    (4, 101, 330, 8, 64, False, [330, 40, 64, 0], False),
+    (4, 200, 200, 8, 64, True, [200, 130, 65, 0], True),
+]
+
+
 def flash_bound_ms(q, k, valid, causal):
-    """Least time for the same work on an H100. Bytes: q, k, v and valid
-    read once, out and lse written once. Operations: 4 dh flops (QK^T and
-    PV) per (query, key, head) that this data's mask lets through, at the
-    bf16 tensor-core rate for bf16 inputs, the float32 rate otherwise."""
+    """Least time for the same work on an H100. Bytes: q and valid read
+    once, the rows of k and v of the keys that valid lets through read
+    once (the output depends on no other key), out and lse written once.
+    Operations: 4 dh flops (QK^T and PV) per (query, key, head) that this
+    data's mask lets through, at the bf16 tensor-core rate for bf16
+    inputs, the float32 rate otherwise."""
     from tpu_asr_torch.ops.flash_attention import _mask
     b, tq, h, dh = q.shape
     tk = k.shape[1]
     pairs = int(_mask(valid, causal, tq).expand(b, 1, tq, tk).sum()) * h
-    nbytes = (q.element_size() * 2 * h * dh * (b * tq + b * tk)
+    keys = int(valid.sum())
+    nbytes = (q.element_size() * 2 * h * dh * (b * tq + keys)
               + 4 * b * h * tq + b * tk)
     rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -687,7 +827,7 @@ def time_flash(q, k, v, valid, causal, what):
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, valid, causal))
     alone = kernel_device_ms(lambda: flash_attention_fwd(q, k, v, valid,
                                                          causal),
-                             "flash_attention_fwd_kernel")
+                             flash_symbol("fwd", q.dtype))
     plain = cuda_ms(lambda: flash_attention_reference(q, k, v, valid,
                                                       causal))
     library = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -705,8 +845,9 @@ def check_flash_attention():
     """flash_attention_fwd against its plain version at the served shapes
     (the aishell model's dh 64, bf16; the encoder of a 1000-frame bucket,
     the decoder pass over 8 x 10 hypotheses of 101 positions) with ragged
-    key lengths and a length-0 row, and at float32, dh 32 / 128, Tq = 1
-    and Tk >= 600. -> (max abs err out, max abs err lse, {shape: times})."""
+    key lengths and a length-0 row, at float32, dh 32 / 128, Tq = 1 and
+    Tk >= 600, and at WGMMA_CASES. -> (max abs err out, max abs err lse,
+    {shape: times})."""
     rng = np.random.default_rng(3)
 
     def ragged(b, tk):
@@ -727,12 +868,18 @@ def check_flash_attention():
         (4, 24, 24, 2, 32, True, f32, [24, 24, 10, 0], False),
         (3, 70, 70, 4, 128, True, f32, [70, 33, 0], False),
     ]
+    cases = [c + (False,) for c in cases] + [
+        (b, tq, tk, h, dh, causal, bf16, lens, False, packed)
+        for b, tq, tk, h, dh, causal, lens, packed in WGMMA_CASES]
     out_err = lse_err = 0.0
     timings = {}
-    for i, (b, tq, tk, h, dh, causal, dt, lens, timed) in enumerate(cases):
-        q, k, v, valid = flash_case(b, tq, tk, h, dh, dt, lens, SEED + i)
+    for i, (b, tq, tk, h, dh, causal, dt, lens, timed, packed) in \
+            enumerate(cases):
+        q, k, v, valid = flash_case(b, tq, tk, h, dh, dt, lens, SEED + i,
+                                    packed)
         what = (f"B={b} Tq={tq} Tk={tk} H={h} dh={dh} "
-                f"{'causal' if causal else 'key padding'} {dt}")
+                f"{'causal' if causal else 'key padding'} {dt}"
+                f"{' packed q/k/v' if packed else ''}")
         oe, le = compare_flash(q, k, v, valid, causal, what)
         out_err, lse_err = max(out_err, oe), max(lse_err, le)
         if timed:
@@ -885,18 +1032,21 @@ def cosine(a, b) -> float:
 
 
 def flash_bwd_bound_ms(q, k, valid, causal, which):
-    """Least time for the same work on an H100. Bytes: q, k, v, dO, lse,
-    delta and valid read once; dq (which="dq") or dk and dv ("dkv")
-    written once. Operations per (query, key, head) that this data's mask
-    lets through: s, dp and ds K (6 dh flops) for dq; s, dp, p^T dO and
-    ds^T q (8 dh) for dk/dv; at the bf16 tensor-core rate for bf16
-    inputs, the float32 rate otherwise."""
+    """Least time for the same work on an H100. Bytes: q, dO, lse, delta
+    and valid read once, the rows of k and v of the keys that valid lets
+    through read once (no gradient depends on another key's), every row
+    of dq (which="dq") or of dk and dv ("dkv") written once. Operations
+    per (query, key, head) that this data's mask lets through: s, dp and
+    ds K (6 dh flops) for dq; s, dp, p^T dO and ds^T q (8 dh) for dk/dv;
+    at the bf16 tensor-core rate for bf16 inputs, the float32 rate
+    otherwise."""
     from tpu_asr_torch.ops.flash_attention import _mask
     b, tq, h, dh = q.shape
     tk = k.shape[1]
     pairs = int(_mask(valid, causal, tq).expand(b, 1, tq, tk).sum()) * h
     e = q.element_size()
-    read = e * h * dh * (2 * b * tq + 2 * b * tk) + 8 * b * h * tq + b * tk
+    keys = int(valid.sum())
+    read = e * h * dh * (2 * b * tq + 2 * keys) + 8 * b * h * tq + b * tk
     written = e * h * dh * (b * tq if which == "dq" else 2 * b * tk)
     flops = (6 if which == "dq" else 8) * dh * pairs
     rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
@@ -914,6 +1064,50 @@ def flash_bwd_inputs(q, k, v, valid, causal, seed):
     g = torch.Generator().manual_seed(seed)
     dout = torch.randn(q.shape, generator=g).to(DEVICE, q.dtype)
     return out, dout, lse
+
+
+def rounding_flips(q, k, v, out, dout, lse, valid, causal, got):
+    """What the summation order of the scores alone does to bf16
+    gradients. The kernels' own rounded p and ds cannot be read out, so
+    the plain backward's terms (float32 dots s and dp, rounded to bf16) are
+    set against the same terms from exact dots (float64): how many of the
+    rounded p and ds terms that the mask lets through round the other way;
+    and dq, dk, dv built from the exact-dot terms (float64 sums, rounded to
+    bf16), in bf16 ulps at the gradient's scale from the plain backward's
+    and from the kernels' (`got`). -> {"terms", "p_flips", "ds_flips",
+    "plain_ulps": {name: ulps}, "kernel_ulps": {name: ulps}}."""
+    from tpu_asr_torch.ops.flash_attention import (
+        NEG_INF, _mask, flash_attention_bwd_reference, flash_attention_delta)
+    from tpu_asr_torch.ops.layernorm import bf16_ulp_error
+    scale = 1.0 / q.shape[-1] ** 0.5
+    mask = _mask(valid, causal, q.shape[1])
+    delta = flash_attention_delta(out, dout)[..., None]
+    m = lse.clamp(min=NEG_INF / 2)[..., None]
+    terms = {}
+    for dt in (torch.float32, torch.float64):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(dt), k.to(dt)) * scale
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m.to(dt)))
+        dp = torch.einsum("bqhd,bkhd->bhqk", dout.to(dt), v.to(dt))
+        ds = p * (dp - delta.to(dt)) * scale
+        terms[dt] = (p.to(q.dtype), ds.to(q.dtype))
+    (p32, ds32), (p64, ds64) = terms[torch.float32], terms[torch.float64]
+    live = mask.expand_as(p32)
+    exact = [torch.einsum(eq, a.double(), b.double()).to(q.dtype)
+             for eq, a, b in (("bhqk,bkhd->bqhd", ds64, k),
+                              ("bhqk,bqhd->bkhd", ds64, q),
+                              ("bhqk,bqhd->bkhd", p64, dout))]
+    plain = flash_attention_bwd_reference(q, k, v, out, dout, lse, valid,
+                                          causal)
+    names = ("dq", "dk", "dv")
+    return dict(
+        terms=int(live.sum()),
+        p_flips=int(((p32 != p64) & live).sum()),
+        ds_flips=int(((ds32 != ds64) & live).sum()),
+        plain_ulps={n: bf16_ulp_error(w, x, floor=1.0)
+                    for n, w, x in zip(names, plain, exact)},
+        kernel_ulps={n: bf16_ulp_error(g, x, floor=1.0)
+                     for n, g, x in zip(names, got, exact)})
 
 
 def compare_flash_bwd(q, k, v, out, dout, lse, valid, causal, what):
@@ -954,6 +1148,11 @@ def compare_flash_bwd(q, k, v, out, dout, lse, valid, causal, what):
     if got[0][dead].any() or got[1][~valid].any() or got[2][~valid].any():
         raise AssertionError(f"flash backward at {what}: a masked row or "
                              f"key has a nonzero gradient")
+    if max(u for _, u in errs.values()) >= FLIP_REPORT_ULPS:
+        log(f"flash backward at {what} reads near its one-ulp bound "
+            f"({ {n: u for n, (_, u) in errs.items()} }); bf16 terms "
+            f"rounding the other way with exact scores: " + json.dumps(
+                rounding_flips(q, k, v, out, dout, lse, valid, causal, got)))
     return errs
 
 
@@ -1007,7 +1206,7 @@ def time_flash_bwd(q, k, v, out, dout, lse, valid, causal, what):
         times[which] = dict(
             ms=cuda_ms(fn),
             kernel_device_ms=kernel_device_ms(
-                fn, f"flash_attention_bwd_{which}_kernel"),
+                fn, flash_symbol(which, q.dtype)),
             plain_ms=plain, library_ms=library_ms, bound_ms=bound,
             bound_by=by, backward_ms=whole)
         t = times[which]
@@ -1027,7 +1226,8 @@ def check_flash_bwd():
     self-attention [32, 249] x [32, 249], decoder causal self-attention
     [32, 25], cross-attention [32, 25] x [32, 249]; h8 dh64 bf16, timed),
     and at ragged key lengths with a length-0 row, Tq != Tk, Tk >= 600,
-    dh 32 / 128, float32 and bf16. -> (errors, {shape: times})."""
+    dh 32 / 128, float32 and bf16, and at WGMMA_CASES. -> (errors,
+    {shape: times})."""
     rng = np.random.default_rng(5)
 
     def ragged(b, tk):
@@ -1050,13 +1250,19 @@ def check_flash_bwd():
         (3, 70, 70, 4, 128, True, f32, [70, 33, 0], False),
         (3, 100, 40, 2, 64, True, bf16, [40, 17, 0], False),
     ]
+    cases = [c + (False,) for c in cases] + [
+        (b, tq, tk, h, dh, causal, bf16, lens, False, packed)
+        for b, tq, tk, h, dh, causal, lens, packed in WGMMA_CASES]
     errs = {n: [0.0, 0.0] for n in ("dq", "dk", "dv")}
     timings = {}
-    for i, (b, tq, tk, h, dh, causal, dt, lens, timed) in enumerate(cases):
-        q, k, v, valid = flash_case(b, tq, tk, h, dh, dt, lens, SEED + 50 + i)
+    for i, (b, tq, tk, h, dh, causal, dt, lens, timed, packed) in \
+            enumerate(cases):
+        q, k, v, valid = flash_case(b, tq, tk, h, dh, dt, lens,
+                                    SEED + 50 + i, packed)
         out, dout, lse = flash_bwd_inputs(q, k, v, valid, causal, SEED + i)
         what = (f"B={b} Tq={tq} Tk={tk} H={h} dh={dh} "
-                f"{'causal' if causal else 'key padding'} {dt}")
+                f"{'causal' if causal else 'key padding'} {dt}"
+                f"{' packed q/k/v' if packed else ''}")
         for name, (e, u) in compare_flash_bwd(q, k, v, out, dout, lse, valid,
                                               causal, what).items():
             errs[name] = [max(errs[name][0], e), max(errs[name][1], u)]
@@ -2051,6 +2257,7 @@ def main() -> int:
     for lib in libraries:
         if lib.build_log:
             log(lib.build_log.strip())
+    wgmma_build = check_build(libraries)
 
     gen = torch.Generator().manual_seed(SEED)
     max_err, timings = check_prefix_scan(gen)
@@ -2165,7 +2372,10 @@ def main() -> int:
              max(flash_err, path_errs["flash"]),
              {"lse_max_abs_err": max(lse_err, path_errs["lse"]),
               "library_call": "F.scaled_dot_product_attention, boolean "
-                              "attn_mask, [B, H, T, dh] inputs"}),
+                              "attn_mask, [B, H, T, dh] inputs",
+              "design": "sm90 wgmma",
+              "build": {k: v for k, v in wgmma_build.items()
+                        if "fwd_wgmma" in k}}),
             ("layer_norm_residual_fwd", "layer_norm_residual.cu",
              "layernorm.py:79", ln_path, ln_timings,
              {"use_pallas serving": ln_serving,
@@ -2239,6 +2449,11 @@ def main() -> int:
             "shape": t["shape"],
             "other_shapes": other,
         })
+        if which == "dkv":
+            kernels[-1].update(
+                design="sm90 wgmma",
+                build={k: v for k, v in wgmma_build.items()
+                       if "dkv_wgmma" in k})
     main_label = max(ln_bwd_path, key=lambda k: ln_bwd_path[k]["bound_ms"])
     t = ln_bwd_path[main_label]
     other = {k: v for k, v in ln_bwd_path.items() if k != main_label}
@@ -2264,6 +2479,9 @@ def main() -> int:
         "shape": t["shape"],
         "other_shapes": other,
     })
+    log(f"before the wgmma design, the kernel alone took (constants "
+        f"recorded in PERF.md, run E, not measured in this run): "
+        f"{json.dumps(PREVIOUS_ALONE_MS)} ms")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

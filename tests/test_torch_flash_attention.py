@@ -29,13 +29,15 @@ from tpu_asr.ops.pallas.flash_attention import _fwd_impl, _xla_attention
 from tpu_asr.ops.pallas.flash_attention import \
     flash_attention as jax_flash_attention
 from tpu_asr_torch.models.attention import mask_to_bias
-from tpu_asr_torch.ops.flash_attention import (NEG_INF, flash_attention,
+from tpu_asr_torch.ops.flash_attention import (HEAD_DIMS, NEG_INF,
+                                               _strides, flash_attention,
                                                flash_attention_bwd_dkv,
                                                flash_attention_bwd_dq,
                                                flash_attention_bwd_reference,
                                                flash_attention_fwd,
                                                flash_attention_reference,
-                                               xla_attention)
+                                               kernel_operand, kernel_route,
+                                               tma_ready, xla_attention)
 from tpu_asr_torch.ops.layernorm import bf16_ulp_error
 
 DTYPES = {"float32": (torch.float32, jnp.float32,
@@ -169,6 +171,92 @@ def test_cpu_runs_plain_version_under_autograd_without_launching():
     with pytest.raises(ValueError):
         flash_attention_bwd_dkv(d, k.detach(), v.detach(), d, lse, lse,
                                 valid)
+
+
+# ---- the kernels' route and operand layout (no launch) ----
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_route_sends_bf16_to_wgmma_and_float32_to_simt(dh):
+    assert kernel_route(torch.bfloat16, dh) == "wgmma"
+    assert kernel_route(torch.float32, dh) == "simt"
+
+
+@pytest.mark.parametrize("dtype,dh,error", [
+    (torch.float16, 64, TypeError),      # no kernel takes float16
+    (torch.float64, 64, TypeError),
+    (torch.bfloat16, 48, ValueError),    # nor a head size outside HEAD_DIMS
+    (torch.float32, 256, ValueError),
+])
+def test_call_no_kernel_takes_raises(dtype, dh, error):
+    """kernel_route raises for what neither kernel takes, and so does a
+    wrapper called with it, before it would launch: nothing falls back to
+    the other kernel or to the plain version."""
+    with pytest.raises(error):
+        kernel_route(dtype, dh)
+    q = torch.zeros(2, 5, 2, dh, dtype=dtype)
+    valid = torch.ones(2, 5, dtype=torch.bool)
+    lse = torch.zeros(2, 2, 5)
+    with pytest.raises(error):
+        flash_attention_fwd(q, q, q, valid)
+    with pytest.raises(error):
+        flash_attention_bwd_dkv(q, q, q, q, lse, lse, valid)
+
+
+def _views(kind, dtype=torch.bfloat16):
+    """[B, T, H, dh] = [2, 9, 4, 64] tensors laid out as `kind` says."""
+    b, t, h, dh = 2, 9, 4, 64
+    if kind == "contiguous":
+        return torch.zeros(b, t, h, dh, dtype=dtype)
+    if kind == "packed":                 # one of q, k, v of [B, T, 3, H, dh]
+        return torch.zeros(b, t, 3, h, dh, dtype=dtype)[:, :, 1]
+    if kind == "heads_first":            # [B, H, T, dh] transposed
+        return torch.zeros(b, h, t, dh, dtype=dtype).transpose(1, 2)
+    if kind == "head_pad_16":            # head stride dh + 8: 144 bytes
+        return torch.zeros(b, t, h, dh + 8, dtype=dtype)[..., :dh]
+    if kind == "head_pad_8":             # head stride dh + 4: 136 bytes
+        return torch.zeros(b, t, h, dh + 4, dtype=dtype)[..., :dh]
+    if kind == "odd_time":               # time stride h dh + 1
+        flat = torch.zeros(b, t, h * dh + 1, dtype=dtype)
+        return flat[..., :h * dh].unflatten(-1, (h, dh))
+    if kind == "base_offset":            # base 2 bytes past an aligned one
+        return torch.zeros(b * t * h * dh + 1, dtype=dtype)[1:].view(
+            b, t, h, dh)
+    if kind == "dh_strided":             # head axis not contiguous
+        return torch.zeros(b, t, h, dh, 2, dtype=dtype)[..., 0]
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,ready", [
+    ("contiguous", True), ("packed", True), ("heads_first", True),
+    ("head_pad_16", True), ("head_pad_8", False), ("odd_time", False),
+    ("base_offset", False), ("dh_strided", False),
+])
+def test_tma_rule_decides_the_copy(kind, ready):
+    """The wgmma route copies an operand exactly when TMA's 16-byte rule
+    (base and every stride) or a non-contiguous head axis forbids reading
+    it where it lies; the copy is contiguous, aligned and equal. The SIMT
+    route copies only for a non-contiguous head axis."""
+    x = _views(kind)
+    x.copy_(torch.randn(x.shape).to(x.dtype))
+    assert tma_ready(x) == ready
+    for route, copies in (("wgmma", not ready),
+                          ("simt", kind == "dh_strided")):
+        y = kernel_operand(x, route)
+        assert (y.data_ptr() != x.data_ptr()) == copies, route
+        assert torch.equal(y, x)
+        if route == "wgmma":
+            assert tma_ready(y)
+
+
+def test_strides_of_length_one_axes_are_packed():
+    """An axis of length 1 addresses nothing, so its stride, whatever torch
+    made it, is replaced by the packed one for the tensor map: it never
+    forces a copy."""
+    y = torch.zeros(7, 2, 64, dtype=torch.bfloat16).as_strided(
+        (1, 7, 1, 64), (3, 128, 5, 1))
+    assert tma_ready(y)
+    assert _strides(y) == [7 * 64, 128, 64]
+    assert _strides(torch.zeros(2, 5, 3, 32)) == [5 * 3 * 32, 3 * 32, 32]
 
 
 # ---- the backward (the reference's custom VJP) ----

@@ -234,31 +234,51 @@ def _close_ln_grads(got, want, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,tq,tk,h,dh,causal,dtype", [
-    (8, 248, 248, 8, 64, False, torch.bfloat16),    # encoder self
-    (80, 101, 101, 8, 64, True, torch.bfloat16),    # decoder self
-    (80, 101, 248, 8, 64, False, torch.bfloat16),   # decoder cross
-    (3, 1, 600, 2, 32, False, torch.float32),       # Tq = 1, Tk > 512
-    (3, 70, 70, 4, 128, True, torch.float32),
-    (4, 33, 600, 2, 64, False, torch.float32),
+@pytest.mark.parametrize("b,tq,tk,h,dh,causal,dtype,kind", [
+    (8, 248, 248, 8, 64, False, torch.bfloat16, "ragged"),   # encoder self
+    (80, 101, 101, 8, 64, True, torch.bfloat16, "ragged"),   # decoder self
+    (80, 101, 248, 8, 64, False, torch.bfloat16, "ragged"),  # decoder cross
+    (3, 1, 600, 2, 32, False, torch.float32, "ragged"),      # Tq = 1, Tk > 512
+    (3, 70, 70, 4, 128, True, torch.float32, "ragged"),
+    (4, 33, 600, 2, 64, False, torch.float32, "ragged"),
+    # the wgmma kernels: dh 32 (64-byte swizzle) and 128 (two panels),
+    # Tq = 1, whole 64-key tiles of padding, q/k/v as strided views of one
+    # [B, T, 3, H, dh] tensor
+    (4, 70, 90, 2, 32, False, torch.bfloat16, "ragged"),
+    (3, 70, 70, 4, 128, True, torch.bfloat16, "ragged"),
+    (3, 1, 600, 2, 64, False, torch.bfloat16, "ragged"),
+    (4, 101, 330, 2, 64, False, torch.bfloat16, "padded_tiles"),
+    (4, 200, 200, 2, 64, True, torch.bfloat16, "packed"),
 ])
 def test_flash_attention_kernel_matches_plain_version(b, tq, tk, h, dh,
-                                                      causal, dtype):
+                                                      causal, dtype, kind):
     """Ragged key lengths with a length-0 row (zeros, lse -1e30): float32
     within atol 1e-5 / rtol 1e-4, bfloat16 within 2e-2; lse within 1e-4.
-    Then the backward kernels and the autograd Function."""
+    Then the backward kernels and the autograd Function. kind
+    "padded_tiles": rows of 1 and 64 valid keys of 330, so whole key tiles
+    are padding; "packed": q, k, v are views of one [B, T, 3, H, dh]
+    tensor, which the wgmma kernels read where they lie."""
     from tpu_asr_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_reference, flash_attention_delta,
-        flash_attention_fwd, flash_attention_reference)
+        flash_attention_fwd, flash_attention_reference, tma_ready)
     _need_card()
     rng = np.random.default_rng(b + tq + tk)
-    q = torch.from_numpy(rng.standard_normal((b, tq, h, dh)).astype(
-        np.float32)).cuda().to(dtype)
-    k, v = (torch.from_numpy(rng.standard_normal((b, tk, h, dh)).astype(
-        np.float32)).cuda().to(dtype) for _ in range(2))
-    lens = torch.from_numpy(rng.integers(1, tk + 1, b)).cuda()
-    lens[0], lens[-1] = tk, 0
+    if kind == "packed":
+        qkv = torch.from_numpy(rng.standard_normal((b, tq, 3, h, dh)).astype(
+            np.float32)).cuda().to(dtype)
+        q, k, v = qkv.unbind(2)
+        assert all(tma_ready(x) for x in (q, k, v))
+    else:
+        q = torch.from_numpy(rng.standard_normal((b, tq, h, dh)).astype(
+            np.float32)).cuda().to(dtype)
+        k, v = (torch.from_numpy(rng.standard_normal((b, tk, h, dh)).astype(
+            np.float32)).cuda().to(dtype) for _ in range(2))
+    if kind == "padded_tiles":
+        lens = torch.tensor([tk, 1, 64, 0][:b]).cuda()
+    else:
+        lens = torch.from_numpy(rng.integers(1, tk + 1, b)).cuda()
+        lens[0], lens[-1] = tk, 0
     valid = torch.arange(tk, device="cuda")[None, :] < lens[:, None]
     before = flash_attention_fwd.launches
     out, lse = flash_attention_fwd(q, k, v, valid, causal)

@@ -20,72 +20,88 @@
 // server's length-0 dummy rows) writes zeros and lse = NEG_INF, never NaN.
 // The scores never reach device memory.
 //
-// What bounds it on this card: at the served shapes, bytes. One head of
-// one utterance does 4 dh Tq Tk flops on 2 dh (Tq + Tk) values of q, k, v
-// and out, Tq Tk / (Tq + Tk) flops a bf16 byte: <= 124 at the served
-// T' <= 248, below the bf16 tensor-core ridge (~295 flops a byte). But
-// this first kernel does its dot products in float32 on the SIMT units
-// (67 TFLOP/s), not on the tensor cores. Measured on an H100 (PERF.md),
-// the kernel alone takes ~0.40 ms at the served decoder cross-attention
-// ([80, 101] x [80, 248], bf16): ~23x its byte bound and ~8% of the SIMT
-// float32 rate, so neither bytes nor arithmetic hold it back but latency:
-// 2 warps a block at ~250 registers a thread, and a serial walk over the
-// keys. It is correct and simple first; tensor cores (wgmma), TMA and a
-// pipelined K/V ring are later work.
+// What bounds it on this card: bytes. One head of one utterance does
+// 4 dh Tq Tk flops on 2 dh (Tq + Tk) values of q, k, v and out, so
+// Tq Tk / (Tq + Tk) flops a bf16 byte: <= 124 at the served T' <= 248,
+// below the bf16 tensor-core ridge (~295 flops a byte). The first kernel
+// (one thread a query row, float32 fmaf chains on the SIMT units, K/V
+// converted to float32 by synchronous loads) ran at 23-36x that bound:
+// 0.61 ms alone at the served decoder cross-attention ([80, 101] x
+// [80, 248], bf16; PERF.md), latency-bound.
 //
-// Design: one block of 64 threads per (tile of 64 query rows, head,
-// utterance); thread t owns query row q0 + t: its q row and its float32
-// accumulator live in registers, and so do its running max and sum. q,
-// k and v are read straight from the [B, T, H, dh] layout with the
-// strides the caller gives (the last axis contiguous), and out is written
-// in that layout, so no transpose or pad is needed. Key/value tiles of 32
-// rows are converted to float32 in shared memory; every thread of the
-// block reads the same key at once (a broadcast, no bank conflict). Per
-// tile a row computes its 32 scores into its own column of a shared tile
-// (so the key loops need not be unrolled to keep them in registers), then
-// the TPU kernel's update (m_new, the correction of l and acc, p, l,
-// acc += p V). The dot keeps four partial sums (the MXU's order of the
-// sum is not specified either). With the causal flag, key tiles wholly
-// above the block's last query row are skipped: every entry there is
-// masked, so skipping them changes nothing.
+// bf16: flash_attention_fwd_wgmma_kernel. One warpgroup (128 threads) a
+// block owns 64 query rows of one head of one utterance and walks key
+// tiles of 64:
+//   - Q, K and V tiles arrive by TMA (tensor maps over the strided
+//     [B, T, H, dh] layout; flash_sm90.cuh) into 128-byte swizzled shared
+//     memory (64-byte for dh 32); K/V go through a two-stage ring, so the
+//     next tile loads while this one is computed;
+//   - S = Q K^T by wgmma m64n64k16 (A = Q, B = K, both K-major as they lie
+//     in memory), float32 accumulators in registers: s is the float32 dot
+//     of the bf16 values, then the scale;
+//   - the masks, the running max (a row's 64 entries sit on the 4 lanes of
+//     a quad: two shuffles), the correction and p on the accumulator
+//     fragment; l sums the unrounded p in float32;
+//   - O += P V by wgmma with A = P from registers: the S fragment packed to
+//     bf16 pairs is both the A fragment and the rounding of p the contract
+//     asks for; B = V, MN-major (the transpose bit);
+//   - key tiles that the padding masks wholly (a block-wide vote on the
+//     tile's kv_valid bytes) and, under causal, tiles past the block's
+//     last row are never loaded: their p is exactly 0, so skipping them
+//     changes no bit.
+// Shared memory: 5 tiles (Q, K and V twice) of 64 x dh bf16, 20-80 KB.
+// TMA's per-call cost is three tensor maps encoded on the host
+// (cuTensorMapEncodeTiled, looked up through the CUDA runtime). The
+// scores' float32 sums run in the tensor core's order, which
+// differs from the SIMT kernels' (and from flash_attention_bwd.cu's dq
+// kernel) in the last bits.
+//
+// float32: flash_attention_fwd_simt_kernel, the first kernel unchanged.
+// wgmma has no full-float32 product, and TF32 (10-bit mantissa) would
+// break the float32 tolerance (1e-5); the float32 models (cif_dev,
+// hybrid_dev) run this kernel. Its design: one block of 64 threads per
+// (tile of 64 query rows, head, utterance); thread t owns query row q0 + t:
+// its q row and its float32 accumulator live in registers, and so do its
+// running max and sum. Key/value tiles of 32 rows are converted to float32
+// in shared memory; every thread of the block reads the same key at once
+// (a broadcast, no bank conflict). Per tile a row computes its 32 scores
+// into its own column of a shared tile, then the TPU kernel's update
+// (m_new, the correction of l and acc, p, l, acc += p V). The dot keeps
+// four partial sums. With the causal flag, key tiles wholly above the
+// block's last query row are skipped.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block, one a thread
-constexpr int kBK = 32;          // keys per shared-memory tile
+constexpr int kBQ = 64;          // SIMT: query rows per block, one a thread
+constexpr int kBK = 32;          // SIMT: keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
 constexpr float kHalfNegInf = -5e29f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);                    // round to nearest even
-}
 
 struct Strides {      // in elements; the head dimension is contiguous
   int64_t b, t, h;
 };
 
+// ---- float32: the SIMT kernel ----
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(kBQ)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const uint8_t* __restrict__ kv_valid,  // [B, Tk]
-                           T* __restrict__ out,        // [B, Tq, H, DH]
-                           float* __restrict__ lse,    // [B, H, Tq]
-                           int tq, int tk, int heads, Strides qs, Strides ks,
-                           Strides vs, float scale, int causal) {
+flash_attention_fwd_simt_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const uint8_t* __restrict__ kv_valid,
+                                T* __restrict__ out,      // [B, Tq, H, DH]
+                                float* __restrict__ lse,  // [B, H, Tq]
+                                int tq, int tk, int heads, Strides qs,
+                                Strides ks, Strides vs, float scale,
+                                int causal) {
   __shared__ __align__(16) float k_tile[kBK][DH];
   __shared__ __align__(16) float v_tile[kBK][DH];
   __shared__ float s_tile[kBK][kBQ];
@@ -193,34 +209,274 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m <= kHalfNegInf ? kNegInf : m + logf(lc);
 }
 
-template <typename T, int DH>
-int launch_typed(const void* q, const void* k, const void* v,
-                 const uint8_t* kv_valid, void* out, float* lse, int b,
-                 int tq, int tk, int heads, Strides qs, Strides ks,
-                 Strides vs, float scale, int causal, cudaStream_t stream) {
-  const dim3 grid((tq + kBQ - 1) / kBQ, heads, b);
-  flash_attention_fwd_kernel<T, DH><<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_valid, static_cast<T*>(out), lse, tq, tk,
-      heads, qs, ks, vs, scale, causal);
+// ---- bf16: the wgmma kernel ----
+
+constexpr int kWarpgroup = 128;
+
+template <int DH>
+__global__ void __launch_bounds__(kWarpgroup)
+flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 const uint8_t* __restrict__ kv_valid,
+                                 __nv_bfloat16* __restrict__ out,
+                                 float* __restrict__ lse, int tq, int tk,
+                                 int heads, float scale, int causal) {
+  using namespace flash_sm90;
+  using G = Tile<DH>;
+  constexpr int kCols = G::kPanelCols;          // output columns a panel
+  extern __shared__ uint8_t smem_raw[];
+  // [Q][K0][V0][K1][V1] from a 1024-byte boundary, then 2 mbarriers and
+  // the key masks of the two stages (2 words each)
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* tail = smem_raw + (base - raw) + 5 * G::kBytes;
+  const uint32_t bar = smem_u32(tail);          // bar + 8 s: stage s
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(tail + 16);
+  const uint32_t q_s = base;
+  auto k_s = [&](int s) { return base + (1 + 2 * s) * G::kBytes; };
+  auto v_s = [&](int s) { return base + (2 + 2 * s) * G::kBytes; };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int row0 = q0 + 16 * warp + lane / 4, row1 = row0 + 8;
+  // with the causal flag, keys past the block's last row are all masked
+  const int last_row = min(q0 + kRows, tq) - 1;
+  const int k_end = causal ? min(tk, last_row + 1) : tk;
+  const int n_tiles = (k_end + kRows - 1) / kRows;
+  const uint8_t* valid_row = kv_valid + static_cast<int64_t>(b) * tk;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The first tile at or after t with a valid key (n_tiles if none): a
+  // block-wide vote on its kv_valid bytes, whose bits also go to
+  // mask_s[slot] (bit c of word c / 32: key 64 t + c is valid).
+  auto find_live = [&](int t, int slot) {
+    for (; t < n_tiles; ++t) {
+      const int key = t * kRows + tid;
+      const bool ok = tid < kRows && key < tk && valid_row[key] != 0;
+      const uint32_t word = __ballot_sync(0xffffffffu, ok);
+      if (tid < kRows && lane == 0) mask_s[2 * slot + warp] = word;
+      if (__syncthreads_or(ok)) break;
+    }
+    return t;
+  };
+
+  float o[G::kPanels][kCols / 2];
+#pragma unroll
+  for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) o[p][i] = 0.0f;
+  }
+  float m[2] = {kNegInf, kNegInf};   // running max of rows row0, row1
+  float l[2] = {0.0f, 0.0f};         // this thread's part of their sums
+
+  int cur = find_live(0, 0);
+  if (cur < n_tiles && tid == 0) {
+    mbar_expect_tx(bar, 3 * G::kBytes);
+    load_tile<DH>(&q_map, q_s, bar, q0, h, b);
+    load_tile<DH>(&k_map, k_s(0), bar, cur * kRows, h, b);
+    load_tile<DH>(&v_map, v_s(0), bar, cur * kRows, h, b);
+  }
+  uint32_t phase = 0;                // bit s: the parity stage s waits for
+  int stage = 0;
+  while (cur < n_tiles) {
+    __syncthreads();                 // the other stage and mask slot are free
+    const int nxt = find_live(cur + 1, stage ^ 1);
+    if (nxt < n_tiles && tid == 0) {
+      const uint32_t nbar = bar + 8 * (stage ^ 1);
+      mbar_expect_tx(nbar, 2 * G::kBytes);
+      load_tile<DH>(&k_map, k_s(stage ^ 1), nbar, nxt * kRows, h, b);
+      load_tile<DH>(&v_map, v_s(stage ^ 1), nbar, nxt * kRows, h, b);
+    }
+    mbar_wait(bar + 8 * stage, (phase >> stage) & 1);
+    phase ^= 1u << stage;
+
+    // S = Q K^T: float32 dots of the bf16 values
+    float s[32];
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      wgmma_ss_n64(s, desc_k<DH>(q_s, kk), desc_k<DH>(k_s(stage), kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // the scale, the masks and the TPU kernel's online-softmax update
+    const uint32_t words[2] = {mask_s[2 * stage], mask_s[2 * stage + 1]};
+    const int k0 = cur * kRows;
+    float tile_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = frag_col(i, lane), r = frag_row(i);   // c / 32 = i / 16
+      const bool ok = ((words[i / 16] >> (c % 32)) & 1u) &&
+                      (!causal || k0 + c <= (r ? row1 : row0));
+      s[i] = ok ? s[i] * scale : kNegInf;
+      tile_max[r] = fmaxf(tile_max[r], s[i]);
+    }
+    float m_safe[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu,
+                                                       tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu,
+                                                       tile_max[r], 2));
+      const float m_new = fmaxf(m[r], tile_max[r]);
+      m_safe[r] = fmaxf(m_new, kHalfNegInf);
+      corr[r] = m[r] <= kHalfNegInf ? 0.0f
+                                    : expf(fmaxf(m[r], kHalfNegInf) - m_safe[r]);
+      l[r] *= corr[r];
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+      for (int i = 0; i < kCols / 2; ++i) o[p][i] *= corr[frag_row(i)];
+    }
+    uint32_t pa[4][4];               // T(p) as the A fragments of P V
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = frag_row(i);
+      s[i] = s[i] <= kHalfNegInf ? 0.0f : expf(s[i] - m_safe[r]);
+      l[r] += s[i];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+      }
+    }
+
+    // O += T(P) V, one product a panel of V's columns
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) fence_regs(o[p]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<kCols>(o[p], pa[kk], desc_mn<DH>(v_s(stage), p, kk), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) fence_regs(o[p]);
+    cur = nxt;
+    stage ^= 1;
+  }
+
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lc[r] = fmaxf(l[r], 1e-30f);
+  }
+  const int rows[2] = {row0, row1};
+#pragma unroll
+  for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+    for (int i = 0; i < kCols / 2; i += 2) {
+      const int r = frag_row(i), row = rows[r];
+      if (row < tq) {
+        const int col = p * kCols + frag_col(i, lane);
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (static_cast<int64_t>(b) * tq + row) * heads * DH +
+            static_cast<int64_t>(h) * DH + col) =
+            __floats2bfloat162_rn(o[p][i] / lc[r], o[p][i + 1] / lc[r]);
+      }
+    }
+  }
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] < tq) {
+        lse[(static_cast<int64_t>(b) * heads + h) * tq + rows[r]] =
+            m[r] <= kHalfNegInf ? kNegInf : m[r] + logf(lc[r]);
+      }
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const uint8_t* kv_valid;
+  void* out;
+  float* lse;
+  int b, tq, tk, heads;
+  Strides qs, ks, vs;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <int DH>
+int launch_simt(const Args& a) {
+  const dim3 grid((a.tq + kBQ - 1) / kBQ, a.heads, a.b);
+  flash_attention_fwd_simt_kernel<float, DH><<<grid, kBQ, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.kv_valid, static_cast<float*>(a.out),
+      a.lse, a.tq, a.tk, a.heads, a.qs, a.ks, a.vs, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dh(int dh, const void* q, const void* k, const void* v,
-              const uint8_t* kv_valid, void* out, float* lse, int b, int tq,
-              int tk, int heads, Strides qs, Strides ks, Strides vs,
-              float scale, int causal, cudaStream_t stream) {
+template <int DH>
+int launch_wgmma(const Args& a) {
+  using G = flash_sm90::Tile<DH>;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  const Strides st[3] = {a.qs, a.ks, a.vs};
+  for (int i = 0; i < 3; ++i) {
+    const int err = flash_sm90::encode_tile_map<DH>(
+        &maps[i], ptrs[i], a.b, i == 0 ? a.tq : a.tk, a.heads, st[i].b,
+        st[i].t, st[i].h);
+    if (err) return err;
+  }
+  const size_t smem = 5 * G::kBytes + 1024 + 64;
+  auto kernel = flash_attention_fwd_wgmma_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.tq + flash_sm90::kRows - 1) / flash_sm90::kRows, a.heads,
+                  a.b);
+  kernel<<<grid, kWarpgroup, smem, a.stream>>>(
+      maps[0], maps[1], maps[2], a.kv_valid,
+      static_cast<__nv_bfloat16*>(a.out), a.lse, a.tq, a.tk, a.heads,
+      a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype 0 (float32) takes the SIMT kernel, 1 (bf16) the wgmma kernel
+int launch(const void* q, const void* k, const void* v,
+           const uint8_t* kv_valid, void* out, float* lse, int b, int tq,
+           int tk, int heads, int dh, const int64_t* st, float scale,
+           int causal, int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || tq == 0 || heads == 0) return 0;
+  const Args a{q, k, v, kv_valid, out, lse, b, tq, tk, heads,
+               Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+               Strides{st[6], st[7], st[8]}, scale, causal,
+               static_cast<cudaStream_t>(stream)};
   switch (dh) {
     case 32:
-      return launch_typed<T, 32>(q, k, v, kv_valid, out, lse, b, tq, tk,
-                                 heads, qs, ks, vs, scale, causal, stream);
+      return dtype ? launch_wgmma<32>(a) : launch_simt<32>(a);
     case 64:
-      return launch_typed<T, 64>(q, k, v, kv_valid, out, lse, b, tq, tk,
-                                 heads, qs, ks, vs, scale, causal, stream);
+      return dtype ? launch_wgmma<64>(a) : launch_simt<64>(a);
     case 128:
-      return launch_typed<T, 128>(q, k, v, kv_valid, out, lse, b, tq, tk,
-                                  heads, qs, ks, vs, scale, causal, stream);
+      return dtype ? launch_wgmma<128>(a) : launch_simt<128>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -231,37 +487,28 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Launches on `stream` (PyTorch's current stream) without synchronising
-// and returns the cudaError_t of the launch (0 = cudaSuccess), or
-// cudaErrorInvalidValue for an unsupported dtype or head size. dtype: 0 =
-// float32, 1 = bfloat16; dh in {32, 64, 128}. q [B, Tq, H, dh] and k, v
+// and returns 0, the cudaError_t of the launch, cudaErrorInvalidValue for an
+// unsupported dtype or head size, or (wgmma) 1000 + the CUresult of a
+// refused tensor map. dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16
+// (the wgmma kernel); dh in {32, 64, 128}. q [B, Tq, H, dh] and k, v
 // [B, Tk, H, dh] are given by their batch, time and head strides in
-// elements (the head dimension contiguous); kv_valid [B, Tk] one byte
-// each (non-zero = valid); out [B, Tq, H, dh] and lse [B, H, Tq] float32
-// are contiguous. The caller guarantees b and heads <= 65535.
+// elements, strides = {q_b, q_t, q_h, k_b, k_t, k_h, v_b, v_t, v_h} (the
+// head dimension contiguous; in bf16 every stride a multiple of 16 bytes
+// and every base 16-byte aligned, as TMA reads them); kv_valid [B, Tk] one
+// byte each (non-zero = valid); out [B, Tq, H, dh] and lse [B, H, Tq]
+// float32 are contiguous. The caller guarantees b and heads <= 65535.
 
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                const uint8_t* kv_valid, void* out, float* lse,
                                int b, int tq, int tk, int heads, int dh,
-                               int64_t q_sb, int64_t q_st, int64_t q_sh,
-                               int64_t k_sb, int64_t k_st, int64_t k_sh,
-                               int64_t v_sb, int64_t v_st, int64_t v_sh,
-                               float scale, int causal, int dtype,
-                               void* stream) {
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (b == 0 || tq == 0 || heads == 0) return 0;
-  const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
-      vs{v_sb, v_st, v_sh};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_dh<float>(dh, q, k, v, kv_valid, out, lse, b, tq, tk,
-                            heads, qs, ks, vs, scale, causal, s);
-  }
-  return launch_dh<__nv_bfloat16>(dh, q, k, v, kv_valid, out, lse, b, tq, tk,
-                                  heads, qs, ks, vs, scale, causal, s);
+                               const int64_t* strides, float scale,
+                               int causal, int dtype, void* stream) {
+  return launch(q, k, v, kv_valid, out, lse, b, tq, tk, heads, dh, strides,
+                scale, causal, dtype, stream);
 }
 
 const char* flash_attention_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return flash_sm90::error_string(code);
 }
 
 }  // extern "C"

@@ -6,9 +6,7 @@
 // head h, query row i and key j of [B, T, H, dh] that the mask lets
 // through (kv_valid[b, j], and j <= i when causal):
 //
-//   s     = (q[i] . k[j]) * scale      the forward's float32 dot (four
-//                                       partial sums, the same order), then
-//                                       the scale: bitwise the forward's s
+//   s     = (q[i] . k[j]) * scale      the float32 dot, then the scale
 //   p     = exp(s - max(lse[i], NEG_INF / 2)), 0 where the mask bars j
 //   dp    = dO[i] . v[j]                float32
 //   ds    = p * (dp - delta[i]) * scale
@@ -22,20 +20,46 @@
 // masked and a masked key get exactly 0; nothing of [Tq, Tk] reaches
 // device memory. Sums accumulate in float32; the outputs are cast to T.
 //
-// What bounds it on this card: at the training shapes, the SIMT float32
-// arithmetic of this first version. For one head of one utterance in
+// The scores are not bitwise the forward's. The dq kernel (and the
+// float32 dk/dv kernel) sums s in four float32 partial sums, the order of
+// the float32 forward kernel; the bf16 forward and dk/dv kernels sum it on
+// the tensor cores, in their order. So in bf16 dq's p = exp(s - lse) may
+// exceed 1 by a rounding, and a bf16-rounded ds term may round the other
+// way than the plain backward's: a sum then moves by an ulp of one term.
+//
+// What bounds them on this card: bytes. For one head of one utterance in
 // bf16, dq reads q, k, v, dO once and writes dq, 2 dh (3 Tq + 2 Tk) bytes
 // (plus lse and delta), for 6 dh flops a pair that the mask lets through
 // (s, dp, ds k); dk/dv moves 2 dh (2 Tq + 4 Tk) bytes for 8 dh flops a
 // pair. At the encoder's T' = 249 that is ~150 flops a byte, below the
-// bf16 tensor-core ridge (~295): on tensor cores both would be bound by
-// bytes. These kernels do their products in float32 on the SIMT units
-// (67 TFLOP/s), which puts their floor at the operation count. They are
-// correct and simple first; wgmma, TMA and a pipelined ring are later
-// work.
+// bf16 tensor-core ridge (~295). The first dk/dv kernel did its products
+// in float32 on the SIMT units, every operand read from shared memory:
+// 45-54x its byte bound (0.67 ms alone at training's encoder self
+// [33, 238]; PERF.md).
 //
-// Design. Like the reference, two kernels and no atomics, so a run on the
-// card is bitwise repeatable:
+// dk/dv, bf16: flash_attention_bwd_dkv_wgmma_kernel. A block owns 64 keys
+// of one head of one utterance: K and V stay in shared memory (TMA, as
+// the forward; flash_sm90.cuh), query tiles of 64 (Q and dO) stream
+// through a two-stage ring with their clamped lse and delta. Per tile:
+//   - S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 (A = K, V; B = Q,
+//     dO, all K-major as they lie in memory): rows are the block's keys,
+//     columns the tile's queries, so lse and delta are per column;
+//   - p and ds on the accumulator fragment, packed to bf16 pairs: the
+//     rounding the contract asks for, and the A fragments of the next two
+//     products;
+//   - dV += T(P^T) dO and dK += T(dS^T) Q by wgmma with A from registers
+//     and B = dO, Q MN-major (the transpose bit); dK and dV accumulate in
+//     float32 registers (32 + 32 a thread at dh 64). dh 128 takes two
+//     warpgroups that split dk/dv's columns (each also computes S^T and
+//     dP^T), to keep the accumulators in registers.
+// A block whose 64 keys are all masked writes zeros and returns; under
+// causal, query tiles before the block's first key are skipped. No
+// atomics, so card runs repeat bitwise. Shared memory: 6 tiles, 25-98 KB.
+//
+// float32 (dk/dv) and dq in both types: the first SIMT kernels. wgmma has
+// no full-float32 product and TF32 would break the float32 tolerance
+// (atol 1e-5); the dq kernel is not redesigned yet. Like the reference,
+// dq and dk/dv are two kernels:
 //   dq    one block per (64 query rows, head, utterance), walking key tiles
 //         of 32 (causal: only up to the block's last row);
 //   dk/dv one block per (64 key rows, head, utterance), walking query
@@ -50,21 +74,20 @@
 //   B  thread (r, c) adds the tile's contribution to columns
 //      [32 c, 32 c + 32) of row r's accumulators, held in registers.
 // So a thread holds 32 float32 accumulators (dq) or 64 (dk and dv) for any
-// dh in {32, 64, 128}: no spills, and no key loop unrolled in full (the
-// forward's unrolled loops took 92.6 s of nvcc). Shared memory is dynamic:
-// 33-108 KB (dq) and 37-116 KB (dk/dv) by dh. Operands are read from the
-// strided [B, T, H, dh] layout with the strides the caller gives (the
-// head axis contiguous); the outputs are contiguous [B, T, H, dh].
+// dh in {32, 64, 128}: no spills, and no key loop unrolled in full.
+// Shared memory is dynamic: 33-108 KB (dq) and 37-116 KB (dk/dv) by dh.
+// Operands are read from the strided [B, T, H, dh] layout with the strides
+// the caller gives (the head axis contiguous); the outputs are contiguous
+// [B, T, H, dh].
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int kRows = 64;        // rows of the block's own side
+using flash_sm90::kRows;         // rows of the block's own side
 constexpr int kTile = 32;        // rows of the walked side per step
 constexpr int kChunk = 32;       // accumulator columns a thread owns
+constexpr float kNegInf = -1e30f;
 constexpr float kHalfNegInf = -5e29f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -238,18 +261,18 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(2 * DH)
-flash_attention_bwd_dkv_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const T* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               const uint8_t* __restrict__ kv_valid,
-                               T* __restrict__ dk,    // [B, Tk, H, DH]
-                               T* __restrict__ dv,    // [B, Tk, H, DH]
-                               int tq, int tk, int heads, Strides qs,
-                               Strides ks, Strides vs, Strides os,
-                               float scale, int causal) {
+flash_attention_bwd_dkv_simt_kernel(const T* __restrict__ q,
+                                    const T* __restrict__ k,
+                                    const T* __restrict__ v,
+                                    const T* __restrict__ dout,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    const uint8_t* __restrict__ kv_valid,
+                                    T* __restrict__ dk,   // [B, Tk, H, DH]
+                                    T* __restrict__ dv,   // [B, Tk, H, DH]
+                                    int tq, int tk, int heads, Strides qs,
+                                    Strides ks, Strides vs, Strides os,
+                                    float scale, int causal) {
   constexpr int LD = DH + 1;
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                          // [kRows][LD], own keys
@@ -332,6 +355,208 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q,
   }
 }
 
+// ---- bf16 dk/dv: the wgmma kernel ----
+
+constexpr int kWarpgroup = 128;
+
+// dh 128 takes two warpgroups, each the dk/dv columns of one panel (both
+// compute S^T and dP^T): one warpgroup would hold 128 + 128 float32
+// accumulators of dk and dv beside those of S^T and dP^T
+template <int DH>
+constexpr int dkv_warpgroups() { return DH == 128 ? 2 : 1; }
+
+template <int DH>
+__global__ void __launch_bounds__(kWarpgroup * dkv_warpgroups<DH>())
+flash_attention_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse,       // [B, H, Tq]
+    const float* __restrict__ delta,     // [B, H, Tq]
+    const uint8_t* __restrict__ kv_valid,
+    __nv_bfloat16* __restrict__ dk,      // [B, Tk, H, DH]
+    __nv_bfloat16* __restrict__ dv,      // [B, Tk, H, DH]
+    int tq, int tk, int heads, float scale, int causal) {
+  using namespace flash_sm90;
+  using G = Tile<DH>;
+  constexpr int kCols = G::kPanelCols;   // dk/dv columns a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  // [K][V][Q0][dO0][Q1][dO1] from a 1024-byte boundary, then 3 mbarriers
+  // (K/V, stage 0, stage 1) and the clamped lse and delta of each stage
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* tail = smem_raw + (base - raw) + 6 * G::kBytes;
+  const uint32_t kv_bar = smem_u32(tail);
+  const uint32_t bar = kv_bar + 8;       // bar + 8 s: stage s
+  float* lse_s = reinterpret_cast<float*>(tail + 32);    // [2][64]
+  float* delta_s = lse_s + 2 * kRows;                     // [2][64]
+  const uint32_t k_s = base, v_s = base + G::kBytes;
+  auto q_s = [&](int s) { return base + (2 + 2 * s) * G::kBytes; };
+  auto do_s = [&](int s) { return base + (3 + 2 * s) * G::kBytes; };
+
+  const CUtensorMap* qm = &q_map;
+  const CUtensorMap* om = &do_map;
+  const int tid = threadIdx.x, wg = tid / kWarpgroup;
+  const int warp = tid % kWarpgroup / 32, lane = tid % 32;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kRows;
+  const uint8_t* valid_row = kv_valid + static_cast<int64_t>(b) * tk;
+  const int64_t out_at = static_cast<int64_t>(h) * DH;   // + row * heads DH
+
+  // a block whose 64 keys are all masked writes zeros
+  const bool mine = tid < kRows && k0 + tid < tk && valid_row[k0 + tid] != 0;
+  if (!__syncthreads_or(mine)) {
+    for (int idx = tid; idx < kRows * DH / 8; idx += blockDim.x) {
+      const int j = k0 + idx / (DH / 8);
+      if (j < tk) {
+        const int64_t at = (static_cast<int64_t>(b) * tk + j) * heads * DH +
+                           out_at + idx % (DH / 8) * 8;
+        *reinterpret_cast<uint4*>(dk + at) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(dv + at) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+  // this thread's two key rows (the accumulator fragment's rows)
+  const int row0 = k0 + 16 * warp + lane / 4;
+  const int rows[2] = {row0, row0 + 8};
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_ok[r] = rows[r] < tk && valid_row[rows[r]] != 0;
+  }
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // with the causal flag, queries before the block's first key see none
+  // of its keys
+  const int qt0 = causal ? k0 / kRows : 0;
+  const int n_qt = (tq + kRows - 1) / kRows;
+  const int64_t row_at = (static_cast<int64_t>(b) * heads + h) * tq;
+  // tile qt's Q and dO into stage s (one thread), its clamped lse and
+  // delta into slot s (threads 0-63)
+  auto fetch = [&](int qt, int s) {
+    if (tid == 0) {
+      mbar_expect_tx(bar + 8 * s, 2 * G::kBytes);
+      load_tile<DH>(qm, q_s(s), bar + 8 * s, qt * kRows, h, b);
+      load_tile<DH>(om, do_s(s), bar + 8 * s, qt * kRows, h, b);
+    }
+    if (tid < kRows) {
+      const int qi = qt * kRows + tid;
+      lse_s[s * kRows + tid] =
+          qi < tq ? fmaxf(lse[row_at + qi], kHalfNegInf) : 0.0f;
+      delta_s[s * kRows + tid] = qi < tq ? delta[row_at + qi] : 0.0f;
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * G::kBytes);
+    load_tile<DH>(&k_map, k_s, kv_bar, k0, h, b);
+    load_tile<DH>(&v_map, v_s, kv_bar, k0, h, b);
+  }
+  if (qt0 < n_qt) fetch(qt0, 0);
+  mbar_wait(kv_bar, 0);
+
+  float dk_acc[kCols / 2], dv_acc[kCols / 2];
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  uint32_t phase = 0;                // bit s: the parity stage s waits for
+  int stage = 0;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    __syncthreads();                 // the other stage and slot are free
+    if (qt + 1 < n_qt) fetch(qt + 1, stage ^ 1);
+    mbar_wait(bar + 8 * stage, (phase >> stage) & 1);
+    phase ^= 1u << stage;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are this block's keys, columns
+    // the tile's queries
+    float st[32], dpt[32];
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      wgmma_ss_n64(st, desc_k<DH>(k_s, kk), desc_k<DH>(q_s(stage), kk),
+                   kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      wgmma_ss_n64(dpt, desc_k<DH>(v_s, kk), desc_k<DH>(do_s(stage), kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // p and ds on the fragment; lse and delta are per column
+    const int q0 = qt * kRows;
+    const float* lse_t = lse_s + stage * kRows;
+    const float* delta_t = delta_s + stage * kRows;
+    uint32_t pa[4][4], da[4][4];     // T(p^T), T(ds^T) as A fragments
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = frag_col(i, lane), r = frag_row(i);
+      const int qi = q0 + c;
+      const bool ok = key_ok[r] && qi < tq && (!causal || rows[r] <= qi);
+      const float s = ok ? st[i] * scale : kNegInf;
+      const float p = s <= kHalfNegInf ? 0.0f : expf(s - lse_t[c]);
+      dpt[i] = p * (dpt[i] - delta_t[c]) * scale;
+      st[i] = p;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pa[kk][j] = pack_bf16(st[8 * kk + 2 * j], st[8 * kk + 2 * j + 1]);
+        da[kk][j] = pack_bf16(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1]);
+      }
+    }
+
+    // dV += T(P^T) dO and dK += T(dS^T) Q over the tile's queries, on this
+    // warpgroup's panel of columns (dO and Q MN-major)
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(da[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<kCols>(dv_acc, pa[kk], desc_mn<DH>(do_s(stage), wg, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<kCols>(dk_acc, da[kk], desc_mn<DH>(q_s(stage), wg, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < kCols / 2; i += 2) {
+    const int row = rows[frag_row(i)];
+    if (row < tk) {
+      const int64_t at = (static_cast<int64_t>(b) * tk + row) * heads * DH +
+                         out_at + wg * kCols + frag_col(i, lane);
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -363,7 +588,7 @@ int launch_dq(const Args& a, void* dq) {
 template <typename T, int DH>
 int launch_dkv(const Args& a, void* dk, void* dv) {
   const size_t smem = dkv_smem_floats<DH>() * sizeof(float);
-  auto kernel = flash_attention_bwd_dkv_kernel<T, DH>;
+  auto kernel = flash_attention_bwd_dkv_simt_kernel<T, DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -377,24 +602,64 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// which = 0: dq into out0; which = 1: dk, dv into out0, out1
+template <int DH>
+int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  using G = flash_sm90::Tile<DH>;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const Strides st[4] = {a.qs, a.ks, a.vs, a.os};
+  for (int i = 0; i < 4; ++i) {
+    const int err = flash_sm90::encode_tile_map<DH>(
+        &maps[i], ptrs[i], a.b, (i == 1 || i == 2) ? a.tk : a.tq, a.heads,
+        st[i].b, st[i].t, st[i].h);
+    if (err) return err;
+  }
+  const size_t smem = 6 * G::kBytes + 1024 + 32 + 4 * kRows * sizeof(float);
+  auto kernel = flash_attention_bwd_dkv_wgmma_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.tk + kRows - 1) / kRows, a.heads, a.b);
+  kernel<<<grid, kWarpgroup * dkv_warpgroups<DH>(), smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, a.kv_valid,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.tq,
+      a.tk, a.heads, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int launch_dh(int dh, int which, const Args& a, void* out0, void* out1) {
+int launch_dq_dh(int dh, const Args& a, void* dq) {
   switch (dh) {
     case 32:
-      return which == 0 ? launch_dq<T, 32>(a, out0)
-                        : launch_dkv<T, 32>(a, out0, out1);
+      return launch_dq<T, 32>(a, dq);
     case 64:
-      return which == 0 ? launch_dq<T, 64>(a, out0)
-                        : launch_dkv<T, 64>(a, out0, out1);
+      return launch_dq<T, 64>(a, dq);
     case 128:
-      return which == 0 ? launch_dq<T, 128>(a, out0)
-                        : launch_dkv<T, 128>(a, out0, out1);
+      return launch_dq<T, 128>(a, dq);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// dtype 0 (float32) takes the SIMT dk/dv kernel, 1 (bf16) the wgmma one
+int launch_dkv_dh(int dtype, int dh, const Args& a, void* dk, void* dv) {
+  switch (dh) {
+    case 32:
+      return dtype ? launch_dkv_wgmma<32>(a, dk, dv)
+                   : launch_dkv<float, 32>(a, dk, dv);
+    case 64:
+      return dtype ? launch_dkv_wgmma<64>(a, dk, dv)
+                   : launch_dkv<float, 64>(a, dk, dv);
+    case 128:
+      return dtype ? launch_dkv_wgmma<128>(a, dk, dv)
+                   : launch_dkv<float, 128>(a, dk, dv);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// which = 0: dq into out0; 1: dk, dv into out0, out1
 int launch(int which, const void* q, const void* k, const void* v,
            const void* dout, const float* lse, const float* delta,
            const uint8_t* kv_valid, void* out0, void* out1, int b, int tq,
@@ -407,8 +672,11 @@ int launch(int which, const void* q, const void* k, const void* v,
                Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                scale, causal, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch_dh<float>(dh, which, a, out0, out1);
-  return launch_dh<__nv_bfloat16>(dh, which, a, out0, out1);
+  if (which == 0) {
+    return dtype == 0 ? launch_dq_dh<float>(dh, a, out0)
+                      : launch_dq_dh<__nv_bfloat16>(dh, a, out0);
+  }
+  return launch_dkv_dh(dtype, dh, a, out0, out1);
 }
 
 }  // namespace
@@ -416,16 +684,19 @@ int launch(int which, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Both launch on `stream` (PyTorch's current stream) without synchronising
-// and return the cudaError_t of the launch (0 = cudaSuccess), or
-// cudaErrorInvalidValue for an unsupported dtype or head size. dtype: 0 =
-// float32, 1 = bfloat16 (q, k, v, dO and the outputs); dh in {32, 64,
-// 128}. q and dO [B, Tq, H, dh], k and v [B, Tk, H, dh] are given by their
-// batch, time and head strides in elements (the head dimension contiguous):
-// strides = {q_b, q_t, q_h, k_b, k_t, k_h, v_b, v_t, v_h, do_b, do_t,
-// do_h}. lse and delta [B, H, Tq] float32 and kv_valid [B, Tk] one byte
-// each (non-zero = valid) are contiguous, and so are the outputs: dq
-// [B, Tq, H, dh], dk and dv [B, Tk, H, dh]. The caller guarantees b and
-// heads <= 65535.
+// and return 0, the cudaError_t of the launch, cudaErrorInvalidValue for
+// an unsupported dtype or head size, or (wgmma) 1000 + the CUresult of a
+// refused tensor map. dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and
+// the outputs): dq is a SIMT kernel in both, dk/dv the SIMT kernel in
+// float32 and the wgmma kernel in bf16; dh in {32, 64, 128}. q and dO
+// [B, Tq, H, dh], k and v [B, Tk, H, dh] are given by their batch, time
+// and head strides in elements (the head dimension contiguous; for the
+// wgmma kernel every stride a multiple of 16 bytes and every base 16-byte
+// aligned, as TMA reads them): strides = {q_b, q_t, q_h, k_b, k_t, k_h,
+// v_b, v_t, v_h, do_b, do_t, do_h}. lse and delta [B, H, Tq] float32 and
+// kv_valid [B, Tk] one byte each (non-zero = valid) are contiguous, and so
+// are the outputs: dq [B, Tq, H, dh], dk and dv [B, Tk, H, dh]. The caller
+// guarantees b and heads <= 65535.
 
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
@@ -440,17 +711,16 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
 int flash_attention_bwd_dkv_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
-                                   const uint8_t* kv_valid, void* dk,
-                                   void* dv, int b, int tq, int tk, int heads,
-                                   int dh, const int64_t* strides,
-                                   float scale, int causal, int dtype,
-                                   void* stream) {
+                                   const uint8_t* kv_valid, void* dk, void* dv,
+                                   int b, int tq, int tk, int heads, int dh,
+                                   const int64_t* strides, float scale,
+                                   int causal, int dtype, void* stream) {
   return launch(1, q, k, v, dout, lse, delta, kv_valid, dk, dv, b, tq, tk,
                 heads, dh, strides, scale, causal, dtype, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return flash_sm90::error_string(code);
 }
 
 }  // extern "C"

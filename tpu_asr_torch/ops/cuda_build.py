@@ -2,9 +2,10 @@
 
 Each source under tpu_asr_torch/csrc/ has a plain C interface. At first
 use it is compiled by nvcc for Hopper (sm_90a) into a shared library in
-tpu_asr_torch/_build/ (ignored by git), named by a hash of its source and
-flags so an edited source is rebuilt, and loaded with ctypes. Nothing is
-built when a module is imported; a failed build raises.
+tpu_asr_torch/_build/ (ignored by git), named by a hash of its source, the
+csrc headers it includes and the flags, so an edited source or header is
+rebuilt, and loaded with ctypes. Nothing is built when a module is
+imported; a failed build raises.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,6 +39,25 @@ def check_tensor(name: str, x, shape: tuple, dtype, device) -> None:
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(path: str) -> list[str]:
+    """The files that `path` includes with #include "..." from its own
+    directory, and theirs, in first-seen order: what its build reads
+    besides itself and the toolkit."""
+    found, todo = [], [path]
+    while todo:
+        with open(todo.pop(), "rb") as f:
+            text = f.read()
+        for name in INCLUDE.findall(text):
+            inc = os.path.join(os.path.dirname(path), name.decode())
+            if os.path.exists(inc) and inc not in found:
+                found.append(inc)
+                todo.append(inc)
+    return found
 
 
 class KernelBuildError(RuntimeError):
@@ -69,8 +90,10 @@ class KernelLibrary:
         self.build_log = ""                       # nvcc's -Xptxas -v report
 
     def _target(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in [self.source, *local_includes(self.source)]:
+            with open(path, "rb") as f:
+                digest.update(f.read())
         return os.path.join(BUILD_DIR,
                             f"lib{self.name}-{digest.hexdigest()[:16]}.so")
 

@@ -22,6 +22,12 @@ version. When a gradient is wanted it goes through
 dk/dv kernels of csrc/flash_attention_bwd.cu (`flash_attention_bwd_dq`,
 `flash_attention_bwd_dkv`); on the CPU the plain forward and the plain
 backward (`flash_attention_bwd_reference`). Other devices raise.
+
+On the card the dtype picks the kernel (`kernel_route`): bfloat16 takes
+the forward and dk/dv kernels built on wgmma (tensor cores, TMA-fed
+tiles), float32 the SIMT ones (wgmma has no full-float32 product, and
+TF32 would break the float32 tolerance); dq is a SIMT kernel in both.
+Nothing falls back: a call the routed kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 MAX_GRID = 65535       # grid y (heads) and z (batch) extents
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+TMA_ALIGN = 16         # bytes: TMA's rule for a tensor's base and strides
 
 
 def _mask(kv_valid: torch.Tensor, causal: bool, tq: int) -> torch.Tensor:
@@ -107,11 +115,78 @@ def xla_attention(q, k, v, kv_valid: torch.Tensor, causal: bool = False):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def kernel_route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel a CUDA call in `dtype` with head size `dh` launches:
+    "wgmma" for bfloat16 (the forward and dk/dv kernels on the tensor
+    cores), "simt" for float32 (wgmma has no full-float32 product, and
+    TF32 would break the float32 tolerance). Raises for any other dtype or
+    head size: no kernel takes it, and nothing falls back."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel needs dh in {HEAD_DIMS}, "
+                         f"got {dh}")
+    if dtype not in ROUTES:
+        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    return ROUTES[dtype]
+
+
+def tma_ready(x: torch.Tensor) -> bool:
+    """Whether TMA can read x [B, T, H, dh] where it lies: the head axis
+    contiguous, the base 16-byte aligned, and the batch, time and head
+    strides of every axis longer than 1 positive multiples of 16 bytes.
+    The model's q/k/v projections ([B, T, H, dh] views of [B, T, H dh])
+    and views of one [B, T, 3, H, dh] tensor are."""
+    e = x.element_size()
+    return (x.stride(-1) == 1 and x.data_ptr() % TMA_ALIGN == 0
+            and all(s > 0 and s * e % TMA_ALIGN == 0
+                    for n, s in zip(x.shape[:3], x.stride()[:3]) if n > 1))
+
+
+def kernel_operand(x: torch.Tensor, route: str) -> torch.Tensor:
+    """x as the routed kernel reads it: x itself where it can, else a
+    contiguous copy (a layout step, not a fallback). The SIMT kernels need
+    the head axis contiguous; the wgmma kernels read through TMA, so also
+    `tma_ready`."""
+    ok = tma_ready(x) if route == "wgmma" else x.stride(-1) == 1
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(x: torch.Tensor) -> list[int]:
+    """x's batch, time and head strides in elements, with the stride of
+    an axis of length <= 1 (which addresses nothing) replaced by that of a
+    packed layout: TMA checks every stride of a tensor map."""
+    t, h, dh = (max(n, 1) for n in x.shape[1:])
+    packed = [t * h * dh, h * dh, dh]
+    return [s if n > 1 else p
+            for n, s, p in zip(x.shape[:3], x.stride()[:3], packed)]
+
+
+def _check_operands(names, xs, ts):
+    """Shape, dtype and device checks shared by the wrappers: each x of
+    xs must be [B, t, H, dh] (t from ts) in q's dtype on q's device.
+    -> (route, b, h, dh)."""
+    q = xs[0]
+    b, _, h, dh = q.shape
+    route = kernel_route(q.dtype, dh)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for device {q.device}")
+    if b > MAX_GRID or h > MAX_GRID:
+        raise ValueError(f"flash attention kernel needs B and H <= "
+                         f"{MAX_GRID}, got {b}, {h}")
+    for name, x, t in zip(names, xs, ts):
+        if tuple(x.shape) != (b, t, h, dh) or x.dtype != q.dtype or \
+                x.device != q.device:
+            raise ValueError(f"{name} must be a {q.dtype} tensor of shape "
+                             f"{(b, t, h, dh)} on {q.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    return route, b, h, dh
+
+
 def _bind(lib: ctypes.CDLL):
     if lib.flash_attention_fwd_launch.argtypes is None:
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_fwd_launch.argtypes = (
-            [p] * 6 + [i] * 5 + [i64] * 9 + [ctypes.c_float, i, i, p])
+            [p] * 6 + [i] * 5 + [p, ctypes.c_float, i, i, p])
         lib.flash_attention_fwd_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -121,47 +196,34 @@ def _bind(lib: ctypes.CDLL):
 def flash_attention_fwd(q, k, v, kv_valid: torch.Tensor,
                         causal: bool = False):
     """The kernel on CUDA tensors: (out, lse) as the plain version gives
-    them. q/k/v one of float32, bfloat16, with dh in HEAD_DIMS and the head
-    axis contiguous (any batch, time and head strides); kv_valid [B, Tk]
-    boolean. Launches on the current stream."""
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention kernel for device {q.device}")
-    b, tq, h, dh = q.shape
-    tk = k.shape[1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel needs dh in {HEAD_DIMS}, "
-                         f"got {dh}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    if b > MAX_GRID or h > MAX_GRID:
-        raise ValueError(f"flash attention kernel needs B and H <= "
-                         f"{MAX_GRID}, got {b}, {h}")
+    them. q/k/v one of float32 (the SIMT kernel) or bfloat16 (the wgmma
+    kernel), with dh in HEAD_DIMS; any batch, time and head strides, but
+    an operand that the routed kernel cannot read where it lies (the head
+    axis not contiguous; for bf16 also TMA's 16-byte rule, `tma_ready`) is
+    copied contiguous first. kv_valid [B, Tk] boolean. Launches on the
+    current stream."""
+    tq, tk = q.shape[1], k.shape[1]
+    route, b, h, dh = _check_operands(("q", "k", "v"), (q, k, v),
+                                      (tq, tk, tk))
     dev, dt = q.device, q.dtype
-    checked = []
-    for name, x, t in (("q", q, tq), ("k", k, tk), ("v", v, tk)):
-        if tuple(x.shape) != (b, t, h, dh) or x.dtype != dt or \
-                x.device != dev:
-            raise ValueError(f"{name} must be a {dt} tensor of shape "
-                             f"{(b, t, h, dh)} on {dev}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-        checked.append(x if x.stride(-1) == 1 else x.contiguous())
-    q, k, v = checked
+    q, k, v = (kernel_operand(x, route) for x in (q, k, v))
     valid = kv_valid.to(torch.bool).contiguous().view(torch.uint8)
     check_tensor("kv_valid", valid, (b, tk), torch.uint8, dev)
     out = torch.empty((b, tq, h, dh), dtype=dt, device=dev)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_int64 * 9)(*_strides(q), *_strides(k),
+                                   *_strides(v))
     lib = _bind(LIBRARY.load())
     with torch.cuda.device(dev):
         err = lib.flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, tq, tk, h, dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            out.data_ptr(), lse.data_ptr(), b, tq, tk, h, dh, strides,
             1.0 / dh ** 0.5, int(causal), DTYPES[dt],
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash attention launch failed: {msg} ({err})")
+        raise RuntimeError(f"flash attention {route} launch failed: {msg} "
+                           f"({err})")
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -184,36 +246,22 @@ def _bwd_bind(lib: ctypes.CDLL):
 
 def _bwd_launch(name, q, k, v, dout, lse, delta, kv_valid, causal, outs):
     """Checks shared by the two backward wrappers, then the launch of
-    `name` on the current stream writing `outs`."""
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention kernel for device {q.device}")
-    b, tq, h, dh = q.shape
-    tk = k.shape[1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel needs dh in {HEAD_DIMS}, "
-                         f"got {dh}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    if b > MAX_GRID or h > MAX_GRID:
-        raise ValueError(f"flash attention kernel needs B and H <= "
-                         f"{MAX_GRID}, got {b}, {h}")
+    `name` on the current stream writing `outs`. The dq kernel is SIMT in
+    both dtypes; dk/dv takes `kernel_route`'s kernel (its operands copied
+    as `kernel_operand` says)."""
+    tq, tk = q.shape[1], k.shape[1]
+    route, b, h, dh = _check_operands(("q", "k", "v", "dout"),
+                                      (q, k, v, dout), (tq, tk, tk, tq))
+    if name == "flash_attention_bwd_dq":
+        route = "simt"
     dev, dt = q.device, q.dtype
-    checked = []
-    for nm, x, t in (("q", q, tq), ("k", k, tk), ("v", v, tk),
-                     ("dout", dout, tq)):
-        if tuple(x.shape) != (b, t, h, dh) or x.dtype != dt or \
-                x.device != dev:
-            raise ValueError(f"{nm} must be a {dt} tensor of shape "
-                             f"{(b, t, h, dh)} on {dev}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-        checked.append(x if x.stride(-1) == 1 else x.contiguous())
+    checked = [kernel_operand(x, route) for x in (q, k, v, dout)]
     check_tensor("lse", lse, (b, h, tq), torch.float32, dev)
     check_tensor("delta", delta, (b, h, tq), torch.float32, dev)
     valid = kv_valid.to(torch.bool).contiguous().view(torch.uint8)
     check_tensor("kv_valid", valid, (b, tk), torch.uint8, dev)
     strides = (ctypes.c_int64 * 12)(*(s for x in checked
-                                      for s in x.stride()[:3]))
+                                      for s in _strides(x)))
     lib = _bwd_bind(BWD_LIBRARY.load())
     with torch.cuda.device(dev):
         err = getattr(lib, f"{name}_launch")(
@@ -249,7 +297,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse: torch.Tensor,
                             causal: bool = False):
     """The dk/dv kernel on CUDA tensors: (dk, dv) [B, Tk, H, dh] in k's
     dtype, as the plain backward gives them; inputs as for
-    flash_attention_bwd_dq."""
+    flash_attention_bwd_dq. bfloat16 takes the wgmma kernel, float32 the
+    SIMT one (`kernel_route`)."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_attention_bwd_dkv", q, k, v, dout, lse, delta,
