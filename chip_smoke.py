@@ -10,10 +10,11 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      run built them; read each library's HGMMA (wgmma) instructions and
      the kernels' registers, stack frame and local memory from the
      library itself (cuobjdump, so a cached library is checked alike) and
-     fail unless every bf16 flash forward and dk/dv kernel has HGMMA and
-     none of them spills registers.
+     fail unless every bf16 flash forward, dq and dk/dv kernel has HGMMA
+     and none of them, nor any LN backward kernel, spills registers.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
-     card, at the main paths' shapes and at ragged ones, with timings:
+     card, at the main paths' shapes and at ragged ones, with timings (the
+     wrapper by CUDA events, the kernel alone by the profiler):
      ctc_prefix_scan (serving) and the CTC loss pair ctc_loss_fwd /
      ctc_loss_bwd (training), the latter also beside torch's own CTC loss
      (F.ctc_loss, timed as a yardstick and used as a value check only);
@@ -34,9 +35,10 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      [32, 249], decoder causal [32, 25], cross [32, 25] x [32, 249], h8
      dh64 bf16; timed beside torch.autograd.grad of
      F.scaled_dot_product_attention), at ragged ones and at the forward's
-     new bf16 cases, and
+     new bf16 cases (bf16 on the wgmma dq and dk/dv kernels), and
      layer_norm_residual_bwd at 7968 and 800 rows x 512 (timed beside
-     aten.native_layer_norm_backward) and 1 to 8080 rows, D 64 to 2048.
+     aten.native_layer_norm_backward, warm and with L2 flushed, and
+     traced: one device kernel a call) and 1 to 8080 rows, D 64 to 2048.
   4. agreement: a small hybrid model decodes the same batch on the card and
      on the CPU (plain versions), tokens equal; and takes two train steps
      from the same init on one batch on both: losses of both steps within
@@ -129,11 +131,15 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 FLIP_REPORT_ULPS = 0.75   # a bf16 flash gradient this near its bound logs
                           # what rounding flips of p and ds can explain
 MIN_TRAIN_STEPS = 20
-# the redesigned kernels' times alone before this design (SIMT float32):
-# the served cross shape (forward) and training's encoder self shape
-# (dk/dv), run E of PERF.md, NVIDIA H100 80GB HBM3, 700 W
+# the redesigned kernels' times alone before their present design: the
+# served cross shape (forward) and training's encoder self shape (dk/dv,
+# dq; the LN backward at [33, 238, 512] bf16), runs E (forward, dk/dv) and
+# F (dq, LN backward) of PERF.md, NVIDIA H100 80GB HBM3, 700 W
 PREVIOUS_ALONE_MS = {"flash_attention_fwd": 0.6092,
-                     "flash_attention_bwd_dkv": 0.6672}
+                     "flash_attention_bwd_dkv": 0.6672,
+                     "flash_attention_bwd_dq": 0.6054,
+                     "layer_norm_residual_bwd": 0.0265}
+L2_FLUSH_BYTES = 128 << 20    # read between calls: > the H100's 50 MB L2
 BUCKETS = (512, 1000)
 BATCH = 8
 N_REQUESTS = 16
@@ -151,10 +157,26 @@ def card_line() -> str:
     return out[torch.cuda.current_device()].strip()
 
 
-def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
+_flush_buffer = []
+
+
+def flush_l2():
+    """Read L2_FLUSH_BYTES of device memory (one sum), so the next kernel
+    finds its inputs in device memory and not in the L2 cache. A read, not
+    a write: a write would leave the cache full of dirty lines whose
+    write-back the next kernel would pay for."""
+    if not _flush_buffer:
+        _flush_buffer.append(torch.zeros(L2_FLUSH_BYTES // 4,
+                                         dtype=torch.float32, device=DEVICE))
+    _flush_buffer[0].sum()
+
+
+def kernel_device_ms(fn, name: str, reps: int = 20, flush=None) -> float:
     """Mean device time of one launch of the kernel whose name contains
     `name` (torch.profiler; fn() launches it once): the kernel alone,
-    without the wrapper's other launches and host time. The mean is over
+    without the wrapper's other launches and host time; with `flush`,
+    flush() runs before each call (its own kernel is not counted). The
+    mean is over
     the launches the trace holds, not over `reps`: late in a long run the
     trace came back with some of them missing (a flash backward kernel
     read 0.27 ms by reps and 0.59 ms alone in a fresh process), and once
@@ -167,6 +189,8 @@ def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
     for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if flush:
+                    flush()
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
@@ -183,12 +207,36 @@ def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
     return sum(e.self_device_time_total for e in events) / 1e3 / count
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() over `reps` calls (CUDA events)."""
+def device_events(fn, name: str, reps: int = 10) -> dict:
+    """{kernel name: count} of every device-side event (kernels, copies,
+    memsets) that `reps` calls of fn() leave in a torch.profiler trace,
+    taken again (up to 3 times) until the kernel whose name contains
+    `name` is in it: what a wrapper launches besides its kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if any(name in k for k in found):
+            return found
+    raise AssertionError(f"the profiler saw no launch of {name} in 3 traces")
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+    """Median device time of fn() over `reps` calls (CUDA events); with
+    `flush`, flush() runs before each call, outside the timed region."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if flush:
+            flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -246,16 +294,21 @@ def sass_report(path: str) -> dict:
 
 
 WGMMA_KERNELS = ("flash_attention_fwd_wgmma_kernel",
+                 "flash_attention_bwd_dq_wgmma_kernel",
                  "flash_attention_bwd_dkv_wgmma_kernel")
+# kernels whose every instantiation must not spill (no HGMMA expected)
+NO_SPILL_KERNELS = ("layer_norm_residual_bwd_kernel",)
 
 
 def check_build(libraries, report=sass_report) -> dict:
     """Print each library's HGMMA count and, for the bf16 flash kernels on
-    wgmma, their registers, stack frame, local memory, static shared
-    memory (their tiles are dynamic shared memory) and HGMMA instructions,
-    all read from the built libraries; fail unless each of those (every
-    head size) has HGMMA and neither a stack frame nor local memory (no
+    wgmma and the LN backward kernel, their registers, stack frame, local
+    memory, static shared memory (the flash tiles are dynamic shared
+    memory) and HGMMA instructions, all read from the built libraries;
+    fail unless each wgmma kernel (every head size) has HGMMA and none of
+    them (every instantiation) has a stack frame or local memory (no
     spills). -> {kernel: that report}."""
+    watched = WGMMA_KERNELS + NO_SPILL_KERNELS
     found = {}
     for lib in libraries:
         kernels = report(lib._target())
@@ -263,15 +316,16 @@ def check_build(libraries, report=sass_report) -> dict:
             f"{sum(k['hgmma'] for k in kernels.values())} HGMMA in "
             f"{len(kernels)} kernels")
         found.update({name: r for name, r in kernels.items()
-                      if any(w in name for w in WGMMA_KERNELS)})
-    log("wgmma kernels (cuobjdump): " + json.dumps(found))
-    for w in WGMMA_KERNELS:
+                      if any(w in name for w in watched)})
+    log("wgmma and LN backward kernels (cuobjdump): " + json.dumps(found))
+    for w in watched:
         mine = {k: v for k, v in found.items() if w in k}
-        if len(mine) != 3 or any(not v["hgmma"] for v in mine.values()):
+        if w in WGMMA_KERNELS and (
+                len(mine) != 3 or any(not v["hgmma"] for v in mine.values())):
             raise AssertionError(f"{w}: expected 3 head sizes with HGMMA "
                                  f"instructions, got {mine}")
-        if any(v["registers"] is None or v["stack_bytes"] != 0
-               or v["local_bytes"] != 0 for v in mine.values()):
+        if not mine or any(v["registers"] is None or v["stack_bytes"] != 0
+                           or v["local_bytes"] != 0 for v in mine.values()):
             raise AssertionError(f"{w} spills registers (or its resource "
                                  f"usage was not read): {mine}")
     return found
@@ -351,15 +405,20 @@ def check_prefix_scan(gen):
                                     f"hist={hist}")
                 max_err = max(max_err, err)
             if lengths == [t] * n:      # the path's shapes: time them
-                ms = cuda_ms(lambda: ctc_prefix_scan(*args, return_hist=hist))
+                fn = lambda: ctc_prefix_scan(  # noqa: E731
+                    *args, return_hist=hist)
+                ms = cuda_ms(fn)
+                alone = kernel_device_ms(fn, "ctc_prefix_scan_kernel")
                 plain = cuda_ms(lambda: ctc_prefix_scan_reference(
                     *args, return_hist=hist), reps=20, warmup=1)
                 bound, by = prefix_scan_bound_ms(n, t, k, lengths, hist)
-                timings[(t, hist)] = dict(ms=ms, plain_ms=plain,
-                                          bound_ms=bound, bound_by=by)
+                timings[(t, hist)] = dict(ms=ms, kernel_device_ms=alone,
+                                          plain_ms=plain, bound_ms=bound,
+                                          bound_by=by)
                 log(f"ctc_prefix_scan N={n} T={t} K={k} hist={hist}: "
-                    f"kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-                    f"bound {bound * 1e3:.3f} us ({by})")
+                    f"wrapper {ms:.4f} ms, the kernel alone {alone:.4f} ms "
+                    f"(profiler), plain {plain:.3f} ms, bound "
+                    f"{bound * 1e3:.3f} us ({by})")
     log(f"ctc_prefix_scan vs plain: {len(cases) * 2} cases agree, "
         f"max abs err {max_err:.3e} (atol {TOL['atol']}, rtol "
         f"{TOL['rtol']})")
@@ -492,19 +551,24 @@ def check_ctc_loss():
                           (grad - want_grad).abs().max().item())
         if i < 2:                           # the path's shapes: time them
             s = 2 * u + 1
-            fwd_ms = cuda_ms(lambda: ctc_loss_fwd(*args))
-            bwd_ms = cuda_ms(lambda: ctc_loss_bwd(*args, alpha, nll))
+            fwd = lambda: ctc_loss_fwd(*args)  # noqa: E731
+            bwd = lambda: ctc_loss_bwd(*args, alpha, nll)  # noqa: E731
             plain_fwd = cuda_ms(lambda: ctc_loss_fwd_reference(*args),
                                 reps=5, warmup=1)
             plain_bwd = cuda_ms(lambda: ctc_loss_bwd_reference(
                 *args, alpha, nll), reps=5, warmup=1)
-            for name, ms, plain, bwd in (("fwd", fwd_ms, plain_fwd, False),
-                                         ("bwd", bwd_ms, plain_bwd, True)):
-                bound, by = ctc_bound_ms(bb, tt, s, ilens, bwd)
-                timings[(name, s)] = dict(ms=ms, plain_ms=plain,
-                                          bound_ms=bound, bound_by=by)
-                log(f"ctc_loss_{name} B={bb} T={tt} S={s}: kernel "
-                    f"{ms:.4f} ms, plain {plain:.3f} ms, bound "
+            for name, fn, symbol, plain, backward in (
+                    ("fwd", fwd, "ctc_alpha_kernel", plain_fwd, False),
+                    ("bwd", bwd, "ctc_beta_grad_kernel", plain_bwd, True)):
+                bound, by = ctc_bound_ms(bb, tt, s, ilens, backward)
+                ms = cuda_ms(fn)
+                alone = kernel_device_ms(fn, symbol)
+                timings[(name, s)] = dict(ms=ms, kernel_device_ms=alone,
+                                          plain_ms=plain, bound_ms=bound,
+                                          bound_by=by)
+                log(f"ctc_loss_{name} B={bb} T={tt} S={s}: wrapper "
+                    f"{ms:.4f} ms, the kernel alone {alone:.4f} ms "
+                    f"(profiler), plain {plain:.3f} ms, bound "
                     f"{bound * 1e3:.3f} us ({by})")
     log(f"ctc_loss_fwd/bwd vs plain: {len(cases)} cases agree; max abs err "
         f"forward {errs['fwd']:.3e} (nll, alpha: atol {TOL['atol']}, rtol "
@@ -729,12 +793,8 @@ def flash_symbol(which, dtype):
     """A substring of the symbol of the kernel that a flash wrapper
     launches for `dtype` (which = "fwd", "dq" or "dkv"), for
     kernel_device_ms: it matches that kernel alone."""
-    from tpu_asr_torch.ops.flash_attention import kernel_route
-    if which == "dq":
-        return "flash_attention_bwd_dq_kernel"
-    prefix = ("flash_attention_fwd" if which == "fwd"
-              else "flash_attention_bwd_dkv")
-    return f"{prefix}_{kernel_route(dtype, 64)}_kernel"
+    from tpu_asr_torch.ops.flash_attention import kernel_symbol
+    return kernel_symbol(which, dtype, 64)
 
 
 # bf16 cases for the wgmma kernels beside the served and training shapes,
@@ -1325,12 +1385,14 @@ def compare_ln_bwd(r, h, g, mean, rstd, dy, what):
 
 
 def time_ln_bwd(r, h, g, mean, rstd, dy, what):
-    """The LN backward's times: the wrapper (kernel + the sum of its
-    partials), the kernel alone (profiler), the plain backward, and one
+    """The LN backward's times: the wrapper and the kernel alone
+    (profiler), each with its inputs warm in L2 and with L2 flushed before
+    every call, the plain backward, and one
     torch.ops.aten.native_layer_norm_backward on x = residual + h (made
     beforehand, in the input dtype) with the forward's mean and rstd (a
     yardstick the port never calls; its dx is checked against the plain
-    version, by cosine); the bound from these inputs."""
+    version, by cosine); the bound from these inputs. Fails unless a call
+    leaves one device event, the kernel's, in a profiler trace."""
     from tpu_asr_torch.ops.layernorm import (layer_norm_residual_bwd,
                                              layer_norm_residual_bwd_reference)
     d = r.shape[-1]
@@ -1351,19 +1413,33 @@ def time_ln_bwd(r, h, g, mean, rstd, dy, what):
                              f"with the plain backward at {what}: cosine "
                              f"{cos}, max abs diff {lib_err}")
     fn = lambda: layer_norm_residual_bwd(r, h, g, mean, rstd, dy)  # noqa: E731
+    symbol = "layer_norm_residual_bwd_kernel"
+    reps = 10
+    events = device_events(fn, symbol, reps)
+    ours = sum(n for k, n in events.items() if symbol in k)
+    if ours != sum(events.values()) or ours > reps:
+        raise AssertionError(f"layer_norm_residual_bwd at {what}: {reps} "
+                             f"calls left device events {events}, not one "
+                             f"kernel a call")
     ms = cuda_ms(fn)
-    alone = kernel_device_ms(fn, "layer_norm_residual_bwd_kernel")
+    alone = kernel_device_ms(fn, symbol)
+    ms_cold = cuda_ms(fn, flush=flush_l2)
+    alone_cold = kernel_device_ms(fn, symbol, flush=flush_l2)
     plain = cuda_ms(lambda: layer_norm_residual_bwd_reference(
         r, h, g, mean, rstd, dy))
     library_ms = cuda_ms(library)
     bound, by = ln_bwd_bound_ms(r)
-    log(f"layer_norm_residual_bwd {what}: wrapper {ms:.4f} ms, the kernel "
-        f"alone {alone:.4f} ms (profiler), plain {plain:.4f} ms, "
+    log(f"layer_norm_residual_bwd {what}: wrapper {ms:.4f} ms ({ms_cold:.4f}"
+        f" ms with L2 flushed), the kernel alone {alone:.4f} ms "
+        f"({alone_cold:.4f} ms with L2 flushed; profiler, {ours} of {reps} "
+        f"calls traced, no other device event), plain {plain:.4f} ms, "
         f"native_layer_norm_backward {library_ms:.4f} ms (dx max abs diff "
         f"to plain {lib_err:.2e}, cosine {cos:.6f}), bound "
         f"{bound * 1e3:.3f} us ({by})")
-    return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
-                library_ms=library_ms, bound_ms=bound, bound_by=by)
+    return dict(ms=ms, kernel_device_ms=alone, ms_l2_flushed=ms_cold,
+                kernel_device_ms_l2_flushed=alone_cold, plain_ms=plain,
+                library_ms=library_ms, bound_ms=bound, bound_by=by,
+                device_events=events)
 
 
 def check_ln_bwd():
@@ -2257,7 +2333,7 @@ def main() -> int:
     for lib in libraries:
         if lib.build_log:
             log(lib.build_log.strip())
-    wgmma_build = check_build(libraries)
+    build_report = check_build(libraries)
 
     gen = torch.Generator().manual_seed(SEED)
     max_err, timings = check_prefix_scan(gen)
@@ -2307,7 +2383,7 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": None,
-        "kernel_ms": main_t["ms"],
+        "kernel_device_ms": main_t["kernel_device_ms"],
         "bound_us": main_t["bound_ms"] * 1e3,
         "shape": "N=40 T=249 K=11 with histories",
         "other_shapes": {f"T={t} hist={h}": v for (t, h), v
@@ -2330,6 +2406,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": ctc_library[49][name],
+            "kernel_device_ms": t["kernel_device_ms"],
             "shape": "B=32 T=249 S=49 (U=24)",
             "other_shapes": {"B=32 T=249 S=61 (U=30)": dict(
                 ctc_timings[(name, 61)], library_ms=ctc_library[61][name])},
@@ -2374,7 +2451,7 @@ def main() -> int:
               "library_call": "F.scaled_dot_product_attention, boolean "
                               "attn_mask, [B, H, T, dh] inputs",
               "design": "sm90 wgmma",
-              "build": {k: v for k, v in wgmma_build.items()
+              "build": {k: v for k, v in build_report.items()
                         if "fwd_wgmma" in k}}),
             ("layer_norm_residual_fwd", "layer_norm_residual.cu",
              "layernorm.py:79", ln_path, ln_timings,
@@ -2449,11 +2526,10 @@ def main() -> int:
             "shape": t["shape"],
             "other_shapes": other,
         })
-        if which == "dkv":
-            kernels[-1].update(
-                design="sm90 wgmma",
-                build={k: v for k, v in wgmma_build.items()
-                       if "dkv_wgmma" in k})
+        kernels[-1].update(
+            design="sm90 wgmma",
+            build={k: v for k, v in build_report.items()
+                   if f"{which}_wgmma" in k})
     main_label = max(ln_bwd_path, key=lambda k: ln_bwd_path[k]["bound_ms"])
     t = ln_bwd_path[main_label]
     other = {k: v for k, v in ln_bwd_path.items() if k != main_label}
@@ -2475,12 +2551,19 @@ def main() -> int:
         "library_call": "torch.ops.aten.native_layer_norm_backward on x = "
                         "residual + h made beforehand",
         "kernel_device_ms": t["kernel_device_ms"],
+        "ms_l2_flushed": t["ms_l2_flushed"],
+        "kernel_device_ms_l2_flushed": t["kernel_device_ms_l2_flushed"],
+        "device_events": t["device_events"],
+        "design": "persistent cooperative grid, 16-byte loads, one launch "
+                  "with the dgamma/dbeta sums",
+        "build": {k: v for k, v in build_report.items()
+                  if "layer_norm_residual_bwd_kernel" in k},
         "errors": {"synthetic": ln_bwd_errs, "path": bwd_path_errs["ln"]},
         "shape": t["shape"],
         "other_shapes": other,
     })
-    log(f"before the wgmma design, the kernel alone took (constants "
-        f"recorded in PERF.md, run E, not measured in this run): "
+    log(f"before their present design, the kernels alone took (constants "
+        f"recorded in PERF.md, runs E and F, not measured in this run): "
         f"{json.dumps(PREVIOUS_ALONE_MS)} ms")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

@@ -21,6 +21,9 @@ FWD = ("_ZN51_GLOBAL__N__9ea0bfd5_18_flash_attention_cu_fac575e832flash_"
        "attention_fwd_wgmma_kernelILi{}EEEv14CUtensorMap_stS1_S1_PKhP13__nv_"
        "bfloat16Pfiiifi")
 DKV = "_ZN12_GLOBAL__N_136flash_attention_bwd_dkv_wgmma_kernelILi{}EEEvv"
+DQ = "_ZN12_GLOBAL__N_135flash_attention_bwd_dq_wgmma_kernelILi{}EEEvv"
+LN_BWD = ("_ZN12_GLOBAL__N_130layer_norm_residual_bwd_kernelI13__nv_bfloat16"
+          "Li8ELi{}EEEvv")
 SIMT = "_ZN12_GLOBAL__N_131flash_attention_fwd_simt_kernelIfLi{}EEEvv"
 
 RESOURCE_USAGE = """
@@ -76,15 +79,28 @@ class CachedLibrary:
         return "libflash-cached.so"
 
 
-def report_of(**changed):
+def report_of(only=None, drop=(), **changed):
+    """A fake cuobjdump report of the flash and LN libraries: every wgmma
+    kernel at dh 32, 64 and 128 with HGMMA and no spills, two LN backward
+    instantiations without spills, a float32 SIMT kernel with a stack
+    frame; `changed` applies to the kernels named in `only` (default:
+    every wgmma kernel), `drop` leaves kernels out."""
     def report(path):
         assert path == "libflash-cached.so"
         kernels = {}
         for dh in (32, 64, 128):
-            for name in (FWD.format(dh), DKV.format(dh)):
+            for name in (FWD.format(dh), DQ.format(dh), DKV.format(dh)):
                 kernels[name] = dict(hgmma=8, registers=150, stack_bytes=0,
                                      local_bytes=0, static_smem_bytes=0)
-                kernels[name].update(changed)
+        for ch in (2, 8):
+            kernels[LN_BWD.format(ch)] = dict(
+                hgmma=0, registers=112, stack_bytes=0, local_bytes=0,
+                static_smem_bytes=17408)
+        for name in (only if only is not None else
+                     [k for k in kernels if "wgmma" in k]):
+            kernels[name].update(changed)
+        for name in drop:
+            del kernels[name]
         kernels[SIMT.format(128)] = dict(hgmma=0, registers=40,
                                          stack_bytes=232, local_bytes=0,
                                          static_smem_bytes=8192)
@@ -106,10 +122,38 @@ def test_check_build_reads_the_library_not_the_build_log(changed, passes):
     libs = [CachedLibrary()]
     if passes:
         found = chip_smoke.check_build(libs, report=report_of(**changed))
-        assert len(found) == 6
+        assert len(found) == 11
     else:
         with pytest.raises(AssertionError):
             chip_smoke.check_build(libs, report=report_of(**changed))
+
+
+@pytest.mark.parametrize("only,drop,changed", [
+    ([DQ.format(64)], (), {"hgmma": 0}),          # dq without HGMMA at dh 64
+    ([DQ.format(128)], (), {"stack_bytes": 232}),  # dq spills at dh 128
+    ([DQ.format(32)], (), {"local_bytes": 16}),
+    ((), (DQ.format(128),), {}),                  # dq missing a head size
+    ([LN_BWD.format(8)], (), {"stack_bytes": 96}),  # the LN backward spills
+    ([LN_BWD.format(2)], (), {"registers": None}),
+    ((), (LN_BWD.format(2), LN_BWD.format(8)), {}),  # no LN backward kernel
+])
+def test_check_build_fails_on_a_dq_or_ln_backward_fault(only, drop, changed):
+    """The bf16 dq kernel must have HGMMA at every head size and spill
+    nothing; every LN backward instantiation must spill nothing."""
+    with pytest.raises(AssertionError):
+        chip_smoke.check_build([CachedLibrary()],
+                               report=report_of(only, drop, **changed))
+
+
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
+def test_flash_symbol_names_the_routed_kernel(which):
+    """kernel_device_ms times the kernel the wrapper launches: bf16 on
+    wgmma (dq too), float32 on the SIMT kernels."""
+    stem = {"fwd": "fwd", "dq": "bwd_dq", "dkv": "bwd_dkv"}[which]
+    assert chip_smoke.flash_symbol(which, torch.bfloat16) == \
+        f"flash_attention_{stem}_wgmma_kernel"
+    assert chip_smoke.flash_symbol(which, torch.float32) == \
+        f"flash_attention_{stem}_simt_kernel"
 
 
 def _case(lens, tq=5, tk=7, h=2, dh=32, dtype=torch.bfloat16, seed=0):

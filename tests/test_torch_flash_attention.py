@@ -17,6 +17,9 @@ side's own bf16 forward output (delta = rowsum(dO * out)), which may
 differ by an ulp, so there the bf16 gradients are held at two ulps.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +32,8 @@ from tpu_asr.ops.pallas.flash_attention import _fwd_impl, _xla_attention
 from tpu_asr.ops.pallas.flash_attention import \
     flash_attention as jax_flash_attention
 from tpu_asr_torch.models.attention import mask_to_bias
-from tpu_asr_torch.ops.flash_attention import (HEAD_DIMS, NEG_INF,
+from tpu_asr_torch.ops.cuda_build import CSRC_DIR
+from tpu_asr_torch.ops.flash_attention import (HEAD_DIMS, KERNELS, NEG_INF,
                                                _strides, flash_attention,
                                                flash_attention_bwd_dkv,
                                                flash_attention_bwd_dq,
@@ -37,7 +41,8 @@ from tpu_asr_torch.ops.flash_attention import (HEAD_DIMS, NEG_INF,
                                                flash_attention_fwd,
                                                flash_attention_reference,
                                                kernel_operand, kernel_route,
-                                               tma_ready, xla_attention)
+                                               kernel_symbol, tma_ready,
+                                               xla_attention)
 from tpu_asr_torch.ops.layernorm import bf16_ulp_error
 
 DTYPES = {"float32": (torch.float32, jnp.float32,
@@ -179,6 +184,24 @@ def test_cpu_runs_plain_version_under_autograd_without_launching():
 def test_route_sends_bf16_to_wgmma_and_float32_to_simt(dh):
     assert kernel_route(torch.bfloat16, dh) == "wgmma"
     assert kernel_route(torch.float32, dh) == "simt"
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("which,source", [
+    ("fwd", "flash_attention.cu"), ("dq", "flash_attention_bwd.cu"),
+    ("dkv", "flash_attention_bwd.cu")])
+def test_kernel_symbol_follows_the_route(which, source, dh):
+    """bf16 takes the wgmma kernel for the forward, dq and dk/dv alike,
+    float32 the SIMT one; each name is a kernel that the CUDA source
+    defines."""
+    bf16 = kernel_symbol(which, torch.bfloat16, dh)
+    f32 = kernel_symbol(which, torch.float32, dh)
+    assert bf16 == f"{KERNELS[which]}_wgmma_kernel"
+    assert f32 == f"{KERNELS[which]}_simt_kernel"
+    with open(os.path.join(CSRC_DIR, source)) as f:
+        text = f.read()
+    for name in (bf16, f32):
+        assert re.search(rf"^{name}\(", text, re.MULTILINE), name
 
 
 @pytest.mark.parametrize("dtype,dh,error", [

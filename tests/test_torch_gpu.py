@@ -339,3 +339,103 @@ def _close_flash_grads(got, want, dtype):
             # both sides, and a last-bit difference of the float32 scores
             # may flip such a rounding, moving a sum by an ulp of a term
             assert bf16_ulp_error(g, w, floor=1.0) <= 1.0, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,tq,tk,h,dh,causal,kind", [
+    (33, 238, 238, 8, 64, False, "ragged"),   # training's encoder self
+    (4, 70, 90, 2, 32, False, "ragged"),      # dh 32: 64-byte swizzle
+    (4, 90, 90, 2, 32, True, "ragged"),
+    (3, 70, 70, 4, 128, True, "ragged"),      # dh 128: two panels of dq
+    (3, 100, 190, 2, 128, False, "ragged"),
+    (4, 101, 330, 2, 64, False, "padded_tiles"),
+    (3, 1, 600, 2, 64, False, "ragged"),      # Tq = 1
+    (3, 1, 700, 2, 128, False, "ragged"),
+])
+def test_flash_bwd_dq_wgmma_matches_plain_backward(b, tq, tk, h, dh, causal,
+                                                   kind):
+    """bf16 dq on the wgmma kernel (kernel_symbol names it) against the
+    plain backward from the forward kernel's out and lse: within one bf16
+    ulp of the gradient's largest entry; a length-0 row gets zeros; two
+    calls give the same bits."""
+    from tpu_asr_torch.ops.flash_attention import (
+        flash_attention_bwd_dq, flash_attention_bwd_reference,
+        flash_attention_delta, flash_attention_fwd, kernel_symbol)
+    from tpu_asr_torch.ops.layernorm import bf16_ulp_error
+    _need_card()
+    assert kernel_symbol("dq", torch.bfloat16, dh) == \
+        "flash_attention_bwd_dq_wgmma_kernel"
+    rng = np.random.default_rng(b + tq + tk + dh)
+    q, dout = (torch.from_numpy(rng.standard_normal((b, tq, h, dh)).astype(
+        np.float32)).cuda().to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, tk, h, dh)).astype(
+        np.float32)).cuda().to(torch.bfloat16) for _ in range(2))
+    if kind == "padded_tiles":
+        lens = torch.tensor([tk, 1, 64, 0][:b]).cuda()
+    else:
+        lens = torch.from_numpy(rng.integers(1, tk + 1, b)).cuda()
+        lens[0], lens[-1] = tk, 0
+    valid = torch.arange(tk, device="cuda")[None, :] < lens[:, None]
+    out, lse = flash_attention_fwd(q, k, v, valid, causal)
+    delta = flash_attention_delta(out, dout).contiguous()
+    before = flash_attention_bwd_dq.launches
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, valid, causal)
+    again = flash_attention_bwd_dq(q, k, v, dout, lse, delta, valid, causal)
+    want = flash_attention_bwd_reference(q, k, v, out, dout, lse, valid,
+                                         causal)[0]
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.launches == before + 2
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert bf16_ulp_error(dq, want, floor=1.0) <= 1.0
+    assert not dq[-1].any()
+    assert torch.equal(dq.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,dtype", [
+    (0, 512, torch.bfloat16),      # no rows: dgamma, dbeta are zeros
+    (1, 64, torch.float32), (1, 64, torch.bfloat16),
+    (7854, 512, torch.bfloat16),   # training's encoder LN, [33, 238, 512]
+    (8080, 512, torch.bfloat16), (8080, 512, torch.float32),
+    (513, 96, torch.bfloat16),     # D / 32 = 3: one element a load
+    (1000, 544, torch.bfloat16),   # D / 32 = 17: read twice, VEC 1
+    (700, 1024, torch.bfloat16),   # read twice, 16-byte loads
+    (7, 2048, torch.bfloat16), (33, 2048, torch.float32),
+])
+def test_layer_norm_residual_bwd_kernel(rows, d, dtype):
+    """The backward kernel alone: one launch gives dx within one bf16 ulp
+    (float32: atol 1e-5 / rtol 1e-4) and dgamma, dbeta within 1e-5 of
+    their largest magnitude of the plain backward; two calls give the same
+    bits; inputs that do not start on a 16-byte boundary are read too."""
+    from tpu_asr_torch.ops.layernorm import (
+        layer_norm_residual_bwd, layer_norm_residual_bwd_reference,
+        layer_norm_residual_fwd)
+    _need_card()
+    rng = np.random.default_rng(rows + d)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+    r, h, dy = (rand(rows, d).to(dtype) for _ in range(3))
+    g, b = 1 + 0.5 * rand(d), rand(d)
+    _, mean, rstd = layer_norm_residual_fwd(r, h, g, b)
+    before = layer_norm_residual_bwd.launches
+    got = layer_norm_residual_bwd(r, h, g, mean, rstd, dy)
+    again = layer_norm_residual_bwd(r, h, g, mean, rstd, dy)
+    want = layer_norm_residual_bwd_reference(r, h, g, mean, rstd, dy)
+    torch.cuda.synchronize()
+    assert layer_norm_residual_bwd.launches == before + 2
+    if rows == 0:
+        assert not got[1].any() and not got[2].any()
+    else:
+        _close_ln_grads(got, want, dtype)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+    # the same rows one element past a 16-byte boundary
+    flat = torch.empty(rows * d + 1, dtype=dtype, device="cuda")
+    shifted = flat[1:].view(rows, d)
+    shifted.copy_(r)
+    got = layer_norm_residual_bwd(shifted, h, g, mean, rstd, dy)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)

@@ -25,7 +25,8 @@ from tpu_asr.ops.pallas.layernorm import \
     layer_norm_residual as jax_layer_norm_residual
 from tpu_asr_torch.models import modules
 from tpu_asr_torch.models.modules import LN_EPS, PostNormBlock
-from tpu_asr_torch.ops.layernorm import (bf16_ulp_error, layer_norm_residual,
+from tpu_asr_torch.ops.layernorm import (ALIGN, _aligned, _workspace,
+                                         bf16_ulp_error, layer_norm_residual,
                                          layer_norm_residual_bwd,
                                          layer_norm_residual_bwd_reference,
                                          layer_norm_residual_fwd,
@@ -250,3 +251,31 @@ def test_post_norm_block_grads_reach_norm_params_through_fused_form():
                         (gr, ln["scale"], ln["bias"]), "float32")
     np.testing.assert_allclose(got[1].numpy(), np.asarray(gh), atol=1e-5,
                                rtol=1e-4)
+
+
+# ---- the backward kernel's wrapper: what it does before a launch ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unaligned_input_is_copied_to_an_aligned_one(dtype):
+    """The backward kernel reads 16 bytes a lane: a tensor whose base is
+    off a 16-byte boundary is copied (same values), an aligned one is
+    passed as it is."""
+    flat = torch.arange(1 + 4 * 64, dtype=dtype)
+    base = flat[:-1].view(4, 64)
+    off = flat[1:].view(4, 64)
+    assert base.data_ptr() % ALIGN == 0 and off.data_ptr() % ALIGN != 0
+    assert _aligned(base) is base
+    copied = _aligned(off)
+    assert copied.data_ptr() % ALIGN == 0 and torch.equal(copied, off)
+
+
+def test_workspace_is_kept_per_device_and_stream_and_grows():
+    """The kernel's scratch is allocated once per (device, stream) and
+    reused for calls that fit; a larger call replaces it."""
+    dev = torch.device("cpu")
+    first = _workspace(dev, 12345, 1000)
+    assert first.dtype == torch.float32 and first.numel() == 1000
+    assert _workspace(dev, 12345, 600) is first
+    assert _workspace(dev, 54321, 600) is not first
+    grown = _workspace(dev, 12345, 2000)
+    assert grown.numel() == 2000 and _workspace(dev, 12345, 1500) is grown

@@ -52,9 +52,10 @@
 // Shared memory: 5 tiles (Q, K and V twice) of 64 x dh bf16, 20-80 KB.
 // TMA's per-call cost is three tensor maps encoded on the host
 // (cuTensorMapEncodeTiled, looked up through the CUDA runtime). The
-// scores' float32 sums run in the tensor core's order, which
-// differs from the SIMT kernels' (and from flash_attention_bwd.cu's dq
-// kernel) in the last bits.
+// scores' float32 sums run in the tensor core's order, which differs
+// from the SIMT kernels' in the last bits; the bf16 dq kernel of
+// flash_attention_bwd.cu issues the same instructions in the same k-step
+// order, so its scores are these, bit for bit.
 //
 // float32: flash_attention_fwd_simt_kernel, the first kernel unchanged.
 // wgmma has no full-float32 product, and TF32 (10-bit mantissa) would
@@ -253,18 +254,9 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  // The first tile at or after t with a valid key (n_tiles if none): a
-  // block-wide vote on its kv_valid bytes, whose bits also go to
-  // mask_s[slot] (bit c of word c / 32: key 64 t + c is valid).
+  // the first live key tile at or after t; its key mask into slot
   auto find_live = [&](int t, int slot) {
-    for (; t < n_tiles; ++t) {
-      const int key = t * kRows + tid;
-      const bool ok = tid < kRows && key < tk && valid_row[key] != 0;
-      const uint32_t word = __ballot_sync(0xffffffffu, ok);
-      if (tid < kRows && lane == 0) mask_s[2 * slot + warp] = word;
-      if (__syncthreads_or(ok)) break;
-    }
-    return t;
+    return find_live_tile(t, n_tiles, tk, valid_row, mask_s + 2 * slot);
   };
 
   float o[G::kPanels][kCols / 2];

@@ -20,46 +20,71 @@
 // masked and a masked key get exactly 0; nothing of [Tq, Tk] reaches
 // device memory. Sums accumulate in float32; the outputs are cast to T.
 //
-// The scores are not bitwise the forward's. The dq kernel (and the
-// float32 dk/dv kernel) sums s in four float32 partial sums, the order of
-// the float32 forward kernel; the bf16 forward and dk/dv kernels sum it on
-// the tensor cores, in their order. So in bf16 dq's p = exp(s - lse) may
-// exceed 1 by a rounding, and a bf16-rounded ds term may round the other
-// way than the plain backward's: a sum then moves by an ulp of one term.
+// The bf16 scores are the forward's, bit for bit: the bf16 dq kernel
+// computes S = Q K^T with the forward's wgmma instructions in its k-step
+// order, so its p = exp(s - lse) never exceeds 1 by a rounding. The bf16
+// dk/dv kernel computes S^T = K Q^T on the tensor cores in its own order,
+// and the float32 SIMT kernels sum s in four float32 partial sums, the
+// order of the float32 forward kernel; there a bf16-rounded ds term may
+// round the other way than the plain backward's, moving a sum by an ulp
+// of one term.
 //
 // What bounds them on this card: bytes. For one head of one utterance in
 // bf16, dq reads q, k, v, dO once and writes dq, 2 dh (3 Tq + 2 Tk) bytes
 // (plus lse and delta), for 6 dh flops a pair that the mask lets through
 // (s, dp, ds k); dk/dv moves 2 dh (2 Tq + 4 Tk) bytes for 8 dh flops a
 // pair. At the encoder's T' = 249 that is ~150 flops a byte, below the
-// bf16 tensor-core ridge (~295). The first dk/dv kernel did its products
-// in float32 on the SIMT units, every operand read from shared memory:
-// 45-54x its byte bound (0.67 ms alone at training's encoder self
-// [33, 238]; PERF.md).
+// bf16 tensor-core ridge (~295). The first kernels did their products in
+// float32 on the SIMT units, every operand read from shared memory: dq
+// 52x, dk/dv 45-54x their byte bounds (0.61 and 0.67 ms alone at
+// training's encoder self [33, 238]; PERF.md).
 //
-// dk/dv, bf16: flash_attention_bwd_dkv_wgmma_kernel. A block owns 64 keys
-// of one head of one utterance: K and V stay in shared memory (TMA, as
-// the forward; flash_sm90.cuh), query tiles of 64 (Q and dO) stream
-// through a two-stage ring with their clamped lse and delta. Per tile:
+// bf16: two wgmma kernels on the TMA tiles, mbarriers and descriptors of
+// flash_sm90.cuh. Each keeps its side's 64 rows in shared memory, streams
+// the other side's 64-row tiles through a two-stage ring (TMA; the next
+// tile loads while this one is computed) and works on the accumulator
+// fragment, where p and ds packed to bf16 pairs are both the rounding
+// the contract asks for and the A fragments of the next products.
+//
+// dq: flash_attention_bwd_dq_wgmma_kernel. A block (one warpgroup) owns
+// 64 queries of one head of one utterance: Q and dO, with the rows'
+// clamped lse and delta in registers. Per key tile (K and V):
+//   - S = Q K^T and dP = dO V^T by wgmma m64n64k16 (A = Q, dO; B = K, V,
+//     all K-major as they lie in memory): rows are the block's queries,
+//     so lse and delta are per row, as the forward's running max is;
+//   - p and ds on the fragment, T(ds) packed as the A fragment;
+//   - dQ += T(dS) K by wgmma with A from registers and B = K MN-major (the
+//     transpose bit), one product a 64-column panel; dQ accumulates in
+//     float32 registers (16-64 a thread by dh) and is written once.
+// Key tiles that the padding masks wholly (a block-wide vote on the
+// tile's kv_valid bytes) and, under causal, tiles past the block's last
+// row are never loaded: their p is exactly 0. A block with no live tile
+// writes zeros. Shared memory: 6 tiles, 25-98 KB.
+//
+// dk/dv: flash_attention_bwd_dkv_wgmma_kernel. A block owns 64 keys
+// of one head of one utterance: K and V stay in shared memory, query
+// tiles of 64 (Q and dO) stream through the ring with their clamped lse
+// and delta. Per tile:
 //   - S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 (A = K, V; B = Q,
 //     dO, all K-major as they lie in memory): rows are the block's keys,
 //     columns the tile's queries, so lse and delta are per column;
-//   - p and ds on the accumulator fragment, packed to bf16 pairs: the
-//     rounding the contract asks for, and the A fragments of the next two
-//     products;
+//   - p and ds on the accumulator fragment, packed to bf16 pairs: the A
+//     fragments of the next two products;
 //   - dV += T(P^T) dO and dK += T(dS^T) Q by wgmma with A from registers
 //     and B = dO, Q MN-major (the transpose bit); dK and dV accumulate in
 //     float32 registers (32 + 32 a thread at dh 64). dh 128 takes two
 //     warpgroups that split dk/dv's columns (each also computes S^T and
 //     dP^T), to keep the accumulators in registers.
 // A block whose 64 keys are all masked writes zeros and returns; under
-// causal, query tiles before the block's first key are skipped. No
-// atomics, so card runs repeat bitwise. Shared memory: 6 tiles, 25-98 KB.
+// causal, query tiles before the block's first key are skipped. Shared
+// memory: 6 tiles, 25-98 KB.
 //
-// float32 (dk/dv) and dq in both types: the first SIMT kernels. wgmma has
-// no full-float32 product and TF32 would break the float32 tolerance
-// (atol 1e-5); the dq kernel is not redesigned yet. Like the reference,
-// dq and dk/dv are two kernels:
+// No atomics in either, so card runs repeat bitwise.
+//
+// float32: the first SIMT kernels, flash_attention_bwd_dq_simt_kernel and
+// flash_attention_bwd_dkv_simt_kernel. wgmma has no full-float32 product
+// and TF32 would break the float32 tolerance (atol 1e-5). Like the
+// reference, dq and dk/dv are two kernels:
 //   dq    one block per (64 query rows, head, utterance), walking key tiles
 //         of 32 (causal: only up to the block's last row);
 //   dk/dv one block per (64 key rows, head, utterance), walking query
@@ -70,7 +95,7 @@
 // read by a whole warp at one address (a broadcast). Each step has two
 // phases:
 //   A  every thread computes s, p and ds for 1024 / dh pairs (row r =
-//      thread % 64) and writes the rounded p / ds into a shared tile;
+//      thread % 64) and writes p / ds into a shared tile;
 //   B  thread (r, c) adds the tile's contribution to columns
 //      [32 c, 32 c + 32) of row r's accumulators, held in registers.
 // So a thread holds 32 float32 accumulators (dq) or 64 (dk and dv) for any
@@ -90,18 +115,12 @@ constexpr int kChunk = 32;       // accumulator columns a thread owns
 constexpr float kNegInf = -1e30f;
 constexpr float kHalfNegInf = -5e29f;
 
+// the SIMT kernels are instantiated for float32 alone (bf16 takes wgmma)
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);                    // round to nearest even
-}
 template <typename T>
 __device__ __forceinline__ float rounded(float x) {   // x in the type T
   return to_float(from_float<T>(x));
@@ -173,16 +192,17 @@ constexpr size_t dkv_smem_floats() {
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(2 * DH)
-flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const T* __restrict__ dout,
-                              const float* __restrict__ lse,    // [B, H, Tq]
-                              const float* __restrict__ delta,  // [B, H, Tq]
-                              const uint8_t* __restrict__ kv_valid,
-                              T* __restrict__ dq,     // [B, Tq, H, DH]
-                              int tq, int tk, int heads, Strides qs,
-                              Strides ks, Strides vs, Strides os, float scale,
-                              int causal) {
+flash_attention_bwd_dq_simt_kernel(const T* __restrict__ q,
+                                   const T* __restrict__ k,
+                                   const T* __restrict__ v,
+                                   const T* __restrict__ dout,
+                                   const float* __restrict__ lse,  // [B, H, Tq]
+                                   const float* __restrict__ delta,
+                                   const uint8_t* __restrict__ kv_valid,
+                                   T* __restrict__ dq,     // [B, Tq, H, DH]
+                                   int tq, int tk, int heads, Strides qs,
+                                   Strides ks, Strides vs, Strides os,
+                                   float scale, int causal) {
   constexpr int LD = DH + 1;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                          // [kRows][LD], own queries
@@ -557,6 +577,177 @@ flash_attention_bwd_dkv_wgmma_kernel(
   }
 }
 
+// ---- bf16 dq: the wgmma kernel ----
+
+template <int DH>
+__global__ void __launch_bounds__(kWarpgroup)
+flash_attention_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse,       // [B, H, Tq]
+    const float* __restrict__ delta,     // [B, H, Tq]
+    const uint8_t* __restrict__ kv_valid,
+    __nv_bfloat16* __restrict__ dq,      // [B, Tq, H, DH]
+    int tq, int tk, int heads, float scale, int causal) {
+  using namespace flash_sm90;
+  using G = Tile<DH>;
+  constexpr int kCols = G::kPanelCols;   // dq columns a panel
+  extern __shared__ uint8_t smem_raw[];
+  // [Q][dO][K0][V0][K1][V1] from a 1024-byte boundary, then 2 mbarriers
+  // (stage 0: also Q and dO) and the key masks of the two stages (2 words
+  // each)
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* tail = smem_raw + (base - raw) + 6 * G::kBytes;
+  const uint32_t bar = smem_u32(tail);   // bar + 8 s: stage s
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(tail + 16);
+  const uint32_t q_s = base, do_s = base + G::kBytes;
+  auto k_s = [&](int s) { return base + (2 + 2 * s) * G::kBytes; };
+  auto v_s = [&](int s) { return base + (3 + 2 * s) * G::kBytes; };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
+  // this thread's two query rows (the accumulator fragment's rows), their
+  // clamped lse and their delta
+  const int row0 = q0 + 16 * warp + lane / 4;
+  const int rows[2] = {row0, row0 + 8};
+  const int64_t row_at = (static_cast<int64_t>(b) * heads + h) * tq;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < tq;
+    lse_r[r] = in ? fmaxf(lse[row_at + rows[r]], kHalfNegInf) : 0.0f;
+    delta_r[r] = in ? delta[row_at + rows[r]] : 0.0f;
+  }
+  // with the causal flag, keys past the block's last row are all masked
+  const int last_row = min(q0 + kRows, tq) - 1;
+  const int k_end = causal ? min(tk, last_row + 1) : tk;
+  const int n_tiles = (k_end + kRows - 1) / kRows;
+  const uint8_t* valid_row = kv_valid + static_cast<int64_t>(b) * tk;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the first live key tile at or after t; its key mask into slot
+  auto find_live = [&](int t, int slot) {
+    return find_live_tile(t, n_tiles, tk, valid_row, mask_s + 2 * slot);
+  };
+
+  float acc[G::kPanels][kCols / 2];
+#pragma unroll
+  for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) acc[p][i] = 0.0f;
+  }
+
+  int cur = find_live(0, 0);
+  if (cur < n_tiles && tid == 0) {
+    mbar_expect_tx(bar, 4 * G::kBytes);
+    load_tile<DH>(&q_map, q_s, bar, q0, h, b);
+    load_tile<DH>(&do_map, do_s, bar, q0, h, b);
+    load_tile<DH>(&k_map, k_s(0), bar, cur * kRows, h, b);
+    load_tile<DH>(&v_map, v_s(0), bar, cur * kRows, h, b);
+  }
+  uint32_t phase = 0;                // bit s: the parity stage s waits for
+  int stage = 0;
+  while (cur < n_tiles) {
+    __syncthreads();                 // the other stage and mask slot are free
+    const int nxt = find_live(cur + 1, stage ^ 1);
+    if (nxt < n_tiles && tid == 0) {
+      const uint32_t nbar = bar + 8 * (stage ^ 1);
+      mbar_expect_tx(nbar, 2 * G::kBytes);
+      load_tile<DH>(&k_map, k_s(stage ^ 1), nbar, nxt * kRows, h, b);
+      load_tile<DH>(&v_map, v_s(stage ^ 1), nbar, nxt * kRows, h, b);
+    }
+    mbar_wait(bar + 8 * stage, (phase >> stage) & 1);
+    phase ^= 1u << stage;
+
+    // S = Q K^T (the forward's instructions in its k-step order, so its
+    // bits) and dP = dO V^T
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      wgmma_ss_n64(s, desc_k<DH>(q_s, kk), desc_k<DH>(k_s(stage), kk),
+                   kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      wgmma_ss_n64(dp, desc_k<DH>(do_s, kk), desc_k<DH>(v_s(stage), kk),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p and ds on the fragment; lse and delta are per row
+    const uint32_t words[2] = {mask_s[2 * stage], mask_s[2 * stage + 1]};
+    const int k0 = cur * kRows;
+    uint32_t da[4][4];               // T(ds) as the A fragments of dS K
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = frag_col(i, lane), r = frag_row(i);   // c / 32 = i / 16
+      const bool ok = ((words[i / 16] >> (c % 32)) & 1u) && rows[r] < tq &&
+                      (!causal || k0 + c <= rows[r]);
+      const float sv = ok ? s[i] * scale : kNegInf;
+      const float p = sv <= kHalfNegInf ? 0.0f : expf(sv - lse_r[r]);
+      dp[i] = p * (dp[i] - delta_r[r]) * scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        da[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+      }
+    }
+
+    // dQ += T(dS) K over the tile's keys, one product a panel of K's
+    // columns (K MN-major)
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) fence_regs(acc[p]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(da[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<kCols>(acc[p], da[kk], desc_mn<DH>(k_s(stage), p, kk), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) fence_regs(acc[p]);
+    cur = nxt;
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+    for (int i = 0; i < kCols / 2; i += 2) {
+      const int row = rows[frag_row(i)];
+      if (row < tq) {
+        const int64_t at = (static_cast<int64_t>(b) * tq + row) * heads * DH +
+                           static_cast<int64_t>(h) * DH + p * kCols +
+                           frag_col(i, lane);
+        *reinterpret_cast<__nv_bfloat162*>(dq + at) =
+            __floats2bfloat162_rn(acc[p][i], acc[p][i + 1]);
+      }
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -571,7 +762,7 @@ struct Args {
 template <typename T, int DH>
 int launch_dq(const Args& a, void* dq) {
   const size_t smem = dq_smem_floats<DH>() * sizeof(float);
-  auto kernel = flash_attention_bwd_dq_kernel<T, DH>;
+  auto kernel = flash_attention_bwd_dq_simt_kernel<T, DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -602,10 +793,9 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tensor maps of q, k, v and dO; 0 or an error code
 template <int DH>
-int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
-  using G = flash_sm90::Tile<DH>;
-  CUtensorMap maps[4];
+int encode_maps(const Args& a, CUtensorMap (&maps)[4]) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const Strides st[4] = {a.qs, a.ks, a.vs, a.os};
   for (int i = 0; i < 4; ++i) {
@@ -614,6 +804,33 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
         st[i].b, st[i].t, st[i].h);
     if (err) return err;
   }
+  return 0;
+}
+
+template <int DH>
+int launch_dq_wgmma(const Args& a, void* dq) {
+  using G = flash_sm90::Tile<DH>;
+  CUtensorMap maps[4];
+  if (const int err = encode_maps<DH>(a, maps)) return err;
+  const size_t smem = 6 * G::kBytes + 1024 + 32;
+  auto kernel = flash_attention_bwd_dq_wgmma_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.tq + kRows - 1) / kRows, a.heads, a.b);
+  kernel<<<grid, kWarpgroup, smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, a.kv_valid,
+      static_cast<__nv_bfloat16*>(dq), a.tq, a.tk, a.heads, a.scale,
+      a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  using G = flash_sm90::Tile<DH>;
+  CUtensorMap maps[4];
+  if (const int err = encode_maps<DH>(a, maps)) return err;
   const size_t smem = 6 * G::kBytes + 1024 + 32 + 4 * kRows * sizeof(float);
   auto kernel = flash_attention_bwd_dkv_wgmma_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -628,15 +845,16 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dq_dh(int dh, const Args& a, void* dq) {
+// dtype 0 (float32) takes the SIMT dq kernel, 1 (bf16) the wgmma one
+int launch_dq_dh(int dtype, int dh, const Args& a, void* dq) {
   switch (dh) {
     case 32:
-      return launch_dq<T, 32>(a, dq);
+      return dtype ? launch_dq_wgmma<32>(a, dq) : launch_dq<float, 32>(a, dq);
     case 64:
-      return launch_dq<T, 64>(a, dq);
+      return dtype ? launch_dq_wgmma<64>(a, dq) : launch_dq<float, 64>(a, dq);
     case 128:
-      return launch_dq<T, 128>(a, dq);
+      return dtype ? launch_dq_wgmma<128>(a, dq)
+                   : launch_dq<float, 128>(a, dq);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -672,10 +890,7 @@ int launch(int which, const void* q, const void* k, const void* v,
                Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                scale, causal, static_cast<cudaStream_t>(stream)};
-  if (which == 0) {
-    return dtype == 0 ? launch_dq_dh<float>(dh, a, out0)
-                      : launch_dq_dh<__nv_bfloat16>(dh, a, out0);
-  }
+  if (which == 0) return launch_dq_dh(dtype, dh, a, out0);
   return launch_dkv_dh(dtype, dh, a, out0, out1);
 }
 
@@ -687,8 +902,8 @@ extern "C" {
 // and return 0, the cudaError_t of the launch, cudaErrorInvalidValue for
 // an unsupported dtype or head size, or (wgmma) 1000 + the CUresult of a
 // refused tensor map. dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and
-// the outputs): dq is a SIMT kernel in both, dk/dv the SIMT kernel in
-// float32 and the wgmma kernel in bf16; dh in {32, 64, 128}. q and dO
+// the outputs): each the SIMT kernel in float32 and the wgmma kernel in
+// bf16; dh in {32, 64, 128}. q and dO
 // [B, Tq, H, dh], k and v [B, Tk, H, dh] are given by their batch, time
 // and head strides in elements (the head dimension contiguous; for the
 // wgmma kernel every stride a multiple of 16 bytes and every base 16-byte

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the bf16 flash-attention
-// kernels of flash_attention.cu (forward) and flash_attention_bwd.cu
-// (dk/dv): TMA tile loads into 128-byte (64-byte) swizzled shared memory,
-// mbarriers, wgmma descriptors and the wgmma products themselves.
+// kernels of flash_attention.cu (forward) and flash_attention_bwd.cu (dq,
+// dk/dv): TMA tile loads into 128-byte (64-byte) swizzled shared memory,
+// mbarriers, wgmma descriptors and the wgmma products themselves, and the
+// block vote that skips key tiles the padding masks wholly.
 //
 // Tiles. Every operand tile is 64 rows (keys or queries) of one head of
 // one utterance of a strided [B, T, H, dh] bf16 tensor, loaded by TMA
@@ -254,6 +255,27 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
 __device__ __forceinline__ int frag_row(int i) { return (i >> 1) & 1; }
 __device__ __forceinline__ int frag_col(int i, int lane) {
   return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+}
+
+// ---- padded key tiles ----
+
+// The first 64-key tile at or after t (of n_tiles) with a key that the
+// utterance's kv_valid row lets through, n_tiles if none: a block-wide
+// vote on the tile's bytes, whose bits also go to mask[0] and mask[1]
+// (bit c % 32 of word c / 32: key 64 t + c is valid). Every thread of
+// the block calls it; a block has at least 64 threads.
+__device__ __forceinline__ int find_live_tile(int t, int n_tiles, int tk,
+                                              const uint8_t* valid_row,
+                                              uint32_t* mask) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (; t < n_tiles; ++t) {
+    const int key = t * kRows + tid;
+    const bool ok = tid < kRows && key < tk && valid_row[key] != 0;
+    const uint32_t word = __ballot_sync(0xffffffffu, ok);
+    if (tid < kRows && lane == 0) mask[tid / 32] = word;
+    if (__syncthreads_or(ok)) break;
+  }
+  return t;
 }
 
 // ---- host: tensor maps ----

@@ -23,11 +23,12 @@ dk/dv kernels of csrc/flash_attention_bwd.cu (`flash_attention_bwd_dq`,
 `flash_attention_bwd_dkv`); on the CPU the plain forward and the plain
 backward (`flash_attention_bwd_reference`). Other devices raise.
 
-On the card the dtype picks the kernel (`kernel_route`): bfloat16 takes
-the forward and dk/dv kernels built on wgmma (tensor cores, TMA-fed
-tiles), float32 the SIMT ones (wgmma has no full-float32 product, and
-TF32 would break the float32 tolerance); dq is a SIMT kernel in both.
-Nothing falls back: a call the routed kernel does not take raises.
+On the card the dtype picks the kernel (`kernel_route`, and
+`kernel_symbol` names it): bfloat16 takes the forward, dq and dk/dv
+kernels built on wgmma (tensor cores, TMA-fed tiles), float32 the SIMT
+ones (wgmma has no full-float32 product, and TF32 would break the float32
+tolerance). Nothing falls back: a call the routed kernel does not take
+raises.
 """
 
 from __future__ import annotations
@@ -116,8 +117,8 @@ def xla_attention(q, k, v, kv_valid: torch.Tensor, causal: bool = False):
 
 
 def kernel_route(dtype: torch.dtype, dh: int) -> str:
-    """The kernel a CUDA call in `dtype` with head size `dh` launches:
-    "wgmma" for bfloat16 (the forward and dk/dv kernels on the tensor
+    """The kernel a CUDA call in `dtype` with head size `dh` launches, the
+    same for the forward, dq and dk/dv: "wgmma" for bfloat16 (the tensor
     cores), "simt" for float32 (wgmma has no full-float32 product, and
     TF32 would break the float32 tolerance). Raises for any other dtype or
     head size: no kernel takes it, and nothing falls back."""
@@ -128,6 +129,18 @@ def kernel_route(dtype: torch.dtype, dh: int) -> str:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
                         f"got {dtype}")
     return ROUTES[dtype]
+
+
+KERNELS = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+           "dkv": "flash_attention_bwd_dkv"}
+
+
+def kernel_symbol(which: str, dtype: torch.dtype, dh: int) -> str:
+    """The name of the CUDA kernel (csrc/flash_attention.cu or
+    csrc/flash_attention_bwd.cu) that the wrapper of `which` ("fwd", "dq"
+    or "dkv") launches for `dtype` and `dh`, e.g.
+    "flash_attention_bwd_dq_wgmma_kernel"."""
+    return f"{KERNELS[which]}_{kernel_route(dtype, dh)}_kernel"
 
 
 def tma_ready(x: torch.Tensor) -> bool:
@@ -246,14 +259,11 @@ def _bwd_bind(lib: ctypes.CDLL):
 
 def _bwd_launch(name, q, k, v, dout, lse, delta, kv_valid, causal, outs):
     """Checks shared by the two backward wrappers, then the launch of
-    `name` on the current stream writing `outs`. The dq kernel is SIMT in
-    both dtypes; dk/dv takes `kernel_route`'s kernel (its operands copied
-    as `kernel_operand` says)."""
+    `name` on the current stream writing `outs`: `kernel_route`'s kernel,
+    its operands copied as `kernel_operand` says."""
     tq, tk = q.shape[1], k.shape[1]
     route, b, h, dh = _check_operands(("q", "k", "v", "dout"),
                                       (q, k, v, dout), (tq, tk, tk, tq))
-    if name == "flash_attention_bwd_dq":
-        route = "simt"
     dev, dt = q.device, q.dtype
     checked = [kernel_operand(x, route) for x in (q, k, v, dout)]
     check_tensor("lse", lse, (b, h, tq), torch.float32, dev)
@@ -279,9 +289,11 @@ def flash_attention_bwd_dq(q, k, v, dout, lse: torch.Tensor,
                            delta: torch.Tensor, kv_valid: torch.Tensor,
                            causal: bool = False) -> torch.Tensor:
     """The dq kernel on CUDA tensors: dq [B, Tq, H, dh] in q's dtype, as
-    the plain backward gives it. q/k/v/dout in one dtype (float32 or
-    bfloat16) with the head axis contiguous; lse and delta
-    (flash_attention_delta) [B, H, Tq] float32; kv_valid [B, Tk]."""
+    the plain backward gives it. q/k/v/dout in one dtype: bfloat16 takes
+    the wgmma kernel, float32 the SIMT one (`kernel_route`); an operand
+    the routed kernel cannot read where it lies is copied first
+    (`kernel_operand`). lse and delta (flash_attention_delta) [B, H, Tq]
+    float32; kv_valid [B, Tk]."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("flash_attention_bwd_dq", q, k, v, dout, lse, delta,
                 kv_valid, causal, (dq,))
@@ -296,9 +308,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse: torch.Tensor,
                             delta: torch.Tensor, kv_valid: torch.Tensor,
                             causal: bool = False):
     """The dk/dv kernel on CUDA tensors: (dk, dv) [B, Tk, H, dh] in k's
-    dtype, as the plain backward gives them; inputs as for
-    flash_attention_bwd_dq. bfloat16 takes the wgmma kernel, float32 the
-    SIMT one (`kernel_route`)."""
+    dtype, as the plain backward gives them; inputs and routes as for
+    flash_attention_bwd_dq."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_attention_bwd_dkv", q, k, v, dout, lse, delta,

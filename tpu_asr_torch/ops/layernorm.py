@@ -32,6 +32,7 @@ LIBRARY = KernelLibrary("layer_norm_residual")
 LN_EPS = 1e-6
 MAX_D = 2048          # one warp a row: D / 32 values a lane in registers
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ALIGN = 16            # bytes: the backward kernel's vector loads
 
 
 def layer_norm_residual_reference(residual: torch.Tensor, h: torch.Tensor,
@@ -90,8 +91,8 @@ def _bind(lib: ctypes.CDLL):
         lib.layer_norm_residual_bwd_launch.argtypes = (
             [p] * 9 + [i64, i, i, p])
         lib.layer_norm_residual_bwd_launch.restype = i
-        lib.layer_norm_residual_bwd_blocks.argtypes = [i64]
-        lib.layer_norm_residual_bwd_blocks.restype = i
+        lib.layer_norm_residual_bwd_max_blocks.argtypes = [i, i]
+        lib.layer_norm_residual_bwd_max_blocks.restype = i
         lib.layer_norm_residual_error_string.argtypes = [i]
         lib.layer_norm_residual_error_string.restype = ctypes.c_char_p
     return lib
@@ -113,6 +114,27 @@ def _raise_on(lib, err: int, what: str) -> None:
     if err:
         msg = lib.layer_norm_residual_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself if its base is ALIGN-byte aligned, else a copy (a layout
+    step, not a fallback): the backward kernel reads 16 bytes a lane."""
+    return x if x.data_ptr() % ALIGN == 0 else x.clone()
+
+
+# float32 scratch of the backward kernel (its blocks' partial sums of
+# dgamma and dbeta), one per (device, stream): launches on one stream use
+# it in turn; and the most blocks a launch has, by (device, D, dtype)
+_WORKSPACE: dict = {}
+_MAX_BLOCKS: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    ws = _WORKSPACE.get((dev, stream))
+    if ws is None or ws.numel() < n:
+        ws = torch.empty(n, dtype=torch.float32, device=dev)
+        _WORKSPACE[dev, stream] = ws
+    return ws
 
 
 def layer_norm_residual_fwd(residual: torch.Tensor, h: torch.Tensor,
@@ -157,33 +179,39 @@ def layer_norm_residual_bwd(residual: torch.Tensor, h: torch.Tensor,
     """The backward kernel on CUDA tensors: (dx, dgamma, dbeta) as the
     plain backward gives them. residual/h/dy [..., D] in one dtype
     (float32 or bfloat16), gamma [D], mean/rstd [...] float32 from the
-    forward. The kernel writes dx and per-block float32 partials of
-    dgamma and dbeta; one torch.sum each adds them up in a fixed order."""
+    forward. One launch: the kernel writes dx and sums dgamma and dbeta
+    itself (its blocks' partials in a fixed order, in scratch this module
+    keeps per device and stream); an input not 16-byte aligned is copied
+    first."""
     _check_kernel_input(residual)
     shape, dev, dt = tuple(residual.shape), residual.device, residual.dtype
     d = shape[-1]
     rows = residual.numel() // d
-    residual, h, dy = residual.contiguous(), h.contiguous(), dy.contiguous()
-    g32 = gamma.float().contiguous()
+    residual, h, dy = (_aligned(x.contiguous()) for x in (residual, h, dy))
+    g32 = _aligned(gamma.float().contiguous())
     for name, x in (("residual", residual), ("h", h), ("dy", dy)):
         check_tensor(name, x, shape, dt, dev)
     check_tensor("gamma", g32, (d,), torch.float32, dev)
     check_tensor("mean", mean, shape[:-1], torch.float32, dev)
     check_tensor("rstd", rstd, shape[:-1], torch.float32, dev)
     lib = _bind(LIBRARY.load())
-    blocks = lib.layer_norm_residual_bwd_blocks(rows)
     dx = torch.empty(shape, dtype=dt, device=dev)
-    parts = torch.empty((2, blocks, d), dtype=torch.float32, device=dev)
+    dgb = torch.empty((2, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        blocks = _MAX_BLOCKS.get((dev, d, dt))
+        if blocks is None:
+            blocks = lib.layer_norm_residual_bwd_max_blocks(d, DTYPES[dt])
+            _raise_on(lib, max(-blocks, 0), "layer_norm_residual_bwd sizing")
+            _MAX_BLOCKS[dev, d, dt] = blocks
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        part = _workspace(dev, stream, blocks * 2 * d)
         err = lib.layer_norm_residual_bwd_launch(
             residual.data_ptr(), h.data_ptr(), dy.data_ptr(),
             g32.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(), rows, d, DTYPES[dt],
-            torch.cuda.current_stream(dev).cuda_stream)
+            part.data_ptr(), dgb.data_ptr(), rows, d, DTYPES[dt], stream)
     _raise_on(lib, err, "layer_norm_residual_bwd")
     layer_norm_residual_bwd.launches += 1
-    dgamma, dbeta = parts.sum(dim=1).to(gamma.dtype)
-    return dx, dgamma, dbeta
+    return dx, dgb[0].to(gamma.dtype), dgb[1].to(gamma.dtype)
 
 
 layer_norm_residual_bwd.launches = 0   # kernel launches (not CPU calls)
