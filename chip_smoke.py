@@ -11,13 +11,19 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      the kernels' registers, stack frame and local memory from the
      library itself (cuobjdump, so a cached library is checked alike) and
      fail unless every bf16 flash forward, dq and dk/dv kernel has HGMMA
-     and none of them, nor any LN backward kernel, spills registers.
+     and none of them, nor any LN backward kernel, nor the CTC prefix
+     scan or the CTC backward's warp route, spills registers.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, at the main paths' shapes and at ragged ones, with timings (the
      wrapper by CUDA events, the kernel alone by the profiler):
-     ctc_prefix_scan (serving) and the CTC loss pair ctc_loss_fwd /
-     ctc_loss_bwd (training), the latter also beside torch's own CTC loss
-     (F.ctc_loss, timed as a yardstick and used as a value check only);
+     ctc_prefix_scan (serving; also at the edges of its ring of tiles,
+     lengths past T and T = 3000) and the CTC loss pair ctc_loss_fwd /
+     ctc_loss_bwd (training; the backward on both of its routes, at the
+     edges of the warp route's ring, ilen past T and T = 3000), two calls
+     equal bitwise, the latter also beside torch's own CTC loss
+     (F.ctc_loss, timed as a yardstick and used as a value check only),
+     each CTC recursion beside its chain floor (a probe: one warp running
+     the kernel's step T - 1 times on operands in registers);
      cif_fire (CIF serving and training) on 10 cases (serving's two
      buckets, the bench shape, ragged ones) and its autograd Function's
      gradients against autograd of the plain version; flash_attention_fwd
@@ -74,8 +80,8 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      `python -m tpu_asr_torch.train` builds, on 512 synthetic AISHELL-like
      wav utterances, for at least 20 optimizer steps; losses and grad norms
      finite, the CTC kernels launched once per step (forward also once per
-     cv batch); step times, throughput, peak memory; a few steps under
-     torch.profiler; 20 steps at the fixed shape feats [32, 1000, 80],
+     cv batch; the backward on its warp route); step times, throughput,
+     peak memory; a few steps under torch.profiler; 20 steps at the fixed shape feats [32, 1000, 80],
      U = 24; the epoch checkpoint restores to equal parameters. Then the
      same for the cif preset (16000-frame batches, no SpecAugment), where
      cif_fire also launches once per train step and cv batch; and for the
@@ -83,7 +89,10 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      where per train step the flash forward, dq and dk/dv kernels launch
      once per full-pass attention (18; the forward also per cv batch) and
      the LN forward and backward once per post-norm call of >= 512 rows.
-  9. kernels on the main paths' inputs: cif_fire on the first batch of
+  9. kernels on the main paths' inputs: ctc_prefix_scan on the first
+     and a later call of each joint-beam serving bucket, ctc_loss_bwd on
+     the first call of each training, as the kernels received them,
+     against their plain versions, timed; cif_fire on the first batch of
      each CIF serving bucket and the first CIF train and cv batch, as
      model.fire received them, against the plain version, timed beside one
      torch.bmm on a materialized weight matrix (training's also checks the
@@ -134,11 +143,15 @@ MIN_TRAIN_STEPS = 20
 # the redesigned kernels' times alone before their present design: the
 # served cross shape (forward) and training's encoder self shape (dk/dv,
 # dq; the LN backward at [33, 238, 512] bf16), runs E (forward, dk/dv) and
-# F (dq, LN backward) of PERF.md, NVIDIA H100 80GB HBM3, 700 W
+# F (dq, LN backward) of PERF.md; the CTC prefix scan at N=40 T=249 K=11
+# with histories and the CTC backward at B=32 T=249 S=49, run D of
+# PERF.md; all NVIDIA H100 80GB HBM3, 700 W
 PREVIOUS_ALONE_MS = {"flash_attention_fwd": 0.6092,
                      "flash_attention_bwd_dkv": 0.6672,
                      "flash_attention_bwd_dq": 0.6054,
-                     "layer_norm_residual_bwd": 0.0265}
+                     "layer_norm_residual_bwd": 0.0265,
+                     "ctc_prefix_scan": 0.0945,
+                     "ctc_loss_bwd": 0.0702}
 L2_FLUSH_BYTES = 128 << 20    # read between calls: > the H100's 50 MB L2
 BUCKETS = (512, 1000)
 BATCH = 8
@@ -296,15 +309,19 @@ def sass_report(path: str) -> dict:
 WGMMA_KERNELS = ("flash_attention_fwd_wgmma_kernel",
                  "flash_attention_bwd_dq_wgmma_kernel",
                  "flash_attention_bwd_dkv_wgmma_kernel")
-# kernels whose every instantiation must not spill (no HGMMA expected)
-NO_SPILL_KERNELS = ("layer_norm_residual_bwd_kernel",)
+# kernels whose every instantiation must not spill (no HGMMA expected):
+# the LN backward, and the two CTC kernels whose step chains read shared
+# memory only
+NO_SPILL_KERNELS = ("layer_norm_residual_bwd_kernel", "ctc_prefix_scan_kernel",
+                    "ctc_beta_grad_warp_kernel")
 
 
 def check_build(libraries, report=sass_report) -> dict:
     """Print each library's HGMMA count and, for the bf16 flash kernels on
-    wgmma and the LN backward kernel, their registers, stack frame, local
-    memory, static shared memory (the flash tiles are dynamic shared
-    memory) and HGMMA instructions, all read from the built libraries;
+    wgmma and the NO_SPILL_KERNELS, their registers, stack frame, local
+    memory, static shared memory (the flash tiles and the CTC rings are
+    dynamic shared memory) and HGMMA instructions, all read from the
+    built libraries;
     fail unless each wgmma kernel (every head size) has HGMMA and none of
     them (every instantiation) has a stack frame or local memory (no
     spills). -> {kernel: that report}."""
@@ -317,7 +334,8 @@ def check_build(libraries, report=sass_report) -> dict:
             f"{len(kernels)} kernels")
         found.update({name: r for name, r in kernels.items()
                       if any(w in name for w in watched)})
-    log("wgmma and LN backward kernels (cuobjdump): " + json.dumps(found))
+    log("wgmma, LN backward and CTC kernels (cuobjdump): "
+        + json.dumps(found))
     for w in watched:
         mine = {k: v for k, v in found.items() if w in k}
         if w in WGMMA_KERNELS and (
@@ -338,7 +356,7 @@ def prefix_scan_inputs(n, t, k, lengths, gen):
     phi with NEG_INF entries (repeated-symbol candidates), empty-prefix
     inits."""
     from tpu_asr_torch.ops.ctc_prefix import NEG_INF
-    dev = "cuda"
+    dev = DEVICE
     logp = torch.log_softmax(torch.randn(n, t, k + 1, generator=gen), -1)
     x_cand = logp[..., 1:].contiguous()
     x_blank = logp[..., 0].contiguous()
@@ -380,9 +398,66 @@ def prefix_scan_bound_ms(n, t, k, lengths, hist: bool):
                                    else "operations")
 
 
-def check_prefix_scan(gen):
+def compare_prefix(args, what):
+    """The kernel against its plain version with and without histories,
+    within TOL; two calls give the same bits. -> max abs error."""
     from tpu_asr_torch.ops.ctc_prefix import (ctc_prefix_scan,
                                               ctc_prefix_scan_reference)
+    max_err = 0.0
+    for hist in (True, False):
+        got = ctc_prefix_scan(*args, return_hist=hist)
+        again = ctc_prefix_scan(*args, return_hist=hist)
+        want = ctc_prefix_scan_reference(*args, return_hist=hist)
+        torch.cuda.synchronize()
+        for name, g, a, w in zip(("psi", "nb_hist", "b_hist"), got, again,
+                                 want):
+            if g is None and w is None:
+                continue
+            max_err = max(max_err, compare(g, w, f"{name} at {what} "
+                                                 f"hist={hist}"))
+            if not torch.equal(g, a):
+                raise AssertionError(f"{name} at {what} hist={hist}: two "
+                                     f"calls differ")
+    return max_err
+
+
+def time_prefix(args, hist, what):
+    """ctc_prefix_scan's times on these inputs: the wrapper (CUDA events),
+    the kernel alone (profiler), the plain version; the bound."""
+    from tpu_asr_torch.ops.ctc_prefix import (KERNEL_SYMBOL, ctc_prefix_scan,
+                                              ctc_prefix_scan_reference)
+    n, t, k = args[0].shape
+    lengths = args[6].tolist()
+    fn = lambda: ctc_prefix_scan(*args, return_hist=hist)  # noqa: E731
+    ms = cuda_ms(fn)
+    alone = kernel_device_ms(fn, KERNEL_SYMBOL)
+    plain = cuda_ms(lambda: ctc_prefix_scan_reference(
+        *args, return_hist=hist), reps=20, warmup=1)
+    bound, by = prefix_scan_bound_ms(n, t, k, lengths, hist)
+    log(f"ctc_prefix_scan {what} hist={hist}: wrapper {ms:.4f} ms, the "
+        f"kernel alone {alone:.4f} ms (profiler), plain {plain:.3f} ms, "
+        f"bound {bound * 1e3:.3f} us ({by})")
+    return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
+                bound_ms=bound, bound_by=by)
+
+
+def prefix_chain_floor_ms(t):
+    """The chain's floor at T frames: the probe (one warp, the kernel's
+    step T - 1 times, operands in registers) alone, by the profiler."""
+    from tpu_asr_torch.ops.ctc_prefix import PROBE_SYMBOL, chain_probe
+    if not torch.isfinite(chain_probe(t - 1)).all():
+        raise AssertionError("ctc_prefix_scan chain probe: not finite")
+    return kernel_device_ms(lambda: chain_probe(t - 1), PROBE_SYMBOL)
+
+
+def check_prefix_scan(gen):
+    from tpu_asr_torch.ops.ctc_prefix import launch_plan, log1p_mismatches
+    bad = log1p_mismatches()
+    if bad:
+        raise AssertionError(f"the prefix scan's log1p differs from log1pf "
+                             f"at {bad} floats in [0, 1]")
+    log("ctc_prefix_scan: its branch-free log1p equals log1pf bit for bit "
+        "at every float in [0, 1]")
     cases = [  # (n, t, k, lengths): the path's two buckets, then ragged
         (40, 249, 11, [249] * 40),
         (40, 127, 11, [127] * 40),
@@ -390,39 +465,30 @@ def check_prefix_scan(gen):
         (13, 9, 21, [1, 9, 5, 2, 9, 3, 7, 1, 8, 6, 4, 9, 2]),
         (3, 1, 11, [1, 1, 0]),
         (2, 5, 130, [5, 3]),
+        # the ring's edges: 64, 63, 32, 31 and 1 steps (tiles of 32)
+        (5, 65, 11, [65, 64, 33, 32, 2]),
+        # lengths past T, and T whose rows (2K + 1) T 4 bytes (276 KB)
+        # exceed a block's shared memory
+        (3, 40, 11, [100, 40, 0]),
+        (4, 3000, 11, [3000, 2999, 1500, 33]),
+        (3, 70, 300, [70, 69, 5]),           # three chain groups a beam
     ]
     max_err, timings = 0.0, {}
     for n, t, k, lengths in cases:
         args = prefix_scan_inputs(n, t, k, lengths, gen)
-        for hist in (True, False):
-            got = ctc_prefix_scan(*args, return_hist=hist)
-            want = ctc_prefix_scan_reference(*args, return_hist=hist)
-            torch.cuda.synchronize()
-            for name, g, w in zip(("psi", "nb_hist", "b_hist"), got, want):
-                if g is None and w is None:
-                    continue
-                err = compare(g, w, f"{name} at N={n} T={t} K={k} "
-                                    f"hist={hist}")
-                max_err = max(max_err, err)
-            if lengths == [t] * n:      # the path's shapes: time them
-                fn = lambda: ctc_prefix_scan(  # noqa: E731
-                    *args, return_hist=hist)
-                ms = cuda_ms(fn)
-                alone = kernel_device_ms(fn, "ctc_prefix_scan_kernel")
-                plain = cuda_ms(lambda: ctc_prefix_scan_reference(
-                    *args, return_hist=hist), reps=20, warmup=1)
-                bound, by = prefix_scan_bound_ms(n, t, k, lengths, hist)
-                timings[(t, hist)] = dict(ms=ms, kernel_device_ms=alone,
-                                          plain_ms=plain, bound_ms=bound,
-                                          bound_by=by)
-                log(f"ctc_prefix_scan N={n} T={t} K={k} hist={hist}: "
-                    f"wrapper {ms:.4f} ms, the kernel alone {alone:.4f} ms "
-                    f"(profiler), plain {plain:.3f} ms, bound "
-                    f"{bound * 1e3:.3f} us ({by})")
-    log(f"ctc_prefix_scan vs plain: {len(cases) * 2} cases agree, "
-        f"max abs err {max_err:.3e} (atol {TOL['atol']}, rtol "
-        f"{TOL['rtol']})")
-    return max_err, timings
+        what = f"N={n} T={t} K={k}"
+        max_err = max(max_err, compare_prefix(args, what))
+        if lengths == [t] * n:      # the path's shapes: time them
+            for hist in (True, False):
+                timings[(t, hist)] = time_prefix(args, hist, what)
+    floor = prefix_chain_floor_ms(249)
+    log(f"ctc_prefix_scan vs plain: {len(cases) * 2} cases agree, two calls "
+        f"equal bitwise, max abs err {max_err:.3e} (atol {TOL['atol']}, "
+        f"rtol {TOL['rtol']}); chain floor at T=249 (248 steps, the probe "
+        f"alone) {floor:.4f} ms")
+    log(f"ctc_prefix_scan's launch at K=11 (constants of its source, as its "
+        f"library reports them; not measured): {json.dumps(launch_plan(11))}")
+    return max_err, timings, floor
 
 
 # ---- phase 3: the CTC loss kernels vs their plain versions ----
@@ -511,10 +577,75 @@ def ctc_library_ms(b, t, u, v):
                 lib_e2e=lib_e2e)
 
 
-def check_ctc_loss():
+def compare_ctc_bwd(args, alpha, nll, what, want_alpha=None,
+                    want_nll=None):
+    """ctc_loss_bwd on alpha and nll against its plain version, within
+    CTC_GRAD_TOL, finite; two calls give the same bits. The plain version
+    takes want_alpha and want_nll where given (the plain forward's, so
+    that the whole plain chain is held), else the same alpha and nll.
+    -> max abs error."""
     from tpu_asr_torch.ops.ctc_loss import (ctc_loss_bwd,
+                                            ctc_loss_bwd_reference)
+    grad = ctc_loss_bwd(*args, alpha, nll)
+    again = ctc_loss_bwd(*args, alpha, nll)
+    want = ctc_loss_bwd_reference(
+        *args, alpha if want_alpha is None else want_alpha,
+        nll if want_nll is None else want_nll)
+    torch.cuda.synchronize()
+    if not torch.allclose(grad, want, **CTC_GRAD_TOL):
+        raise AssertionError(f"grad_E at {what}: kernel disagrees with plain "
+                             f"version (max abs diff "
+                             f"{(grad - want).abs().max().item()})")
+    if not torch.isfinite(grad).all():
+        raise AssertionError(f"grad_E at {what} is not finite")
+    if not torch.equal(grad, again):
+        raise AssertionError(f"grad_E at {what}: two calls differ")
+    return (grad - want).abs().max().item()
+
+
+def time_ctc(args, alpha, nll, backward, what):
+    """One CTC loss kernel's times on these inputs: the wrapper (CUDA
+    events), the kernel alone (profiler, by the symbol of the kernel the
+    wrapper launches), the plain version; the bound."""
+    from tpu_asr_torch.ops.ctc_loss import (BWD_SYMBOLS, FWD_SYMBOL,
+                                            bwd_route, ctc_loss_bwd,
                                             ctc_loss_bwd_reference,
                                             ctc_loss_fwd,
+                                            ctc_loss_fwd_reference)
+    b, t, s = args[0].shape
+    if backward:
+        fn = lambda: ctc_loss_bwd(*args, alpha, nll)  # noqa: E731
+        plain_fn = lambda: ctc_loss_bwd_reference(  # noqa: E731
+            *args, alpha, nll)
+        symbol = BWD_SYMBOLS[bwd_route(s)]
+    else:
+        fn = lambda: ctc_loss_fwd(*args)  # noqa: E731
+        plain_fn = lambda: ctc_loss_fwd_reference(*args)  # noqa: E731
+        symbol = FWD_SYMBOL
+    plain = cuda_ms(plain_fn, reps=5, warmup=1)
+    bound, by = ctc_bound_ms(b, t, s, args[3].tolist(), backward)
+    ms = cuda_ms(fn)
+    alone = kernel_device_ms(fn, symbol)
+    log(f"{symbol} {what}: wrapper {ms:.4f} ms, the kernel alone "
+        f"{alone:.4f} ms (profiler), plain {plain:.3f} ms, bound "
+        f"{bound * 1e3:.3f} us ({by})")
+    return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
+                bound_ms=bound, bound_by=by, symbol=symbol)
+
+
+def ctc_chain_floor_ms(t, s):
+    """The backward chain's floor at T frames and S positions: the probe
+    (one warp, the warp route's step T - 1 times, operands in registers)
+    alone, by the profiler."""
+    from tpu_asr_torch.ops.ctc_loss import PROBE_SYMBOL, chain_probe
+    if not torch.isfinite(chain_probe(t - 1, s)).all():
+        raise AssertionError("ctc_loss_bwd chain probe: not finite")
+    return kernel_device_ms(lambda: chain_probe(t - 1, s), PROBE_SYMBOL)
+
+
+def check_ctc_loss():
+    from tpu_asr_torch.ops.ctc_loss import (BWD_ROUTE_LAUNCHES, bwd_route,
+                                            bwd_warp_plan, ctc_loss_fwd,
                                             ctc_loss_fwd_reference)
     rng = np.random.default_rng(2)
     b, t = 32, 249
@@ -527,53 +658,61 @@ def check_ctc_loss():
         (4, 1, 3, [1, 1, 0, 1], [0, 1, 0, 3], 64),
         (3, 20, 0, [20, 7, 0], [0, 0, 0], 64),                  # S = 1
         (3, 300, 200, [300, 250, 150], [200, 200, 100], 500),   # S = 401
+        # the warp route's ring: ilen past T, rows at the tile's edges
+        # (tiles of 16 rows), S = 63 (the last lane's pair half full), S =
+        # 65 (training's longest labels, two positions a lane and the last
+        # on lane 31), S = 97 (three and the last), S = 127 (four); S =
+        # 129, the block route's first width
+        (5, 20, 5, [25, 20, 16, 17, 1], [5, 5, 2, 5, 0], 64),
+        (5, 249, 31, [249, 200, 33, 32, 16], [31, 31, 8, 5, 0], 500),
+        (b, t, 32, [t] * b, [32] * b, 4233),
+        (3, 50, 48, [50, 49, 20], [48, 40, 8], 500),
+        (5, 60, 63, [60, 59, 17, 16, 1], [63, 60, 8, 5, 0], 500),
+        (3, 30, 64, [30, 29, 1], [64, 30, 0], 500),
+        # T whose rows of E and alpha (2 T S 4 bytes, 1.2 MB) exceed a
+        # block's shared memory many times
+        (3, 3000, 24, [3000, 2999, 1601], [24, 24, 10], 300),
     ]
     errs = dict(fwd=0.0, bwd=0.0)
     timings = {}
+    routes = {}
     for i, (bb, tt, u, ilens, llens, v) in enumerate(cases):
         args = ctc_case(bb, tt, u, ilens, llens, v, SEED + i)
+        s = 2 * u + 1
         nll, alpha = ctc_loss_fwd(*args)
-        grad = ctc_loss_bwd(*args, alpha, nll)
         want_nll, want_alpha = ctc_loss_fwd_reference(*args)
-        want_grad = ctc_loss_bwd_reference(*args, want_alpha, want_nll)
         torch.cuda.synchronize()
-        what = f"B={bb} T={tt} U={u}"
+        what = f"B={bb} T={tt} U={u} (S={s}, {bwd_route(s)} route)"
         errs["fwd"] = max(errs["fwd"],
                           compare(nll, want_nll, f"nll at {what}"),
                           compare(alpha, want_alpha, f"alpha at {what}"))
-        if not torch.allclose(grad, want_grad, **CTC_GRAD_TOL):
-            raise AssertionError(f"grad_E at {what}: kernel disagrees with "
-                                 f"plain version (max abs diff "
-                                 f"{(grad - want_grad).abs().max().item()})")
-        if not torch.isfinite(grad).all():
-            raise AssertionError(f"grad_E at {what} is not finite")
-        errs["bwd"] = max(errs["bwd"],
-                          (grad - want_grad).abs().max().item())
-        if i < 2:                           # the path's shapes: time them
-            s = 2 * u + 1
-            fwd = lambda: ctc_loss_fwd(*args)  # noqa: E731
-            bwd = lambda: ctc_loss_bwd(*args, alpha, nll)  # noqa: E731
-            plain_fwd = cuda_ms(lambda: ctc_loss_fwd_reference(*args),
-                                reps=5, warmup=1)
-            plain_bwd = cuda_ms(lambda: ctc_loss_bwd_reference(
-                *args, alpha, nll), reps=5, warmup=1)
-            for name, fn, symbol, plain, backward in (
-                    ("fwd", fwd, "ctc_alpha_kernel", plain_fwd, False),
-                    ("bwd", bwd, "ctc_beta_grad_kernel", plain_bwd, True)):
-                bound, by = ctc_bound_ms(bb, tt, s, ilens, backward)
-                ms = cuda_ms(fn)
-                alone = kernel_device_ms(fn, symbol)
-                timings[(name, s)] = dict(ms=ms, kernel_device_ms=alone,
-                                          plain_ms=plain, bound_ms=bound,
-                                          bound_by=by)
-                log(f"ctc_loss_{name} B={bb} T={tt} S={s}: wrapper "
-                    f"{ms:.4f} ms, the kernel alone {alone:.4f} ms "
-                    f"(profiler), plain {plain:.3f} ms, bound "
-                    f"{bound * 1e3:.3f} us ({by})")
+        before = dict(BWD_ROUTE_LAUNCHES)
+        errs["bwd"] = max(errs["bwd"], compare_ctc_bwd(
+            args, alpha, nll, what, want_alpha, want_nll))
+        routes[what] = {k: v - before[k] for k, v
+                        in BWD_ROUTE_LAUNCHES.items() if v != before[k]}
+        if list(routes[what]) != [bwd_route(s)]:
+            raise AssertionError(f"ctc_loss_bwd at {what} took the routes "
+                                 f"{routes[what]}")
+        if i < 2 or s == 65:                # the path's shapes: time them
+            for name, backward in (("fwd", False), ("bwd", True)):
+                timings[(name, s)] = time_ctc(args, alpha, nll, backward,
+                                              f"B={bb} T={tt} S={s}")
+            timings[("bwd", s)]["route"] = bwd_route(s)
+            if s <= 64:                     # the probe: two positions a lane
+                timings[("bwd", s)]["chain_floor_ms"] = ctc_chain_floor_ms(
+                    tt, s)
     log(f"ctc_loss_fwd/bwd vs plain: {len(cases)} cases agree; max abs err "
         f"forward {errs['fwd']:.3e} (nll, alpha: atol {TOL['atol']}, rtol "
         f"{TOL['rtol']}), backward {errs['bwd']:.3e} (grad_E: atol "
-        f"{CTC_GRAD_TOL['atol']}, rtol {CTC_GRAD_TOL['rtol']})")
+        f"{CTC_GRAD_TOL['atol']}, rtol {CTC_GRAD_TOL['rtol']}; two calls "
+        f"equal bitwise); backward routes {json.dumps(routes)}; chain floor "
+        f"at T=249 S=49 / 61 (the probe alone) "
+        f"{timings[('bwd', 49)]['chain_floor_ms']:.4f} / "
+        f"{timings[('bwd', 61)]['chain_floor_ms']:.4f} ms")
+    log(f"ctc_loss_bwd's warp-route launch at S=49 / 61 / 65 (constants of "
+        f"its source, as its library reports them; not measured): "
+        + " / ".join(json.dumps(bwd_warp_plan(s)) for s in (49, 61, 65)))
     library = {s: ctc_library_ms(b, t, u, 4233) for s, u in ((49, 24),
                                                              (61, 30))}
     return errs, timings, library
@@ -717,21 +856,22 @@ def check_cif_grads(hidden, alphas, u, what):
 
 @contextlib.contextmanager
 def record_inputs(owner, name, captures, label):
-    """While the main path runs, keep a copy of the inputs of the first
-    call of owner.<name> (model.fire, or a kernel wrapper in its module)
-    under each label(*args), so the kernel is then held against its plain
-    version on the path's own inputs. The call itself, and the wrapper's
-    launch count, are unchanged."""
+    """While the main path runs, keep a copy of the positional inputs of
+    the first call of owner.<name> (model.fire, or a kernel wrapper in the
+    module that calls it) under each label(*args, **kwargs) that is not
+    None, so the kernel is then held against its plain version on the
+    path's own inputs. The call itself, and the wrapper's launch count,
+    are unchanged."""
     fn = getattr(owner, name)
     own = name in vars(owner)          # a module's function, not a method
 
-    def recording(*args):
-        key = label(*args)
-        if key not in captures:
+    def recording(*args, **kwargs):
+        key = label(*args, **kwargs)   # None: a call not to keep
+        if key is not None and key not in captures:
             captures[key] = tuple(a.detach().clone()
                                   if isinstance(a, torch.Tensor) else a
                                   for a in args)
-        return fn(*args)
+        return fn(*args, **kwargs)
 
     # a kernel wrapper counts its launches on its module's name for it,
     # which is `recording` while this runs: its count goes back to fn
@@ -1517,6 +1657,40 @@ def check_bwd_on_paths(bwd_caps):
     return flash_t, ln_t, errs
 
 
+def check_ctc_on_paths(prefix_caps, ctc_caps):
+    """ctc_prefix_scan on the inputs the joint beam gave it (each bucket's
+    first call and a later one) and ctc_loss_bwd on the first inputs of
+    each training (recorded while the paths ran, after their counts were
+    read), against their plain versions, timed and bounded. -> ({label:
+    prefix timings}, {label: backward timings}, errors)."""
+    errs = dict(prefix=0.0, bwd=0.0)
+    prefix_t, bwd_t = {}, {}
+    for label, args in prefix_caps.items():
+        lengths = args[6]
+        what = (f"{label}: N={args[0].shape[0]} T={args[0].shape[1]} "
+                f"K={args[0].shape[2]}, lengths {int(lengths.min())}-"
+                f"{int(lengths.max())}")
+        errs["prefix"] = max(errs["prefix"], compare_prefix(list(args), what))
+        prefix_t[label] = dict(time_prefix(list(args), True, what),
+                               shape=what)
+    for label, args in ctc_caps.items():
+        emissions, skip, valid, ilen, llen, alpha, nll = args
+        what = (f"{label} (S={emissions.shape[2]}), ilen "
+                f"{int(ilen.min())}-{int(ilen.max())}")
+        errs["bwd"] = max(errs["bwd"], compare_ctc_bwd(
+            args[:5], alpha, nll, what))
+        bwd_t[label] = dict(time_ctc(args[:5], alpha, nll, True, what),
+                            shape=what)
+    if not prefix_t or len(bwd_t) != 3:
+        raise AssertionError(f"the paths recorded {len(prefix_t)} prefix "
+                             f"scans and {len(bwd_t)} CTC backwards (3 "
+                             f"trainings)")
+    log(f"ctc_prefix_scan and ctc_loss_bwd vs plain on the main paths' "
+        f"inputs: {len(prefix_t)} + {len(bwd_t)} calls agree: "
+        + json.dumps(errs))
+    return prefix_t, bwd_t, errs
+
+
 # ---- phases 4-7 ----
 
 def request_lengths(n, seed):
@@ -2009,8 +2183,17 @@ def run_pallas_serving(card, flash_caps, ln_caps):
     return flash_n, ln_n
 
 
-def run_serving(card):
+# the joint beam's later call of ctc_prefix_scan kept in each bucket,
+# beside its first: a step whose prefixes are no longer empty
+LATER_PREFIX_CALL = 10
+
+
+def run_serving(card, prefix_caps):
+    """The aishell-width hybrid model in joint beam 5 behind AsrServer;
+    the inputs of ctc_prefix_scan's first call and its LATER_PREFIX_CALL-th
+    call in each bucket go into prefix_caps. -> launches."""
     from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode import ctc_prefix as scorer_module
     from tpu_asr_torch.decode.beam import BeamConfig
     from tpu_asr_torch.decode.recognizer import Recognizer
     from tpu_asr_torch.models.transformer import Transformer
@@ -2038,10 +2221,21 @@ def run_serving(card):
     wavs = [synth_wav(n, rng) for n in request_lengths(N_REQUESTS, SEED)]
     audio_s = sum(len(w) for w in wavs) / 16000.0
 
+    calls = {}      # ctc_prefix_scan calls so far in each bucket
+
+    def prefix_label(x_cand, *_, **__):
+        t = x_cand.shape[1]
+        calls[t] = calls.get(t, 0) + 1
+        if calls[t] in (1, LATER_PREFIX_CALL):
+            return f"joint beam T'={t} call {calls[t]}"
+        return None
+
     # main path: counts from 0 just before, read just after
     ctc_prefix_scan.launches = 0
     rec.decode_steps = 0
-    results, wall = serve_requests(server, wavs)
+    with record_inputs(scorer_module, "ctc_prefix_scan", prefix_caps,
+                       prefix_label):
+        results, wall = serve_requests(server, wavs)
     launches, steps = ctc_prefix_scan.launches, rec.decode_steps
 
     for nbest, _ in results:
@@ -2161,7 +2355,7 @@ def ln_bwd_label(r, *_):
 
 
 def run_training(card, workdir, preset, data, captures,
-                 model_overrides=None, bwd_caps=None):
+                 model_overrides=None, bwd_caps=None, ctc_caps=None):
     """The Solver that `python -m tpu_asr_torch.train --preset <preset>`
     builds (with `model_overrides` to its ModelConfig, as
     build_solver takes them), on `data`, for >= MIN_TRAIN_STEPS steps;
@@ -2169,9 +2363,12 @@ def run_training(card, workdir, preset, data, captures,
     A CIF model's firing inputs of its first train and cv batch go into
     `captures`; with use_pallas, the inputs of the flash and LN backward
     of the first train batch of each bucket into bwd_caps["flash"] and
-    bwd_caps["ln"]. -> {kernel name: launches in the Solver run}."""
+    bwd_caps["ln"]; the inputs of the first ctc_loss_bwd into ctc_caps.
+    Every ctc_loss_bwd must take the warp route. -> {kernel name:
+    launches in the Solver run}."""
     from tpu_asr_torch.models import build_model
     from tpu_asr_torch.models.modules import FUSED_LN_MIN_ROWS, PostNormBlock
+    from tpu_asr_torch.ops import ctc_loss as ctc_module
     from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
     from tpu_asr_torch.train.__main__ import build_solver, parse_args
 
@@ -2214,14 +2411,25 @@ def run_training(card, workdir, preset, data, captures,
             fa, "flash_attention_bwd", bwd_caps["flash"], flash_bwd_label))
         records.enter_context(record_inputs(
             ln, "layer_norm_residual_bwd", bwd_caps["ln"], ln_bwd_label))
+    if ctc_caps is not None:
+        records.enter_context(record_inputs(
+            ctc_module, "ctc_loss_bwd", ctc_caps,
+            lambda e, *_: f"{what}: E {list(e.shape)}"
+            if not any(k.startswith(f"{what}:") for k in ctc_caps) else None))
     for fn in counters.values():
         fn.launches = 0
+    routes = ctc_module.BWD_ROUTE_LAUNCHES
+    routes.update(warp=0, block=0)
     wall0 = time.perf_counter()
     with records:
         solver.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
     launches = {name: fn.launches for name, fn in counters.items()}
+    if routes != {"warp": launches["ctc_loss_bwd"], "block": 0}:
+        raise AssertionError(f"{what}: ctc_loss_bwd routes {routes} for "
+                             f"{launches['ctc_loss_bwd']} launches; every "
+                             f"training shape has S <= 65")
     peak = torch.cuda.max_memory_allocated()
     for h in hooks:
         h.remove()
@@ -2263,7 +2471,8 @@ def run_training(card, workdir, preset, data, captures,
         f"dropout {cfg.dropout}, SpecAugment "
         f"{'on' if ts.specaug else 'off'}) {epochs} epochs, {steps} steps + "
         f"{cv_batches} cv batches in {wall:.2f} s; kernel launches "
-        f"{json.dumps(launches)}; post-norm calls of >= {FUSED_LN_MIN_ROWS}"
+        f"{json.dumps(launches)} (ctc_loss_bwd by route "
+        f"{json.dumps(routes)}); post-norm calls of >= {FUSED_LN_MIN_ROWS}"
         f" rows {json.dumps(fused)}")
     log(f"{what}: per epoch " + json.dumps(solver.history))
     log(f"{what}: step ms median {statistics.median(step_ms):.2f}, min "
@@ -2336,7 +2545,7 @@ def main() -> int:
     build_report = check_build(libraries)
 
     gen = torch.Generator().manual_seed(SEED)
-    max_err, timings = check_prefix_scan(gen)
+    max_err, timings, prefix_floor = check_prefix_scan(gen)
     ctc_errs, ctc_timings, ctc_library = check_ctc_loss()
     cif_err, cif_timing = check_cif_fire()
     flash_err, lse_err, flash_timings = check_flash_attention()
@@ -2348,7 +2557,8 @@ def main() -> int:
     check_train_agreement(use_pallas=True)
     check_cif_agreement()
     check_pallas_agreement()
-    launches = run_serving(card)
+    prefix_caps = {}
+    launches = run_serving(card, prefix_caps)
     captures = {}
     cif_serving = run_cif_serving(card, captures)
     flash_caps, ln_caps = {}, {}
@@ -2357,18 +2567,23 @@ def main() -> int:
     data = synthetic_aishell()
     log(f"training: {len(data[0])} + {len(data[1])} synthetic utterances "
         f"made in {time.perf_counter() - t0:.1f} s")
-    training, bwd_caps = {}, {"flash": {}, "ln": {}}
+    training, bwd_caps, ctc_caps = {}, {"flash": {}, "ln": {}}, {}
     pallas = f"{PRESET} use_pallas"
     for key, preset, overrides in ((PRESET, PRESET, None),
                                    ("cif", "cif", None),
                                    (pallas, PRESET, {"use_pallas": True})):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as wd:
             training[key] = run_training(card, wd, preset, data, captures,
-                                         overrides, bwd_caps)
+                                         overrides, bwd_caps, ctc_caps)
     path_err, path_timings = check_cif_fire_on_paths(captures)
     flash_path, ln_path, path_errs = check_flash_ln_on_paths(flash_caps,
                                                              ln_caps)
     flash_bwd_path, ln_bwd_path, bwd_path_errs = check_bwd_on_paths(bwd_caps)
+    prefix_path, ctc_bwd_path, ctc_path_errs = check_ctc_on_paths(prefix_caps,
+                                                                  ctc_caps)
+
+    def ctc_build(symbol):
+        return {k: v for k, v in build_report.items() if symbol in k}
 
     main_t = timings[(249, True)]          # 1000-frame bucket, one-pass
     kernels = [{
@@ -2377,30 +2592,52 @@ def main() -> int:
         "source": "tpu_asr_torch/csrc/ctc_prefix_scan.cu",
         "replaces": "tpu_asr/ops/pallas/ctc_prefix.py:114",
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, ctc_path_errs["prefix"]),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": None,
         "kernel_device_ms": main_t["kernel_device_ms"],
+        "chain_floor_ms": prefix_floor,
         "bound_us": main_t["bound_ms"] * 1e3,
         "shape": "N=40 T=249 K=11 with histories",
-        "other_shapes": {f"T={t} hist={h}": v for (t, h), v
-                         in timings.items() if (t, h) != (249, True)},
+        "design": "a block a beam, the chain's operands staged through a "
+                  "ring of shared-memory tiles by cp.async",
+        "build": ctc_build(ctc_prefix.KERNEL_SYMBOL),
+        "path_max_abs_err": ctc_path_errs["prefix"],
+        "other_shapes": dict({f"T={t} hist={h}": v for (t, h), v
+                              in timings.items() if (t, h) != (249, True)},
+                             **{f"path {k}": v
+                                for k, v in prefix_path.items()}),
     }]
     for name, line in (("fwd", 176), ("bwd", 211)):
         t = ctc_timings[(name, 49)]
         by_path = {f"{p} training": training[p][f"ctc_loss_{name}"]
                    for p in training}
-        kernels.append({
+        other = {"B=32 T=249 S=61 (U=30)": dict(
+            ctc_timings[(name, 61)], library_ms=ctc_library[61][name]),
+                 "B=32 T=249 S=65 (U=32)": ctc_timings[(name, 65)]}
+        extra = {}
+        if name == "bwd":
+            other.update({f"path {k}": v for k, v in ctc_bwd_path.items()})
+            extra = {"chain_floor_ms": t["chain_floor_ms"],
+                     "route": t["route"],
+                     "design": "warp route: a warp an utterance, two "
+                               "positions a lane, rows of E and alpha "
+                               "staged through a shared-memory ring by "
+                               "cp.async",
+                     "build": ctc_build(t["symbol"]),
+                     "path_max_abs_err": ctc_path_errs["bwd"]}
+        kernels.append(dict({
             "name": f"ctc_loss_{name}",
             "route": "cuda",
             "source": "tpu_asr_torch/csrc/ctc_loss.cu",
             "replaces": f"tpu_asr/ops/pallas/ctc.py:{line}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": ctc_errs[name],
+            "max_abs_err": max(ctc_errs[name], ctc_path_errs["bwd"]
+                               if name == "bwd" else 0.0),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -2408,11 +2645,10 @@ def main() -> int:
             "library_ms": ctc_library[49][name],
             "kernel_device_ms": t["kernel_device_ms"],
             "shape": "B=32 T=249 S=49 (U=24)",
-            "other_shapes": {"B=32 T=249 S=61 (U=30)": dict(
-                ctc_timings[(name, 61)], library_ms=ctc_library[61][name])},
+            "other_shapes": other,
             "ctc_loss_kernel_e2e_ms": ctc_library[49]["port_e2e"],
             "library_e2e_ms": ctc_library[49]["lib_e2e"],
-        })
+        }, **extra))
     by_path = {"cif serving": cif_serving,
                "cif training": training["cif"]["cif_fire"]}
     # the main numbers at serving's 1000-frame bucket, as served
@@ -2563,7 +2799,7 @@ def main() -> int:
         "other_shapes": other,
     })
     log(f"before their present design, the kernels alone took (constants "
-        f"recorded in PERF.md, runs E and F, not measured in this run): "
+        f"recorded in PERF.md, runs D, E and F, not measured in this run): "
         f"{json.dumps(PREVIOUS_ALONE_MS)} ms")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

@@ -1,13 +1,16 @@
 """chip_smoke.py's helpers that need no card: the readers of what the
-build made, the flash bounds and the rounding-flip count, on the CPU."""
+build made, the flash bounds and the rounding-flip count, the kernel
+names it times and the CTC kernels' launch plans, on the CPU."""
 
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from tpu_asr_torch.ops import ctc_loss, ctc_prefix
 from tpu_asr_torch.ops.flash_attention import (flash_attention_bwd_reference,
                                                flash_attention_reference)
 
@@ -25,6 +28,10 @@ DQ = "_ZN12_GLOBAL__N_135flash_attention_bwd_dq_wgmma_kernelILi{}EEEvv"
 LN_BWD = ("_ZN12_GLOBAL__N_130layer_norm_residual_bwd_kernelI13__nv_bfloat16"
           "Li8ELi{}EEEvv")
 SIMT = "_ZN12_GLOBAL__N_131flash_attention_fwd_simt_kernelIfLi{}EEEvv"
+PREFIX = ("_ZN12_GLOBAL__N_122ctc_prefix_scan_kernelEPKfS1_S1_S1_S1_S1_"
+          "PKiPfS4_S4_iiii")
+BWD_WARP = ("_ZN12_GLOBAL__N_125ctc_beta_grad_warp_kernelILi2ELb1EEEvPKfPKhS4_"
+            "PKiS6_S2_S2_Pfiiii")
 
 RESOURCE_USAGE = """
 Fatbin elf code:
@@ -80,11 +87,12 @@ class CachedLibrary:
 
 
 def report_of(only=None, drop=(), **changed):
-    """A fake cuobjdump report of the flash and LN libraries: every wgmma
-    kernel at dh 32, 64 and 128 with HGMMA and no spills, two LN backward
-    instantiations without spills, a float32 SIMT kernel with a stack
-    frame; `changed` applies to the kernels named in `only` (default:
-    every wgmma kernel), `drop` leaves kernels out."""
+    """A fake cuobjdump report of the flash, LN and CTC libraries: every
+    wgmma kernel at dh 32, 64 and 128 with HGMMA and no spills, two LN
+    backward instantiations, the CTC prefix scan and the CTC backward's
+    warp route without spills, a float32 SIMT kernel with a stack frame;
+    `changed` applies to the kernels named in `only` (default: every wgmma
+    kernel), `drop` leaves kernels out."""
     def report(path):
         assert path == "libflash-cached.so"
         kernels = {}
@@ -96,6 +104,9 @@ def report_of(only=None, drop=(), **changed):
             kernels[LN_BWD.format(ch)] = dict(
                 hgmma=0, registers=112, stack_bytes=0, local_bytes=0,
                 static_smem_bytes=17408)
+        for name in (PREFIX, BWD_WARP):
+            kernels[name] = dict(hgmma=0, registers=40, stack_bytes=0,
+                                 local_bytes=0, static_smem_bytes=0)
         for name in (only if only is not None else
                      [k for k in kernels if "wgmma" in k]):
             kernels[name].update(changed)
@@ -122,7 +133,7 @@ def test_check_build_reads_the_library_not_the_build_log(changed, passes):
     libs = [CachedLibrary()]
     if passes:
         found = chip_smoke.check_build(libs, report=report_of(**changed))
-        assert len(found) == 11
+        assert len(found) == 13
     else:
         with pytest.raises(AssertionError):
             chip_smoke.check_build(libs, report=report_of(**changed))
@@ -143,6 +154,75 @@ def test_check_build_fails_on_a_dq_or_ln_backward_fault(only, drop, changed):
     with pytest.raises(AssertionError):
         chip_smoke.check_build([CachedLibrary()],
                                report=report_of(only, drop, **changed))
+
+
+@pytest.mark.parametrize("only,drop,changed", [
+    ([PREFIX], (), {"stack_bytes": 40}),       # the prefix scan spills
+    ([PREFIX], (), {"local_bytes": 8}),
+    ([BWD_WARP], (), {"stack_bytes": 16}),     # the warp backward spills
+    ([BWD_WARP], (), {"registers": None}),
+    ((), (PREFIX,), {}),                       # not in the library
+    ((), (BWD_WARP,), {}),
+])
+def test_check_build_fails_when_a_ctc_kernel_spills(only, drop, changed):
+    """The CTC prefix scan and the CTC backward's warp route keep their
+    step chains in registers and shared memory: phase 2 fails if either
+    spills, or is missing from the built library."""
+    with pytest.raises(AssertionError):
+        chip_smoke.check_build([CachedLibrary()],
+                               report=report_of(only, drop, **changed))
+
+
+def _globals(source):
+    path = os.path.join(REPO, "tpu_asr_torch", "csrc", source)
+    with open(path) as f:
+        return set(re.findall(r"__global__\s+void\s+(\w+)\s*\(",
+                              f.read()))
+
+
+@pytest.mark.parametrize("symbol,source", [
+    (ctc_prefix.KERNEL_SYMBOL, "ctc_prefix_scan.cu"),
+    (ctc_prefix.PROBE_SYMBOL, "ctc_prefix_scan.cu"),
+    (ctc_loss.FWD_SYMBOL, "ctc_loss.cu"),
+    (ctc_loss.BWD_SYMBOLS["warp"], "ctc_loss.cu"),
+    (ctc_loss.BWD_SYMBOLS["block"], "ctc_loss.cu"),
+    (ctc_loss.PROBE_SYMBOL, "ctc_loss.cu"),
+])
+def test_ctc_profiler_symbols_are_kernels_of_their_source(symbol, source):
+    """kernel_device_ms matches a kernel by a substring of its name: each
+    CTC symbol chip_smoke passes it is a __global__ of its source, and
+    matches no other kernel there (the profiler would add their times)."""
+    names = _globals(source)
+    assert symbol in names
+    assert [n for n in names if symbol in n] == [symbol]
+
+
+@pytest.mark.parametrize("symbol", [ctc_prefix.KERNEL_SYMBOL,
+                                    ctc_loss.BWD_SYMBOLS["warp"]])
+def test_rebuilt_ctc_kernels_are_watched_for_spills(symbol):
+    assert symbol in chip_smoke.NO_SPILL_KERNELS
+
+
+@pytest.mark.parametrize("s,route", [
+    (1, "warp"), (49, "warp"), (61, "warp"), (63, "warp"), (65, "warp"),
+    (127, "warp"), (128, "warp"), (129, "block"), (401, "block"),
+    (1023, "block"), (1024, "block"),
+])
+def test_ctc_bwd_route_by_s(s, route):
+    """The CTC backward's route by S, the one launch decision the wrapper
+    makes (the kernels' sources work out the rest): the warp route up to
+    128 positions (four a lane), the block route above, up to MAX_S."""
+    assert ctc_loss.bwd_route(s) == route
+
+
+def test_training_shapes_take_the_warp_route():
+    """Training's labels are 8-30 tokens, which the loader's buckets pad
+    to U = 8, 16, 24 or 32 (S = 2U + 1 <= 65); the fixed shape's U = 24:
+    every one takes the warp route."""
+    from tpu_asr_torch.data.bucketing import _round_up
+    shapes = {2 * _round_up(u, 8) + 1 for u in range(8, 31)}
+    assert shapes == {17, 33, 49, 65}
+    assert {ctc_loss.bwd_route(s) for s in shapes | {49}} == {"warp"}
 
 
 @pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])

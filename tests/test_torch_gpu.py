@@ -67,6 +67,134 @@ def test_cuda_kernel_matches_plain_version():
             ctc_prefix_scan(args[0].double(), *args[1:])
 
 
+def prefix_inputs(rng, n, t, k, lens):
+    x = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((n, t, k + 1)).astype(np.float32)), -1)
+    xc, xb = x[..., 1:].contiguous(), x[..., 0].contiguous()
+    phi = xc.flip(-1).contiguous()
+    phi[:, :, 0] = -1e30
+    nb0 = xc[:, 0].contiguous()
+    b0 = torch.full((n, k), -1e30)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    return [a.cuda() for a in (xc, phi, xb, nb0, b0, nb0.clone(), lens)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,k,lens", [
+    (5, 65, 11, [65, 64, 33, 32, 2]),      # 64, 63, 32, 31, 1 steps
+    (4, 3000, 11, [3000, 2999, 1500, 33]),  # (2K + 1) T 4 = 276 KB of rows
+    (3, 40, 11, [100, 40, 0]),              # a length past T
+    (3, 70, 300, [70, 69, 5]),              # three chain groups a beam
+    (2, 249, 130, [249, 120]),              # a ring over 99 KB
+])
+def test_prefix_scan_ring_edges(n, t, k, lens):
+    """The ring of tiles at its edges: steps a whole number of tiles and
+    one past, rows far larger than shared memory, lengths past T, K over
+    a block's chains. Two calls give the same bits."""
+    _need_card()
+    args = prefix_inputs(np.random.default_rng(n * t + k), n, t, k, lens)
+    for hist in (True, False):
+        got = ctc_prefix_scan(*args, return_hist=hist)
+        again = ctc_prefix_scan(*args, return_hist=hist)
+        want = ctc_prefix_scan_reference(*args, return_hist=hist)
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            if w is not None:
+                _close(g, w, f"N={n} T={t} K={k} hist={hist}")
+                assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,u,ilens,llens", [
+    (5, 20, 5, [25, 20, 16, 17, 1], [5, 5, 2, 5, 0]),   # ilen past T
+    (3, 3000, 24, [3000, 2999, 1601], [24, 24, 10]),    # 1.2 MB of rows
+    (4, 249, 31, [249, 200, 33, 32], [31, 31, 8, 5]),   # S = 63, 2 a lane
+    (4, 249, 32, [249, 200, 33, 32], [32, 31, 8, 5]),   # S = 65, 2 + 1
+    (5, 60, 63, [60, 59, 17, 16, 1], [63, 60, 8, 5, 0]),  # S = 127, 4
+    (3, 50, 33, [50, 49, 2], [33, 20, 1]),              # S = 67, 3
+    (3, 50, 48, [50, 49, 20], [48, 40, 8]),             # S = 97, 3 + 1
+    (3, 30, 64, [30, 29, 1], [64, 30, 0]),              # S = 129, block
+    (9, 48, 24, [48] * 9, [24] * 9),  # 3 rows of tiles; a block not full
+])
+def test_ctc_loss_bwd_routes_and_ring_edges(b, t, u, ilens, llens):
+    """The backward on the route its S picks (counted in
+    BWD_ROUTE_LAUNCHES) against the plain version on the kernel forward's
+    alpha and nll, at the warp route's ring edges; rows past ilen or with
+    ilen > T are zero; two calls give the same bits."""
+    from tpu_asr_torch.ops.ctc_loss import BWD_ROUTE_LAUNCHES, bwd_route
+    _need_card()
+    g = np.random.default_rng(b * t + u)
+    logits = torch.from_numpy(g.standard_normal((b, t, 150)).astype(
+        np.float32)).cuda()
+    labels = torch.from_numpy(g.integers(1, 150, (b, u))).cuda()
+    z = _interleave_blanks(labels, 0)
+    ln = torch.tensor(llens, dtype=torch.int32, device="cuda")
+    skip, valid = lattice_masks(z, ln)
+    args = (lattice_emissions(logits, z).contiguous(), skip, valid,
+            torch.tensor(ilens, dtype=torch.int32, device="cuda"), ln)
+    nll, alpha = ctc_loss_fwd(*args)
+    route = bwd_route(2 * u + 1)
+    before = dict(BWD_ROUTE_LAUNCHES)
+    got = ctc_loss_bwd(*args, alpha, nll)
+    again = ctc_loss_bwd(*args, alpha, nll)
+    want = ctc_loss_bwd_reference(*args, alpha, nll)
+    torch.cuda.synchronize()
+    assert BWD_ROUTE_LAUNCHES[route] == before[route] + 2
+    _close(got, want, "grad_E", GRAD_TOL)
+    assert torch.equal(got, again)
+    for i, il in enumerate(ilens):
+        top = il if il <= t else 0
+        assert not got[i, top:].any()
+
+
+SMEM_LIMIT = 232_448     # shared memory a block may have on an H100
+
+
+@pytest.mark.gpu
+def test_launch_plans_fit_a_block():
+    """The launches the two rebuilt kernels' sources work out stay within
+    a block's shared memory and threads for any T: the prefix scan at K =
+    1, 11, 130 and 300 (chain groups of 128), the backward's warp route at
+    every S it takes, with P positions a lane covering S."""
+    from tpu_asr_torch.ops import ctc_loss, ctc_prefix
+    _need_card()
+    for k in (1, 11, 130, 300):
+        plan = ctc_prefix.launch_plan(k)
+        assert plan["smem_bytes"] <= SMEM_LIMIT, (k, plan)
+        assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
+        chains = plan["threads"] - 32
+        assert chains * plan["blocks_per_beam"] >= k
+    for s in range(1, ctc_loss.WARP_MAX_S + 1):
+        plan = ctc_loss.bwd_warp_plan(s)
+        assert plan["smem_bytes"] <= SMEM_LIMIT, (s, plan)
+        assert 32 * plan["positions"] + 1 >= s
+        assert plan["positions"] == (2 if s <= 65 else 3 if s <= 97 else 4)
+    with pytest.raises(RuntimeError):
+        ctc_loss.bwd_warp_plan(ctc_loss.WARP_MAX_S + 1)
+
+
+@pytest.mark.gpu
+def test_prefix_scan_log1p_is_log1pf():
+    """The prefix scan's logaddexp takes log1p of exp(-|a - b|), in
+    [0, 1]; its branch-free log1p gives log1pf's bits at every float
+    there."""
+    from tpu_asr_torch.ops.ctc_prefix import log1p_mismatches
+    _need_card()
+    assert log1p_mismatches() == 0
+
+
+@pytest.mark.gpu
+def test_chain_probes_run():
+    """The two chain probes (one warp each, no memory traffic) launch and
+    give finite results."""
+    from tpu_asr_torch.ops import ctc_loss, ctc_prefix
+    _need_card()
+    assert torch.isfinite(ctc_prefix.chain_probe(248)).all()
+    assert torch.isfinite(ctc_loss.chain_probe(248, 49)).all()
+    with pytest.raises(RuntimeError):
+        ctc_loss.chain_probe(248, 65)        # two positions a lane only
+
+
 def ctc_case(seed, b, t, u, v):
     """Emission-level inputs with ragged rows: a full row, a dummy row
     (ilen 0, llen 0), an infeasible row, an empty transcript, repeats."""

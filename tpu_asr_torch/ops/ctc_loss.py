@@ -7,8 +7,12 @@ caller gathers emissions E[b,t,s] = log_softmax(logits)[b,t,z_s] (S = 2U+1,
 a few dozen positions against V = 4233) and autograd scatters grad_E back
 into the logits. The kernels (csrc/ctc_loss.cu) do only the sequential
 part: the alpha pass (nll and the alpha history) and the beta pass
-(grad_E = -exp(alpha + beta - ll)). See the source note for what bounds
-them on the card.
+(grad_E = -exp(alpha + beta - ll)). The beta pass takes one of two
+routes by S (`bwd_route`): a chain warp per utterance, fed and drained
+by a second warp through shared memory, for S <= 128 (every training shape: the
+loader pads U to a multiple of 8, so S is 17 .. 65), a block per
+utterance above. See the source note for what bounds them on the
+card.
 
 `ctc_loss_fwd` / `ctc_loss_bwd` dispatch on the device of their inputs:
 CUDA tensors launch the kernel (or raise), CPU tensors run the plain
@@ -27,7 +31,22 @@ from tpu_asr_torch.ops.ctc import (NEG_INF, _interleave_blanks,
 from tpu_asr_torch.ops.cuda_build import KernelLibrary, check_tensor
 
 LIBRARY = KernelLibrary("ctc_loss")
-MAX_S = 1024          # one thread per lattice position, one block per row
+MAX_S = 1024          # the forward and the block route: a thread a position
+WARP_MAX_S = 128      # the warp route: up to 4 positions a lane
+FWD_SYMBOL = "ctc_alpha_kernel"                   # the __global__ names
+BWD_SYMBOLS = {"warp": "ctc_beta_grad_warp_kernel",
+               "block": "ctc_beta_grad_block_kernel"}
+PROBE_SYMBOL = "ctc_beta_chain_probe_kernel"
+# launches of the backward by route, beside ctc_loss_bwd.launches (all)
+BWD_ROUTE_LAUNCHES = {"warp": 0, "block": 0}
+WARP_PLAN_KEYS = ("positions", "tile_rows", "stages", "utterances_per_block",
+                  "threads", "smem_bytes")
+
+
+def bwd_route(s: int) -> str:
+    """The backward kernel for S lattice positions: "warp" up to
+    WARP_MAX_S, "block" above (up to MAX_S)."""
+    return "warp" if s <= WARP_MAX_S else "block"
 
 
 def _bind(lib: ctypes.CDLL):
@@ -35,8 +54,14 @@ def _bind(lib: ctypes.CDLL):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ctc_loss_fwd_launch.argtypes = [p] * 7 + [i] * 3 + [p]
         lib.ctc_loss_fwd_launch.restype = i
-        lib.ctc_loss_bwd_launch.argtypes = [p] * 8 + [i] * 3 + [p]
-        lib.ctc_loss_bwd_launch.restype = i
+        lib.ctc_loss_bwd_block_launch.argtypes = [p] * 8 + [i] * 3 + [p]
+        lib.ctc_loss_bwd_block_launch.restype = i
+        lib.ctc_loss_bwd_warp_launch.argtypes = [p] * 8 + [i] * 3 + [p]
+        lib.ctc_loss_bwd_warp_launch.restype = i
+        lib.ctc_loss_bwd_warp_plan.argtypes = [i, p]
+        lib.ctc_loss_bwd_warp_plan.restype = i
+        lib.ctc_beta_chain_probe_launch.argtypes = [p, i, i, p]
+        lib.ctc_beta_chain_probe_launch.restype = i
         lib.ctc_loss_error_string.argtypes = [i]
         lib.ctc_loss_error_string.restype = ctypes.c_char_p
     return lib
@@ -171,8 +196,9 @@ def ctc_loss_fwd(emissions, skip, valid, ilen, llen):
 
 
 def ctc_loss_bwd(emissions, skip, valid, ilen, llen, alpha, nll):
-    """Beta pass: grad_E [B, T, S] (unscaled). Kernel on CUDA tensors,
-    counted in `ctc_loss_bwd.launches`; ctc_loss_bwd_reference on CPU."""
+    """Beta pass: grad_E [B, T, S] (unscaled). Kernel on CUDA tensors, on
+    the route bwd_route(S) picks, counted in `ctc_loss_bwd.launches` and
+    in BWD_ROUTE_LAUNCHES; ctc_loss_bwd_reference on CPU."""
     if emissions.device.type == "cpu":
         return ctc_loss_bwd_reference(emissions, skip, valid, ilen, llen,
                                       alpha, nll)
@@ -181,19 +207,54 @@ def ctc_loss_bwd(emissions, skip, valid, ilen, llen, alpha, nll):
     check_tensor("nll", nll, (b,), torch.float32, dev)
     lib = _bind(LIBRARY.load())
     grad = torch.empty((b, t, s), dtype=torch.float32, device=dev)
+    route = bwd_route(s)
+    launch = (lib.ctc_loss_bwd_warp_launch if route == "warp"
+              else lib.ctc_loss_bwd_block_launch)
     with torch.cuda.device(dev):
-        err = lib.ctc_loss_bwd_launch(
-            emissions.data_ptr(), skip.data_ptr(), valid.data_ptr(),
-            ilen.data_ptr(), llen.data_ptr(), alpha.data_ptr(),
-            nll.data_ptr(), grad.data_ptr(), b, t, s,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "ctc_loss_bwd")
+        err = launch(emissions.data_ptr(), skip.data_ptr(), valid.data_ptr(),
+                     ilen.data_ptr(), llen.data_ptr(), alpha.data_ptr(),
+                     nll.data_ptr(), grad.data_ptr(), b, t, s,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, f"ctc_loss_bwd ({route} route)")
     ctc_loss_bwd.launches += 1
+    BWD_ROUTE_LAUNCHES[route] += 1
     return grad
 
 
 ctc_loss_fwd.launches = 0   # kernel launches (not CPU reference calls)
 ctc_loss_bwd.launches = 0
+
+
+def bwd_warp_plan(s: int) -> dict:
+    """The launch the warp route makes at S positions (any B, any T), as
+    its library reports it (WARP_PLAN_KEYS): positions a lane of the
+    chain warp, rows a ring slot, slots in the ring, utterances a block
+    (a chain warp and a helper warp each), threads and dynamic shared
+    bytes a block. Needs the built library."""
+    lib = _bind(LIBRARY.load())
+    plan = (ctypes.c_int * len(WARP_PLAN_KEYS))()
+    _raise_on(lib.ctc_loss_bwd_warp_plan(s, plan), f"warp plan at S={s}")
+    return dict(zip(WARP_PLAN_KEYS, plan))
+
+
+def chain_probe(steps: int, s: int, device="cuda") -> torch.Tensor:
+    """Launch the backward chain's probe: one warp running the warp
+    route's step at two positions a lane (two shuffles, two lae3) `steps`
+    times at S = s <= 64 on
+    operands in registers, no memory traffic (its time alone is the
+    chain's floor). Not a port of anything; needs the card. Returns the
+    warp's 32 results."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the chain probe runs on the card, not {dev}")
+    lib = _bind(LIBRARY.load())
+    out = torch.empty(32, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ctc_beta_chain_probe_launch(
+            out.data_ptr(), steps, s,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "ctc_beta_chain_probe")
+    return out
 
 
 class CTCNLLFromEmissions(torch.autograd.Function):

@@ -2,8 +2,10 @@
 kernel's wrapper and its plain PyTorch version.
 
 Port of tpu_asr/ops/pallas/ctc_prefix.py::ctc_prefix_scan_pallas. The
-kernel (csrc/ctc_prefix_scan.cu) runs one thread per (beam, candidate)
-chain over time; see its source note for what bounds it on the card.
+kernel (csrc/ctc_prefix_scan.cu) runs one block per beam and one thread
+per (beam, candidate) chain over time, its operands staged through a ring
+of shared-memory tiles; see its source note for what bounds it on the
+card.
 
 `ctc_prefix_scan` dispatches on the device of its inputs: CUDA tensors
 launch the kernel (or raise), CPU tensors run `ctc_prefix_scan_reference`.
@@ -21,6 +23,11 @@ from tpu_asr_torch.ops.cuda_build import KernelLibrary, check_tensor
 NEG_INF = -1e30
 
 LIBRARY = KernelLibrary("ctc_prefix_scan")
+KERNEL_SYMBOL = "ctc_prefix_scan_kernel"          # its __global__ names
+PROBE_SYMBOL = "ctc_prefix_chain_probe_kernel"
+
+PLAN_KEYS = ("tile_steps", "stages", "threads", "blocks_per_beam",
+             "smem_bytes")
 
 
 def _bind(lib: ctypes.CDLL):
@@ -29,9 +36,22 @@ def _bind(lib: ctypes.CDLL):
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.ctc_prefix_scan_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.ctc_prefix_scan_plan.restype = None
+        lib.ctc_prefix_chain_probe_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.ctc_prefix_chain_probe_launch.restype = ctypes.c_int
+        lib.ctc_log1p_check_launch.argtypes = [ctypes.c_void_p] * 2
+        lib.ctc_log1p_check_launch.restype = ctypes.c_int
         lib.ctc_prefix_scan_error_string.argtypes = [ctypes.c_int]
         lib.ctc_prefix_scan_error_string.restype = ctypes.c_char_p
     return fn
+
+
+def _raise_on(err: int, which: str):
+    if err:
+        msg = LIBRARY.load().ctc_prefix_scan_error_string(err).decode()
+        raise RuntimeError(f"{which} launch failed: {msg} ({err})")
 
 
 def ctc_prefix_scan_reference(x_cand, phi, x_blank, r_nb0, r_b0, psi0,
@@ -97,11 +117,56 @@ def ctc_prefix_scan(x_cand, phi, x_blank, r_nb0, r_b0, psi0, lengths,
                  r_nb0.data_ptr(), r_b0.data_ptr(), psi0.data_ptr(),
                  lengths.data_ptr(), psi.data_ptr(), *hist_ptrs, n, t, k,
                  int(return_hist), stream)
-    if err:
-        msg = LIBRARY.load().ctc_prefix_scan_error_string(err).decode()
-        raise RuntimeError(f"ctc_prefix_scan launch failed: {msg} ({err})")
+    _raise_on(err, "ctc_prefix_scan")
     ctc_prefix_scan.launches += 1
     return psi, nb_hist, b_hist
 
 
 ctc_prefix_scan.launches = 0   # kernel launches (not CPU reference calls)
+
+
+def launch_plan(k: int) -> dict:
+    """The launch the kernel makes for K candidates a beam (any N, any T),
+    as its library reports it (PLAN_KEYS): steps a ring slot, slots in
+    the ring, threads a block, blocks a beam and dynamic shared bytes.
+    Needs the built library."""
+    lib = LIBRARY.load()
+    _bind(lib)
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    lib.ctc_prefix_scan_plan(k, plan)
+    return dict(zip(PLAN_KEYS, plan))
+
+
+def chain_probe(steps: int, device="cuda") -> torch.Tensor:
+    """Launch the chain probe: one warp running the kernel's step `steps`
+    times on operands in registers, no memory traffic (its time alone is
+    the chain's floor). Not a port of anything; needs the card. Returns
+    the warp's 32 results."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the chain probe runs on the card, not {dev}")
+    lib = LIBRARY.load()
+    _bind(lib)
+    out = torch.empty(32, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ctc_prefix_chain_probe_launch(
+            out.data_ptr(), steps, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "ctc_prefix_chain_probe")
+    return out
+
+
+def log1p_mismatches(device="cuda") -> int:
+    """The number of floats x in [0, 1] (all of them, one launch) where
+    the kernel's branch-free log1p and the toolkit's log1pf differ in any
+    bit: 0 when the kernel's logaddexp is the toolkit's. Needs the card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the log1p check runs on the card, not {dev}")
+    lib = LIBRARY.load()
+    _bind(lib)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ctc_log1p_check_launch(
+            count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "ctc_log1p_check")
+    return int(count.item())
