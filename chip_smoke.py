@@ -12,20 +12,25 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      library itself (cuobjdump, so a cached library is checked alike) and
      fail unless every bf16 flash forward, dq and dk/dv kernel has HGMMA
      and none of them, nor any LN backward kernel, nor the CTC prefix
-     scan or the CTC backward's warp route, spills registers.
+     scan, nor the CTC forward's or backward's warp route, nor the CIF
+     fire kernel, spills registers.
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, at the main paths' shapes and at ragged ones, with timings (the
      wrapper by CUDA events, the kernel alone by the profiler):
      ctc_prefix_scan (serving; also at the edges of its ring of tiles,
      lengths past T and T = 3000) and the CTC loss pair ctc_loss_fwd /
-     ctc_loss_bwd (training; the backward on both of its routes, at the
-     edges of the warp route's ring, ilen past T and T = 3000), two calls
-     equal bitwise, the latter also beside torch's own CTC loss
+     ctc_loss_bwd (training; each on both of its routes, at the edges of
+     the warp routes' rings, ilen past T and T = 3000), two calls equal
+     bitwise, the pair also beside torch's own CTC loss
      (F.ctc_loss, timed as a yardstick and used as a value check only),
      each CTC recursion beside its chain floor (a probe: one warp running
-     the kernel's step T - 1 times on operands in registers);
-     cif_fire (CIF serving and training) on 10 cases (serving's two
-     buckets, the bench shape, ragged ones) and its autograd Function's
+     the kernel's step T - 1 times on operands in registers), the
+     forward's branch-free log held bit-equal to logf at every float in
+     [1, 3];
+     cif_fire (CIF serving and training) on 13 cases (serving's two
+     buckets, the bench shape, ragged ones, alphas whose c - alpha is not
+     monotone in its last ulp, T past one shared-memory stage) and its
+     autograd Function's
      gradients against autograd of the plain version; flash_attention_fwd
      (use_pallas serving: encoder self-attention, decoder causal
      self-attention and cross-attention at the served shapes, ragged key
@@ -80,7 +85,7 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      `python -m tpu_asr_torch.train` builds, on 512 synthetic AISHELL-like
      wav utterances, for at least 20 optimizer steps; losses and grad norms
      finite, the CTC kernels launched once per step (forward also once per
-     cv batch; the backward on its warp route); step times, throughput,
+     cv batch; both on their warp routes); step times, throughput,
      peak memory; a few steps under torch.profiler; 20 steps at the fixed shape feats [32, 1000, 80],
      U = 24; the epoch checkpoint restores to equal parameters. Then the
      same for the cif preset (16000-frame batches, no SpecAugment), where
@@ -90,8 +95,10 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      once per full-pass attention (18; the forward also per cv batch) and
      the LN forward and backward once per post-norm call of >= 512 rows.
   9. kernels on the main paths' inputs: ctc_prefix_scan on the first
-     and a later call of each joint-beam serving bucket, ctc_loss_bwd on
-     the first call of each training, as the kernels received them,
+     and a later call of each joint-beam serving bucket, ctc_loss_fwd and
+     ctc_loss_bwd on the first backward's inputs of each training (the
+     forward also against the alpha and nll the path's forward gave), as
+     the kernels received them,
      against their plain versions, timed; cif_fire on the first batch of
      each CIF serving bucket and the first CIF train and cv batch, as
      model.fire received them, against the plain version, timed beside one
@@ -145,13 +152,16 @@ MIN_TRAIN_STEPS = 20
 # dq; the LN backward at [33, 238, 512] bf16), runs E (forward, dk/dv) and
 # F (dq, LN backward) of PERF.md; the CTC prefix scan at N=40 T=249 K=11
 # with histories and the CTC backward at B=32 T=249 S=49, run D of
-# PERF.md; all NVIDIA H100 80GB HBM3, 700 W
+# PERF.md; the CTC forward at B=32 T=249 S=49 and cif_fire at served
+# B=8 T'=248 U=100, run I of PERF.md; all NVIDIA H100 80GB HBM3, 700 W
 PREVIOUS_ALONE_MS = {"flash_attention_fwd": 0.6092,
                      "flash_attention_bwd_dkv": 0.6672,
                      "flash_attention_bwd_dq": 0.6054,
                      "layer_norm_residual_bwd": 0.0265,
                      "ctc_prefix_scan": 0.0945,
-                     "ctc_loss_bwd": 0.0702}
+                     "ctc_loss_bwd": 0.0702,
+                     "ctc_loss_fwd": 0.0503,
+                     "cif_fire": 0.0040}
 L2_FLUSH_BYTES = 128 << 20    # read between calls: > the H100's 50 MB L2
 BUCKETS = (512, 1000)
 BATCH = 8
@@ -184,24 +194,27 @@ def flush_l2():
     _flush_buffer[0].sum()
 
 
-def kernel_device_ms(fn, name: str, reps: int = 20, flush=None) -> float:
+def kernel_device_ms(fn, name: str, reps: int = 20, flush=None):
     """Mean device time of one launch of the kernel whose name contains
     `name` (torch.profiler; fn() launches it once): the kernel alone,
     without the wrapper's other launches and host time; with `flush`,
     flush() runs before each call (its own kernel is not counted). The
-    mean is over
-    the launches the trace holds, not over `reps`: late in a long run the
-    trace came back with some of them missing (a flash backward kernel
-    read 0.27 ms by reps and 0.59 ms alone in a fresh process), and once
-    with none of an LN backward's 20, so an empty trace is taken again, up
-    to 3 times."""
+    mean is over the launches the trace holds, not over the calls: late
+    in a long run the trace came back with some of them missing (a flash
+    backward kernel read 0.27 ms by reps and 0.59 ms alone in a fresh
+    process), and at times with none of 20, three traces in a row. So an
+    empty trace is taken again with twice the calls, up to 4 times. If
+    all 4 are empty, the kernel's time is unknown: None (null in the
+    `kernels` line, "not traced" in the log). No other time stands in for
+    it; the row's `ms` is the wrapper's by CUDA events, as always."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(1, 4):
+    for attempt in range(4):
+        calls = reps << attempt
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 if flush:
                     flush()
                 fn()
@@ -211,13 +224,21 @@ def kernel_device_ms(fn, name: str, reps: int = 20, flush=None) -> float:
         count = sum(e.count for e in events)
         if count:
             break
-        log(f"profiler: no launch of {name} traced (trace {attempt} of 3)")
+        log(f"profiler: no launch of {name} traced in {calls} calls (trace "
+            f"{attempt + 1} of 4)")
     else:
-        raise AssertionError(f"the profiler saw no launch of {name} in 3 "
-                             f"traces")
-    if count != reps:
-        log(f"profiler: {count} of {reps} launches of {name} traced")
+        log(f"profiler: no launch of {name} in 4 traces: its time alone is "
+            f"not traced (null)")
+        return None
+    if count != calls:
+        log(f"profiler: {count} of {calls} launches of {name} traced")
     return sum(e.self_device_time_total for e in events) / 1e3 / count
+
+
+def ms4(ms) -> str:
+    """A kernel-alone time for the log: 4 decimals, or "not traced" where
+    kernel_device_ms found no launch."""
+    return "not traced" if ms is None else f"{ms:.4f}"
 
 
 def device_events(fn, name: str, reps: int = 10) -> dict:
@@ -310,10 +331,12 @@ WGMMA_KERNELS = ("flash_attention_fwd_wgmma_kernel",
                  "flash_attention_bwd_dq_wgmma_kernel",
                  "flash_attention_bwd_dkv_wgmma_kernel")
 # kernels whose every instantiation must not spill (no HGMMA expected):
-# the LN backward, and the two CTC kernels whose step chains read shared
-# memory only
+# the LN backward, the three CTC kernels whose step chains read shared
+# memory only, and the CIF fire kernel, which holds its frames' loads of h
+# in registers
 NO_SPILL_KERNELS = ("layer_norm_residual_bwd_kernel", "ctc_prefix_scan_kernel",
-                    "ctc_beta_grad_warp_kernel")
+                    "ctc_beta_grad_warp_kernel", "ctc_alpha_warp_kernel",
+                    "cif_fire_kernel")
 
 
 def check_build(libraries, report=sass_report) -> dict:
@@ -334,7 +357,7 @@ def check_build(libraries, report=sass_report) -> dict:
             f"{len(kernels)} kernels")
         found.update({name: r for name, r in kernels.items()
                       if any(w in name for w in watched)})
-    log("wgmma, LN backward and CTC kernels (cuobjdump): "
+    log("wgmma, LN backward, CTC and CIF kernels (cuobjdump): "
         + json.dumps(found))
     for w in watched:
         mine = {k: v for k, v in found.items() if w in k}
@@ -435,7 +458,7 @@ def time_prefix(args, hist, what):
         *args, return_hist=hist), reps=20, warmup=1)
     bound, by = prefix_scan_bound_ms(n, t, k, lengths, hist)
     log(f"ctc_prefix_scan {what} hist={hist}: wrapper {ms:.4f} ms, the "
-        f"kernel alone {alone:.4f} ms (profiler), plain {plain:.3f} ms, "
+        f"kernel alone {ms4(alone)} ms (profiler), plain {plain:.3f} ms, "
         f"bound {bound * 1e3:.3f} us ({by})")
     return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
                 bound_ms=bound, bound_by=by)
@@ -485,7 +508,7 @@ def check_prefix_scan(gen):
     log(f"ctc_prefix_scan vs plain: {len(cases) * 2} cases agree, two calls "
         f"equal bitwise, max abs err {max_err:.3e} (atol {TOL['atol']}, "
         f"rtol {TOL['rtol']}); chain floor at T=249 (248 steps, the probe "
-        f"alone) {floor:.4f} ms")
+        f"alone) {ms4(floor)} ms")
     log(f"ctc_prefix_scan's launch at K=11 (constants of its source, as its "
         f"library reports them; not measured): {json.dumps(launch_plan(11))}")
     return max_err, timings, floor
@@ -607,11 +630,12 @@ def time_ctc(args, alpha, nll, backward, what):
     """One CTC loss kernel's times on these inputs: the wrapper (CUDA
     events), the kernel alone (profiler, by the symbol of the kernel the
     wrapper launches), the plain version; the bound."""
-    from tpu_asr_torch.ops.ctc_loss import (BWD_SYMBOLS, FWD_SYMBOL,
+    from tpu_asr_torch.ops.ctc_loss import (BWD_SYMBOLS, FWD_SYMBOLS,
                                             bwd_route, ctc_loss_bwd,
                                             ctc_loss_bwd_reference,
                                             ctc_loss_fwd,
-                                            ctc_loss_fwd_reference)
+                                            ctc_loss_fwd_reference,
+                                            fwd_route)
     b, t, s = args[0].shape
     if backward:
         fn = lambda: ctc_loss_bwd(*args, alpha, nll)  # noqa: E731
@@ -621,32 +645,65 @@ def time_ctc(args, alpha, nll, backward, what):
     else:
         fn = lambda: ctc_loss_fwd(*args)  # noqa: E731
         plain_fn = lambda: ctc_loss_fwd_reference(*args)  # noqa: E731
-        symbol = FWD_SYMBOL
+        symbol = FWD_SYMBOLS[fwd_route(s)]
     plain = cuda_ms(plain_fn, reps=5, warmup=1)
     bound, by = ctc_bound_ms(b, t, s, args[3].tolist(), backward)
     ms = cuda_ms(fn)
     alone = kernel_device_ms(fn, symbol)
     log(f"{symbol} {what}: wrapper {ms:.4f} ms, the kernel alone "
-        f"{alone:.4f} ms (profiler), plain {plain:.3f} ms, bound "
+        f"{ms4(alone)} ms (profiler), plain {plain:.3f} ms, bound "
         f"{bound * 1e3:.3f} us ({by})")
     return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
                 bound_ms=bound, bound_by=by, symbol=symbol)
 
 
-def ctc_chain_floor_ms(t, s):
-    """The backward chain's floor at T frames and S positions: the probe
-    (one warp, the warp route's step T - 1 times, operands in registers)
-    alone, by the profiler."""
-    from tpu_asr_torch.ops.ctc_loss import PROBE_SYMBOL, chain_probe
-    if not torch.isfinite(chain_probe(t - 1, s)).all():
-        raise AssertionError("ctc_loss_bwd chain probe: not finite")
-    return kernel_device_ms(lambda: chain_probe(t - 1, s), PROBE_SYMBOL)
+def ctc_chain_floor_ms(t, s, which):
+    """The forward's (which="fwd") or backward's ("bwd") chain floor at T
+    frames and S positions: the probe (one warp, the warp route's step T -
+    1 times, operands in registers) alone, by the profiler."""
+    from tpu_asr_torch.ops.ctc_loss import PROBE_SYMBOLS, chain_probe
+
+    def probe():
+        return chain_probe(t - 1, s, which=which)
+    if not torch.isfinite(probe()).all():
+        raise AssertionError(f"ctc_loss_{which} chain probe: not finite")
+    return kernel_device_ms(probe, PROBE_SYMBOLS[which])
+
+
+def compare_ctc_fwd(args, what):
+    """ctc_loss_fwd against its plain version, within TOL; two calls give
+    the same bits. -> (nll, alpha), the plain version's (nll, alpha), max
+    abs error, and whether nll and alpha are the plain version's bits."""
+    from tpu_asr_torch.ops.ctc_loss import (ctc_loss_fwd,
+                                            ctc_loss_fwd_reference)
+    got = ctc_loss_fwd(*args)
+    again = ctc_loss_fwd(*args)
+    want = ctc_loss_fwd_reference(*args)
+    torch.cuda.synchronize()
+    err = max(compare(got[0], want[0], f"nll at {what}"),
+              compare(got[1], want[1], f"alpha at {what}"))
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"ctc_loss_fwd at {what}: two calls differ")
+    return got, want, err, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def route_launches(counts, before):
+    """{route: launches} since `before` (a copy of FWD_ROUTE_LAUNCHES or
+    BWD_ROUTE_LAUNCHES)."""
+    return {k: v - before[k] for k, v in counts.items() if v != before[k]}
 
 
 def check_ctc_loss():
-    from tpu_asr_torch.ops.ctc_loss import (BWD_ROUTE_LAUNCHES, bwd_route,
-                                            bwd_warp_plan, ctc_loss_fwd,
-                                            ctc_loss_fwd_reference)
+    from tpu_asr_torch.ops.ctc_loss import (BWD_ROUTE_LAUNCHES,
+                                            FWD_ROUTE_LAUNCHES, bwd_route,
+                                            fwd_route, log_mismatches,
+                                            warp_plan)
+    bad = log_mismatches()
+    if bad:
+        raise AssertionError(f"the CTC forward's log differs from logf at "
+                             f"{bad} floats in [1, 3]")
+    log("ctc_loss_fwd: its branch-free log equals logf bit for bit at "
+        "every float in [1, 3]")
     rng = np.random.default_rng(2)
     b, t = 32, 249
     cases = [  # (b, t, u, ilens, llens, v): the path's shapes, then ragged
@@ -675,44 +732,50 @@ def check_ctc_loss():
     ]
     errs = dict(fwd=0.0, bwd=0.0)
     timings = {}
-    routes = {}
+    routes = {"fwd": {}, "bwd": {}}
+    bitwise = 0
     for i, (bb, tt, u, ilens, llens, v) in enumerate(cases):
         args = ctc_case(bb, tt, u, ilens, llens, v, SEED + i)
         s = 2 * u + 1
-        nll, alpha = ctc_loss_fwd(*args)
-        want_nll, want_alpha = ctc_loss_fwd_reference(*args)
-        torch.cuda.synchronize()
         what = f"B={bb} T={tt} U={u} (S={s}, {bwd_route(s)} route)"
-        errs["fwd"] = max(errs["fwd"],
-                          compare(nll, want_nll, f"nll at {what}"),
-                          compare(alpha, want_alpha, f"alpha at {what}"))
+        before = dict(FWD_ROUTE_LAUNCHES)
+        (nll, alpha), (want_nll, want_alpha), err, same = compare_ctc_fwd(
+            args, what)
+        errs["fwd"] = max(errs["fwd"], err)
+        bitwise += same
+        routes["fwd"][what] = route_launches(FWD_ROUTE_LAUNCHES, before)
         before = dict(BWD_ROUTE_LAUNCHES)
         errs["bwd"] = max(errs["bwd"], compare_ctc_bwd(
             args, alpha, nll, what, want_alpha, want_nll))
-        routes[what] = {k: v - before[k] for k, v
-                        in BWD_ROUTE_LAUNCHES.items() if v != before[k]}
-        if list(routes[what]) != [bwd_route(s)]:
-            raise AssertionError(f"ctc_loss_bwd at {what} took the routes "
-                                 f"{routes[what]}")
+        routes["bwd"][what] = route_launches(BWD_ROUTE_LAUNCHES, before)
+        for name, route in (("fwd", fwd_route(s)), ("bwd", bwd_route(s))):
+            if routes[name][what] != {route: 2}:
+                raise AssertionError(f"ctc_loss_{name} at {what} took the "
+                                     f"routes {routes[name][what]}")
         if i < 2 or s == 65:                # the path's shapes: time them
             for name, backward in (("fwd", False), ("bwd", True)):
-                timings[(name, s)] = time_ctc(args, alpha, nll, backward,
-                                              f"B={bb} T={tt} S={s}")
-            timings[("bwd", s)]["route"] = bwd_route(s)
-            if s <= 64:                     # the probe: two positions a lane
-                timings[("bwd", s)]["chain_floor_ms"] = ctc_chain_floor_ms(
-                    tt, s)
+                timings[(name, s)] = dict(
+                    time_ctc(args, alpha, nll, backward,
+                             f"B={bb} T={tt} S={s}"), route=bwd_route(s))
+                if s <= 64:                 # the probes: two positions a lane
+                    timings[(name, s)]["chain_floor_ms"] = ctc_chain_floor_ms(
+                        tt, s, name)
+    floors = {name: " / ".join(ms4(timings[(name, s)]['chain_floor_ms'])
+                               for s in (49, 61)) for name in ("fwd", "bwd")}
     log(f"ctc_loss_fwd/bwd vs plain: {len(cases)} cases agree; max abs err "
         f"forward {errs['fwd']:.3e} (nll, alpha: atol {TOL['atol']}, rtol "
-        f"{TOL['rtol']}), backward {errs['bwd']:.3e} (grad_E: atol "
-        f"{CTC_GRAD_TOL['atol']}, rtol {CTC_GRAD_TOL['rtol']}; two calls "
-        f"equal bitwise); backward routes {json.dumps(routes)}; chain floor "
-        f"at T=249 S=49 / 61 (the probe alone) "
-        f"{timings[('bwd', 49)]['chain_floor_ms']:.4f} / "
-        f"{timings[('bwd', 61)]['chain_floor_ms']:.4f} ms")
-    log(f"ctc_loss_bwd's warp-route launch at S=49 / 61 / 65 (constants of "
-        f"its source, as its library reports them; not measured): "
-        + " / ".join(json.dumps(bwd_warp_plan(s)) for s in (49, 61, 65)))
+        f"{TOL['rtol']}; nll and alpha the plain version's bits in "
+        f"{bitwise} of {len(cases)} cases), backward {errs['bwd']:.3e} "
+        f"(grad_E: atol {CTC_GRAD_TOL['atol']}, rtol "
+        f"{CTC_GRAD_TOL['rtol']}); two calls equal bitwise; routes "
+        f"{json.dumps(routes)}; chain floors at T=249 S=49 / 61 (the probes "
+        f"alone): forward {floors['fwd']} ms, backward {floors['bwd']} ms")
+    log("ctc_loss_fwd's and ctc_loss_bwd's warp-route launches at S=49 / 61 "
+        "/ 65 (constants of their source, as its library reports them; not "
+        "measured): " + "; ".join(
+            f"{name} " + " / ".join(json.dumps(warp_plan(s, name))
+                                    for s in (49, 61, 65))
+            for name in ("fwd", "bwd")))
     library = {s: ctc_library_ms(b, t, u, 4233) for s, u in ((49, 24),
                                                              (61, 30))}
     return errs, timings, library
@@ -724,9 +787,17 @@ def cif_case(b, t, d, u_max, kind, seed):
     """(hidden [B, T, D], alphas [B, T]) on the card. kinds: `scaled`
     (assigner-like alphas scaled to sum to u_max), `serving` (each row
     scaled to its own 40-95 fires, below u_max, as cif_greedy scales them
-    to the rounded fire count), `raw` (sigmoid-like, unscaled), `big`
+    to the rounded fire count), `padded` (raw alphas within each row's
+    length, 0 past it, the batch's second half empty rows, as in a served
+    batch; each row's total falls between two whole fires, so its padding
+    sits inside an output's [u, u + 1)), `raw` (sigmoid-like, unscaled), `big`
     (alphas up to 3), `zero_rows` (rows of length 0), `few` (far fewer
-    fires than u_max)."""
+    fires than u_max), `ulp` (c - alpha not monotone in its last ulp: each
+    row's cumsum reaches k = 16, 32 or 64 exactly on halves, ten alphas of
+    1e-10 leave c and c - alpha at k, and the next alpha a gives c - alpha
+    = (k + a) - a, which rounds to k - ulp in about a quarter of the rows
+    (below a power of two the ulp halves), so that frame weighs ~2e-6 on
+    output k - 1 after frames whose c - alpha is k)."""
     g = torch.Generator().manual_seed(seed)
     hidden = torch.randn(b, t, d, generator=g)
     hi = {"big": 3.0, "few": 0.05}.get(kind, 1.0)
@@ -738,10 +809,32 @@ def cif_case(b, t, d, u_max, kind, seed):
                              alphas, 0.0)
     if kind == "scaled":
         alphas = alphas * (u_max / alphas.sum(-1, keepdim=True))
+    if kind == "padded":
+        lens = torch.randint(t // 2, t + 1, (b,), generator=g)
+        lens[b // 2:] = 0
+        alphas = torch.where(torch.arange(t)[None, :] < lens[:, None],
+                             alphas, 0.0)
     if kind == "serving":
         fires = torch.randint(40, 96, (b, 1), generator=g).float()
         alphas = alphas * (fires / alphas.sum(-1, keepdim=True))
+    if kind == "ulp":
+        for r in range(b):
+            k = 2 * (16, 32, 64)[r % 3]    # halves: c reaches 16, 32, 64
+            alphas[r, :k] = 0.5
+            alphas[r, k:k + 10] = 1e-10
     return hidden.to(DEVICE), alphas.to(DEVICE)
+
+
+def disordered_weights(alphas, u_max):
+    """Non-zero weights of frames whose c - alpha lies below an earlier
+    frame's: the weights a search that took c - alpha as sorted could
+    lose."""
+    from tpu_asr_torch.ops.cif import cif_weights
+    c_prev = torch.cumsum(alphas, -1) - alphas
+    before = torch.cummax(c_prev, -1).values
+    below = torch.zeros_like(c_prev, dtype=torch.bool)
+    below[:, 1:] = c_prev[:, 1:] < before[:, :-1]
+    return int(((cif_weights(alphas, u_max) != 0) & below[..., None]).sum())
 
 
 def cif_bound_ms(hidden, alphas, u_max):
@@ -779,7 +872,7 @@ def time_cif(hidden, alphas, u, what):
     kernel alone, the plain version, and one torch.bmm on the weight matrix
     W built beforehand; the bound from these inputs."""
     from tpu_asr_torch.ops.cif import cif_fire, cif_weights
-    from tpu_asr_torch.ops.cif_fire import cif_fire_fwd
+    from tpu_asr_torch.ops.cif_fire import KERNEL_SYMBOL, cif_fire_fwd
     w_t = cif_weights(alphas, u).transpose(1, 2).contiguous()
     if not torch.allclose(torch.bmm(w_t, hidden), cif_fire(hidden, alphas, u),
                           **CIF_TOL):
@@ -787,12 +880,12 @@ def time_cif(hidden, alphas, u, what):
                              f"{what}")
     ms = cuda_ms(lambda: cif_fire_fwd(hidden, alphas, u))
     alone = kernel_device_ms(lambda: cif_fire_fwd(hidden, alphas, u),
-                             "cif_fire_kernel")
+                             KERNEL_SYMBOL)
     plain = cuda_ms(lambda: cif_fire(hidden, alphas, u))
     library = cuda_ms(lambda: torch.bmm(w_t, hidden))
     bound, by = cif_bound_ms(hidden, alphas, u)
     log(f"cif_fire {what}: wrapper (cumsum + kernel) {ms:.4f} ms, the kernel "
-        f"alone {alone:.4f} ms (profiler), plain {plain:.4f} ms, torch.bmm "
+        f"alone {ms4(alone)} ms (profiler), plain {plain:.4f} ms, torch.bmm "
         f"on a materialized W {library:.4f} ms, bound {bound * 1e3:.3f} us "
         f"({by})")
     return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
@@ -808,6 +901,7 @@ def check_cif_fire():
     cases = [  # (b, t, d, u_max, kind): serving's two buckets, bench, ragged
         (BATCH, 249, 512, 100, "serving"),
         (BATCH, 124, 512, 100, "serving"),
+        (BATCH, 249, 512, 100, "padded"),
         (32, 249, 512, 25, "scaled"),
         (32, 249, 512, 25, "raw"),
         (8, 60, 512, 100, "big"),
@@ -816,12 +910,19 @@ def check_cif_fire():
         (5, 1, 512, 4, "big"),
         (6, 249, 512, 1, "raw"),
         (32, 249, 64, 25, "scaled"),
+        (32, 249, 512, 200, "ulp"),
+        # T past one shared-memory stage of c and c - alpha (2048 frames)
+        (3, 3000, 512, 400, "scaled"),
     ]
     max_err, timing = 0.0, None
     for i, (b, t, d, u, kind) in enumerate(cases):
         hidden, alphas = cif_case(b, t, d, u, kind, SEED + i)
         what = f"B={b} T={t} D={d} U={u} {kind}"
         max_err = max(max_err, compare_cif(hidden, alphas, u, what))
+        if kind == "ulp":
+            log(f"cif_fire {what}: {disordered_weights(alphas, u)} non-zero "
+                f"weights at frames whose c - alpha is below an earlier "
+                f"frame's (held like every other weight)")
         if (b, t, d, u, kind) == (32, 249, 512, 25, "scaled"):
             timing = time_cif(hidden, alphas, u, what)
     log(f"cif_fire vs plain: {len(cases)} cases agree, max abs err "
@@ -1034,7 +1135,7 @@ def time_flash(q, k, v, valid, causal, what):
         qt, kt, vt, attn_mask=mask))
     bound, by = flash_bound_ms(q, k, valid, causal)
     log(f"flash_attention_fwd {what}: wrapper {ms:.4f} ms, the kernel alone "
-        f"{alone:.4f} ms (profiler), plain {plain:.4f} ms, "
+        f"{ms4(alone)} ms (profiler), plain {plain:.4f} ms, "
         f"scaled_dot_product_attention {library:.4f} ms (max abs diff to "
         f"plain {lib_err:.2e}), bound {bound * 1e3:.3f} us ({by})")
     return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
@@ -1153,7 +1254,7 @@ def time_ln(r, h, g, b, what):
     plain = cuda_ms(lambda: layer_norm_residual_reference(r, h, g, b))
     bound, by = ln_bound_ms(r)
     log(f"layer_norm_residual_fwd {what}: wrapper {ms:.4f} ms, the kernel "
-        f"alone {alone:.4f} ms (profiler), plain {plain:.4f} ms, bound "
+        f"alone {ms4(alone)} ms (profiler), plain {plain:.4f} ms, bound "
         f"{bound * 1e3:.3f} us ({by}); no single torch call adds and "
         f"normalizes, so no library time")
     return dict(ms=ms, kernel_device_ms=alone, plain_ms=plain,
@@ -1411,7 +1512,7 @@ def time_flash_bwd(q, k, v, out, dout, lse, valid, causal, what):
             bound_by=by, backward_ms=whole)
         t = times[which]
         log(f"flash_attention_bwd_{which} {what}: wrapper {t['ms']:.4f} ms,"
-            f" the kernel alone {t['kernel_device_ms']:.4f} ms (profiler), "
+            f" the kernel alone {ms4(t['kernel_device_ms'])} ms (profiler), "
             f"bound {bound * 1e3:.3f} us ({by})")
     log(f"flash backward {what}: delta + both kernels {whole:.4f} ms, plain "
         f"backward {plain:.4f} ms, autograd.grad of "
@@ -1570,8 +1671,8 @@ def time_ln_bwd(r, h, g, mean, rstd, dy, what):
     library_ms = cuda_ms(library)
     bound, by = ln_bwd_bound_ms(r)
     log(f"layer_norm_residual_bwd {what}: wrapper {ms:.4f} ms ({ms_cold:.4f}"
-        f" ms with L2 flushed), the kernel alone {alone:.4f} ms "
-        f"({alone_cold:.4f} ms with L2 flushed; profiler, {ours} of {reps} "
+        f" ms with L2 flushed), the kernel alone {ms4(alone)} ms "
+        f"({ms4(alone_cold)} ms with L2 flushed; profiler, {ours} of {reps} "
         f"calls traced, no other device event), plain {plain:.4f} ms, "
         f"native_layer_norm_backward {library_ms:.4f} ms (dx max abs diff "
         f"to plain {lib_err:.2e}, cosine {cos:.6f}), bound "
@@ -1659,12 +1760,15 @@ def check_bwd_on_paths(bwd_caps):
 
 def check_ctc_on_paths(prefix_caps, ctc_caps):
     """ctc_prefix_scan on the inputs the joint beam gave it (each bucket's
-    first call and a later one) and ctc_loss_bwd on the first inputs of
-    each training (recorded while the paths ran, after their counts were
-    read), against their plain versions, timed and bounded. -> ({label:
-    prefix timings}, {label: backward timings}, errors)."""
-    errs = dict(prefix=0.0, bwd=0.0)
-    prefix_t, bwd_t = {}, {}
+    first call and a later one), and ctc_loss_fwd and ctc_loss_bwd on the
+    first backward's inputs of each training (recorded while the paths
+    ran, after their counts were read; the forward's are the first five,
+    and its alpha and nll must equal the path's forward's bit for bit),
+    against their plain versions, timed and bounded. -> ({label: prefix
+    timings}, {label: {"fwd": forward timings, "bwd": backward
+    timings}}, errors)."""
+    errs = dict(prefix=0.0, fwd=0.0, bwd=0.0)
+    prefix_t, ctc_t = {}, {}
     for label, args in prefix_caps.items():
         lengths = args[6]
         what = (f"{label}: N={args[0].shape[0]} T={args[0].shape[1]} "
@@ -1673,22 +1777,32 @@ def check_ctc_on_paths(prefix_caps, ctc_caps):
         errs["prefix"] = max(errs["prefix"], compare_prefix(list(args), what))
         prefix_t[label] = dict(time_prefix(list(args), True, what),
                                shape=what)
+    bitwise = 0
     for label, args in ctc_caps.items():
         emissions, skip, valid, ilen, llen, alpha, nll = args
         what = (f"{label} (S={emissions.shape[2]}), ilen "
                 f"{int(ilen.min())}-{int(ilen.max())}")
+        got, _, err, same = compare_ctc_fwd(args[:5], what)
+        if not (torch.equal(got[0], nll) and torch.equal(got[1], alpha)):
+            raise AssertionError(f"ctc_loss_fwd at {what}: not the bits the "
+                                 f"path's forward gave")
+        errs["fwd"] = max(errs["fwd"], err)
+        bitwise += same
         errs["bwd"] = max(errs["bwd"], compare_ctc_bwd(
             args[:5], alpha, nll, what))
-        bwd_t[label] = dict(time_ctc(args[:5], alpha, nll, True, what),
-                            shape=what)
-    if not prefix_t or len(bwd_t) != 3:
+        ctc_t[label] = {name: dict(time_ctc(args[:5], alpha, nll, backward,
+                                            what), shape=what)
+                        for name, backward in (("fwd", False),
+                                               ("bwd", True))}
+    if not prefix_t or len(ctc_t) != 3:
         raise AssertionError(f"the paths recorded {len(prefix_t)} prefix "
-                             f"scans and {len(bwd_t)} CTC backwards (3 "
+                             f"scans and {len(ctc_t)} CTC backwards (3 "
                              f"trainings)")
-    log(f"ctc_prefix_scan and ctc_loss_bwd vs plain on the main paths' "
-        f"inputs: {len(prefix_t)} + {len(bwd_t)} calls agree: "
-        + json.dumps(errs))
-    return prefix_t, bwd_t, errs
+    log(f"ctc_prefix_scan, ctc_loss_fwd and ctc_loss_bwd vs plain on the "
+        f"main paths' inputs: {len(prefix_t)} + {len(ctc_t)} + "
+        f"{len(ctc_t)} calls agree (the forward's nll and alpha the plain "
+        f"version's bits in {bitwise} of {len(ctc_t)}): " + json.dumps(errs))
+    return prefix_t, ctc_t, errs
 
 
 # ---- phases 4-7 ----
@@ -2364,8 +2478,8 @@ def run_training(card, workdir, preset, data, captures,
     `captures`; with use_pallas, the inputs of the flash and LN backward
     of the first train batch of each bucket into bwd_caps["flash"] and
     bwd_caps["ln"]; the inputs of the first ctc_loss_bwd into ctc_caps.
-    Every ctc_loss_bwd must take the warp route. -> {kernel name:
-    launches in the Solver run}."""
+    Every ctc_loss_fwd and ctc_loss_bwd must take the warp route. ->
+    {kernel name: launches in the Solver run}."""
     from tpu_asr_torch.models import build_model
     from tpu_asr_torch.models.modules import FUSED_LN_MIN_ROWS, PostNormBlock
     from tpu_asr_torch.ops import ctc_loss as ctc_module
@@ -2418,18 +2532,21 @@ def run_training(card, workdir, preset, data, captures,
             if not any(k.startswith(f"{what}:") for k in ctc_caps) else None))
     for fn in counters.values():
         fn.launches = 0
-    routes = ctc_module.BWD_ROUTE_LAUNCHES
-    routes.update(warp=0, block=0)
+    routes = {"ctc_loss_fwd": ctc_module.FWD_ROUTE_LAUNCHES,
+              "ctc_loss_bwd": ctc_module.BWD_ROUTE_LAUNCHES}
+    for r in routes.values():
+        r.update(warp=0, block=0)
     wall0 = time.perf_counter()
     with records:
         solver.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
     launches = {name: fn.launches for name, fn in counters.items()}
-    if routes != {"warp": launches["ctc_loss_bwd"], "block": 0}:
-        raise AssertionError(f"{what}: ctc_loss_bwd routes {routes} for "
-                             f"{launches['ctc_loss_bwd']} launches; every "
-                             f"training shape has S <= 65")
+    for name, r in routes.items():
+        if r != {"warp": launches[name], "block": 0}:
+            raise AssertionError(f"{what}: {name} routes {r} for "
+                                 f"{launches[name]} launches; every training "
+                                 f"shape has S <= 65")
     peak = torch.cuda.max_memory_allocated()
     for h in hooks:
         h.remove()
@@ -2471,8 +2588,8 @@ def run_training(card, workdir, preset, data, captures,
         f"dropout {cfg.dropout}, SpecAugment "
         f"{'on' if ts.specaug else 'off'}) {epochs} epochs, {steps} steps + "
         f"{cv_batches} cv batches in {wall:.2f} s; kernel launches "
-        f"{json.dumps(launches)} (ctc_loss_bwd by route "
-        f"{json.dumps(routes)}); post-norm calls of >= {FUSED_LN_MIN_ROWS}"
+        f"{json.dumps(launches)} (CTC by route {json.dumps(routes)}); "
+        f"post-norm calls of >= {FUSED_LN_MIN_ROWS}"
         f" rows {json.dumps(fused)}")
     log(f"{what}: per epoch " + json.dumps(solver.history))
     log(f"{what}: step ms median {statistics.median(step_ms):.2f}, min "
@@ -2579,8 +2696,8 @@ def main() -> int:
     flash_path, ln_path, path_errs = check_flash_ln_on_paths(flash_caps,
                                                              ln_caps)
     flash_bwd_path, ln_bwd_path, bwd_path_errs = check_bwd_on_paths(bwd_caps)
-    prefix_path, ctc_bwd_path, ctc_path_errs = check_ctc_on_paths(prefix_caps,
-                                                                  ctc_caps)
+    prefix_path, ctc_path, ctc_path_errs = check_ctc_on_paths(prefix_caps,
+                                                              ctc_caps)
 
     def ctc_build(symbol):
         return {k: v for k, v in build_report.items() if symbol in k}
@@ -2611,6 +2728,13 @@ def main() -> int:
                              **{f"path {k}": v
                                 for k, v in prefix_path.items()}),
     }]
+    designs = {"fwd": "warp route: a chain warp an utterance, two positions "
+                      "a lane, shuffles up; a helper warp stages rows of E "
+                      "through a shared-memory ring by cp.async, stores "
+                      "alpha and runs the last position of S = 32 P + 1",
+               "bwd": "warp route: a warp an utterance, two positions a "
+                      "lane, rows of E and alpha staged through a "
+                      "shared-memory ring by cp.async"}
     for name, line in (("fwd", 176), ("bwd", 211)):
         t = ctc_timings[(name, 49)]
         by_path = {f"{p} training": training[p][f"ctc_loss_{name}"]
@@ -2618,37 +2742,31 @@ def main() -> int:
         other = {"B=32 T=249 S=61 (U=30)": dict(
             ctc_timings[(name, 61)], library_ms=ctc_library[61][name]),
                  "B=32 T=249 S=65 (U=32)": ctc_timings[(name, 65)]}
-        extra = {}
-        if name == "bwd":
-            other.update({f"path {k}": v for k, v in ctc_bwd_path.items()})
-            extra = {"chain_floor_ms": t["chain_floor_ms"],
-                     "route": t["route"],
-                     "design": "warp route: a warp an utterance, two "
-                               "positions a lane, rows of E and alpha "
-                               "staged through a shared-memory ring by "
-                               "cp.async",
-                     "build": ctc_build(t["symbol"]),
-                     "path_max_abs_err": ctc_path_errs["bwd"]}
-        kernels.append(dict({
+        other.update({f"path {k}": v[name] for k, v in ctc_path.items()})
+        kernels.append({
             "name": f"ctc_loss_{name}",
             "route": "cuda",
             "source": "tpu_asr_torch/csrc/ctc_loss.cu",
             "replaces": f"tpu_asr/ops/pallas/ctc.py:{line}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(ctc_errs[name], ctc_path_errs["bwd"]
-                               if name == "bwd" else 0.0),
+            "max_abs_err": max(ctc_errs[name], ctc_path_errs[name]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": ctc_library[49][name],
             "kernel_device_ms": t["kernel_device_ms"],
+            "chain_floor_ms": t["chain_floor_ms"],
+            "ctc_route": t["route"],     # "route" is the contract's "cuda"
+            "design": designs[name],
+            "build": ctc_build(t["symbol"]),
+            "path_max_abs_err": ctc_path_errs[name],
             "shape": "B=32 T=249 S=49 (U=24)",
             "other_shapes": other,
             "ctc_loss_kernel_e2e_ms": ctc_library[49]["port_e2e"],
             "library_e2e_ms": ctc_library[49]["lib_e2e"],
-        }, **extra))
+        })
     by_path = {"cif serving": cif_serving,
                "cif training": training["cif"]["cif_fire"]}
     # the main numbers at serving's 1000-frame bucket, as served
@@ -2672,6 +2790,12 @@ def main() -> int:
         "library_ms": cif_t["library_ms"],
         "library_call": "torch.bmm(W^T, h), W materialized beforehand",
         "kernel_device_ms": cif_t["kernel_device_ms"],
+        "design": "a block per (utterance, 8 outputs), a warp per output: "
+                  "c and c - alpha staged in shared memory once, each "
+                  "warp's frame range by ballots over a per-frame rule, "
+                  "8 frames of 16-byte loads of h in flight",
+        "build": {k: v for k, v in build_report.items()
+                  if cif_fire.KERNEL_SYMBOL in k},
         "shape": f"{main_label}: {cif_t['shape']}",
         "other_shapes": other,
     })
@@ -2799,7 +2923,8 @@ def main() -> int:
         "other_shapes": other,
     })
     log(f"before their present design, the kernels alone took (constants "
-        f"recorded in PERF.md, runs D, E and F, not measured in this run): "
+        f"recorded in PERF.md, runs D, E, F and I, not measured in this "
+        f"run): "
         f"{json.dumps(PREVIOUS_ALONE_MS)} ms")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_asr_torch.ops import ctc_loss, ctc_prefix
+from tpu_asr_torch.ops import cif_fire, ctc_loss, ctc_prefix
 from tpu_asr_torch.ops.flash_attention import (flash_attention_bwd_reference,
                                                flash_attention_reference)
 
@@ -32,6 +32,9 @@ PREFIX = ("_ZN12_GLOBAL__N_122ctc_prefix_scan_kernelEPKfS1_S1_S1_S1_S1_"
           "PKiPfS4_S4_iiii")
 BWD_WARP = ("_ZN12_GLOBAL__N_125ctc_beta_grad_warp_kernelILi2ELb1EEEvPKfPKhS4_"
             "PKiS6_S2_S2_Pfiiii")
+FWD_WARP = ("_ZN12_GLOBAL__N_121ctc_alpha_warp_kernelILi2ELb1EEEvPKfPKhS4_"
+            "PKiS6_PfS7_iiii")
+CIF = "_ZN12_GLOBAL__N_115cif_fire_kernelILi{}EEEvPKfS2_S2_Pfiii"
 
 RESOURCE_USAGE = """
 Fatbin elf code:
@@ -87,10 +90,11 @@ class CachedLibrary:
 
 
 def report_of(only=None, drop=(), **changed):
-    """A fake cuobjdump report of the flash, LN and CTC libraries: every
-    wgmma kernel at dh 32, 64 and 128 with HGMMA and no spills, two LN
-    backward instantiations, the CTC prefix scan and the CTC backward's
-    warp route without spills, a float32 SIMT kernel with a stack frame;
+    """A fake cuobjdump report of the flash, LN, CTC and CIF libraries:
+    every wgmma kernel at dh 32, 64 and 128 with HGMMA and no spills, two
+    LN backward instantiations, the CTC prefix scan, the CTC forward's and
+    backward's warp routes and the CIF fire kernel's two load widths
+    without spills, a float32 SIMT kernel with a stack frame;
     `changed` applies to the kernels named in `only` (default: every wgmma
     kernel), `drop` leaves kernels out."""
     def report(path):
@@ -104,7 +108,7 @@ def report_of(only=None, drop=(), **changed):
             kernels[LN_BWD.format(ch)] = dict(
                 hgmma=0, registers=112, stack_bytes=0, local_bytes=0,
                 static_smem_bytes=17408)
-        for name in (PREFIX, BWD_WARP):
+        for name in (PREFIX, BWD_WARP, FWD_WARP, CIF.format(4), CIF.format(1)):
             kernels[name] = dict(hgmma=0, registers=40, stack_bytes=0,
                                  local_bytes=0, static_smem_bytes=0)
         for name in (only if only is not None else
@@ -133,7 +137,7 @@ def test_check_build_reads_the_library_not_the_build_log(changed, passes):
     libs = [CachedLibrary()]
     if passes:
         found = chip_smoke.check_build(libs, report=report_of(**changed))
-        assert len(found) == 13
+        assert len(found) == 16
     else:
         with pytest.raises(AssertionError):
             chip_smoke.check_build(libs, report=report_of(**changed))
@@ -163,10 +167,17 @@ def test_check_build_fails_on_a_dq_or_ln_backward_fault(only, drop, changed):
     ([BWD_WARP], (), {"registers": None}),
     ((), (PREFIX,), {}),                       # not in the library
     ((), (BWD_WARP,), {}),
+    ([FWD_WARP], (), {"stack_bytes": 16}),     # the warp forward spills
+    ([FWD_WARP], (), {"local_bytes": 8}),
+    ((), (FWD_WARP,), {}),
+    ([CIF.format(4)], (), {"stack_bytes": 64}),  # CIF fire, float4 loads
+    ([CIF.format(1)], (), {"registers": None}),
+    ((), (CIF.format(4), CIF.format(1)), {}),
 ])
 def test_check_build_fails_when_a_ctc_kernel_spills(only, drop, changed):
-    """The CTC prefix scan and the CTC backward's warp route keep their
-    step chains in registers and shared memory: phase 2 fails if either
+    """The CTC prefix scan and the CTC forward's and backward's warp routes
+    keep their step chains in registers and shared memory, and the CIF
+    fire kernel its frames' loads of h in registers: phase 2 fails if any
     spills, or is missing from the built library."""
     with pytest.raises(AssertionError):
         chip_smoke.check_build([CachedLibrary()],
@@ -183,22 +194,28 @@ def _globals(source):
 @pytest.mark.parametrize("symbol,source", [
     (ctc_prefix.KERNEL_SYMBOL, "ctc_prefix_scan.cu"),
     (ctc_prefix.PROBE_SYMBOL, "ctc_prefix_scan.cu"),
-    (ctc_loss.FWD_SYMBOL, "ctc_loss.cu"),
+    (ctc_loss.FWD_SYMBOLS["block"], "ctc_loss.cu"),
     (ctc_loss.BWD_SYMBOLS["warp"], "ctc_loss.cu"),
     (ctc_loss.BWD_SYMBOLS["block"], "ctc_loss.cu"),
-    (ctc_loss.PROBE_SYMBOL, "ctc_loss.cu"),
+    (ctc_loss.PROBE_SYMBOLS["bwd"], "ctc_loss.cu"),
+    (ctc_loss.FWD_SYMBOLS["warp"], "ctc_loss.cu"),
+    (ctc_loss.PROBE_SYMBOLS["fwd"], "ctc_loss.cu"),
+    (cif_fire.KERNEL_SYMBOL, "cif_fire.cu"),
 ])
 def test_ctc_profiler_symbols_are_kernels_of_their_source(symbol, source):
     """kernel_device_ms matches a kernel by a substring of its name: each
-    CTC symbol chip_smoke passes it is a __global__ of its source, and
-    matches no other kernel there (the profiler would add their times)."""
+    CTC and CIF symbol chip_smoke passes it is a __global__ of its source,
+    and matches no other kernel there (the profiler would add their
+    times)."""
     names = _globals(source)
     assert symbol in names
     assert [n for n in names if symbol in n] == [symbol]
 
 
 @pytest.mark.parametrize("symbol", [ctc_prefix.KERNEL_SYMBOL,
-                                    ctc_loss.BWD_SYMBOLS["warp"]])
+                                    ctc_loss.BWD_SYMBOLS["warp"],
+                                    ctc_loss.FWD_SYMBOLS["warp"],
+                                    cif_fire.KERNEL_SYMBOL])
 def test_rebuilt_ctc_kernels_are_watched_for_spills(symbol):
     assert symbol in chip_smoke.NO_SPILL_KERNELS
 
@@ -213,6 +230,25 @@ def test_ctc_bwd_route_by_s(s, route):
     makes (the kernels' sources work out the rest): the warp route up to
     128 positions (four a lane), the block route above, up to MAX_S."""
     assert ctc_loss.bwd_route(s) == route
+
+
+@pytest.mark.parametrize("s,route", [
+    (1, "warp"), (49, "warp"), (61, "warp"), (63, "warp"), (65, "warp"),
+    (127, "warp"), (128, "warp"), (129, "block"), (401, "block"),
+    (1023, "block"), (1024, "block"),
+])
+def test_ctc_fwd_route_by_s(s, route):
+    """The CTC forward's route by S: as the backward's, the warp route up
+    to 128 positions, the block route above, up to MAX_S."""
+    assert ctc_loss.fwd_route(s) == route
+
+
+def test_training_shapes_take_the_forward_warp_route():
+    """Every training lattice (S = 17, 33, 49 or 65; see below) and the
+    fixed shape's S = 49 take the forward's warp route too."""
+    from tpu_asr_torch.data.bucketing import _round_up
+    shapes = {2 * _round_up(u, 8) + 1 for u in range(8, 31)} | {49}
+    assert {ctc_loss.fwd_route(s) for s in shapes} == {"warp"}
 
 
 def test_training_shapes_take_the_warp_route():
@@ -234,6 +270,61 @@ def test_flash_symbol_names_the_routed_kernel(which):
         f"flash_attention_{stem}_wgmma_kernel"
     assert chip_smoke.flash_symbol(which, torch.float32) == \
         f"flash_attention_{stem}_simt_kernel"
+
+
+class _Event:
+    """One row of a fake trace's key_averages()."""
+
+    def __init__(self, key, count, us):
+        from torch.autograd import DeviceType
+        self.key, self.count, self.self_device_time_total = key, count, us
+        self.device_type = DeviceType.CUDA
+
+
+def _fake_profiler(monkeypatch, traces):
+    """torch.profiler.profile replaced by one that hands out `traces` in
+    turn (each a list of _Event), and no CUDA synchronize: what
+    kernel_device_ms sees of the profiler, on the CPU."""
+    traces = iter(traces)
+
+    class Profile:
+        def __init__(self, **_):
+            self.events = next(traces)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def key_averages(self):
+            return self.events
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+
+@pytest.mark.parametrize("traces,want,calls", [
+    # traced at the second try: 30 of its 40 launches, 60 us in all; a
+    # kernel of another name is not counted
+    ([[], [_Event("x_kernel_y", 30, 60.0), _Event("other", 5, 1e3)]],
+     0.002, 1 + 20 + 40),
+    # four empty traces: unknown, not a time of something else
+    ([[], [], [], [_Event("other", 160, 1e3)]], None,
+     1 + 20 + 40 + 80 + 160),
+])
+def test_kernel_device_ms_retries_and_never_substitutes(monkeypatch, traces,
+                                                        want, calls):
+    """kernel_device_ms averages over the launches a trace holds, takes an
+    empty trace again with twice the calls, and gives None when four
+    traces hold none: never the wrapper's time by CUDA events, which
+    includes its other launches."""
+    _fake_profiler(monkeypatch, traces)
+    made = []
+    got = chip_smoke.kernel_device_ms(lambda: made.append(1), "x_kernel")
+    assert got == (None if want is None else pytest.approx(want))
+    assert len(made) == calls
+    assert chip_smoke.ms4(got) == ("not traced" if want is None
+                                   else "0.0020")
 
 
 def _case(lens, tq=5, tk=7, h=2, dh=32, dtype=torch.bfloat16, seed=0):

@@ -47,6 +47,20 @@ def _case(name, seed=0):
     elif name == "u1":
         a = rng.uniform(0.0, 0.9, (2, 20))
         lens, u_max = [20, 5], 1
+    elif name == "scaled":                  # scale_alphas to U fires
+        a = rng.uniform(0.0, 0.9, (3, 40))
+        a *= np.array([[9.0], [5.0], [1.0]]) / a.sum(1, keepdims=True)
+        lens, u_max = [40, 40, 40], 10
+    elif name == "disordered":              # c - alpha out of order
+        a = rng.uniform(0.0, 0.9, (12, 150))
+        for r in range(a.shape[0]):
+            # the cumsum reaches 16, 32 or 64 exactly on halves; alphas of
+            # 1e-10 leave c and c - alpha there; the next alpha's c - alpha
+            # rounds one ulp below it in about a quarter of the rows
+            k = 2 * (16, 32, 64)[r % 3]
+            a[r, :k] = 0.5
+            a[r, k:k + 10] = 1e-10
+        lens, u_max = [150] * 12, 130
     else:
         raise KeyError(name)
     valid = np.arange(a.shape[1])[None, :] < np.asarray(lens)[:, None]
@@ -170,6 +184,50 @@ def test_fire_count_matches(name):
     got = tcif.fire_count(torch.from_numpy(a), torch.from_numpy(valid))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _kernel_frames(alphas, u_max):
+    """The frames csrc/cif_fire.cu lets weigh on each output (may_weigh),
+    in its float32 arithmetic: frame t for output u iff c_prev[t] < c[t]
+    and floor(c_prev[t]) <= u <= ceil(c[t]) - 1, with c = cumsum(alphas)
+    and c_prev = c - alphas, each frame's own. -> bool [B, T, u_max]."""
+    c = torch.cumsum(alphas, dim=-1)
+    c_prev = c - alphas
+    u = torch.arange(u_max, dtype=torch.float32)
+    return ((c_prev < c)[..., None]
+            & (torch.floor(c_prev)[..., None] <= u)
+            & (u <= torch.ceil(c)[..., None] - 1.0))
+
+
+def _searched_frames(alphas, u_max):
+    """A rule that binary-searches c_prev as if it were sorted: output u
+    runs from the last frame whose c_prev <= u to the last whose c_prev <
+    u + 1. Right for sorted c_prev, wrong for its last-ulp disorder."""
+    c_prev = torch.cumsum(alphas, dim=-1) - alphas
+    b, t = alphas.shape
+    u = torch.arange(u_max, dtype=torch.float32).expand(b, u_max)
+    first = torch.searchsorted(c_prev, u.contiguous(), right=True) - 1
+    last = torch.searchsorted(c_prev, (u + 1.0).contiguous()) - 1
+    frame = torch.arange(t)[None, :, None]
+    return (frame >= first[:, None, :]) & (frame <= last[:, None, :])
+
+
+@pytest.mark.parametrize("name", ["sigmoid", "scaled", "above_one",
+                                  "beyond_fires", "zero_rows", "t1", "u1",
+                                  "disordered"])
+def test_kernel_frame_rule_keeps_every_weight(name):
+    """Every non-zero of cif_weights lies among the frames the CIF fire
+    kernel's per-frame rule lets weigh on its output, so the kernel, which
+    sums only over those frames, loses no weight. On the disordered alphas
+    (c - alpha out of order in its last ulp) a rule that binary-searches
+    c_prev loses some: this case separates the two."""
+    a, _, u_max = _case(name)
+    alphas = torch.from_numpy(a)
+    nonzero = tcif.cif_weights(alphas, u_max) != 0
+    assert nonzero.any() or name == "zero_rows"
+    assert not (nonzero & ~_kernel_frames(alphas, u_max)).any()
+    if name == "disordered":
+        assert (nonzero & ~_searched_frames(alphas, u_max)).any()
 
 
 def test_fire_count_tail_rounding():

@@ -147,15 +147,64 @@ def test_ctc_loss_bwd_routes_and_ring_edges(b, t, u, ilens, llens):
         assert not got[i, top:].any()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,u,ilens,llens", [
+    (4, 1, 3, [1, 1, 0, 1], [0, 1, 0, 3]),             # T = 1, S = 7
+    (3, 20, 0, [20, 7, 0], [0, 0, 0]),                  # S = 1
+    (5, 20, 5, [25, 20, 16, 17, 1], [5, 5, 2, 5, 0]),   # ilen past T
+    (5, 40, 5, [40, 33, 32, 31, 0], [5, 5, 2, 5, 0]),   # rows at tile edges
+    (3, 3000, 24, [3000, 2999, 1601], [24, 24, 10]),    # 1.2 MB of rows
+    (4, 249, 32, [249, 200, 33, 32], [32, 31, 8, 5]),   # S = 65, 2 + 1
+    (3, 50, 48, [50, 49, 20], [48, 40, 8]),             # S = 97, 3 + 1
+    (5, 60, 63, [60, 59, 17, 16, 1], [63, 60, 8, 5, 0]),  # S = 127, 4
+    (3, 30, 64, [30, 29, 1], [64, 30, 0]),              # S = 129, block
+    (3, 300, 200, [300, 250, 150], [200, 200, 100]),    # S = 401, block
+    (9, 48, 24, [48] * 9, [24] * 9),  # 3 tiles of rows; a block not full
+])
+def test_ctc_loss_fwd_routes_and_ring_edges(b, t, u, ilens, llens):
+    """The forward on the route its S picks (counted in
+    FWD_ROUTE_LAUNCHES) gives the plain version's nll and alpha bit for
+    bit, at the warp route's ring edges, with rows frozen past ilen and
+    length-0 rows keeping their t = 0 row; two calls give the same
+    bits."""
+    from tpu_asr_torch.ops.ctc_loss import FWD_ROUTE_LAUNCHES, fwd_route
+    _need_card()
+    g = np.random.default_rng(b * t + u)
+    logits = torch.from_numpy(g.standard_normal((b, t, 150)).astype(
+        np.float32)).cuda()
+    labels = torch.from_numpy(g.integers(1, 150, (b, u))).cuda()
+    z = _interleave_blanks(labels, 0)
+    ln = torch.tensor(llens, dtype=torch.int32, device="cuda")
+    skip, valid = lattice_masks(z, ln)
+    args = (lattice_emissions(logits, z).contiguous(), skip, valid,
+            torch.tensor(ilens, dtype=torch.int32, device="cuda"), ln)
+    route = fwd_route(2 * u + 1)
+    before = dict(FWD_ROUTE_LAUNCHES)
+    got = ctc_loss_fwd(*args)
+    again = ctc_loss_fwd(*args)
+    want = ctc_loss_fwd_reference(*args)
+    torch.cuda.synchronize()
+    assert FWD_ROUTE_LAUNCHES[route] == before[route] + 2
+    for name, g_, a, w in zip(("nll", "alpha"), got, again, want):
+        assert torch.equal(g_, w), (name, (g_ - w).abs().max().item())
+        assert torch.equal(g_, a), name
+    alpha = got[1]
+    for i, il in enumerate(ilens):
+        last = min(max(il, 1), t) - 1
+        assert torch.equal(alpha[i, last:], alpha[i, last].expand(
+            t - last, -1))
+
+
 SMEM_LIMIT = 232_448     # shared memory a block may have on an H100
 
 
 @pytest.mark.gpu
 def test_launch_plans_fit_a_block():
-    """The launches the two rebuilt kernels' sources work out stay within
-    a block's shared memory and threads for any T: the prefix scan at K =
-    1, 11, 130 and 300 (chain groups of 128), the backward's warp route at
-    every S it takes, with P positions a lane covering S."""
+    """The launches the rebuilt kernels' sources work out stay within a
+    block's shared memory and threads for any T: the prefix scan at K = 1,
+    11, 130 and 300 (chain groups of 128), the forward's and backward's
+    warp routes at every S they take, with P positions a lane covering
+    S."""
     from tpu_asr_torch.ops import ctc_loss, ctc_prefix
     _need_card()
     for k in (1, 11, 130, 300):
@@ -164,13 +213,15 @@ def test_launch_plans_fit_a_block():
         assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
         chains = plan["threads"] - 32
         assert chains * plan["blocks_per_beam"] >= k
-    for s in range(1, ctc_loss.WARP_MAX_S + 1):
-        plan = ctc_loss.bwd_warp_plan(s)
-        assert plan["smem_bytes"] <= SMEM_LIMIT, (s, plan)
-        assert 32 * plan["positions"] + 1 >= s
-        assert plan["positions"] == (2 if s <= 65 else 3 if s <= 97 else 4)
-    with pytest.raises(RuntimeError):
-        ctc_loss.bwd_warp_plan(ctc_loss.WARP_MAX_S + 1)
+    for which in ("fwd", "bwd"):
+        for s in range(1, ctc_loss.WARP_MAX_S + 1):
+            plan = ctc_loss.warp_plan(s, which)
+            assert plan["smem_bytes"] <= SMEM_LIMIT, (which, s, plan)
+            assert 32 * plan["positions"] + 1 >= s
+            assert plan["positions"] == (2 if s <= 65 else 3 if s <= 97
+                                         else 4)
+        with pytest.raises(RuntimeError):
+            ctc_loss.warp_plan(ctc_loss.WARP_MAX_S + 1, which)
 
 
 @pytest.mark.gpu
@@ -184,15 +235,27 @@ def test_prefix_scan_log1p_is_log1pf():
 
 
 @pytest.mark.gpu
+def test_ctc_forward_log_is_logf():
+    """The CTC forward's lae3 takes the log of a sum of three exps, in
+    [1, 3] wherever its result is kept; its branch-free log gives logf's
+    bits at every float there."""
+    from tpu_asr_torch.ops.ctc_loss import log_mismatches
+    _need_card()
+    assert log_mismatches() == 0
+
+
+@pytest.mark.gpu
 def test_chain_probes_run():
-    """The two chain probes (one warp each, no memory traffic) launch and
+    """The three chain probes (one warp each, no memory traffic) launch and
     give finite results."""
     from tpu_asr_torch.ops import ctc_loss, ctc_prefix
     _need_card()
     assert torch.isfinite(ctc_prefix.chain_probe(248)).all()
-    assert torch.isfinite(ctc_loss.chain_probe(248, 49)).all()
-    with pytest.raises(RuntimeError):
-        ctc_loss.chain_probe(248, 65)        # two positions a lane only
+    for which in ("fwd", "bwd"):
+        assert torch.isfinite(ctc_loss.chain_probe(248, 49,
+                                                   which=which)).all()
+        with pytest.raises(RuntimeError):        # two positions a lane only
+            ctc_loss.chain_probe(248, 65, which=which)
 
 
 def ctc_case(seed, b, t, u, v):
@@ -279,6 +342,52 @@ def test_cif_fire_kernel_matches_plain_version(b, t, d, u, top):
     wa = wa.cpu().numpy()
     np.testing.assert_allclose(ga.cpu().numpy(), wa, rtol=1e-4,
                                atol=1e-5 * np.abs(wa).max())
+
+
+def disordered_alphas(rng, b, t):
+    """Alphas whose c - alpha is not monotone in its last ulp: each row's
+    cumsum reaches 16, 32 or 64 exactly on halves, ten alphas of 1e-10
+    leave c and c - alpha there, and the next alpha's c - alpha rounds to
+    one ulp below in about a quarter of the rows: that frame weighs ~2e-6
+    on the output before."""
+    a = rng.uniform(0.0, 0.9, (b, t)).astype(np.float32)
+    for r in range(b):
+        k = 2 * (16, 32, 64)[r % 3]
+        a[r, :k] = 0.5
+        a[r, k:k + 10] = 1e-10
+    return a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d,u,kind", [
+    (32, 249, 512, 200, "disordered"),
+    (3, 3000, 512, 400, "scaled"),    # T past one stage of c (2048 frames)
+    (4, 2049, 96, 300, "scaled"),     # one frame past it; D not a slab
+    (5, 70, 130, 60, "raw"),          # D not a multiple of 4: scalar loads
+])
+def test_cif_fire_kernel_at_disordered_and_long_inputs(b, t, d, u, kind):
+    """cif_fire_fwd against the plain cif_fire (atol 1e-5, rtol 1e-5) where
+    c - alpha is out of order in its last ulp, where T needs more than one
+    shared-memory stage of c and c - alpha, and at D that takes scalar
+    loads; two calls give the same bits."""
+    _need_card()
+    rng = np.random.default_rng(b + t + d)
+    hidden = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
+        np.float32)).cuda()
+    if kind == "disordered":
+        a = disordered_alphas(rng, b, t)
+    else:
+        a = rng.uniform(0.0, 1.0, (b, t)).astype(np.float32)
+        if kind == "scaled":
+            a *= u / a.sum(1, keepdims=True)
+    alphas = torch.from_numpy(a).cuda()
+    got = cif_fire_fwd(hidden, alphas, u)
+    again = cif_fire_fwd(hidden, alphas, u)
+    want = cif_fire(hidden, alphas, u)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu

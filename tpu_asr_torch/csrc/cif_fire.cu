@@ -12,7 +12,8 @@
 // W [B, T, U] is never stored. The overlap is the TPU kernel's three
 // operations (cif.py:41-43), so given the same c every weight is bitwise
 // that of the plain version (tpu_asr_torch/ops/cif.py); only the order of
-// the sum over t differs (here: increasing t, one fma each).
+// the sum over t differs (here: increasing t, one fma each, frames whose
+// weight is 0 skipped).
 //
 // Work: a frame's weight is non-zero only for the outputs its interval
 // [c_prev, c] overlaps, so each output reads a short run of frames and the
@@ -22,29 +23,40 @@
 // D = 512, U = 25) it must read h once (16.3 MB), c and alpha (64 KB)
 // and write the output (1.6 MB): ~5.4 us at 3.35 TB/s. The arithmetic, one
 // fma per (non-zero weight, column), is ~2 flops per byte of h, far below
-// the float32 ridge.
+// the float32 ridge. The served shapes (B = 8, T' = 126 or 248, U = 100)
+// are 1.1-1.7 us of bytes, near a launch's own latency: there the count of
+// dependent memory round trips a block makes is what the time is.
 //
-// Design: one thread block per (output u, utterance b, chunk of <= 256
-// columns of D); a thread owns one column and keeps its sum in a register.
-// The block first scans ALL T frames for the first and last frame with a
-// non-zero weight for u (a strided scan plus a min/max reduction): c_prev =
-// c - alpha is not monotone to the last ulp, so a frame outside the
-// expected run can carry a weight of ~1e-7 that the dense formula counts,
-// and a binary search could miss it. Then it walks that range in
-// increasing t, skips frames whose weight is 0 (a test uniform across the
-// block: no divergence), and reads h[t, :] coalesced for the others. An
-// output past the last fire, a zero-length row (all alphas 0) and an empty
-// range write zeros. c and alpha are read by every thread of the block at
-// the same address (a broadcast, cached in L1). Measured on an H100, the
-// kernel alone takes ~1.7x its byte bound at the path's shape (PERF.md).
-// Tensor cores, TMA and several outputs per block are later work.
+// Design: one block per (utterance b, group of kOutputs outputs, slab of
+// columns), one warp per output u, the lanes over D with 16-byte loads
+// (D = 512 is one slab: four float4 a lane). A block pays one round trip
+// for c and alpha and one for each batch of kFrames frames of h:
+// 1. The block stages the utterance's c and c_prev into shared memory
+//    (kChunk frames at a time; one chunk up to T = 2048).
+// 2. Each warp finds its output's first and last frame in the chunk by
+//    its own scan with ballots, no block barrier: frame t can weigh on u
+//    only if c_prev[t] < c[t] and floor(c_prev[t]) <= u <= ceil(c[t]) - 1
+//    (may_weigh). The rule
+//    comes from each frame's own (c_prev, c): c_prev = c - alpha is not
+//    monotone to the last ulp, so a frame outside the expected run can
+//    carry a weight of ~1e-7 that the dense formula counts, and a search
+//    that assumed order could miss it.
+// 3. It walks that range in increasing t, kFrames frames at a time: the
+//    weights first (from shared memory), then every 16-byte load of h
+//    those frames need (frames of weight 0 load nothing), then the fmas
+//    in order. An output past the last fire, a zero-length row (all
+//    alphas 0) and an empty range write zeros.
+// No atomics and a fixed order: runs repeat bitwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kOutputs = 8;      // outputs (warps) a block
+constexpr int kVecs = 4;         // loads a lane a frame: a slab is 32 kVecs V
+constexpr int kFrames = 8;       // frames whose loads of h are in flight
+constexpr int kChunk = 2048;     // frames of c and c_prev staged at once
 
 __device__ __forceinline__ float overlap(float c_prev, float c, float u) {
   const float lo = fmaxf(c_prev, u);
@@ -52,69 +64,111 @@ __device__ __forceinline__ float overlap(float c_prev, float c, float u) {
   return fmaxf(hi - lo, 0.0f);
 }
 
-__device__ __forceinline__ int warp_min(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// overlap(c_prev, c, u) != 0 implies this: min(c, u + 1) > max(c_prev, u)
+// gives c > c_prev, c > u, so u <= ceil(c) - 1, and u + 1 > c_prev, so u >=
+// floor(c_prev) (floorf, ceilf and u + 1 are exact here). c > c_prev drops
+// the frames of alpha 0, such as a row's padding, which would otherwise
+// all fall to output floor(c) when a row's total is not a whole number.
+__device__ __forceinline__ bool may_weigh(float c_prev, float c, float u) {
+  return c_prev < c && floorf(c_prev) <= u && u <= ceilf(c) - 1.0f;
 }
 
-__device__ __forceinline__ int warp_max(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+template <int V> struct Vec;
+template <> struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T fma(float w, T h, T acc) {
+    return make_float4(fmaf(w, h.x, acc.x), fmaf(w, h.y, acc.y),
+                       fmaf(w, h.z, acc.z), fmaf(w, h.w, acc.w));
+  }
+};
+template <> struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ T fma(float w, T h, T acc) {
+    return fmaf(w, h, acc);
+  }
+};
 
-__global__ void cif_fire_kernel(const float* __restrict__ c,       // [B, T]
-                                const float* __restrict__ alpha,   // [B, T]
-                                const float* __restrict__ hidden,  // [B, T, D]
-                                float* __restrict__ out,           // [B, U, D]
-                                int t_total, int u_total, int d_total) {
-  const int u = blockIdx.x;
+// V floats a load: 4 (float4) when D is a multiple of 4 and h and out
+// start on 16-byte boundaries, else 1.
+template <int V>
+__global__ void cif_fire_kernel(
+    const float* __restrict__ c,        // [B, T]
+    const float* __restrict__ alpha,    // [B, T]
+    const float* __restrict__ hidden,   // [B, T, D]
+    float* __restrict__ out,            // [B, U, D]
+    int t_total, int u_total, int d_total) {
+  using VecT = typename Vec<V>::T;
+  __shared__ float s_c[kChunk], s_cp[kChunk];
   const int b = blockIdx.y;
-  const int d = blockIdx.z * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int u = blockIdx.x * kOutputs + (threadIdx.x >> 5);
+  const bool live = u < u_total;
+  const float uf = static_cast<float>(u);
+  const int d0 = blockIdx.z * 32 * kVecs * V + lane * V;   // + 32 V k
   const float* cc = c + static_cast<int64_t>(b) * t_total;
   const float* al = alpha + static_cast<int64_t>(b) * t_total;
-  const float uf = static_cast<float>(u);
-  auto weight = [&](int t) { return overlap(cc[t] - al[t], cc[t], uf); };
+  const float* h = hidden + static_cast<int64_t>(b) * t_total * d_total;
+  VecT acc[kVecs];
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) acc[k] = VecT{};
 
-  // 1. the first and last frame with a non-zero weight for u, over all T
-  int lo = t_total, hi = -1;
-  for (int t = threadIdx.x; t < t_total; t += blockDim.x) {
-    if (weight(t) != 0.0f) {
-      lo = min(lo, t);
-      hi = max(hi, t);
+  for (int t0 = 0; t0 < t_total; t0 += kChunk) {
+    const int n = t_total - t0 < kChunk ? t_total - t0 : kChunk;
+    if (t0 > 0) __syncthreads();             // every warp is done with it
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const float ci = cc[t0 + i];
+      s_c[i] = ci;
+      s_cp[i] = ci - al[t0 + i];
+    }
+    __syncthreads();
+    if (!live) continue;
+
+    // 1. the first and last frame of the chunk that may weigh on u
+    int lo = n, hi = -1;
+    for (int w0 = 0; w0 < n; w0 += 32) {
+      const int i = w0 + lane;
+      const unsigned m = __ballot_sync(
+          0xffffffffu, i < n && may_weigh(s_cp[i], s_c[i], uf));
+      if (m) {
+        lo = lo < n ? lo : w0 + __ffs(m) - 1;
+        hi = w0 + 31 - __clz(m);
+      }
+    }
+
+    // 2. sum over that range in increasing t, kFrames frames at a time
+    for (int f0 = lo; f0 <= hi; f0 += kFrames) {
+      float w[kFrames];
+      VecT x[kFrames][kVecs];
+#pragma unroll
+      for (int f = 0; f < kFrames; ++f) {
+        const int i = f0 + f <= hi ? f0 + f : hi;
+        w[f] = f0 + f <= hi ? overlap(s_cp[i], s_c[i], uf) : 0.0f;
+        const VecT* row = reinterpret_cast<const VecT*>(
+            h + static_cast<int64_t>(t0 + i) * d_total + d0);
+#pragma unroll
+        for (int k = 0; k < kVecs; ++k)
+          if (w[f] != 0.0f && d0 + 32 * V * k < d_total)
+            x[f][k] = row[32 * k];
+      }
+#pragma unroll
+      for (int f = 0; f < kFrames; ++f) {
+        if (w[f] == 0.0f) continue;
+#pragma unroll
+        for (int k = 0; k < kVecs; ++k)
+          acc[k] = Vec<V>::fma(w[f], x[f][k], acc[k]);
+      }
     }
   }
-  __shared__ int s_lo[kMaxThreads / 32], s_hi[kMaxThreads / 32];
-  __shared__ int s_range[2];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  lo = warp_min(lo);
-  hi = warp_max(hi);
-  if (lane == 0) {
-    s_lo[warp] = lo;
-    s_hi[warp] = hi;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    lo = warp_min(lane < n_warps ? s_lo[lane] : t_total);
-    hi = warp_max(lane < n_warps ? s_hi[lane] : -1);
-    if (lane == 0) {
-      s_range[0] = lo;
-      s_range[1] = hi;
-    }
-  }
-  __syncthreads();
-  lo = s_range[0];
-  hi = s_range[1];
-  if (d >= d_total) return;
+  if (!live) return;
+  VecT* o = reinterpret_cast<VecT*>(
+      out + (static_cast<int64_t>(b) * u_total + u) * d_total + d0);
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k)
+    if (d0 + 32 * V * k < d_total) o[32 * k] = acc[k];
+}
 
-  // 2. fired[u, d] = sum over that range of w[t, u] * h[t, d], increasing t
-  const float* h = hidden + static_cast<int64_t>(b) * t_total * d_total + d;
-  float acc = 0.0f;
-  for (int t = lo; t <= hi; ++t) {
-    const float w = weight(t);
-    if (w != 0.0f) acc = fmaf(w, h[static_cast<int64_t>(t) * d_total], acc);
-  }
-  out[(static_cast<int64_t>(b) * u_total + u) * d_total + d] = acc;
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -129,11 +183,17 @@ int cif_fire_launch(const float* c, const float* alpha, const float* hidden,
                     float* out, int b, int t_total, int u_total, int d_total,
                     void* stream) {
   if (b == 0 || u_total == 0 || d_total == 0) return 0;
-  const int rounded = (d_total + 31) / 32 * 32;
-  const int threads = rounded < kMaxThreads ? rounded : kMaxThreads;
-  const dim3 grid(u_total, b, (d_total + threads - 1) / threads);
-  cif_fire_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      c, alpha, hidden, out, t_total, u_total, d_total);
+  const bool vec4 = d_total % 4 == 0 && aligned16(hidden) && aligned16(out);
+  const int slab = 32 * kVecs * (vec4 ? 4 : 1);
+  const dim3 grid((u_total + kOutputs - 1) / kOutputs, b,
+                  (d_total + slab - 1) / slab);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec4)
+    cif_fire_kernel<4><<<grid, 32 * kOutputs, 0, s>>>(
+        c, alpha, hidden, out, t_total, u_total, d_total);
+  else
+    cif_fire_kernel<1><<<grid, 32 * kOutputs, 0, s>>>(
+        c, alpha, hidden, out, t_total, u_total, d_total);
   return static_cast<int>(cudaGetLastError());
 }
 

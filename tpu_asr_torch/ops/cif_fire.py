@@ -28,6 +28,7 @@ from tpu_asr_torch.ops.cif import cif_fire
 from tpu_asr_torch.ops.cuda_build import KernelLibrary, check_tensor
 
 LIBRARY = KernelLibrary("cif_fire")
+KERNEL_SYMBOL = "cif_fire_kernel"   # the __global__ name
 MAX_B = 65535          # one grid row per utterance
 
 

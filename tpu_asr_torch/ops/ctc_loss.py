@@ -7,12 +7,12 @@ caller gathers emissions E[b,t,s] = log_softmax(logits)[b,t,z_s] (S = 2U+1,
 a few dozen positions against V = 4233) and autograd scatters grad_E back
 into the logits. The kernels (csrc/ctc_loss.cu) do only the sequential
 part: the alpha pass (nll and the alpha history) and the beta pass
-(grad_E = -exp(alpha + beta - ll)). The beta pass takes one of two
-routes by S (`bwd_route`): a chain warp per utterance, fed and drained
-by a second warp through shared memory, for S <= 128 (every training shape: the
-loader pads U to a multiple of 8, so S is 17 .. 65), a block per
-utterance above. See the source note for what bounds them on the
-card.
+(grad_E = -exp(alpha + beta - ll)). Each pass takes one of two routes by
+S (`fwd_route`, `bwd_route`): a chain warp per utterance, fed and
+drained by a second warp through shared memory, for S <= 128 (every
+training shape: the loader pads U to a multiple of 8, so S is 17 .. 65),
+a block per utterance above. See the source note for what bounds them
+on the card.
 
 `ctc_loss_fwd` / `ctc_loss_bwd` dispatch on the device of their inputs:
 CUDA tensors launch the kernel (or raise), CPU tensors run the plain
@@ -31,37 +31,49 @@ from tpu_asr_torch.ops.ctc import (NEG_INF, _interleave_blanks,
 from tpu_asr_torch.ops.cuda_build import KernelLibrary, check_tensor
 
 LIBRARY = KernelLibrary("ctc_loss")
-MAX_S = 1024          # the forward and the block route: a thread a position
-WARP_MAX_S = 128      # the warp route: up to 4 positions a lane
-FWD_SYMBOL = "ctc_alpha_kernel"                   # the __global__ names
+MAX_S = 1024          # the block routes: a thread a position
+WARP_MAX_S = 128      # the warp routes: up to 4 positions a lane
+FWD_SYMBOLS = {"warp": "ctc_alpha_warp_kernel",   # the __global__ names
+               "block": "ctc_alpha_kernel"}
 BWD_SYMBOLS = {"warp": "ctc_beta_grad_warp_kernel",
                "block": "ctc_beta_grad_block_kernel"}
-PROBE_SYMBOL = "ctc_beta_chain_probe_kernel"
-# launches of the backward by route, beside ctc_loss_bwd.launches (all)
+PROBE_SYMBOLS = {"fwd": "ctc_alpha_chain_probe_kernel",
+                 "bwd": "ctc_beta_chain_probe_kernel"}
+# launches by route, beside ctc_loss_fwd.launches and ctc_loss_bwd.launches
+FWD_ROUTE_LAUNCHES = {"warp": 0, "block": 0}
 BWD_ROUTE_LAUNCHES = {"warp": 0, "block": 0}
 WARP_PLAN_KEYS = ("positions", "tile_rows", "stages", "utterances_per_block",
                   "threads", "smem_bytes")
 
 
 def bwd_route(s: int) -> str:
-    """The backward kernel for S lattice positions: "warp" up to
-    WARP_MAX_S, "block" above (up to MAX_S)."""
+    """The kernel for S lattice positions: "warp" up to WARP_MAX_S,
+    "block" above (up to MAX_S). The forward and the backward route
+    alike."""
     return "warp" if s <= WARP_MAX_S else "block"
 
 
+fwd_route = bwd_route
+
+
 def _bind(lib: ctypes.CDLL):
-    if lib.ctc_loss_fwd_launch.argtypes is None:
+    if lib.ctc_loss_fwd_block_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ctc_loss_fwd_launch.argtypes = [p] * 7 + [i] * 3 + [p]
-        lib.ctc_loss_fwd_launch.restype = i
-        lib.ctc_loss_bwd_block_launch.argtypes = [p] * 8 + [i] * 3 + [p]
-        lib.ctc_loss_bwd_block_launch.restype = i
-        lib.ctc_loss_bwd_warp_launch.argtypes = [p] * 8 + [i] * 3 + [p]
-        lib.ctc_loss_bwd_warp_launch.restype = i
-        lib.ctc_loss_bwd_warp_plan.argtypes = [i, p]
-        lib.ctc_loss_bwd_warp_plan.restype = i
-        lib.ctc_beta_chain_probe_launch.argtypes = [p, i, i, p]
-        lib.ctc_beta_chain_probe_launch.restype = i
+        for name in ("ctc_loss_fwd_block_launch", "ctc_loss_fwd_warp_launch"):
+            getattr(lib, name).argtypes = [p] * 7 + [i] * 3 + [p]
+            getattr(lib, name).restype = i
+        for name in ("ctc_loss_bwd_block_launch", "ctc_loss_bwd_warp_launch"):
+            getattr(lib, name).argtypes = [p] * 8 + [i] * 3 + [p]
+            getattr(lib, name).restype = i
+        for name in ("ctc_loss_fwd_warp_plan", "ctc_loss_bwd_warp_plan"):
+            getattr(lib, name).argtypes = [i, p]
+            getattr(lib, name).restype = i
+        for name in ("ctc_alpha_chain_probe_launch",
+                     "ctc_beta_chain_probe_launch"):
+            getattr(lib, name).argtypes = [p, i, i, p]
+            getattr(lib, name).restype = i
+        lib.ctc_log_check_launch.argtypes = [p, p]
+        lib.ctc_log_check_launch.restype = i
         lib.ctc_loss_error_string.argtypes = [i]
         lib.ctc_loss_error_string.restype = ctypes.c_char_p
     return lib
@@ -176,22 +188,26 @@ def _raise_on(err: int, which: str):
 def ctc_loss_fwd(emissions, skip, valid, ilen, llen):
     """Alpha pass: (nll [B], alpha [B, T, S]). On CUDA tensors (float32
     emissions, bool masks, int32 lengths, all contiguous) launches the
-    kernel on the current stream and counts it in `ctc_loss_fwd.launches`;
-    on CPU tensors runs ctc_loss_fwd_reference."""
+    kernel on the route fwd_route(S) picks, on the current stream, and
+    counts it in `ctc_loss_fwd.launches` and in FWD_ROUTE_LAUNCHES; on
+    CPU tensors runs ctc_loss_fwd_reference."""
     if emissions.device.type == "cpu":
         return ctc_loss_fwd_reference(emissions, skip, valid, ilen, llen)
     b, t, s, dev = _check_inputs(emissions, skip, valid, ilen, llen)
     lib = _bind(LIBRARY.load())
     nll = torch.empty((b,), dtype=torch.float32, device=dev)
     alpha = torch.empty((b, t, s), dtype=torch.float32, device=dev)
+    route = fwd_route(s)
+    launch = (lib.ctc_loss_fwd_warp_launch if route == "warp"
+              else lib.ctc_loss_fwd_block_launch)
     with torch.cuda.device(dev):
-        err = lib.ctc_loss_fwd_launch(
-            emissions.data_ptr(), skip.data_ptr(), valid.data_ptr(),
-            ilen.data_ptr(), llen.data_ptr(), nll.data_ptr(),
-            alpha.data_ptr(), b, t, s,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "ctc_loss_fwd")
+        err = launch(emissions.data_ptr(), skip.data_ptr(), valid.data_ptr(),
+                     ilen.data_ptr(), llen.data_ptr(), nll.data_ptr(),
+                     alpha.data_ptr(), b, t, s,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, f"ctc_loss_fwd ({route} route)")
     ctc_loss_fwd.launches += 1
+    FWD_ROUTE_LAUNCHES[route] += 1
     return nll, alpha
 
 
@@ -225,36 +241,57 @@ ctc_loss_fwd.launches = 0   # kernel launches (not CPU reference calls)
 ctc_loss_bwd.launches = 0
 
 
-def bwd_warp_plan(s: int) -> dict:
-    """The launch the warp route makes at S positions (any B, any T), as
-    its library reports it (WARP_PLAN_KEYS): positions a lane of the
-    chain warp, rows a ring slot, slots in the ring, utterances a block
-    (a chain warp and a helper warp each), threads and dynamic shared
-    bytes a block. Needs the built library."""
+def warp_plan(s: int, which: str) -> dict:
+    """The launch the warp route of the forward (which="fwd") or the
+    backward ("bwd") makes at S positions (any B, any T), as its library
+    reports it (WARP_PLAN_KEYS): positions a lane of the chain warp, rows
+    a ring slot, slots in the ring, utterances a block (a chain warp and
+    a helper warp each), threads and dynamic shared bytes a block. Needs
+    the built library."""
     lib = _bind(LIBRARY.load())
     plan = (ctypes.c_int * len(WARP_PLAN_KEYS))()
-    _raise_on(lib.ctc_loss_bwd_warp_plan(s, plan), f"warp plan at S={s}")
+    fn = getattr(lib, f"ctc_loss_{which}_warp_plan")
+    _raise_on(fn(s, plan), f"{which} warp plan at S={s}")
     return dict(zip(WARP_PLAN_KEYS, plan))
 
 
-def chain_probe(steps: int, s: int, device="cuda") -> torch.Tensor:
-    """Launch the backward chain's probe: one warp running the warp
-    route's step at two positions a lane (two shuffles, two lae3) `steps`
-    times at S = s <= 64 on
-    operands in registers, no memory traffic (its time alone is the
-    chain's floor). Not a port of anything; needs the card. Returns the
-    warp's 32 results."""
+def chain_probe(steps: int, s: int, which: str,
+                device="cuda") -> torch.Tensor:
+    """Launch a chain's probe: one warp running the warp route's step of
+    the forward (which="fwd": two shuffles up, two lae3) or the backward
+    ("bwd": two shuffles down, two lae3) at two positions a lane `steps`
+    times at S = s <= 64 on operands in registers, no memory traffic (its
+    time alone is the chain's floor). Not a port of anything; needs the
+    card. Returns the warp's 32 results."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"the chain probe runs on the card, not {dev}")
     lib = _bind(LIBRARY.load())
     out = torch.empty(32, dtype=torch.float32, device=dev)
+    kernel = PROBE_SYMBOLS[which]
     with torch.cuda.device(dev):
-        err = lib.ctc_beta_chain_probe_launch(
+        err = getattr(lib, kernel.replace("_kernel", "_launch"))(
             out.data_ptr(), steps, s,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "ctc_beta_chain_probe")
+    _raise_on(err, kernel)
     return out
+
+
+def log_mismatches(device="cuda") -> int:
+    """The number of floats x in [1, 3] (all of them, one launch) where
+    the forward's branch-free log (its lae3's, on sums of three exps) and
+    the toolkit's logf differ in any bit: 0 when the forward's lae3 is
+    the plain version's. Needs the card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the log check runs on the card, not {dev}")
+    lib = _bind(LIBRARY.load())
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ctc_log_check_launch(
+            count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "ctc_log_check")
+    return int(count.item())
 
 
 class CTCNLLFromEmissions(torch.autograd.Function):
