@@ -62,7 +62,10 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      with use_pallas. The small
      hybrid model with use_pallas in attn_rescore and ctc_beam: tokens
      equal on the card (flash attention and fused LN kernels) and on the
-     CPU.
+     CPU. The small hybrid model with a small seeded LM: joint and
+     ctc_beam with LM fusion give equal tokens on the card and the CPU,
+     scores within 1e-3; attn_rescore with the LM term and use_pallas
+     equal tokens.
   5. serving: the aishell-width hybrid model (d512, h8, 6+6 layers, conv
      (32, 128), vocab 4233, bf16; random weights from a seed) in joint
      CTC/attention beam-5 mode behind AsrServer; 16 wav requests from
@@ -108,6 +111,28 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      received them, against their plain versions, timed; the backward
      kernels likewise on the first train batch of each bucket of the
      use_pallas training, as the Functions' backward received them.
+ 10. LM fusion and the decode CLIs, on phase 8's data and checkpoints:
+     `python -m tpu_asr_torch.train_lm` (main) on the card trains the LM
+     at its published width (d256, d_inner 1024, h4, 4 layers, vocab
+     4233, float32) on the 461 + 51 transcripts, batch 64, for >= 20
+     steps: finite losses, the train loss falling, the best cv loss below
+     the first and not below the corpus's floor (lm_cv_floor, less
+     LM_FLOOR_MARGIN); step times, peak memory. The same run with dropout
+     0 for LM_CPU_EPOCHS epochs on the card and on the CPU: equal losses
+     within LM_CPU_ATOL. A profile of 8 train steps with its host ops.
+     `python -m tpu_asr_torch.recognize` on a wav manifest of the 51 cv
+     utterances with the LM: the hybrid checkpoint in joint beam 5 (lm
+     0.3; ctc_prefix_scan launches once per LM-fused step) and ctc_beam
+     10 (lm 0.1), the use_pallas checkpoint in attn_rescore 10 (lm 0.3;
+     the flash and LN forward kernels launch once per use_pallas
+     full-pass attention and fused post-norm call); a hypothesis per
+     utterance and a summary with cer each; `python -m
+     tpu_asr_torch.score` on the joint output agrees with its cer. The
+     kernels' inputs on these paths (PathLabels) are then held against
+     their plain versions, timed. The joint beam and ctc_beam timed with
+     and without the LM on one batch (wall, profiler device and host
+     time, a reading); the server with --dict (4233 lines) and --lm-ckpt
+     answers POST /recognize with a text.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -241,25 +266,30 @@ def ms4(ms) -> str:
     return "not traced" if ms is None else f"{ms:.4f}"
 
 
-def device_events(fn, name: str, reps: int = 10) -> dict:
-    """{kernel name: count} of every device-side event (kernels, copies,
-    memsets) that `reps` calls of fn() leave in a torch.profiler trace,
-    taken again (up to 3 times) until the kernel whose name contains
-    `name` is in it: what a wrapper launches besides its kernel."""
+def device_events(fn, name: str, reps: int = 10) -> tuple[dict, int]:
+    """({kernel name: count} of every device-side event (kernels, copies,
+    memsets) that calls of fn() leave in a torch.profiler trace, the
+    number of calls): what a wrapper launches besides its kernel. A trace
+    without the kernel whose name contains `name` is taken again with
+    twice the calls, up to 4 times (reps, 2 reps, 4 reps, 8 reps), as
+    kernel_device_ms does; if none holds it, this fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(4):
+        calls = reps << attempt
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         found = {e.key: e.count for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA}
         if any(name in k for k in found):
-            return found
-    raise AssertionError(f"the profiler saw no launch of {name} in 3 traces")
+            return found, calls
+        log(f"profiler: no launch of {name} traced in {calls} calls (trace "
+            f"{attempt + 1} of 4)")
+    raise AssertionError(f"the profiler saw no launch of {name} in 4 traces")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
@@ -990,6 +1020,45 @@ def record_inputs(owner, name, captures, label):
             delattr(owner, name)
 
 
+# the joint beam's later call of ctc_prefix_scan kept in each bucket,
+# beside its first: a step whose prefixes are no longer empty
+LATER_PREFIX_CALL = 10
+
+
+class PathLabels:
+    """The labels under which record_inputs keeps a path's kernel inputs:
+    ctc_prefix_scan's first and LATER_PREFIX_CALL-th call at each T', and
+    at each encoder T' the first flash call of each kind and the first
+    post-norm LN call of the encoder and of the decoder. A flash call that
+    is not causal and has as many queries as keys is the encoder's
+    self-attention and sets the T'; the next causal or cross-attention
+    call starts the decoder."""
+
+    def __init__(self, path=None):
+        self.head = f"{path} " if path else ""
+        self.calls, self.t, self.part = {}, None, "encoder"
+
+    def prefix(self, x_cand, *_, **__):
+        t = x_cand.shape[1]
+        self.calls[t] = self.calls.get(t, 0) + 1
+        if self.calls[t] in (1, LATER_PREFIX_CALL):
+            return f"{self.head}T'={t} call {self.calls[t]}"
+        return None
+
+    def flash(self, q, k, v, valid, causal):
+        if causal:
+            kind, self.part = "decoder self-attention (causal)", "decoder"
+        elif q.shape[1] == k.shape[1]:
+            kind, self.part, self.t = ("encoder self-attention", "encoder",
+                                       q.shape[1])
+        else:
+            kind, self.part = "decoder cross-attention", "decoder"
+        return f"{self.head}T'={self.t} {kind}"
+
+    def ln(self, r, *_):
+        return f"{self.head}T'={self.t} {self.part} LN"
+
+
 def check_cif_fire_on_paths(captures):
     """The kernel against its plain version, timed, on the inputs that CIF
     serving and CIF training gave model.fire (after both ran, so these
@@ -1292,10 +1361,12 @@ def check_layer_norm():
     return err, ulps, raw, timings
 
 
-def check_flash_ln_on_paths(flash_caps, ln_caps):
-    """Both kernels against their plain versions, timed, on the inputs the
-    use_pallas serving path gave them (after its counts were read).
-    -> ({label: flash timings}, {label: LN timings}, errors)."""
+def check_flash_ln_on_paths(flash_caps, ln_caps,
+                            path="the use_pallas serving path"):
+    """Both kernels against their plain versions, timed, on the inputs a
+    path gave them (after its counts were read). -> ({label: flash
+    timings}, {label: LN timings}, errors); each label's timings carry
+    its shape and max abs error."""
     errs = dict(flash=0.0, lse=0.0, ln=0.0, ln_ulps=0.0, ln_raw=0)
     flash_t, ln_t = {}, {}
     for label, (q, k, v, valid, causal) in flash_caps.items():
@@ -1306,17 +1377,18 @@ def check_flash_ln_on_paths(flash_caps, ln_caps):
         errs["flash"], errs["lse"] = max(errs["flash"], oe), max(errs["lse"],
                                                                   le)
         flash_t[label] = dict(time_flash(q, k, v, valid, causal, what),
-                              shape=what)
+                              shape=what, max_abs_err=oe, lse_max_abs_err=le)
     for label, (r, h, g, b, _eps) in ln_caps.items():
         what = f"{label}: {list(r.shape)} {r.dtype}"
         e, u, w = compare_ln(r, h, g, b, what)
         errs["ln"], errs["ln_ulps"] = max(errs["ln"], e), max(errs["ln_ulps"],
                                                               u)
         errs["ln_raw"] = max(errs["ln_raw"], w)
-        ln_t[label] = dict(time_ln(r, h, g, b, what), shape=what)
-    log(f"flash_attention_fwd and layer_norm_residual_fwd vs plain on the "
-        f"use_pallas serving path's inputs: {len(flash_caps)} + "
-        f"{len(ln_caps)} calls agree: " + json.dumps(errs))
+        ln_t[label] = dict(time_ln(r, h, g, b, what), shape=what,
+                           max_abs_err=e, bf16_ulps_at_output_scale=u)
+    log(f"flash_attention_fwd and layer_norm_residual_fwd vs plain on "
+        f"{path}'s inputs: {len(flash_caps)} + {len(ln_caps)} calls agree: "
+        + json.dumps(errs))
     return flash_t, ln_t, errs
 
 
@@ -1655,8 +1727,7 @@ def time_ln_bwd(r, h, g, mean, rstd, dy, what):
                              f"{cos}, max abs diff {lib_err}")
     fn = lambda: layer_norm_residual_bwd(r, h, g, mean, rstd, dy)  # noqa: E731
     symbol = "layer_norm_residual_bwd_kernel"
-    reps = 10
-    events = device_events(fn, symbol, reps)
+    events, reps = device_events(fn, symbol)
     ours = sum(n for k, n in events.items() if symbol in k)
     if ours != sum(events.values()) or ours > reps:
         raise AssertionError(f"layer_norm_residual_bwd at {what}: {reps} "
@@ -1758,6 +1829,24 @@ def check_bwd_on_paths(bwd_caps):
     return flash_t, ln_t, errs
 
 
+def check_prefix_on_paths(prefix_caps):
+    """ctc_prefix_scan on the inputs a path gave it (recorded while the
+    path ran, after its counts were read) against its plain version,
+    timed and bounded. -> ({label: timings, shape and max abs error},
+    max abs error)."""
+    err, prefix_t = 0.0, {}
+    for label, args in prefix_caps.items():
+        lengths = args[6]
+        what = (f"{label}: N={args[0].shape[0]} T={args[0].shape[1]} "
+                f"K={args[0].shape[2]}, lengths {int(lengths.min())}-"
+                f"{int(lengths.max())}")
+        e = compare_prefix(list(args), what)
+        err = max(err, e)
+        prefix_t[label] = dict(time_prefix(list(args), True, what),
+                               shape=what, max_abs_err=e)
+    return prefix_t, err
+
+
 def check_ctc_on_paths(prefix_caps, ctc_caps):
     """ctc_prefix_scan on the inputs the joint beam gave it (each bucket's
     first call and a later one), and ctc_loss_fwd and ctc_loss_bwd on the
@@ -1768,15 +1857,8 @@ def check_ctc_on_paths(prefix_caps, ctc_caps):
     timings}, {label: {"fwd": forward timings, "bwd": backward
     timings}}, errors)."""
     errs = dict(prefix=0.0, fwd=0.0, bwd=0.0)
-    prefix_t, ctc_t = {}, {}
-    for label, args in prefix_caps.items():
-        lengths = args[6]
-        what = (f"{label}: N={args[0].shape[0]} T={args[0].shape[1]} "
-                f"K={args[0].shape[2]}, lengths {int(lengths.min())}-"
-                f"{int(lengths.max())}")
-        errs["prefix"] = max(errs["prefix"], compare_prefix(list(args), what))
-        prefix_t[label] = dict(time_prefix(list(args), True, what),
-                               shape=what)
+    ctc_t = {}
+    prefix_t, errs["prefix"] = check_prefix_on_paths(prefix_caps)
     bitwise = 0
     for label, args in ctc_caps.items():
         emissions, skip, valid, ilen, llen, alpha, nll = args
@@ -2101,9 +2183,81 @@ def check_pallas_agreement():
         f" and {launches['ctc_beam', 'cuda']}")
 
 
-def profile_device(fn, what, card):
+def small_lm(vocab):
+    """A seeded random LM (d32, h2, 2 layers, float32) and its config."""
+    from tpu_asr_torch.models.lm import LMConfig, TransformerLM
+    from tpu_asr_torch.weights import init_random
+    cfg = LMConfig(vocab_size=vocab, d_model=32, d_inner=64, num_heads=2,
+                   num_layers=2, dropout=0.0)
+    return cfg, init_random(TransformerLM(cfg), SEED + 1)
+
+
+def check_lm_agreement():
+    """hybrid_dev in float32 with a small LM: joint (ctc_prefix_scan
+    kernel) and ctc_beam with LM fusion give equal tokens on the card and
+    on the CPU, scores within 1e-3; attn_rescore with the LM term and
+    use_pallas (flash and LN kernels on the card) gives equal tokens."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.weights import init_random
+
+    counters = kernel_counters()
+    names = ("ctc_prefix_scan", "flash_attention_fwd",
+             "layer_norm_residual_fwd")
+    rng = np.random.default_rng(SEED)
+    lens = np.array([16000, 12000, 7000, 0], np.int32)
+    wav = np.zeros((4, 16000), np.float32)
+    for i, n in enumerate(lens):
+        wav[i, :n] = synth_wav(int(n), rng)
+    batch = {"wav": wav, "wav_lengths": lens}
+    launches = {}
+    # beam 8 in attn_rescore: 4 x 8 x 24 = 768 decoder rows, so the LN
+    # kernel runs as well as the flash kernel
+    for mode, use_pallas, lw, beam, max_len in (
+            ("joint", False, 0.3, 4, 12), ("ctc_beam", False, 0.1, 4, 12),
+            ("attn_rescore", True, 0.3, 8, 24)):
+        cfg = dataclasses.replace(get_preset("hybrid_dev").model,
+                                  vocab_size=64, use_pallas=use_pallas)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            lm_cfg, lm = small_lm(cfg.vocab_size)
+            rec = Recognizer(cfg, init_random(Transformer(cfg), SEED),
+                             mode=mode, device=dev, lm_cfg=lm_cfg, lm=lm,
+                             beam=BeamConfig(beam=beam, max_len=max_len,
+                                             ctc_weight=0.3, nbest=beam,
+                                             lm_weight=lw))
+            before = {k: counters[k].launches for k in names}
+            out[dev] = rec.decode_batch_nbest(batch)
+            launches[mode, dev] = {k: counters[k].launches - before[k]
+                                   for k in names}
+        for a, b in zip(out["cuda"], out["cpu"]):
+            for ha, hb in zip(a, b):
+                if ha["yseq"] != hb["yseq"] or (
+                        mode != "attn_rescore"
+                        and abs(ha["score"] - hb["score"]) > 1e-3):
+                    raise AssertionError(f"LM-fused {mode}: card {ha} != "
+                                         f"CPU {hb}")
+    card = {m: launches[m, "cuda"] for m in ("joint", "ctc_beam",
+                                             "attn_rescore")}
+    if not (card["joint"]["ctc_prefix_scan"] > 0
+            and card["attn_rescore"]["flash_attention_fwd"] > 0
+            and card["attn_rescore"]["layer_norm_residual_fwd"] > 0
+            and not any(v for m in card for k, v in
+                        launches[m, "cpu"].items())):
+        raise AssertionError(f"LM agreement launches: {launches}")
+    log("agreement: hybrid_dev with a small LM (d32, 2 layers): joint "
+        "(lm 0.3) and ctc_beam (lm 0.1) beam 4 on the card == on the CPU "
+        "(tokens equal, scores within 1e-3), use_pallas attn_rescore beam "
+        "8 (lm 0.3) tokens equal; card launches " + json.dumps(card))
+
+
+def profile_device(fn, what, card, host_top=0):
     """Run fn() under torch.profiler: device time by kernel, and the
-    device's busy share of the wall time. Only device-side events
+    device's busy share of the wall time (-> wall ms, device ms, device
+    events; with host_top, also the host's self CPU ms and its host_top
+    largest ops by self CPU time are logged). Only device-side events
     (kernels, copies, memsets) count: a CPU op's self device time is the
     time of the kernels it launched, which are listed themselves, and a
     record_function range (Optimizer.step) spans its kernels and the gaps
@@ -2120,12 +2274,25 @@ def profile_device(fn, what, card):
            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in avg)
     top = sorted(avg, key=lambda e: -e.self_device_time_total)[:20]
+    events = sum(e.count for e in avg)
     log(f"profile {what}: wall {wall * 1e3:.1f} ms (profiler on), device "
         f"busy {busy_us / 1e3:.1f} ms = {busy_us / 1e4 / wall:.1f}%, "
-        f"{sum(e.count for e in avg)} device events [{card}]")
+        f"{events} device events [{card}]")
     for e in top:
         log(f"profile {what}:   {e.key[:70]:70s} "
             f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count}")
+    out = {"wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+           "device_events": events}
+    if host_top:
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU]
+        out["host_self_ms"] = sum(e.self_cpu_time_total for e in ops) / 1e3
+        log(f"profile {what}: host self CPU {out['host_self_ms']:.1f} ms "
+            f"(profiler on); largest host ops:")
+        for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:host_top]:
+            log(f"profile {what}:   {e.key[:70]:70s} "
+                f"{e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count}")
+    return out
 
 
 def profile_serving(server, wavs, card, what="serving"):
@@ -2246,27 +2413,14 @@ def run_pallas_serving(card, flash_caps, ln_caps):
     wavs = [synth_wav(n, rng) for n in request_lengths(N_REQUESTS, SEED)]
     audio_s = sum(len(w) for w in wavs) / 16000.0
 
-    bucket = {}     # the encoder T' of the batch being decoded
-
-    def flash_label(q, k, v, valid, causal):
-        if causal:
-            kind = "decoder self-attention (causal)"
-        elif q.shape[1] == k.shape[1] and q.shape[0] == BATCH:
-            bucket["t"] = q.shape[1]
-            kind = "encoder self-attention"
-        else:
-            kind = "decoder cross-attention"
-        return f"T'={bucket.get('t')} {kind}"
-
-    def ln_label(r, *_):
-        return (f"T'={bucket.get('t')} "
-                f"{'encoder' if r.shape[0] == BATCH else 'decoder'} LN")
+    labels = PathLabels()
 
     # main path: counts from 0 just before, read just after
     flash_fwd, ln_fwd = fa.flash_attention_fwd, ln.layer_norm_residual_fwd
     flash_fwd.launches = ln_fwd.launches = 0
-    with record_inputs(fa, "flash_attention_fwd", flash_caps, flash_label), \
-            record_inputs(ln, "layer_norm_residual_fwd", ln_caps, ln_label):
+    with record_inputs(fa, "flash_attention_fwd", flash_caps,
+                       labels.flash), \
+            record_inputs(ln, "layer_norm_residual_fwd", ln_caps, labels.ln):
         results, wall = serve_requests(server, wavs)
     flash_n, ln_n = flash_fwd.launches, ln_fwd.launches
     batches = server.stats["batches"]
@@ -2295,11 +2449,6 @@ def run_pallas_serving(card, flash_caps, ln_caps):
     finally:
         server.stop()
     return flash_n, ln_n
-
-
-# the joint beam's later call of ctc_prefix_scan kept in each bucket,
-# beside its first: a step whose prefixes are no longer empty
-LATER_PREFIX_CALL = 10
 
 
 def run_serving(card, prefix_caps):
@@ -2335,20 +2484,13 @@ def run_serving(card, prefix_caps):
     wavs = [synth_wav(n, rng) for n in request_lengths(N_REQUESTS, SEED)]
     audio_s = sum(len(w) for w in wavs) / 16000.0
 
-    calls = {}      # ctc_prefix_scan calls so far in each bucket
-
-    def prefix_label(x_cand, *_, **__):
-        t = x_cand.shape[1]
-        calls[t] = calls.get(t, 0) + 1
-        if calls[t] in (1, LATER_PREFIX_CALL):
-            return f"joint beam T'={t} call {calls[t]}"
-        return None
+    labels = PathLabels("joint beam")
 
     # main path: counts from 0 just before, read just after
     ctc_prefix_scan.launches = 0
     rec.decode_steps = 0
     with record_inputs(scorer_module, "ctc_prefix_scan", prefix_caps,
-                       prefix_label):
+                       labels.prefix):
         results, wall = serve_requests(server, wavs)
     launches, steps = ctc_prefix_scan.launches, rec.decode_steps
 
@@ -2633,6 +2775,469 @@ def run_training(card, workdir, preset, data, captures,
     return launches
 
 
+# ---- phase 10: LM fusion and the decode CLIs ----
+
+# train_lm on phase 8's transcripts with its default schedule (Noam,
+# warmup 1000, k 0.5): 461 train utterances are 8 batches of 64 an epoch,
+# so 13 epochs are 104 steps. The transcripts are uniform random tokens
+# with uniform lengths 8-30, so what a model can learn of a held-out
+# sequence is its length: lm_cv_floor, ~8.05 nats a target on the cv set,
+# is the least cv loss such a model can reach, and an LM that goes below
+# it by more than LM_FLOOR_MARGIN sees the tokens it predicts. The LM does
+# not reach it: it learns the train set before the lengths, and its cv
+# loss stops near ln 4233 (PERF.md). So the card's training is held to
+# the CPU's instead: the same run (dropout 0, LM_CPU_EPOCHS epochs) on
+# both, every epoch's train and cv loss within LM_CPU_ATOL.
+LM_EPOCHS = 13
+LM_CPU_EPOCHS = 2
+LM_CPU_ATOL = 1e-4
+LM_FLOOR_MARGIN = 0.05
+LM_DECODES = (   # (name, checkpoint key, recognize flags)
+    ("joint", "aishell", ["--mode", "joint", "--beam", "5", "--max-len",
+                          "40", "--lm-weight", "0.3"]),
+    ("ctc_beam", "aishell", ["--mode", "ctc_beam", "--beam", "10",
+                             "--lm-weight", "0.1"]),
+    ("attn_rescore", "use_pallas", ["--mode", "attn_rescore", "--beam",
+                                    "10", "--lm-weight", "0.3"]))
+PATH_KERNELS = ("ctc_prefix_scan", "flash_attention_fwd",
+                "layer_norm_residual_fwd")
+LM_PATHS = {"joint": "LM-fused joint (recognize)",
+            "ctc_beam": "LM-fused ctc_beam (recognize)",
+            "attn_rescore": "LM-rescored attn_rescore (recognize)"}
+
+
+def lm_cv_floor(seqs, n_tokens: int) -> float:
+    """The mean loss a target (eos included) on `seqs` of a model that
+    draws each token uniformly from n_tokens ids and knows the length
+    distribution of `seqs` itself: after k tokens it gives eos the share
+    of the sequences of length k among those of length >= k. No model of
+    i.i.d. uniform tokens does better on them in expectation."""
+    import math
+    lens = np.array([len(x) for x in seqs])
+    total = 0.0
+    for k in range(int(lens.max()) + 1):
+        at, past = int((lens == k).sum()), int((lens > k).sum())
+        if at:                       # eos after k tokens
+            total -= at * math.log(at / (at + past))
+        if past:                     # a token after k tokens
+            total -= past * (math.log(past / (at + past))
+                             - math.log(n_tokens))
+    return total / float((lens + 1).sum())
+
+
+def write_wav_manifest(utts, waves, directory) -> str:
+    """Each utterance's wave as <directory>/wavs/<id>.npy and a manifest
+    naming them (with their token transcripts) -> its path."""
+    from tpu_asr_torch.data import save_manifest
+    os.makedirs(os.path.join(directory, "wavs"), exist_ok=True)
+    out = []
+    for u in utts:
+        path = os.path.join(directory, "wavs", f"{u.id}.npy")
+        np.save(path, waves[u.id])
+        out.append(dataclasses.replace(u, wav=path,
+                                       num_samples=len(waves[u.id])))
+    manifest = os.path.join(directory, "manifest.jsonl")
+    save_manifest(out, manifest)
+    return manifest
+
+
+def last_json_line(text: str) -> dict:
+    lines = [x for x in text.splitlines() if x.strip()]
+    if not lines:
+        raise AssertionError("the command printed nothing")
+    return json.loads(lines[-1])
+
+
+def run_cli(main_fn, argv):
+    """main_fn(argv) with its standard output captured (and echoed) ->
+    (what it returned, the JSON of the last line it printed)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv)
+    sys.stdout.write(buf.getvalue())
+    return result, last_json_line(buf.getvalue())
+
+
+def check_launches(what, got: dict, want: dict):
+    """Each kernel launched exactly as often as the path called for it,
+    and every kernel the path must run ran."""
+    if got != want or not all(v > 0 for v in want.values()):
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+
+
+@contextlib.contextmanager
+def wrap_method(owner, name, before=None, after=None):
+    """owner.<name> calls before() and after(result) around itself while
+    this runs."""
+    fn = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        if before is not None:
+            before()
+        out = fn(*args, **kwargs)
+        if after is not None:
+            after(out)
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def count_full_passes(counts):
+    """Count, in every module while this runs, the full-pass attentions
+    that take the flash formulation (use_pallas) and the post-norm calls
+    that take the fused LN (use_pallas, >= 512 rows): what the flash and
+    LN forward kernels must launch for."""
+    from tpu_asr_torch.models.attention import MultiHeadAttention
+    from tpu_asr_torch.models.decoder import Decoder
+    from tpu_asr_torch.models.modules import FUSED_LN_MIN_ROWS, PostNormBlock
+
+    def hook(module, inputs):
+        if isinstance(module, MultiHeadAttention) and module.use_pallas:
+            counts["flash_attention_fwd"] += 1
+        elif isinstance(module, PostNormBlock) and module.use_pallas and \
+                inputs[0].numel() // inputs[0].shape[-1] >= \
+                FUSED_LN_MIN_ROWS:
+            counts["layer_norm_residual_fwd"] += 1
+        elif isinstance(module, Decoder):
+            counts["decoder_passes"] += 1
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def lm_losses(lm_dir) -> list[dict]:
+    """The per-epoch lines train_lm wrote to <lm_dir>/metrics.jsonl."""
+    with open(os.path.join(lm_dir, "metrics.jsonl")) as f:
+        return [json.loads(x) for x in f]
+
+
+def check_lm_on_cpu(card, workdir, argv):
+    """train_lm with `argv`, dropout 0 and LM_CPU_EPOCHS epochs, on the
+    card and on the CPU: every epoch's train and cv loss within
+    LM_CPU_ATOL. -> the largest difference."""
+    from tpu_asr_torch import train_lm
+    runs, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        folder = os.path.join(workdir, f"lm_{device}")
+        t0 = time.perf_counter()
+        train_lm.main(argv + ["--dropout", "0", "--epochs",
+                              str(LM_CPU_EPOCHS), "--save-folder", folder,
+                              "--device", device])
+        walls[device] = time.perf_counter() - t0
+        runs[device] = lm_losses(folder)
+    diffs = [abs(a[k] - b[k]) for a, b in zip(runs["cuda"], runs["cpu"])
+             for k in ("train_loss", "loss")]
+    if len(diffs) != 2 * LM_CPU_EPOCHS or not max(diffs) <= LM_CPU_ATOL:
+        raise AssertionError(f"train_lm on the card {runs['cuda']} and on "
+                             f"the CPU {runs['cpu']} differ by more than "
+                             f"{LM_CPU_ATOL}")
+    log(f"train_lm card == CPU (dropout 0, {LM_CPU_EPOCHS} epochs): train "
+        f"and cv losses {[(x['train_loss'], x['loss']) for x in runs['cpu']]}"
+        f", largest difference {max(diffs):.2e} (atol {LM_CPU_ATOL}); wall "
+        f"{walls['cuda']:.2f} s on the card, {walls['cpu']:.2f} s on "
+        f"{torch.get_num_threads()} CPU threads [{card}]")
+    return max(diffs)
+
+
+def profile_lm_steps(card, train_manifest, n=8):
+    """n steps of a fresh LMTrainStep at the published width on one
+    train batch of 64 under torch.profiler (after 3 unprofiled), with its
+    largest host ops: what a train_lm step costs."""
+    from tpu_asr_torch.data import load_manifest
+    from tpu_asr_torch.models.lm import LMConfig, TransformerLM
+    from tpu_asr_torch.train.optim import NoamAdam
+    from tpu_asr_torch.train_lm import LMTrainStep, make_batches
+    from tpu_asr_torch.weights import init_random
+    cfg = LMConfig(vocab_size=4233)
+    lm = init_random(TransformerLM(cfg), SEED)
+    step = LMTrainStep(lm, NoamAdam(lm.parameters(), cfg.d_model, 1000,
+                                    0.5, 5.0), device=DEVICE, seed=SEED)
+    seqs = [u.tokens for u in load_manifest(train_manifest)]
+    ys_in, tgt = make_batches(seqs, 64, max(map(len, seqs)),
+                              cfg.vocab_size - 2, cfg.vocab_size - 1)[0]
+
+    def run(k):
+        for _ in range(k):
+            step(ys_in, tgt)
+        torch.cuda.synchronize()
+    run(3)
+    return profile_device(lambda: run(n), f"train_lm {n} steps", card,
+                          host_top=12)
+
+
+def train_lm_on_card(card, workdir, train_manifest, cv_manifest):
+    """python -m tpu_asr_torch.train_lm at the LM's published width
+    (LMConfig defaults: d256, d_inner 1024, h4, 4 layers, vocab 4233,
+    float32), batch 64, on the card (its default device); the same run
+    with dropout 0 on the card and the CPU (check_lm_on_cpu); a profile of
+    its steps. -> the LM folder."""
+    import math
+    from tpu_asr_torch import train_lm
+    from tpu_asr_torch.data import load_manifest
+    from tpu_asr_torch.models.lm import LMConfig, load_lm_config
+
+    argv = ["--train-manifest", train_manifest, "--cv-manifest",
+            cv_manifest, "--vocab-size", "4233", "--batch-size", "64"]
+    lm_dir = os.path.join(workdir, "lm")
+    events = []
+
+    def record():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with wrap_method(train_lm.LMTrainStep, "__call__", before=record,
+                     after=lambda _: record()):
+        train_lm.main(argv + ["--epochs", str(LM_EPOCHS), "--save-folder",
+                              lm_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg = load_lm_config(lm_dir)
+    if cfg != LMConfig(vocab_size=4233):
+        raise AssertionError(f"train_lm wrote {cfg}, not the published "
+                             f"width")
+    lines = lm_losses(lm_dir)
+    cv = [x["loss"] for x in lines]
+    floor = lm_cv_floor([u.tokens for u in load_manifest(cv_manifest)],
+                        cfg.vocab_size - 4)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[::2], events[1::2])]
+    losses = [x[k] for x in lines for k in ("loss", "train_loss")]
+    if len(step_ms) < MIN_TRAIN_STEPS or not np.isfinite(losses).all() or \
+            not lines[-1]["train_loss"] < lines[0]["train_loss"] or \
+            not min(cv) < cv[0] or not min(cv) > floor - LM_FLOOR_MARGIN:
+        raise AssertionError(f"train_lm: {len(step_ms)} steps, cv lines "
+                             f"{lines}; want >= {MIN_TRAIN_STEPS} steps, "
+                             f"finite losses, the train loss falling, the "
+                             f"best cv loss below the first and above the "
+                             f"corpus floor {floor:.4f} less "
+                             f"{LM_FLOOR_MARGIN}")
+    log(f"train_lm: LM (d{cfg.d_model}, d_inner {cfg.d_inner}, "
+        f"h{cfg.num_heads}, {cfg.num_layers} layers, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}) {len(step_ms)} steps of batch 64 "
+        f"in {wall:.2f} s (cv included); step ms median "
+        f"{statistics.median(step_ms):.2f}, min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}; peak memory {peak / 2**30:.2f} GiB [{card}]; "
+        f"cv loss by epoch {cv} (ln 4233 = {math.log(4233):.4f}, corpus "
+        f"floor {floor:.4f}: best {min(cv):.4f} at epoch "
+        f"{cv.index(min(cv))}), train loss "
+        f"{[x['train_loss'] for x in lines]}")
+    check_lm_on_cpu(card, workdir, argv)
+    profile_lm_steps(card, train_manifest)
+    return lm_dir
+
+
+def run_lm_decodes(card, workdir, ckpts, lm_dir, cv_manifest, n_cv):
+    """python -m tpu_asr_torch.recognize with the LM in each of
+    LM_DECODES, then python -m tpu_asr_torch.score on the joint output;
+    then the kernels that ran on these paths against their plain versions
+    on the inputs the paths gave them (ctc_prefix_scan on the LM-fused
+    joint path, the flash and LN forwards on LM-rescored attn_rescore;
+    see PathLabels), timed. -> ({decode name: {kernel: launches}}, their
+    counts from 0 just before each decode, read just after; {"prefix",
+    "flash", "ln": {label: timings, shape and max abs error}}; errors)."""
+    from tpu_asr_torch import recognize, score
+    from tpu_asr_torch.decode import ctc_prefix as scorer_module
+    from tpu_asr_torch.models.lm import TransformerLM
+    from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
+
+    counters = kernel_counters()
+    out = {}
+    caps = {"prefix": {}, "flash": {}, "ln": {}}
+    for name, ckpt, flags in LM_DECODES:
+        hyp = os.path.join(workdir, f"hyp_{name}.jsonl")
+        calls = {"lm_step": 0, "flash_attention_fwd": 0,
+                 "layer_norm_residual_fwd": 0, "decoder_passes": 0}
+        labels = PathLabels(LM_PATHS[name])
+
+        def lm_step():
+            calls["lm_step"] += 1
+        # main path: counts from 0 just before, read just after
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with count_full_passes(calls), \
+                wrap_method(TransformerLM, "step", before=lm_step), \
+                record_inputs(scorer_module, "ctc_prefix_scan",
+                              caps["prefix"], labels.prefix), \
+                record_inputs(fa, "flash_attention_fwd", caps["flash"],
+                              labels.flash), \
+                record_inputs(ln, "layer_norm_residual_fwd", caps["ln"],
+                              labels.ln):
+            summary, printed = run_cli(recognize.main, [
+                "--ckpt", ckpts[ckpt], "--manifest", cv_manifest,
+                "--lm-ckpt", lm_dir, "--output", hyp] + flags)
+        wall = time.perf_counter() - t0
+        launches = {k: counters[k].launches for k in PATH_KERNELS}
+        hyps = [json.loads(x) for x in open(hyp)]
+        if printed != summary or summary["n_utts"] != n_cv or \
+                len(hyps) != n_cv or "cer" not in summary:
+            raise AssertionError(f"recognize {name}: summary {summary}, "
+                                 f"printed {printed}, {len(hyps)} "
+                                 f"hypotheses for {n_cv} utterances")
+        want = {"ctc_prefix_scan": calls["lm_step"]} if name == "joint" \
+            else {}
+        if name == "attn_rescore":
+            want = {k: calls[k] for k in PATH_KERNELS[1:]}
+        check_launches(f"recognize {name}", {k: v for k, v in
+                                             launches.items() if v}, want)
+        per_batch = ({k: v / calls["decoder_passes"] for k, v in
+                      want.items()} if calls["decoder_passes"] else {})
+        log(f"recognize {name} with the LM: {json.dumps(summary)}; "
+            f"{wall:.2f} s with model load and warm-up; kernel launches "
+            f"{json.dumps(launches)} for {calls['lm_step']} LM-fused joint "
+            f"steps and {calls['decoder_passes']} decoder passes (per "
+            f"pass {json.dumps(per_batch)}) [{card}]")
+        out[name] = (launches, summary)
+    joint_hyp = os.path.join(workdir, "hyp_joint.jsonl")
+    scored, printed = run_cli(score.main, ["--manifest", cv_manifest,
+                                           "--hyp", joint_hyp])
+    if printed != scored or scored["cer"] != out["joint"][1]["cer"] or \
+            scored["n_utts"] != n_cv:
+        raise AssertionError(f"score {scored} disagrees with recognize "
+                             f"{out['joint'][1]}")
+    log(f"score: {json.dumps(scored)} == recognize joint's cer")
+    paths, errs = {}, {}
+    paths["prefix"], errs["prefix"] = check_prefix_on_paths(caps["prefix"])
+    paths["flash"], paths["ln"], fl_errs = check_flash_ln_on_paths(
+        caps["flash"], caps["ln"], LM_PATHS["attn_rescore"])
+    errs.update(fl_errs)
+    if not all(paths.values()):
+        raise AssertionError(f"the LM paths recorded "
+                             f"{ {k: len(v) for k, v in paths.items()} } "
+                             f"prefix, flash and LN calls")
+    log(f"ctc_prefix_scan vs plain on {LM_PATHS['joint']}'s inputs: "
+        f"{len(paths['prefix'])} calls agree, max abs err "
+        f"{errs['prefix']}")
+    return ({name: launches for name, (launches, _) in out.items()}, paths,
+            errs)
+
+
+def time_lm_fusion(card, ckpt, lm_dir, utts, waves):
+    """The joint beam 5 (max_len 40, LM weight 0.3) and ctc_beam 10 (LM
+    weight 0.1) of the aishell checkpoint on one batch of 8 cv utterances
+    padded to 1000 frames, without and with the LM: wall ms (median of 3
+    after a warm-up) and, under torch.profiler, device ms, device
+    events and the host's self CPU ms, and the joint beam's decode steps.
+    A reading, not a gate."""
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.models.lm import load_lm
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+
+    ck = Checkpointer(ckpt)
+    cfg = ck.load_config()
+    batch_wav = np.zeros((BATCH, BUCKETS[-1] * 160), np.float32)
+    lens = np.zeros(BATCH, np.int32)
+    for i, u in enumerate(utts[:BATCH]):
+        w = waves[u.id][: BUCKETS[-1] * 160]
+        batch_wav[i, :len(w)] = w
+        lens[i] = len(w)
+    batch = {"wav": batch_wav, "wav_lengths": lens}
+    readings = {}
+    for key, mode, beam, weight in (
+            ("joint 5 without LM", "joint", 5, 0.0),
+            ("joint 5 with LM", "joint", 5, 0.3),
+            ("ctc_beam 10 without LM", "ctc_beam", 10, 0.0),
+            ("ctc_beam 10 with LM", "ctc_beam", 10, 0.1)):
+        model = build_model(cfg)
+        model.load_state_dict(ck.restore(ck.best_step())["model"])
+        lm = load_lm(lm_dir)
+        rec = Recognizer(cfg, model, mode=mode, device=DEVICE,
+                         lm_cfg=lm.cfg, lm=lm,
+                         beam=BeamConfig(beam=beam, max_len=40,
+                                         ctc_weight=0.3, lm_weight=weight))
+        rec.decode_batch_nbest(batch)
+        rec.decode_steps = 0
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rec.decode_batch_nbest(batch)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        steps = rec.decode_steps // 3
+        prof = profile_device(lambda: rec.decode_batch_nbest(batch), key,
+                              card, host_top=10)
+        readings[key] = dict(prof, wall_ms_median=statistics.median(walls),
+                             steps=steps)
+    log("LM fusion cost on 8 cv utterances (a reading): "
+        + json.dumps(readings) + f" [{card}]")
+    return readings
+
+
+def run_lm_serving(card, ckpt, lm_dir, workdir, wav, want_tokens=None):
+    """python -m tpu_asr_torch.serve's build_server with --dict (a
+    4233-line dict) and --lm-ckpt on the aishell checkpoint; one POST
+    /recognize must answer with a non-null text."""
+    from tpu_asr_torch.serve import (build_server, load_char_list,
+                                     make_http_server, parse_args)
+    from tpu_asr_torch.utils.vocab import Vocab
+
+    dict_path = os.path.join(workdir, "dict.txt")
+    Vocab.build(chr(0x4E00 + i) for i in range(4229)).save(dict_path)
+    args = parse_args(["--ckpt", ckpt, "--mode", "joint", "--beam", "5",
+                       "--max-len", "40", "--lm-ckpt", lm_dir,
+                       "--lm-weight", "0.3", "--dict", dict_path,
+                       "--bucket-frames", ",".join(map(str, BUCKETS)),
+                       "--batch-size", str(BATCH), "--restore", "latest"])
+    server = build_server(args)
+    server.warmup(kinds=("wav",))
+    server.start()
+    httpd = make_http_server("127.0.0.1", 0, server, load_char_list(args))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/recognize"
+        req = urllib.request.Request(
+            url, data=json.dumps({"wav": wav.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        server.stop()
+    chars = load_char_list(args)
+    if status != 200 or body.get("text") is None or \
+            body["text"] != "".join(chars[i] for i in body["tokens"]):
+        raise AssertionError(f"/recognize with --dict --lm-ckpt answered "
+                             f"{status}: {body}")
+    log(f"http with --dict --lm-ckpt: POST /recognize -> 200, "
+        f"{len(body['tokens'])} tokens, text {body['text'][:16]!r}...")
+
+
+def run_lm_phase(card, workdir, data, ckpts):
+    """Phase 10: train_lm, three LM decodes through recognize and their
+    score, the cost of fusion in the joint beam, and the server with
+    --dict --lm-ckpt. -> what run_lm_decodes returns."""
+    from tpu_asr_torch.data import save_manifest
+    train_utts, cv_utts, _, waves = data
+    train_manifest = os.path.join(workdir, "lm_train.jsonl")
+    save_manifest(train_utts, train_manifest)
+    cv_manifest = write_wav_manifest(cv_utts, waves,
+                                     os.path.join(workdir, "cv"))
+    lm_dir = train_lm_on_card(card, workdir, train_manifest, cv_manifest)
+    decodes = run_lm_decodes(card, workdir, ckpts, lm_dir, cv_manifest,
+                             len(cv_utts))
+    time_lm_fusion(card, ckpts["aishell"], lm_dir, cv_utts, waves)
+    run_lm_serving(card, ckpts["aishell"], lm_dir, workdir,
+                   waves[cv_utts[0].id])
+    return decodes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2674,6 +3279,7 @@ def main() -> int:
     check_train_agreement(use_pallas=True)
     check_cif_agreement()
     check_pallas_agreement()
+    check_lm_agreement()
     prefix_caps = {}
     launches = run_serving(card, prefix_caps)
     captures = {}
@@ -2686,18 +3292,28 @@ def main() -> int:
         f"made in {time.perf_counter() - t0:.1f} s")
     training, bwd_caps, ctc_caps = {}, {"flash": {}, "ln": {}}, {}
     pallas = f"{PRESET} use_pallas"
-    for key, preset, overrides in ((PRESET, PRESET, None),
-                                   ("cif", "cif", None),
-                                   (pallas, PRESET, {"use_pallas": True})):
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as wd:
+    # the hybrid and use_pallas checkpoints stay for phase 10's decodes;
+    # phase 10 runs last, after phase 9's traced kernel timings
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        ckpts = {}
+        for key, preset, overrides in ((PRESET, PRESET, None),
+                                       ("cif", "cif", None),
+                                       (pallas, PRESET,
+                                        {"use_pallas": True})):
+            wd = os.path.join(workdir, key.replace(" ", "_"))
             training[key] = run_training(card, wd, preset, data, captures,
                                          overrides, bwd_caps, ctc_caps)
-    path_err, path_timings = check_cif_fire_on_paths(captures)
-    flash_path, ln_path, path_errs = check_flash_ln_on_paths(flash_caps,
-                                                             ln_caps)
-    flash_bwd_path, ln_bwd_path, bwd_path_errs = check_bwd_on_paths(bwd_caps)
-    prefix_path, ctc_path, ctc_path_errs = check_ctc_on_paths(prefix_caps,
-                                                              ctc_caps)
+            ckpts[key] = wd
+        path_err, path_timings = check_cif_fire_on_paths(captures)
+        flash_path, ln_path, path_errs = check_flash_ln_on_paths(flash_caps,
+                                                                 ln_caps)
+        flash_bwd_path, ln_bwd_path, bwd_path_errs = check_bwd_on_paths(
+            bwd_caps)
+        prefix_path, ctc_path, ctc_path_errs = check_ctc_on_paths(
+            prefix_caps, ctc_caps)
+        lm_launches, lm_paths, lm_errs = run_lm_phase(
+            card, workdir, data,
+            {"aishell": ckpts[PRESET], "use_pallas": ckpts[pallas]})
 
     def ctc_build(symbol):
         return {k: v for k, v in build_report.items() if symbol in k}
@@ -2708,8 +3324,13 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_asr_torch/csrc/ctc_prefix_scan.cu",
         "replaces": "tpu_asr/ops/pallas/ctc_prefix.py:114",
-        "launches": launches,
-        "max_abs_err": max(max_err, ctc_path_errs["prefix"]),
+        "launches": launches + lm_launches["joint"]["ctc_prefix_scan"],
+        "launches_by_path": {
+            "joint serving": launches,
+            "LM-fused joint (recognize)":
+                lm_launches["joint"]["ctc_prefix_scan"]},
+        "max_abs_err": max(max_err, ctc_path_errs["prefix"],
+                           lm_errs["prefix"]),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
@@ -2722,11 +3343,11 @@ def main() -> int:
         "design": "a block a beam, the chain's operands staged through a "
                   "ring of shared-memory tiles by cp.async",
         "build": ctc_build(ctc_prefix.KERNEL_SYMBOL),
-        "path_max_abs_err": ctc_path_errs["prefix"],
+        "path_max_abs_err": max(ctc_path_errs["prefix"], lm_errs["prefix"]),
         "other_shapes": dict({f"T={t} hist={h}": v for (t, h), v
                               in timings.items() if (t, h) != (249, True)},
-                             **{f"path {k}": v
-                                for k, v in prefix_path.items()}),
+                             **{f"path {k}": v for k, v in
+                                (prefix_path | lm_paths["prefix"]).items()}),
     }]
     designs = {"fwd": "warp route: a chain warp an utterance, two positions "
                       "a lane, shuffles up; a helper warp stages rows of E "
@@ -2801,32 +3422,40 @@ def main() -> int:
     })
     # the main numbers: the largest call of each kernel in use_pallas
     # serving's 1000-frame bucket, as served
-    for name, source, replaces, path_t, synthetic, n, err, extra in (
+    for name, source, replaces, path_t, lm_t, synthetic, n, err, extra in (
             ("flash_attention_fwd", "flash_attention.cu",
-             "flash_attention.py:110", flash_path, flash_timings,
+             "flash_attention.py:110", flash_path, lm_paths["flash"],
+             flash_timings,
              {"use_pallas serving": flash_serving,
-              "use_pallas training": training[pallas]["flash_attention_fwd"]},
-             max(flash_err, path_errs["flash"]),
-             {"lse_max_abs_err": max(lse_err, path_errs["lse"]),
+              "use_pallas training": training[pallas]["flash_attention_fwd"],
+              "LM-rescored attn_rescore (recognize)":
+                  lm_launches["attn_rescore"]["flash_attention_fwd"]},
+             max(flash_err, path_errs["flash"], lm_errs["flash"]),
+             {"lse_max_abs_err": max(lse_err, path_errs["lse"],
+                                     lm_errs["lse"]),
               "library_call": "F.scaled_dot_product_attention, boolean "
                               "attn_mask, [B, H, T, dh] inputs",
               "design": "sm90 wgmma",
               "build": {k: v for k, v in build_report.items()
                         if "fwd_wgmma" in k}}),
             ("layer_norm_residual_fwd", "layer_norm_residual.cu",
-             "layernorm.py:79", ln_path, ln_timings,
+             "layernorm.py:79", ln_path, lm_paths["ln"], ln_timings,
              {"use_pallas serving": ln_serving,
               "use_pallas training":
-                  training[pallas]["layer_norm_residual_fwd"]},
-             max(ln_err, path_errs["ln"]),
-             {"bf16_ulps_at_output_scale": max(ln_ulps,
-                                               path_errs["ln_ulps"]),
-              "bf16_raw_ulps_max": max(ln_raw, path_errs["ln_raw"]),
+                  training[pallas]["layer_norm_residual_fwd"],
+              "LM-rescored attn_rescore (recognize)":
+                  lm_launches["attn_rescore"]["layer_norm_residual_fwd"]},
+             max(ln_err, path_errs["ln"], lm_errs["ln"]),
+             {"bf16_ulps_at_output_scale": max(ln_ulps, path_errs["ln_ulps"],
+                                               lm_errs["ln_ulps"]),
+              "bf16_raw_ulps_max": max(ln_raw, path_errs["ln_raw"],
+                                       lm_errs["ln_raw"]),
               "library_call": None})):
         main_label = max(path_t, key=lambda k: (    # labels "T'=<t> ..."
             int(k.split()[0][3:]), path_t[k]["bound_ms"]))
         t = path_t[main_label]
         other = {k: v for k, v in path_t.items() if k != main_label}
+        other.update({f"path {k}": v for k, v in lm_t.items()})
         other.update({f"synthetic {k}": v for k, v in synthetic.items()})
         kernels.append(dict({
             "name": name,

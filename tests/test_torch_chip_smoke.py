@@ -3,6 +3,7 @@ build made, the flash bounds and the rounding-flip count, the kernel
 names it times and the CTC kernels' launch plans, on the CPU."""
 
 import importlib.util
+import json
 import os
 import re
 
@@ -327,6 +328,28 @@ def test_kernel_device_ms_retries_and_never_substitutes(monkeypatch, traces,
                                    else "0.0020")
 
 
+@pytest.mark.parametrize("empty,ok", [(0, True), (2, True), (3, True),
+                                       (4, False)])
+def test_device_events_retries_then_fails(monkeypatch, empty, ok):
+    """device_events takes a trace without the kernel again with twice
+    the calls, up to 4 traces, and returns every device event of the
+    first that holds it with its number of calls; 4 such traces fail."""
+    found = [_Event("x_kernel_y", 7, 1.0), _Event("Memset", 2, 1.0)]
+    traces = [[_Event("other", 3, 1.0)]] * empty + [found]
+    _fake_profiler(monkeypatch, traces[:4])
+    made = []
+    if ok:
+        events, calls = chip_smoke.device_events(lambda: made.append(1),
+                                                 "x_kernel")
+        assert events == {"x_kernel_y": 7, "Memset": 2}
+        assert calls == 10 << empty
+        assert len(made) == 1 + sum(10 << i for i in range(empty + 1))
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.device_events(lambda: made.append(1), "x_kernel")
+        assert len(made) == 1 + 10 + 20 + 40 + 80
+
+
 def _case(lens, tq=5, tk=7, h=2, dh=32, dtype=torch.bfloat16, seed=0):
     rng = np.random.default_rng(seed)
     b = len(lens)
@@ -371,3 +394,171 @@ def test_rounding_flips_counts_against_exact_scores():
     assert 0 <= flips["ds_flips"] <= flips["terms"]
     assert flips["kernel_ulps"] == flips["plain_ulps"]
     assert all(u <= 1.0 for u in flips["plain_ulps"].values())
+
+
+# ---- phase 10's helpers ----
+
+def test_write_wav_manifest_round_trips(tmp_path):
+    from tpu_asr_torch.data import load_manifest
+    from tpu_asr_torch.data.synthetic import make_synthetic_dataset
+    utts, waves = make_synthetic_dataset(3, 64, seed=0)
+    path = chip_smoke.write_wav_manifest(utts, waves, str(tmp_path))
+    back = load_manifest(path)
+    assert [(u.id, u.tokens) for u in back] == \
+        [(u.id, u.tokens) for u in utts]
+    for u in back:
+        np.testing.assert_array_equal(np.load(u.wav), waves[u.id])
+        assert u.num_samples == len(waves[u.id])
+        assert u.wav.startswith(str(tmp_path))
+
+
+def test_run_cli_returns_and_parses_the_summary(capsys):
+    def main(argv):
+        print("buckets: ...")
+        out = {"n_utts": len(argv), "cer": 0.25}
+        print(json.dumps(out))
+        return out
+
+    got, printed = chip_smoke.run_cli(main, ["a", "b"])
+    assert got == printed == {"n_utts": 2, "cer": 0.25}
+    assert "buckets" in capsys.readouterr().out       # echoed
+    assert chip_smoke.last_json_line('x\n{"a": 1}\n\n') == {"a": 1}
+    with pytest.raises(AssertionError):
+        chip_smoke.last_json_line("\n  \n")
+
+
+@pytest.mark.parametrize("got,want,ok", [
+    ({"ctc_prefix_scan": 40}, {"ctc_prefix_scan": 40}, True),
+    ({}, {}, True),                               # ctc_beam: no kernel
+    ({"ctc_prefix_scan": 39}, {"ctc_prefix_scan": 40}, False),
+    ({}, {"ctc_prefix_scan": 0}, False),           # a path that never ran
+    ({"flash_attention_fwd": 18, "layer_norm_residual_fwd": 30},
+     {"flash_attention_fwd": 18}, False),          # an unexpected kernel
+])
+def test_check_launches(got, want, ok):
+    if ok:
+        chip_smoke.check_launches("path", got, want)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_launches("path", got, want)
+
+
+def test_count_full_passes_counts_what_the_kernels_launch_for():
+    """A use_pallas hybrid_dev forward with >= 512 encoder and decoder
+    rows: one flash call per full-pass attention, one fused LN per
+    post-norm block, one decoder pass; nothing without use_pallas."""
+    import dataclasses
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.models.transformer import Transformer
+    rng = np.random.default_rng(0)
+    batch = chip_smoke.pallas_train_batch(rng)
+    args = [torch.from_numpy(batch[k]) for k in
+            ("feats", "feat_lengths", "targets", "target_lengths")]
+    for use_pallas in (True, False):
+        cfg = dataclasses.replace(get_preset("hybrid_dev").model,
+                                  vocab_size=64, use_pallas=use_pallas)
+        counts = {"flash_attention_fwd": 0, "layer_norm_residual_fwd": 0,
+                  "decoder_passes": 0}
+        with chip_smoke.count_full_passes(counts), torch.no_grad():
+            Transformer(cfg)(*args)
+        n = use_pallas
+        assert counts == {"flash_attention_fwd": n * (2 + 2 * 2),
+                          "layer_norm_residual_fwd": n * (2 * 2 + 3 * 2),
+                          "decoder_passes": 1}
+    with torch.no_grad():                         # the hook is gone
+        Transformer(cfg)(*args)
+    assert counts["decoder_passes"] == 1
+
+
+def test_wrap_method_calls_around_and_restores():
+    class Thing:
+        def step(self, x):
+            return x + 1
+
+    seen = []
+    with chip_smoke.wrap_method(Thing, "step", before=lambda: seen.append(
+            "before"), after=seen.append):
+        assert Thing().step(1) == 2
+    assert seen == ["before", 2]
+    assert Thing().step(5) == 6 and seen == ["before", 2]
+    assert "step" in vars(Thing)
+
+
+def test_path_labels_name_each_kind_once_per_bucket():
+    """The kernel calls of two attn_rescore batches (encoder T' 62 and
+    30; 2 encoder and 2 decoder blocks, as a use_pallas model makes them)
+    recorded under PathLabels: one capture per flash kind and per LN part
+    at each T'; the prefix-scan labels keep the first and the
+    LATER_PREFIX_CALL-th call of each T'."""
+    class Ops:
+        @staticmethod
+        def flash(q, k, v, valid, causal):
+            return q
+
+        @staticmethod
+        def ln(r, h, g, b, eps):
+            return r
+
+    def batch(t, b=4, u=9):
+        z = torch.zeros
+        for _ in range(2):                         # encoder blocks
+            Ops.flash(z(b, t, 2, 8), z(b, t, 2, 8), None, None, False)
+            Ops.ln(z(b, t, 16), None, None, None, 1e-5)
+            Ops.ln(z(b, t, 16), None, None, None, 1e-5)
+        for _ in range(2):                         # decoder blocks
+            Ops.flash(z(b, u, 2, 8), z(b, u, 2, 8), None, None, True)
+            Ops.ln(z(b, u, 16), None, None, None, 1e-5)
+            Ops.flash(z(b, u, 2, 8), z(b, t, 2, 8), None, None, False)
+            Ops.ln(z(b, u, 16), None, None, None, 1e-5)
+            Ops.ln(z(b, u, 16), None, None, None, 1e-5)
+
+    labels = chip_smoke.PathLabels("LM path")
+    flash_caps, ln_caps = {}, {}
+    with chip_smoke.record_inputs(Ops, "flash", flash_caps, labels.flash), \
+            chip_smoke.record_inputs(Ops, "ln", ln_caps, labels.ln):
+        batch(62)
+        batch(30)
+    kinds = ("encoder self-attention", "decoder self-attention (causal)",
+             "decoder cross-attention")
+    assert sorted(flash_caps) == sorted(f"LM path T'={t} {kind}"
+                                        for t in (62, 30) for kind in kinds)
+    assert sorted(ln_caps) == sorted(f"LM path T'={t} {part} LN"
+                                     for t in (62, 30)
+                                     for part in ("encoder", "decoder"))
+    for t in (62, 30):
+        assert ln_caps[f"LM path T'={t} encoder LN"][0].shape[1] == t
+        assert ln_caps[f"LM path T'={t} decoder LN"][0].shape[1] == 9
+        q, k = flash_caps[f"LM path T'={t} decoder cross-attention"][:2]
+        assert (q.shape[1], k.shape[1]) == (9, t)
+    assert "flash" in vars(Ops) and "ln" in vars(Ops)     # restored
+
+    plain = chip_smoke.PathLabels()
+    x = torch.zeros(2, 7, 3)
+    got = [plain.prefix(x) for _ in range(chip_smoke.LATER_PREFIX_CALL)]
+    assert got[0] == "T'=7 call 1"
+    assert got[-1] == f"T'=7 call {chip_smoke.LATER_PREFIX_CALL}"
+    assert got[1:-1] == [None] * (chip_smoke.LATER_PREFIX_CALL - 2)
+    assert plain.prefix(torch.zeros(2, 9, 3)) == "T'=9 call 1"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lm_cv_floor_is_the_length_aware_uniform_model(seed):
+    """lm_cv_floor equals the mean loss, scored target by target, of the
+    model that knows the set's own length distribution and draws tokens
+    uniformly; it lies under ln V, and with one length eos is free."""
+    import math
+    rng = np.random.default_rng(seed)
+    seqs = [[2] * int(rng.integers(8, 31)) for _ in range(51)]
+    lens = np.array([len(x) for x in seqs])
+    total = 0.0
+    for n in lens:
+        for k in range(n + 1):
+            hazard = (lens == k).sum() / (lens >= k).sum()
+            total += (-math.log(hazard) if k == n else
+                      math.log(4229) - math.log1p(-hazard))
+    want = total / (lens + 1).sum()
+    got = chip_smoke.lm_cv_floor(seqs, 4229)
+    assert got == pytest.approx(want, rel=1e-12)
+    assert got < math.log(4229) < math.log(4233)
+    assert chip_smoke.lm_cv_floor([[5] * 12] * 4, 4229) == \
+        pytest.approx(12 * math.log(4229) / 13, rel=1e-12)

@@ -676,3 +676,105 @@ def test_layer_norm_residual_bwd_kernel(rows, d, dtype):
     got = layer_norm_residual_bwd(shifted, h, g, mean, rstd, dy)
     for x, y in zip(got, again):
         assert torch.equal(x, y)
+
+
+def _lm_fusion_decode(device, mode, use_pallas, lm_weight):
+    """hybrid_dev (vocab 64, float32) with a seeded small LM, one wav
+    batch with a length-0 row -> (n-best, launches of the path's kernels
+    in the decode). attn_rescore takes beam 8 (4 x 8 x 24 = 768 decoder
+    rows: the LN kernel runs), the others beam 4."""
+    beam = 8 if mode == "attn_rescore" else 4
+    import dataclasses
+
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.lm import LMConfig, TransformerLM
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.ops import flash_attention as fa
+    from tpu_asr_torch.ops import layernorm as ln
+    from tpu_asr_torch.weights import init_random
+
+    cfg = dataclasses.replace(get_preset("hybrid_dev").model, vocab_size=64,
+                              use_pallas=use_pallas)
+    lm_cfg = LMConfig(vocab_size=64, d_model=32, d_inner=64, num_heads=2,
+                      num_layers=2, dropout=0.0)
+    rec = Recognizer(cfg, init_random(Transformer(cfg), 0), mode=mode,
+                     device=device, lm_cfg=lm_cfg,
+                     lm=init_random(TransformerLM(lm_cfg), 1),
+                     beam=BeamConfig(beam=beam, max_len=3 * beam,
+                                     ctc_weight=0.3 if mode in (
+                                         "joint", "attn_rescore") else 0.0,
+                                     nbest=beam, lm_weight=lm_weight))
+    rng = np.random.default_rng(0)
+    lens = np.array([16000, 12000, 7000, 0], np.int32)
+    wav = np.zeros((4, 16000), np.float32)
+    for i, n in enumerate(lens):
+        t = np.arange(n) / 16000.0
+        wav[i, :n] = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 300) * t) \
+            + 0.05 * rng.standard_normal(n)
+    wrappers = (ctc_prefix_scan, fa.flash_attention_fwd,
+                ln.layer_norm_residual_fwd)
+    before = [w.launches for w in wrappers]
+    out = rec.decode_batch_nbest({"wav": wav, "wav_lengths": lens})
+    return out, [w.launches - b for w, b in zip(wrappers, before)]
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 products in full float32 on the card (as chip_smoke.py
+    runs), restored after the test."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,use_pallas,lm_weight", [
+    ("joint", False, 0.3), ("beam", False, 0.5), ("ctc_beam", False, 0.1),
+    ("attn_rescore", True, 0.3)])
+def test_lm_fusion_on_the_card_equals_the_cpu(mode, use_pallas, lm_weight,
+                                              no_tf32):
+    """LM shallow fusion (joint, beam, ctc_beam) and LM rescoring
+    (attn_rescore with use_pallas) decode to the CPU's tokens, scores
+    within 1e-3; the card ran the path's kernels, the CPU none."""
+    _need_card()
+    got, card = _lm_fusion_decode("cuda", mode, use_pallas, lm_weight)
+    want, cpu = _lm_fusion_decode("cpu", mode, use_pallas, lm_weight)
+    for g, w in zip(got, want):
+        for hg, hw in zip(g, w):
+            assert hg["yseq"] == hw["yseq"]
+            assert abs(hg["score"] - hw["score"]) <= 1e-3
+    assert cpu == [0, 0, 0]
+    if mode == "joint":
+        assert card[0] > 0
+    if mode == "attn_rescore":
+        assert card[1] > 0 and card[2] > 0
+
+
+@pytest.mark.gpu
+def test_lm_steps_on_the_card_equal_teacher_forced(no_tf32):
+    """The LM's cached step and step_at on the card against its own
+    teacher-forced pass, atol 1e-5."""
+    _need_card()
+    from tpu_asr_torch.models.lm import LMConfig, TransformerLM
+    from tpu_asr_torch.weights import init_random
+    lm = init_random(TransformerLM(LMConfig(vocab_size=4233)), 0).cuda()
+    ys = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 4233, (6, 9))).cuda()
+    with torch.no_grad():
+        full = lm(ys)
+        cache = lm.init_cache(6, 9, device="cuda")
+        cache_at = lm.init_cache(6, 9, device="cuda")
+        for pos in range(9):
+            step, cache = lm.step(ys[:, pos], pos, cache)
+            at, cache_at = lm.step_at(ys[:, pos],
+                                      torch.full((6,), pos, device="cuda"),
+                                      cache_at)
+            torch.testing.assert_close(step, full[:, pos], atol=1e-5,
+                                       rtol=0)
+            torch.testing.assert_close(at, step, atol=1e-5, rtol=0)

@@ -128,11 +128,14 @@ def test_mode_needs_matching_heads():
     ctc = dataclasses.replace(torch_cfg(), model_type="ctc")
     with pytest.raises(ValueError):
         Recognizer(ctc, Transformer(ctc), mode="attn_rescore", device="cpu")
-    for mode in ("ctc_beam", "attn_rescore"):
-        with pytest.raises(NotImplementedError):
-            Recognizer(torch_cfg(), torch_model(), mode=mode, device="cpu",
-                       beam=BeamConfig(lm_weight=0.5)).decode_batch(BATCH)
-    with pytest.raises(NotImplementedError):
-        Recognizer(torch_cfg(), torch_model(), mode="beam", device="cpu",
-                   beam=BeamConfig(lm_weight=0.5)).decode_batch(BATCH)
+    # lm_weight > 0 with no LM decodes as lm_weight 0, as the reference's
+    # Recognizer does (its use_lm needs both)
+    for mode in ("beam", "ctc_beam", "attn_rescore"):
+        beam = dict(beam=2, max_len=6, nbest=2)
+        with_weight = Recognizer(torch_cfg(), torch_model(), mode=mode,
+                                 device="cpu",
+                                 beam=BeamConfig(lm_weight=0.5, **beam))
+        assert with_weight.decode_batch_nbest(BATCH) == Recognizer(
+            torch_cfg(), torch_model(), mode=mode, device="cpu",
+            beam=BeamConfig(**beam)).decode_batch_nbest(BATCH)
     assert VOCAB == torch_cfg().vocab_size

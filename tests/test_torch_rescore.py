@@ -75,15 +75,6 @@ def test_chunked_advance_equals_full_search():
         assert torch.equal(a, b)
 
 
-def test_lm_fusion_is_not_ported():
-    logits = torch.zeros(1, 3, 5)
-    with pytest.raises(NotImplementedError):
-        ctc_prefix_beam_search(logits, torch.tensor([3]), lm_weight=0.5)
-    with pytest.raises(NotImplementedError):
-        attention_rescore(None, torch.zeros(1, 3, 4), torch.tensor([3]),
-                          logits, 3, 4, lm_weight=0.5)
-
-
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_attention_rescore_matches_jax(use_pallas):
     """One teacher-forced decoder pass over the CTC n-best of random

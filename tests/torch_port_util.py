@@ -109,3 +109,37 @@ def cif_torch_model(seed: int = 0, **cfg_kw):
     model = CifModel(cif_torch_cfg(**cfg_kw))
     load_jax_params(model, cif_flax_params(seed))
     return model
+
+
+# ---- the external Transformer LM (d32, h2, 2 layers, dropout 0) ----
+
+def lm_cfgs(vocab: int = VOCAB, **kw):
+    """(tpu_asr LMConfig, tpu_asr_torch LMConfig) with equal fields."""
+    from tpu_asr.models.lm import LMConfig as JaxLMConfig
+    from tpu_asr_torch.models.lm import LMConfig
+    fields = dict(vocab_size=vocab, d_model=32, d_inner=64, num_heads=2,
+                  num_layers=2, dropout=0.0, **kw)
+    return JaxLMConfig(**fields), LMConfig(**fields)
+
+
+@functools.lru_cache(maxsize=4)
+def lm_flax_params(vocab: int = VOCAB, seed: int = 3,
+                   tie_embedding: bool = True):
+    """Flax variables of tpu_asr.models.lm.TransformerLM as numpy."""
+    from tpu_asr.models.lm import TransformerLM
+    jcfg, _ = lm_cfgs(vocab, tie_embedding=tie_embedding)
+    v = TransformerLM(jcfg).init(jax.random.PRNGKey(seed),
+                                 jnp.zeros((1, 4), jnp.int32))
+    return jax.device_get(v)
+
+
+def lm_pair(vocab: int = VOCAB, seed: int = 3, tie_embedding: bool = True):
+    """(jax LM module, its variables, port LM with the same weights)."""
+    from tpu_asr.models.lm import TransformerLM as JaxLM
+    from tpu_asr_torch.models.lm import TransformerLM
+    from tpu_asr_torch.weights import load_jax_params
+    jcfg, tcfg = lm_cfgs(vocab, tie_embedding=tie_embedding)
+    v = lm_flax_params(vocab, seed, tie_embedding)
+    lm = TransformerLM(tcfg)
+    load_jax_params(lm, v)
+    return JaxLM(jcfg), v, lm

@@ -5,28 +5,37 @@ so that each module's counterpart sits under the same path. It imports
 torch and numpy only: nothing of JAX and nothing of `tpu_asr`.
 
 Entry points (`decode.recognizer.Recognizer`, `serve.AsrServer`,
-`train.TrainStep`, `python -m tpu_asr_torch.serve`, `python -m
-tpu_asr_torch.train`) run on the CUDA card unless the caller asks for
-`device="cpu"`; with no card and no explicit CPU request they raise.
+`train.TrainStep`, `train_lm.LMTrainStep`, `python -m
+tpu_asr_torch.serve`, `python -m tpu_asr_torch.train`, `python -m
+tpu_asr_torch.train_lm`, `python -m tpu_asr_torch.recognize`) run on the
+CUDA card unless the caller asks for `device="cpu"`; with no card and no
+explicit CPU request they raise. `python -m tpu_asr_torch.score` runs on
+the host.
 Kernels that the JAX package wrote in Pallas are CUDA C++ sources under
 `csrc/`, built with nvcc at first use into `_build/` (ignored by git); on
 CPU tensors each wrapper runs its plain PyTorch version.
 
 Ported so far (serving and training of the hybrid CTC/attention model
-and of the CIF model):
+and of the CIF model, the external LM, the decode CLIs):
   tpu_asr_torch.frontend   waveform -> log-mel + per-utterance CMVN
   tpu_asr_torch.augment    SpecAugment (masks, time warp) on the device
   tpu_asr_torch.models     conv2d subsampling, transformer encoder/decoder,
                            the hybrid CTC/attention objective, the CIF
-                           model (assigner, fire, causal decoder)
+                           model (assigner, fire, causal decoder), the
+                           external Transformer LM
   tpu_asr_torch.ops        exact top-k, CTC lattice, CTC loss kernels,
                            CTC prefix-scan kernel, CIF fire kernel,
                            label-smoothed CE
-  tpu_asr_torch.decode     greedy CTC, joint CTC/attention beam, CIF
-                           greedy/beam, Recognizer
+  tpu_asr_torch.decode     greedy CTC, joint CTC/attention beam, CTC
+                           prefix beam, attention rescoring (each with
+                           the LM), CIF greedy/beam, Recognizer
   tpu_asr_torch.train      Noam/Adam, TrainStep/Solver, checkpoints, CLI
   tpu_asr_torch.data       manifests, length buckets, batch loader
   tpu_asr_torch.serve      micro-batching server + HTTP front end
+  tpu_asr_torch.train_lm   the LM's trainer (CLI)
+  tpu_asr_torch.recognize  manifest decode -> hypotheses + CER (CLI)
+  tpu_asr_torch.score      hypotheses vs references -> CER (CLI)
+  tpu_asr_torch.utils      vocab, CER, result formatting, device choice
   tpu_asr_torch.weights    flax params -> torch modules, seeded random init
 """
 

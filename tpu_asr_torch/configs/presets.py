@@ -1,8 +1,9 @@
 """Named experiment presets (port of tpu_asr/configs/presets.py).
 
-Only the presets of the families the port runs are here (hybrid
-CTC/attention and CIF); the other families' presets come with their
-ports. Each preset is a TrainConfig with the reference's field names and
+Only the presets of the families the port runs are here (CTC,
+attention, hybrid CTC/attention and CIF); the other families' presets
+(conformer, transducer, streaming, LFR input) come with their ports.
+Each preset is a TrainConfig with the reference's field names and
 values; the CLIs override fields from flags.
 """
 
@@ -43,6 +44,19 @@ class TrainConfig:
 _BASE = ModelConfig()  # d512/h8/6+6, conv2d input — reference defaults
 
 PRESETS: dict[str, TrainConfig] = {
+    # Transformer-CTC encoder, greedy decode (CPU-runnable slice)
+    "ctc_dev": TrainConfig(
+        model=dataclasses.replace(
+            _BASE, model_type="ctc", d_model=256, d_inner=1024,
+            num_enc_layers=4, num_dec_layers=0),
+        epochs=20, warmup_steps=1000, batch_frames=8000,
+        decode_mode="greedy_ctc",
+        beam=BeamConfig(beam=1)),
+    # attention-only Speech-Transformer: label smoothing + beam search
+    "attention": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="transformer"),
+        decode_mode="beam",
+        beam=BeamConfig(beam=5, max_len=100)),
     # CPU-runnable hybrid slice (tests, demos)
     "hybrid_dev": TrainConfig(
         model=dataclasses.replace(
@@ -52,6 +66,15 @@ PRESETS: dict[str, TrainConfig] = {
         epochs=30, warmup_steps=100, lr_k=1.0, batch_frames=8000,
         num_buckets=2, decode_mode="joint",
         beam=BeamConfig(beam=5, max_len=24, ctc_weight=0.3)),
+    # hybrid CTC/attention at the reference's widths, float32; the
+    # reference's own held-out table picks attn_rescore as its default
+    # decode, and ctc_beam with an external LM (--lm-weight 0.1) as its
+    # best (tpu_asr/configs/presets.py)
+    "hybrid": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="hybrid",
+                                  ctc_weight=0.3),
+        decode_mode="attn_rescore",
+        beam=BeamConfig(beam=10, max_len=100, ctc_weight=0.3)),
     # full-scale AISHELL hybrid model (the flagship the bench measures)
     "aishell": TrainConfig(
         model=dataclasses.replace(_BASE, model_type="hybrid",

@@ -1,11 +1,15 @@
 """Batched attention beam search with optional joint CTC/attention scoring
-(port of tpu_asr/decode/beam.py, without LM fusion).
+and LM shallow fusion (port of tpu_asr/decode/beam.py).
 
 Static shapes as in the reference: fixed beam width W, fixed max_len,
 explicit KV caches reordered by index_select at each step, eos-forced
 continuation for finished hypotheses, and joint scoring through the
 CTCPrefixScorer:  S = (1-l) * logP_att + l * logP_ctc, accumulated
-incrementally (psi differences).
+incrementally (psi differences). With an external LM (models/lm.py) and
+lm_weight b > 0, S += b * logP_lm: the LM advances once a step on the
+same tokens through its cached `step`, and its caches are reordered
+with the decoder's. In the joint search the candidates stay the
+attention top-k (espnet's pre-beam); the LM only reweights them.
 
 The reference's lax.while_loop becomes a Python loop. Its early exit
 (stop once every hypothesis is finished) reads `finished.all()` on the
@@ -42,7 +46,7 @@ class BeamConfig:
     # until floor(minlenratio * enc_len) tokens were emitted.
     maxlenratio: float = 0.0
     minlenratio: float = 0.0
-    lm_weight: float = 0.0           # LM fusion: not ported (must be 0)
+    lm_weight: float = 0.0           # LM shallow fusion (0 = none)
     # One-pass scores all K candidates with their r histories and gathers
     # the winners; two-pass scores without histories and re-advances only
     # the W winners (a second scan). None = auto.
@@ -52,17 +56,17 @@ class BeamConfig:
 def attention_beam_search(decoder, enc_out: torch.Tensor,
                           enc_lengths: torch.Tensor, sos_id: int, eos_id: int,
                           cfg: BeamConfig = BeamConfig(),
-                          ctc_logp: torch.Tensor | None = None):
+                          ctc_logp: torch.Tensor | None = None, lm=None):
     """Run beam search over a batch of utterances.
 
     decoder: tpu_asr_torch.models.decoder.Decoder; enc_out [B, T, D];
-    ctc_logp [B, T, V] (log-softmaxed) required when cfg.ctc_weight > 0.
+    ctc_logp [B, T, V] (log-softmaxed) required when cfg.ctc_weight > 0;
+    lm: a models.lm.TransformerLM, fused when cfg.lm_weight > 0 (without
+    one, the search runs as with lm_weight 0, as the reference's does).
 
     Returns dict(tokens [B, W, max_len] eos-padded, scores [B, W],
     lengths [B, W]) sorted best-first, and steps (decode steps taken).
     """
-    if cfg.lm_weight > 0.0:
-        raise NotImplementedError("LM shallow fusion is not ported yet")
     b, t, _ = enc_out.shape
     w = cfg.beam
     n = b * w
@@ -74,6 +78,8 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
                 for key, x in decoder.precompute_cross_kv(enc_out).items()}
     enc_lengths_flat = enc_lengths.repeat_interleave(w)
     cache = decoder.init_cache(n, cfg.max_len, device=dev)
+    use_lm = cfg.lm_weight > 0.0 and lm is not None
+    lm_cache = lm.init_cache(n, cfg.max_len, device=dev) if use_lm else None
 
     scorer = ctc_state = None
     if use_ctc:
@@ -117,6 +123,9 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
         logits, cache = decoder.step(y_prev, pos, cache, cross_kv,
                                      enc_lengths_flat)
         att_logp = torch.log_softmax(logits.float(), dim=-1)
+        if use_lm:
+            lm_logits, lm_cache = lm.step(y_prev, pos, lm_cache)
+            lm_logp = torch.log_softmax(lm_logits.float(), dim=-1)
         must_end = pos >= utt_maxlen[:, None]                   # [B, 1]
         ban_eos = pos < utt_minlen[:, None]                     # [B, 1]
         ended = finished | must_end                             # [B, W]
@@ -133,6 +142,9 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
             old_r, old_psi = ctc_state
             step_score = ((1.0 - lam) * cand_logp
                           + lam * (psi - old_psi[:, None]))     # [N, K+1]
+            if use_lm:
+                step_score = step_score + cfg.lm_weight * torch.gather(
+                    lm_logp, 1, cand_ids)
             ban = (cand_ids == eos_id) & ban_eos.expand(b, w).reshape(n, 1)
             step_score = torch.where(ban, NEG_INF, step_score)
             # finished (or maxlen-forced) beams: only the eos slot
@@ -163,7 +175,9 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
             psi_next = torch.where(keep_old, old_psi_g, psi_sel)
             ctc_state = (r_next, psi_next)
         else:
-            logp = att_logp.reshape(b, w, -1)
+            fused = (att_logp + cfg.lm_weight * lm_logp if use_lm
+                     else att_logp)
+            logp = fused.reshape(b, w, -1)
             v = logp.shape[-1]
             is_eos_col = torch.arange(v, device=dev)[None, None, :] == eos_id
             logp = torch.where(is_eos_col & ban_eos[..., None], NEG_INF,
@@ -178,6 +192,9 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
 
         # reorder all per-beam state
         cache = {key: x.index_select(1, flat_beam) for key, x in cache.items()}
+        if use_lm:
+            lm_cache = {key: x.index_select(1, flat_beam)
+                        for key, x in lm_cache.items()}
         tokens = tokens.reshape(n, -1)[flat_beam].reshape(b, w, -1)
         finished_g = torch.gather(finished, 1, beam_idx)
         lengths_g = torch.gather(lengths, 1, beam_idx)

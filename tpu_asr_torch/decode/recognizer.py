@@ -6,8 +6,10 @@ models with a CTC head, joint (CTC/attention beam) and beam (the same
 loop with ctc_weight = 0) for those with an attention decoder,
 attn_rescore (the CTC n-best rescored by one teacher-forced decoder
 pass) for the hybrid model, cif_greedy and cif_beam for the CIF model.
-The reference's transducer_* modes and LM fusion are not ported yet and
-raise NotImplementedError.
+An external LM (models/lm.py) fuses into beam, joint and ctc_beam and
+rescores attn_rescore's n-best, weighted by beam.lm_weight. The
+reference's transducer_* modes are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from tpu_asr_torch.decode.greedy_ctc import ctc_greedy_decode
 from tpu_asr_torch.decode.rescore import attention_rescore
 from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
 from tpu_asr_torch.models.cif import CifModel
+from tpu_asr_torch.models.lm import LMConfig, TransformerLM
 from tpu_asr_torch.models.transformer import Transformer
 from tpu_asr_torch.utils.device import resolve_device
 from tpu_asr_torch.weights import cast_for_inference
@@ -32,6 +35,7 @@ PORTED_MODES = ("greedy_ctc", "ctc_beam", "beam", "joint", "attn_rescore",
                 "cif_greedy", "cif_beam")
 REFERENCE_MODES = ("transducer_greedy", "transducer_beam",
                    "transducer_rescore")
+LM_MODES = ("beam", "joint", "attn_rescore", "ctc_beam")
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
@@ -55,7 +59,10 @@ class Recognizer:
 
     device None means the CUDA card (RuntimeError when there is none);
     pass device="cpu" to run on the CPU. The model is moved to the device
-    and its matmul weights are stored in the compute dtype."""
+    and its matmul weights are stored in the compute dtype. lm_cfg + lm
+    (a TransformerLM) is the external LM, used when beam.lm_weight > 0
+    (in LM_MODES, over the model's vocabulary); it is moved and cast
+    likewise, to its own config's dtype."""
     cfg: object
     model: Transformer | CifModel
     beam: BeamConfig = BeamConfig()
@@ -65,6 +72,8 @@ class Recognizer:
     # CIF fire-time alphas: True = scaled to the rounded fire count (the
     # boundary geometry of training); False = the reference's raw alphas
     cif_scale_fire: bool = True
+    lm_cfg: LMConfig | None = None
+    lm: TransformerLM | None = None
 
     def __post_init__(self):
         if self.mode in REFERENCE_MODES:
@@ -88,9 +97,23 @@ class Recognizer:
         if self.mode in ("cif_greedy", "cif_beam") and mt != "cif":
             raise ValueError(f"mode {self.mode} needs model_type=cif "
                              f"(model_type={mt})")
+        if (self.lm_cfg is None) != (self.lm is None):
+            raise ValueError("lm_cfg and lm go together")
+        if self.lm is not None and self.beam.lm_weight > 0.0:
+            if self.mode not in LM_MODES:
+                raise ValueError(f"LM fusion is not supported in mode "
+                                 f"{self.mode} (only {LM_MODES})")
+            if self.lm_cfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError(f"LM vocab {self.lm_cfg.vocab_size} != "
+                                 f"model vocab {self.cfg.vocab_size}")
+        else:
+            self.lm = None       # as the reference: no weight, no LM
         self.device = resolve_device(self.device)
         self.model = cast_for_inference(self.model.to(self.device).eval(),
                                         self.cfg.dtype)
+        if self.lm is not None:
+            self.lm = cast_for_inference(self.lm.to(self.device).eval(),
+                                         self.lm_cfg.dtype)
         self.decode_steps = 0    # decoder steps taken, all batches
 
     # --- device work ---
@@ -124,7 +147,8 @@ class Recognizer:
                 self.model.ctc_logits(enc_out).float(), dim=-1)
         out = attention_beam_search(
             self.model.decoder, enc_out, el, self.cfg.vocab_size - 2,
-            self.cfg.vocab_size - 1, self.beam, ctc_logp=ctc_logp)
+            self.cfg.vocab_size - 1, self.beam, ctc_logp=ctc_logp,
+            lm=self.lm)
         self.decode_steps += out["steps"]
         return out["tokens"], out["lengths"], out["scores"]
 
@@ -133,8 +157,8 @@ class Recognizer:
         logits = self.model.ctc_logits(enc_out)
         return ctc_prefix_beam_search(
             logits, el, beam=self.beam.beam,
-            max_len=min(self.beam.max_len, logits.shape[1]),
-            lm_weight=self.beam.lm_weight)
+            max_len=min(self.beam.max_len, logits.shape[1]), lm=self.lm,
+            lm_weight=self.beam.lm_weight, sos=self.cfg.vocab_size - 2)
 
     def _attn_rescore(self, feats, flens):
         enc_out, el = self.model.encode(feats, flens)
@@ -142,7 +166,8 @@ class Recognizer:
             self.model.decoder, enc_out, el, self.model.ctc_logits(enc_out),
             self.cfg.vocab_size - 2, self.cfg.vocab_size - 1,
             beam=self.beam.beam, max_len=self.beam.max_len,
-            ctc_weight=self.beam.ctc_weight, lm_weight=self.beam.lm_weight)
+            ctc_weight=self.beam.ctc_weight, lm=self.lm,
+            lm_weight=self.beam.lm_weight)
         return out["tokens"], out["lengths"], out["scores"]
 
     def _cif(self, feats, flens):
@@ -163,22 +188,49 @@ class Recognizer:
         """batch dict -> list of token-id hypotheses (1-best)."""
         return [h[0]["yseq"] for h in self.decode_batch_nbest(batch)]
 
-    @torch.inference_mode()
     def decode_batch_nbest(self, batch) -> list[list[dict]]:
         """batch: {"wav" [B, S], "wav_lengths" [B]} or {"feats" [B, T, D],
         "feat_lengths" [B]} (numpy or tensors) -> per-utterance n-best
         [{'yseq': [ids], 'score': float[, 'times', 'confidence']}, ...].
         All outputs come to the host in one copy."""
+        return self.decode_batches_nbest([batch], window=1)[0]
+
+    def decode_batches_nbest(self, batches, window: int = 8
+                             ) -> list[list[list[dict]]]:
+        """Manifest decode: the device work of up to `window` batches,
+        then their outputs to the host in ONE copy (`_to_host`). ->
+        one decode_batch_nbest result per batch, in order; `batches` may
+        be a generator, consumed as it goes."""
+        out: list[list[list[dict]]] = []
+        pending: list[tuple[str, tuple]] = []
+
+        def flush():
+            fetched = _to_host(*(x for _, xs in pending for x in xs))
+            for kind, xs in pending:
+                out.append(self._finalize(kind, fetched[:len(xs)]))
+                fetched = fetched[len(xs):]
+            pending.clear()
+
+        for batch in batches:
+            pending.append(self._dispatch(batch))
+            if len(pending) >= window:
+                flush()
+        if pending:
+            flush()
+        return out
+
+    @torch.inference_mode()
+    def _dispatch(self, batch) -> tuple[str, tuple]:
+        """One batch's device work, not fetched: (kind, output tensors)
+        for _finalize."""
         feats, flens = self._features(batch)
         if self.mode == "greedy_ctc":
-            return self._finalize("greedy", _to_host(
-                *self._greedy_ctc(feats, flens)))
+            return "greedy", self._greedy_ctc(feats, flens)
         if isinstance(self.model, CifModel):   # no times or confidences
-            return self._finalize("greedy", _to_host(
-                *self._cif(feats, flens)) + [None, None])
+            return "cif", self._cif(feats, flens)
         run = {"ctc_beam": self._ctc_beam,
                "attn_rescore": self._attn_rescore}.get(self.mode, self._beam)
-        return self._finalize("beam", _to_host(*run(feats, flens)))
+        return "beam", run(feats, flens)
 
     def _finalize(self, kind: str, fetched) -> list[list[dict]]:
         """Host post-processing -> per-utterance n-best; eos and pads
@@ -196,7 +248,8 @@ class Recognizer:
                       "score": float(scores[i, w])}
                      for w in range(nbest)]
                     for i in range(toks.shape[0])]
-        toks, lens, times, confs = fetched
+        toks, lens, times, confs = (fetched + [None, None] if kind == "cif"
+                                    else fetched)
         out = []
         for i in range(toks.shape[0]):
             row = toks[i]

@@ -57,10 +57,11 @@ class DecoderLayer(nn.Module):
 
 
 class TokenDecoder(nn.Module):
-    """What the attention decoder and the CIF decoder share: the token
-    embedding (scaled by sqrt(d_model)), positional encoding, dropout, the
-    (tied) output projection and the stacked self-attention caches. A
-    subclass adds `layers`."""
+    """What the attention decoder, the CIF decoder and the external LM
+    share: the token embedding (scaled by sqrt(d_model)), positional
+    encoding, dropout, the (tied) output projection and the stacked
+    self-attention caches. A subclass adds `layers`. `c` is a ModelConfig
+    or an LMConfig (the fields read here are common to both)."""
 
     def __init__(self, c: ModelConfig):
         super().__init__()
@@ -87,7 +88,7 @@ class TokenDecoder(nn.Module):
 
     def init_cache(self, batch: int, u_max: int, device=None):
         c = self.cfg
-        shape = (c.num_dec_layers, batch, u_max, c.num_heads, c.d_head)
+        shape = (len(self.layers), batch, u_max, c.num_heads, c.d_head)
         return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
                 "v": torch.zeros(shape, dtype=c.dtype, device=device)}
 

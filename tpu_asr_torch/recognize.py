@@ -1,0 +1,191 @@
+"""Decoding CLI of the PyTorch port (port of bin/recognize.py).
+
+Checkpoint folder + manifest -> bucketed batches decoded by the
+Recognizer -> a hypothesis JSONL (one line per utterance: id,
+hyp_tokens, and times / confidence / nbest where the mode gives them)
+and one JSON summary line on stdout (n_utts, inverse_rtf, wall_s, mode,
+and cer when the manifest has reference tokens):
+
+  python -m tpu_asr_torch.recognize --ckpt exp/hybrid \\
+      --manifest test.jsonl --mode joint --beam 10 --output hyp.jsonl
+  python -m tpu_asr_torch.recognize --ckpt exp/hybrid \\
+      --manifest test.jsonl --mode ctc_beam --beam 10 \\
+      --lm-ckpt exp/lm --lm-weight 0.1
+
+The checkpoint's frontend.json gives the feature policy. Every bucket
+shape is decoded once before the timed pass, which decodes through
+`Recognizer.decode_batches_nbest` (a window of batches a host copy).
+--lm-ckpt reads a `python -m tpu_asr_torch.train_lm` folder (its best
+step by cv loss) for shallow fusion (beam, joint, ctc_beam) or n-best
+rescoring (attn_rescore). Runs on the CUDA card unless given --device
+cpu; with no card and no such flag it raises.
+
+Not ported: the reference's --torch-ckpt (its parity/ bridge to the
+original PyTorch checkpoints) and --dp (data-parallel decode over a
+device mesh).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+DEFAULT_MODES = {"ctc": "greedy_ctc", "transformer": "beam",
+                 "hybrid": "joint", "cif": "cif_greedy"}
+
+
+def parse_args(argv=None):
+    from tpu_asr_torch.decode.recognizer import PORTED_MODES
+    p = argparse.ArgumentParser(prog="python -m tpu_asr_torch.recognize",
+                                description=__doc__.split("\n\n")[0])
+    p.add_argument("--ckpt", required=True,
+                   help="checkpoint folder of python -m tpu_asr_torch.train")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--output", default="",
+                   help="hypothesis JSONL (default: <ckpt>/hyp.jsonl)")
+    p.add_argument("--mode", default="", choices=("",) + PORTED_MODES,
+                   help="default: by model type (hybrid -> joint, "
+                        "transformer -> beam, ctc -> greedy_ctc, cif -> "
+                        "cif_greedy); joint falls back to beam off hybrid")
+    p.add_argument("--beam", type=int, default=5)
+    p.add_argument("--nbest", type=int, default=1)
+    p.add_argument("--max-len", type=int, default=100)
+    p.add_argument("--maxlenratio", type=float, default=0.0,
+                   help="per-utterance max decode length = ratio * encoder "
+                        "length; 0 = --max-len only")
+    p.add_argument("--minlenratio", type=float, default=0.0,
+                   help="ban eos before ratio * encoder length tokens")
+    p.add_argument("--length-penalty", type=float, default=0.0,
+                   help="per-token reward added to final beam scores")
+    p.add_argument("--ctc-weight", type=float, default=0.3,
+                   help="CTC weight of joint and attn_rescore")
+    p.add_argument("--lm-ckpt", default="",
+                   help="LM folder of python -m tpu_asr_torch.train_lm")
+    p.add_argument("--lm-weight", type=float, default=0.3,
+                   help="LM score weight (only with --lm-ckpt)")
+    p.add_argument("--batch-frames", type=int, default=16000)
+    p.add_argument("--num-buckets", type=int, default=4)
+    p.add_argument("--step", type=int, default=-1,
+                   help="checkpoint step (-1 = use --restore)")
+    p.add_argument("--restore", default="best", choices=["best", "latest"])
+    p.add_argument("--cif-fire", default="scaled", choices=["scaled", "raw"],
+                   help="CIF firing: 'scaled' self-scales alphas to the "
+                        "rounded fire count; 'raw' is the reference's "
+                        "unscaled firing")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def restore_step(ck, step: int, restore: str) -> int:
+    """--step, else the best or the latest step of the folder."""
+    if step >= 0:
+        return step
+    return ck.latest_step() if restore == "latest" else ck.best_step()
+
+
+def main(argv=None) -> dict:
+    """-> the summary printed as the last line."""
+    args = parse_args(argv)
+    from tpu_asr_torch.data import DataLoader, load_manifest, make_buckets
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.frontend import FrontendConfig
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.models.lm import load_lm
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    from tpu_asr_torch.utils.cer import cer
+    from tpu_asr_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    ck = Checkpointer(args.ckpt)
+    cfg = ck.load_config()
+    mode = args.mode or DEFAULT_MODES[cfg.model_type]
+    if mode == "joint" and cfg.model_type != "hybrid":
+        mode = "beam"
+    frontend = ck.load_frontend() or FrontendConfig()
+    model = build_model(cfg)
+    model.load_state_dict(ck.restore(restore_step(
+        ck, args.step, args.restore))["model"])
+    lm = load_lm(args.lm_ckpt) if args.lm_ckpt else None
+    rec = Recognizer(
+        cfg, model, mode=mode, frontend=frontend, device=device,
+        cif_scale_fire=args.cif_fire == "scaled",
+        lm_cfg=None if lm is None else lm.cfg, lm=lm,
+        beam=BeamConfig(beam=args.beam, max_len=args.max_len,
+                        nbest=args.nbest, maxlenratio=args.maxlenratio,
+                        minlenratio=args.minlenratio,
+                        length_penalty=args.length_penalty,
+                        ctc_weight=args.ctc_weight
+                        if mode in ("joint", "attn_rescore") else 0.0,
+                        lm_weight=args.lm_weight if lm is not None
+                        else 0.0))
+
+    utts = load_manifest(args.manifest)
+    wav_mode = bool(utts and utts[0].wav)
+    scale = frontend.frame_shift if wav_mode else 1
+    buckets = make_buckets(
+        utts, num_buckets=args.num_buckets,
+        batch_frames=args.batch_frames * scale,
+        max_frames_cap=3000 * scale, max_tokens_cap=200,
+        length_key="num_samples" if wav_mode else "num_frames")
+
+    def loader():
+        return DataLoader(utts, buckets, mode="wav" if wav_mode else "feat",
+                          shuffle=False)
+
+    # decode every bucket shape once before the timed pass
+    warmed = set()
+    for batch in loader():
+        shape = (batch["wav"] if wav_mode else batch["feats"]).shape
+        if shape not in warmed:
+            rec.decode_batch_nbest(batch)
+            warmed.add(shape)
+
+    batch_ids, audio_s = [], [0.0]
+
+    def stream():
+        for batch in loader():
+            batch_ids.append(batch["ids"])
+            if wav_mode:
+                audio_s[0] += float(np.sum(batch["wav_lengths"])) / \
+                    frontend.sample_rate
+            else:
+                audio_s[0] += float(np.sum(batch["feat_lengths"])) * \
+                    frontend.frame_shift_ms / 1000.0
+            yield batch
+
+    t0 = time.perf_counter()
+    nbests = rec.decode_batches_nbest(stream())
+    wall = time.perf_counter() - t0
+    results = {uid: nb for ids, batch_nb in zip(batch_ids, nbests)
+               for uid, nb in zip(ids, batch_nb)}
+
+    out_path = args.output or os.path.join(args.ckpt, "hyp.jsonl")
+    with open(out_path, "w") as f:
+        for uid, nb in results.items():
+            line = {"id": uid, "hyp_tokens": nb[0]["yseq"]}
+            for key in ("times", "confidence"):
+                if key in nb[0]:
+                    line[key] = nb[0][key]
+            if len(nb) > 1:
+                line["nbest"] = nb
+            f.write(json.dumps(line) + "\n")
+    summary = {"n_utts": len(results),
+               "inverse_rtf": round(audio_s[0] / wall if wall > 0 else 0.0,
+                                    2),
+               "wall_s": round(wall, 2), "mode": mode}
+    refs = {u.id: u.tokens for u in utts}
+    if any(refs.values()):
+        summary["cer"] = round(cer([refs[u] for u in results],
+                                   [nb[0]["yseq"] for nb in
+                                    results.values()])["cer"], 4)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

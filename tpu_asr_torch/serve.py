@@ -18,7 +18,7 @@ Run as a module to serve over HTTP:
   python -m tpu_asr_torch.serve --random-init --seed 0 --mode joint \\
       --beam 5 --bucket-frames 512,1000 --batch-size 8 --port 8080
   python -m tpu_asr_torch.serve --ckpt exp/aishell --mode attn_rescore \\
-      --beam 10
+      --beam 10 --dict dict.txt --lm-ckpt exp/lm --lm-weight 0.3
   python -m tpu_asr_torch.serve --random-init --preset cif --mode cif_greedy
 """
 
@@ -310,8 +310,9 @@ def parse_args(argv=None):
                           "train: its config, frontend and best step")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--preset", default="aishell",
-                   help="model preset (aishell | hybrid_dev | cif | "
-                        "cif_dev); not read with --ckpt")
+                   help="model preset (aishell | hybrid | hybrid_dev | "
+                        "attention | ctc_dev | cif | cif_dev); not read "
+                        "with --ckpt")
     p.add_argument("--mode", default=None,
                    choices=["greedy_ctc", "ctc_beam", "beam", "joint",
                             "attn_rescore", "cif_greedy", "cif_beam"],
@@ -321,6 +322,18 @@ def parse_args(argv=None):
     p.add_argument("--beam", type=int, default=5)
     p.add_argument("--max-len", type=int, default=100)
     p.add_argument("--ctc-weight", type=float, default=0.3)
+    p.add_argument("--lm-ckpt", default="",
+                   help="LM folder of python -m tpu_asr_torch.train_lm for "
+                        "shallow fusion (beam, joint, ctc_beam) or n-best "
+                        "rescoring (attn_rescore)")
+    p.add_argument("--lm-weight", type=float, default=0.3,
+                   help="LM score weight (only with --lm-ckpt)")
+    p.add_argument("--dict", dest="dict_path", default="",
+                   help="token dict file -> 'text' fields in responses")
+    p.add_argument("--restore", default="best", choices=["best", "latest"],
+                   help="with --ckpt: which step when --step is -1")
+    p.add_argument("--step", type=int, default=-1,
+                   help="with --ckpt: the checkpoint step (-1 = --restore)")
     p.add_argument("--bucket-frames", default="512,1000",
                    help="comma-separated static frame buckets")
     p.add_argument("--batch-size", type=int, default=8)
@@ -339,6 +352,8 @@ def build_server(args) -> AsrServer:
     from tpu_asr_torch.decode.beam import BeamConfig
     from tpu_asr_torch.decode.recognizer import Recognizer
     from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.models.lm import load_lm
+    from tpu_asr_torch.recognize import restore_step
     from tpu_asr_torch.train.checkpoints import Checkpointer
     from tpu_asr_torch.weights import init_random, load_jax_params
 
@@ -349,7 +364,8 @@ def build_server(args) -> AsrServer:
         cfg = ck.load_config()
         frontend = ck.load_frontend() or frontend
         model = build_model(cfg)
-        model.load_state_dict(ck.restore(ck.best_step())["model"])
+        model.load_state_dict(ck.restore(restore_step(
+            ck, args.step, args.restore))["model"])
     else:
         cfg = get_preset(args.preset).model
         model = build_model(cfg)
@@ -360,15 +376,28 @@ def build_server(args) -> AsrServer:
     mode = args.mode or {"ctc": "greedy_ctc", "transformer": "beam",
                          "hybrid": "joint", "cif": "cif_greedy"}[
                              cfg.model_type]
+    lm = load_lm(args.lm_ckpt) if args.lm_ckpt else None
     rec = Recognizer(
         cfg, model, mode=mode, device=device, frontend=frontend,
+        lm_cfg=None if lm is None else lm.cfg, lm=lm,
         beam=BeamConfig(beam=args.beam, max_len=args.max_len,
                         nbest=args.beam,   # requests slice their own nbest
                         ctc_weight=args.ctc_weight
-                        if mode in ("joint", "attn_rescore") else 0.0))
+                        if mode in ("joint", "attn_rescore") else 0.0,
+                        lm_weight=args.lm_weight if lm is not None
+                        else 0.0))
     buckets = tuple(int(x) for x in args.bucket_frames.split(","))
     return AsrServer(rec, bucket_frames=buckets, batch_size=args.batch_size,
                      window_ms=args.window_ms, device=device)
+
+
+def load_char_list(args) -> list[str] | None:
+    """The --dict file's tokens, by id (None without --dict): what
+    make_http_server turns hypotheses into text with."""
+    if not args.dict_path:
+        return None
+    from tpu_asr_torch.utils.vocab import Vocab
+    return Vocab.load(args.dict_path).tokens
 
 
 def main(argv=None):
@@ -380,7 +409,8 @@ def main(argv=None):
           f"batch={args.batch_size})...", file=sys.stderr, flush=True)
     server.warmup(kinds=kinds)
     server.start()
-    httpd = make_http_server(args.host, args.port, server)
+    httpd = make_http_server(args.host, args.port, server,
+                             load_char_list(args))
     print(json.dumps({"serving": f"http://{args.host}:{args.port}",
                       "mode": server.rec.mode,
                       "device": str(server.device),

@@ -44,13 +44,17 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m tpu_asr_torch.train",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="aishell",
-                   help="aishell | hybrid_dev | cif | cif_dev")
+                   help="aishell | hybrid | hybrid_dev | attention | "
+                        "ctc_dev | cif | cif_dev")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic utterances (demo/smoke)")
     p.add_argument("--train-manifest")
     p.add_argument("--cv-manifest")
     p.add_argument("--save-folder", required=True)
     p.add_argument("--vocab-size", type=int, default=0)
+    p.add_argument("--dict", dest="dict_path",
+                   help="token dict file (sets the vocab size unless "
+                        "--vocab-size does)")
     p.add_argument("--epochs", type=int, default=0)
     p.add_argument("--batch-frames", type=int, default=0)
     p.add_argument("--batch-size", type=int, default=0,
@@ -63,6 +67,19 @@ def parse_args(argv=None):
     p.add_argument("--lr-k", type=float, default=0.0)
     p.add_argument("--no-specaug", action="store_true",
                    help="disable SpecAugment even if the preset enables it")
+    p.add_argument("--specaug-warp", type=int, default=-1,
+                   help="SpecAugment time-warp window W (0 = masking only, "
+                        "the reference's behaviour; -1 = preset default)")
+    p.add_argument("--dtype", default="", choices=["", "bf16", "f32"],
+                   help="override the preset's compute dtype")
+    p.add_argument("--print-freq", type=int, default=0,
+                   help="a train metrics line every N steps (0 = preset)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise on the first step whose loss or gradient "
+                        "norm is not finite (a host sync a step)")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler trace of steps "
+                        "10-15 of the first epoch there")
     p.add_argument("--continue-from",
                    help="checkpoint folder to resume from (its latest step)")
     p.add_argument("--seed", type=int, default=None,
@@ -81,18 +98,29 @@ def configure(args, model_overrides: dict | None = None
     """The preset with the flags' overrides applied, and then
     `model_overrides` (ModelConfig fields) to its model."""
     tc = get_preset(args.preset)
-    vocab = args.vocab_size or (64 if args.synthetic else
-                                tc.model.vocab_size)
+    vocab = args.vocab_size
+    if not vocab and args.dict_path:
+        from tpu_asr_torch.utils.vocab import Vocab
+        vocab = len(Vocab.load(args.dict_path))
+    vocab = vocab or (64 if args.synthetic else tc.model.vocab_size)
     overrides = {k: v for k, v in (
         ("epochs", args.epochs), ("batch_frames", args.batch_frames),
         ("batch_size", args.batch_size), ("warmup_steps", args.warmup_steps),
-        ("accum_steps", args.accum_steps), ("lr_k", args.lr_k)) if v}
+        ("accum_steps", args.accum_steps), ("lr_k", args.lr_k),
+        ("print_freq", args.print_freq)) if v}
     if args.seed is not None:
         overrides["seed"] = args.seed
     if args.no_specaug:
         overrides["specaug"] = None
+    elif args.specaug_warp >= 0 and tc.specaug is not None:
+        overrides["specaug"] = dataclasses.replace(
+            tc.specaug, time_warp_window=args.specaug_warp)
     tc = dataclasses.replace(tc, **overrides)
-    return tc, dataclasses.replace(tc.model, vocab_size=vocab,
+    model = {"vocab_size": vocab}
+    if args.dtype:
+        model["dtype"] = {"bf16": torch.bfloat16,
+                          "f32": torch.float32}[args.dtype]
+    return tc, dataclasses.replace(tc.model, **model,
                                    **(model_overrides or {}))
 
 
@@ -151,7 +179,7 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
     opt = NoamAdam(model.parameters(), mc.d_model, tc.warmup_steps,
                    tc.lr_k, tc.grad_clip, tc.accum_steps)
     step = TrainStep(model, opt, tc.specaug, tc.frontend, device,
-                     seed=tc.seed)
+                     seed=tc.seed, debug_nans=args.debug_nans)
 
     ck = Checkpointer(args.save_folder)
     ck.save_config(mc)
@@ -167,7 +195,8 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
                   print_freq=tc.print_freq, checkpointer=ck,
                   metrics_writer=MetricsWriter(
                       os.path.join(args.save_folder, "metrics.jsonl")),
-                  start_epoch=start_epoch)
+                  start_epoch=start_epoch,
+                  profile_dir=args.profile_dir or None)
 
 
 def main(argv=None):

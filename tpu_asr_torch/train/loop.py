@@ -13,6 +13,7 @@ host does not wait for the card at every step.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any
 
@@ -22,6 +23,10 @@ from tpu_asr_torch.augment import SpecAugmentConfig, spec_augment
 from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
 from tpu_asr_torch.train.optim import NoamAdam, global_norm
 from tpu_asr_torch.utils.device import resolve_device
+
+# the train steps of the first epoch that Solver(profile_dir=...) traces:
+# from the first to before the second (the reference's 10..15)
+PROFILE_STEPS = (10, 15)
 
 
 def batch_features(batch: dict, frontend: FrontendConfig,
@@ -46,18 +51,22 @@ class TrainStep:
     device None means the CUDA card (RuntimeError when there is none);
     pass device="cpu" to train on the CPU. SpecAugment draws from the
     step's own generator on the device, seeded with `seed`; dropout draws
-    from torch's generator of that device (the CLI seeds it)."""
+    from torch's generator of that device (the CLI seeds it). With
+    debug_nans, a step whose loss or raw gradient norm is not finite
+    raises FloatingPointError before the update (a host sync a step)."""
 
     def __init__(self, model, optimizer: NoamAdam,
                  specaug: SpecAugmentConfig | None = None,
                  frontend: FrontendConfig | None = None,
-                 device: str | torch.device | None = None, seed: int = 0):
+                 device: str | torch.device | None = None, seed: int = 0,
+                 debug_nans: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
         self.specaug = specaug
         self.frontend = frontend or FrontendConfig()
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.debug_nans = debug_nans
         self.steps = 0       # calls taken (micro-batches)
 
     def __call__(self, batch: dict) -> dict[str, torch.Tensor]:
@@ -74,6 +83,11 @@ class TrainStep:
                                          self.optimizer.params))
         metrics = {k: v.detach() for k, v in out.items()}
         metrics["grad_norm"] = global_norm(grads)
+        if self.debug_nans and not bool(torch.isfinite(torch.stack(
+                [metrics["loss"].float(), metrics["grad_norm"]])).all()):
+            raise FloatingPointError(
+                f"step {self.steps}: loss {float(metrics['loss'])}, grad "
+                f"norm {float(metrics['grad_norm'])}")
         self.optimizer.update(grads, metrics["grad_norm"])
         self.steps += 1
         return metrics
@@ -146,6 +160,7 @@ class Solver:
     early_stop_patience: int = 0  # 0 = off
     start_epoch: int = 0          # set by resume (continue_from)
     half_lr: bool = False         # halve the lr when cv loss stops improving
+    profile_dir: str | None = None  # torch.profiler trace of PROFILE_STEPS
     history: list = dataclasses.field(default_factory=list)
 
     def train(self) -> TrainStep:
@@ -153,11 +168,14 @@ class Solver:
         eval_step = EvalStep(ts.model, ts.frontend, ts.device)
         best_cv = float("inf")
         bad_epochs = 0
+        profiler = None
         for epoch in range(self.start_epoch, self.epochs):
             t0 = time.time()
             n_batches = 0
             step_metrics = []      # device scalars, read once at epoch end
             for batch in self.train_loader:
+                if self.profile_dir and epoch == self.start_epoch:
+                    profiler = self._profile(n_batches, profiler)
                 metrics = ts(batch)
                 n_batches += 1
                 if n_batches % self.print_freq == 0 and self.metrics_writer:
@@ -167,6 +185,8 @@ class Solver:
                              steps_per_sec=n_batches / (time.time() - t0))
                     self.metrics_writer.write(m)
                 step_metrics.append(metrics)
+            if profiler is not None:           # the epoch ended early
+                profiler = self._profile(PROFILE_STEPS[1], profiler)
             summary = _epoch_summary(step_metrics)
             cv_losses = [eval_step(b)["loss"] for b in self.cv_loader]
             cv_loss = _mean(cv_losses)
@@ -194,3 +214,26 @@ class Solver:
                 if bad_epochs >= self.early_stop_patience:
                     break
         return ts
+
+    def _profile(self, n_batches: int, profiler):
+        """Start torch.profiler before train step PROFILE_STEPS[0] of the
+        first epoch, and stop it before step PROFILE_STEPS[1] (or at the
+        end of a shorter epoch), writing profile_dir/trace.json. ->
+        the running profiler or None."""
+        from torch.profiler import ProfilerActivity, profile
+        first, last = PROFILE_STEPS
+        if profiler is None and n_batches == first:
+            activities = [ProfilerActivity.CPU]
+            if self.train_step.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            profiler = profile(activities=activities)
+            profiler.start()
+        elif profiler is not None and n_batches >= last:
+            if self.train_step.device.type == "cuda":
+                torch.cuda.synchronize(self.train_step.device)
+            profiler.stop()
+            os.makedirs(self.profile_dir, exist_ok=True)
+            profiler.export_chrome_trace(
+                os.path.join(self.profile_dir, "trace.json"))
+            profiler = None
+        return profiler

@@ -2,7 +2,7 @@
 seeded random init.
 
 `load_jax_params(model, params)` takes the flax variable tree of
-tpu_asr.models.Transformer or CifModel as nested dicts of numpy arrays (what
+tpu_asr.models.Transformer, CifModel or lm.TransformerLM as nested dicts of numpy arrays (what
 `jax.device_get(variables)` returns), or an .npz file / flat dict whose
 keys are the "/"-joined flax paths. The port's module names follow the
 flax paths, so each key maps mechanically:
@@ -71,10 +71,10 @@ def flax_to_torch(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def load_jax_params(model: nn.Module, params) -> None:
-    """Fill `model` (a tpu_asr_torch Transformer or CifModel) from flax
-    params; see the module docstring for the accepted forms. Strict:
-    raises KeyError on a missing or extra key and ValueError on a shape
-    mismatch."""
+    """Fill `model` (a tpu_asr_torch Transformer, CifModel or
+    TransformerLM) from flax params; see the module docstring for the
+    accepted forms. Strict: raises KeyError on a missing or extra key and
+    ValueError on a shape mismatch."""
     if isinstance(params, (str, os.PathLike)):
         with np.load(params) as z:
             params = {k: z[k] for k in z.files}
@@ -108,7 +108,8 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random init on the CPU with flax's default initializers:
     Dense and Conv weights lecun_normal (a normal truncated at +-2 sigma,
     sigma = 1 / (sqrt(fan_in) * TRUNC_STD), so the variance is 1/fan_in),
-    Embed N(0, 1/D), biases 0, LayerNorm scale 1. fan_in is the input
+    Embed N(0, 1/D) (nn.Embed's variance_scaling(1, fan_in, normal) over
+    [V, D]; also the TransformerLM's `embed`), biases 0, LayerNorm scale 1. fan_in is the input
     width (a conv's in_channels times its kernel size). Same seed, same
     weights, on any machine."""
     g = torch.Generator().manual_seed(seed)
