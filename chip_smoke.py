@@ -65,7 +65,9 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      CPU. The small hybrid model with a small seeded LM: joint and
      ctc_beam with LM fusion give equal tokens on the card and the CPU,
      scores within 1e-3; attn_rescore with the LM term and use_pallas
-     equal tokens.
+     equal tokens. A small conformer (conformer_dev) as the hybrid:
+     joint and attn_rescore tokens equal, two train steps' losses within
+     1e-4 and step 1's grad norm within 1e-3 relative.
   5. serving: the aishell-width hybrid model (d512, h8, 6+6 layers, conv
      (32, 128), vocab 4233, bf16; random weights from a seed) in joint
      CTC/attention beam-5 mode behind AsrServer; 16 wav requests from
@@ -133,6 +135,28 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      and without the LM on one batch (wall, profiler device and host
      time, a reading); the server with --dict (4233 lines) and --lm-ckpt
      answers POST /recognize with a text.
+ 11. the aishell recipe with the conformer preset (d512, h8, 6 conformer
+     + 6 decoder layers, conv kernel 15, conv (32, 128), vocab 4233,
+     bf16, dropout 0.1, SpecAugment, 32000-frame batches) through the
+     port's CLIs on phase 8's corpus, written as the recipe's Kaldi
+     splits (16-bit .wav files, wav.scp, text): `python -m
+     tpu_asr_torch.prepare_data` as egs/aishell/run.sh runs it
+     (--dict-out on train, --dict on dev);
+     `python -m tpu_asr_torch.compute_cmvn` on the train manifest (the
+     card's stats of the first 64 utterances equal the CPU frontend's
+     within 5e-5); the trainer with --dict, --cmvn global and
+     --cmvn-stats for >= 20 steps (as phase 8: finite losses, the CTC
+     kernels once per step on their warp route, a profile, the fixed
+     shape; frontend.json says global; the train loss falls), printed
+     beside phase 8's aishell numbers; `python -m tpu_asr_torch.recognize
+     --ckpt` on the cv manifest in attn_rescore beam 10 and joint beam 5
+     (a hypothesis per utterance, a cer, the inverse RTF;
+     ctc_prefix_scan once per joint step); the server with --ckpt
+     --restore latest holds the latest step's weights and the stats
+     file's mean and istd, and answers POST /recognize with submit()'s
+     tokens; then the CTC pair and the
+     prefix scan on the inputs this path gave them against their plain
+     versions, timed.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -1847,18 +1871,16 @@ def check_prefix_on_paths(prefix_caps):
     return prefix_t, err
 
 
-def check_ctc_on_paths(prefix_caps, ctc_caps):
-    """ctc_prefix_scan on the inputs the joint beam gave it (each bucket's
-    first call and a later one), and ctc_loss_fwd and ctc_loss_bwd on the
-    first backward's inputs of each training (recorded while the paths
-    ran, after their counts were read; the forward's are the first five,
-    and its alpha and nll must equal the path's forward's bit for bit),
-    against their plain versions, timed and bounded. -> ({label: prefix
-    timings}, {label: {"fwd": forward timings, "bwd": backward
-    timings}}, errors)."""
-    errs = dict(prefix=0.0, fwd=0.0, bwd=0.0)
+def check_ctc_pair_on_paths(ctc_caps):
+    """ctc_loss_fwd and ctc_loss_bwd on the first backward's inputs of
+    each training (recorded while the paths ran, after their counts were
+    read; the forward's are the first five, and its alpha and nll must
+    equal the path's forward's bit for bit), against their plain
+    versions, timed and bounded. -> ({label: {"fwd": forward timings,
+    "bwd": backward timings}}, {"fwd", "bwd": max abs error}, the number
+    of labels whose forward gave the plain version's bits)."""
+    errs = dict(fwd=0.0, bwd=0.0)
     ctc_t = {}
-    prefix_t, errs["prefix"] = check_prefix_on_paths(prefix_caps)
     bitwise = 0
     for label, args in ctc_caps.items():
         emissions, skip, valid, ilen, llen, alpha, nll = args
@@ -1876,6 +1898,19 @@ def check_ctc_on_paths(prefix_caps, ctc_caps):
                                             what), shape=what)
                         for name, backward in (("fwd", False),
                                                ("bwd", True))}
+    return ctc_t, errs, bitwise
+
+
+def check_ctc_on_paths(prefix_caps, ctc_caps):
+    """ctc_prefix_scan on the inputs the joint beam gave it (each bucket's
+    first call and a later one), and the CTC pair on the first backward's
+    inputs of each training (check_ctc_pair_on_paths), against their
+    plain versions, timed and bounded. -> ({label: prefix timings},
+    {label: {"fwd": forward timings, "bwd": backward timings}},
+    errors)."""
+    prefix_t, prefix_err = check_prefix_on_paths(prefix_caps)
+    ctc_t, errs, bitwise = check_ctc_pair_on_paths(ctc_caps)
+    errs["prefix"] = prefix_err
     if not prefix_t or len(ctc_t) != 3:
         raise AssertionError(f"the paths recorded {len(prefix_t)} prefix "
                              f"scans and {len(ctc_t)} CTC backwards (3 "
@@ -2062,6 +2097,68 @@ def check_train_agreement(use_pallas=False):
                       "noop_within_0.1lr": float(noop),
                       "card_launches": {k: n for k, n in launches.items()
                                         if n}}))
+
+
+def check_conformer_agreement():
+    """conformer_dev in float32 (dropout 0), as hybrid_dev is held: the
+    same batch decodes to the same tokens on the card and on the CPU in
+    joint (the prefix-scan kernel on the card) and attn_rescore; two
+    TrainSteps from the same init on one batch: both steps' losses within
+    1e-4, step 1's grad norm within 1e-3 relative, the CTC kernels
+    launched once a step on the card."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.weights import init_random
+
+    cfg = dataclasses.replace(get_preset("conformer_dev").model,
+                              vocab_size=64)
+    rng = np.random.default_rng(SEED)
+    lens = np.array([16000, 12000, 7000, 0], np.int32)
+    wav = np.zeros((4, 16000), np.float32)
+    for i, n in enumerate(lens):
+        wav[i, :n] = synth_wav(int(n), rng)
+    wavs = {"wav": wav, "wav_lengths": lens}
+    score_gap = {}
+    for mode in ("joint", "attn_rescore"):
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            rec = Recognizer(cfg, init_random(Transformer(cfg), SEED),
+                             mode=mode, device=dev,
+                             beam=BeamConfig(beam=4, max_len=12,
+                                             ctc_weight=0.3, nbest=4))
+            out[dev] = rec.decode_batch_nbest(wavs)
+        tokens = {d: [[h["yseq"] for h in row] for row in out[d]]
+                  for d in out}
+        if tokens[DEVICE] != tokens["cpu"]:
+            raise AssertionError(f"conformer_dev {mode}: card {tokens[DEVICE]}"
+                                 f" != CPU {tokens['cpu']}")
+        score_gap[mode] = max(abs(a["score"] - b["score"])
+                              for ra, rb in zip(out[DEVICE], out["cpu"])
+                              for a, b in zip(ra, rb))
+
+    batch = train_batch(rng, 4, 200, [200, 151, 0, 97], [8, 5, 0, 3], 8)
+    runs = train_on_both(Transformer, cfg, batch, 2)
+    (card, card2), (cpu, cpu2) = (runs[d][0] for d in ("card", "cpu"))
+    losses = ("loss", "loss_att", "loss_ctc", "acc")
+    bad = [k for k in losses if abs(card[k] - cpu[k]) > 1e-4]
+    bad += [f"step 2 {k}" for k in losses if abs(card2[k] - cpu2[k]) > 1e-4]
+    if bad or abs(card["grad_norm"] - cpu["grad_norm"]) > \
+            1e-3 * abs(cpu["grad_norm"]):
+        raise AssertionError(f"conformer_dev train step on the card {card} "
+                             f"{card2} != on the CPU {cpu} {cpu2}: {bad}")
+    launches = {k: n for k, n in runs["card"][2].items() if n}
+    if launches != {"ctc_loss_fwd": 2, "ctc_loss_bwd": 2}:
+        raise AssertionError(f"conformer_dev train steps launched {launches}")
+
+    log("agreement: conformer_dev joint and attn_rescore beam-4 tokens on "
+        "the card == on the CPU (largest score gap "
+        f"{json.dumps(score_gap)}); train steps on the card == on the CPU "
+        "(losses of steps 1 and 2 within 1e-4, grad norm within 1e-3 "
+        "relative; CTC kernels once a step on the card): "
+        + json.dumps({"step1": {k: [card[k], cpu[k]] for k in sorted(card)},
+                      "step2": {k: [card2[k], cpu2[k]] for k in losses}}))
 
 
 def check_cif_agreement():
@@ -2304,6 +2401,27 @@ def profile_serving(server, wavs, card, what="serving"):
     profile_device(run, what, card)
 
 
+def post_recognize(server, wav, chars=None):
+    """One POST /recognize of `wav` through make_http_server in front of
+    a started AsrServer (`chars`: the --dict tokens) -> (status, body).
+    The HTTP server is shut down after; the AsrServer keeps running."""
+    from tpu_asr_torch.serve import make_http_server
+    httpd = make_http_server("127.0.0.1", 0, server, chars)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/recognize"
+        req = urllib.request.Request(
+            url, data=json.dumps({"wav": wav.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+
+
 def serve_requests(server, wavs):
     """The requests from 8 threads -> ([(nbest, latency s)], wall s)."""
     def one(wav):
@@ -2461,7 +2579,7 @@ def run_serving(card, prefix_caps):
     from tpu_asr_torch.decode.recognizer import Recognizer
     from tpu_asr_torch.models.transformer import Transformer
     from tpu_asr_torch.ops.ctc_prefix import ctc_prefix_scan
-    from tpu_asr_torch.serve import AsrServer, make_http_server
+    from tpu_asr_torch.serve import AsrServer
     from tpu_asr_torch.weights import init_random
 
     cfg = get_preset(PRESET).model
@@ -2528,26 +2646,15 @@ def run_serving(card, prefix_caps):
         f"{sum(len(h[0]['yseq']) for h in hyps)} tokens [{card}]")
 
     # HTTP: one request through the real front end
-    httpd = make_http_server("127.0.0.1", 0, server)
-    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    http_thread.start()
     try:
-        url = f"http://127.0.0.1:{httpd.server_address[1]}/recognize"
-        req = urllib.request.Request(
-            url, data=json.dumps({"wav": wavs[0].tolist()}).encode(),
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=600) as r:
-            status, body = r.status, json.loads(r.read())
-        if status != 200 or "tokens" not in body:
-            raise AssertionError(f"/recognize answered {status}: {body}")
-        if body["tokens"] != results[0][0][0]["yseq"]:
-            raise AssertionError("/recognize disagrees with submit()")
-        log(f"http: POST /recognize -> 200, {len(body['tokens'])} tokens")
+        status, body = post_recognize(server, wavs[0])
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        http_thread.join(timeout=10)
         server.stop()
+    if status != 200 or "tokens" not in body:
+        raise AssertionError(f"/recognize answered {status}: {body}")
+    if body["tokens"] != results[0][0][0]["yseq"]:
+        raise AssertionError("/recognize disagrees with submit()")
+    log(f"http: POST /recognize -> 200, {len(body['tokens'])} tokens")
     return launches
 
 
@@ -2611,11 +2718,14 @@ def ln_bwd_label(r, *_):
 
 
 def run_training(card, workdir, preset, data, captures,
-                 model_overrides=None, bwd_caps=None, ctc_caps=None):
-    """The Solver that `python -m tpu_asr_torch.train --preset <preset>`
-    builds (with `model_overrides` to its ModelConfig, as
-    build_solver takes them), on `data`, for >= MIN_TRAIN_STEPS steps;
-    then a checkpoint restore, a profile and 20 steps at the fixed shape.
+                 model_overrides=None, bwd_caps=None, ctc_caps=None,
+                 argv=(), stats=None):
+    """The Solver that `python -m tpu_asr_torch.train --preset <preset>
+    <argv>` builds (with `model_overrides` to its ModelConfig, as
+    build_solver takes them), on `data` (None: the manifests argv names),
+    for >= MIN_TRAIN_STEPS steps; then a checkpoint restore, a profile
+    and 20 steps at the fixed shape; `stats` (a dict) gets the epochs'
+    history, the step times, throughput, peak memory and the profile.
     A CIF model's firing inputs of its first train and cv batch go into
     `captures`; with use_pallas, the inputs of the flash and LN backward
     of the first train batch of each bucket into bwd_caps["flash"] and
@@ -2628,7 +2738,8 @@ def run_training(card, workdir, preset, data, captures,
     from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
     from tpu_asr_torch.train.__main__ import build_solver, parse_args
 
-    args = parse_args(["--preset", preset, "--save-folder", workdir])
+    args = parse_args(["--preset", preset, "--save-folder", workdir]
+                      + list(argv))
     solver = build_solver(args, data, model_overrides)
     epochs = max(2, -(-MIN_TRAIN_STEPS // len(solver.train_loader)))
     solver.epochs = epochs
@@ -2754,7 +2865,7 @@ def run_training(card, workdir, preset, data, captures,
     it = iter(solver.train_loader.loader)
     batches = [next(it) for _ in range(4)]
     it.close()
-    profile_device(lambda: [ts(b) for b in batches], what, card)
+    prof = profile_device(lambda: [ts(b) for b in batches], what, card)
 
     batch = fixed_shape_batch()
     for _ in range(3):
@@ -2772,6 +2883,17 @@ def run_training(card, workdir, preset, data, captures,
         f"{min(fixed):.2f}; {20 / total_s:.2f} steps/s, "
         f"{20 * 32 / total_s:.1f} utterances/s, {20 * 32 * 10 / total_s:.1f}"
         f" audio s/s [{card}]")
+    if stats is not None:
+        stats.update(
+            history=solver.history, steps=steps, cv_batches=cv_batches,
+            step_ms_median=statistics.median(step_ms),
+            steps_per_s=len(steady) / steady_s,
+            audio_s_per_s=audio_s / steady_s, peak_gib=peak / 2**30,
+            profiled_steps=len(batches),
+            device_ms_per_step=prof["device_ms"] / len(batches),
+            busy_share=prof["device_ms"] / prof["wall_ms"],
+            device_events_per_step=prof["device_events"] / len(batches),
+            fixed_step_ms_median=statistics.median(fixed))
     return launches
 
 
@@ -3181,8 +3303,7 @@ def run_lm_serving(card, ckpt, lm_dir, workdir, wav, want_tokens=None):
     """python -m tpu_asr_torch.serve's build_server with --dict (a
     4233-line dict) and --lm-ckpt on the aishell checkpoint; one POST
     /recognize must answer with a non-null text."""
-    from tpu_asr_torch.serve import (build_server, load_char_list,
-                                     make_http_server, parse_args)
+    from tpu_asr_torch.serve import build_server, load_char_list, parse_args
     from tpu_asr_torch.utils.vocab import Vocab
 
     dict_path = os.path.join(workdir, "dict.txt")
@@ -3195,22 +3316,11 @@ def run_lm_serving(card, ckpt, lm_dir, workdir, wav, want_tokens=None):
     server = build_server(args)
     server.warmup(kinds=("wav",))
     server.start()
-    httpd = make_http_server("127.0.0.1", 0, server, load_char_list(args))
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    try:
-        url = f"http://127.0.0.1:{httpd.server_address[1]}/recognize"
-        req = urllib.request.Request(
-            url, data=json.dumps({"wav": wav.tolist()}).encode(),
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=600) as r:
-            status, body = r.status, json.loads(r.read())
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        thread.join(timeout=10)
-        server.stop()
     chars = load_char_list(args)
+    try:
+        status, body = post_recognize(server, wav, chars)
+    finally:
+        server.stop()
     if status != 200 or body.get("text") is None or \
             body["text"] != "".join(chars[i] for i in body["tokens"]):
         raise AssertionError(f"/recognize with --dict --lm-ckpt answered "
@@ -3236,6 +3346,286 @@ def run_lm_phase(card, workdir, data, ckpts):
     run_lm_serving(card, ckpts["aishell"], lm_dir, workdir,
                    waves[cv_utts[0].id])
     return decodes
+
+
+# ---- phase 11: the conformer recipe through the CLIs ----
+
+# stage 0 of egs/aishell/run.sh for phase 8's corpus: token t is the
+# character U+4E00 + t in the Kaldi text, its waves 16-bit PCM at this gain
+RECIPE_CHAR0 = 0x4E00
+RECIPE_GAIN = 0.5             # the tones peak near 1.3; PCM holds [-1, 1)
+# the card's frontend against the CPU's: both run the same port code; on
+# these 16-bit waves they differ by 4.8e-6 in mean and 7.9e-6 relative in
+# istd (an H100), so the limit is 5e-5: room of 6x and more
+CMVN_CHECK_UTTS = 64          # the card's stats against the CPU's on these
+CMVN_MEAN_ATOL, CMVN_ISTD_RTOL = 5e-5, 5e-5
+RECIPE_DECODES = (            # (name, recognize flags)
+    ("attn_rescore", ["--mode", "attn_rescore", "--beam", "10"]),
+    ("joint", ["--mode", "joint", "--beam", "5", "--max-len", "40"]))
+RECIPE_PATH = "conformer joint (recognize)"
+
+
+def write_kaldi_split(data_dir, split, utts, waves) -> tuple[str, str]:
+    """`utts` as a Kaldi split, as the recipe's stage 0 writes AISHELL's:
+    each wave a 16 kHz 16-bit mono .wav (RECIPE_GAIN, clipped), the
+    wav.scp and the text (token t as chr(RECIPE_CHAR0 + t)).
+    -> (wav.scp path, text path)."""
+    import wave
+    wav_dir = os.path.join(data_dir, "wav", split)
+    os.makedirs(wav_dir, exist_ok=True)
+    scp, text = [], []
+    for u in utts:
+        path = os.path.join(wav_dir, f"{u.id}.wav")
+        pcm = np.clip(np.round(waves[u.id] * RECIPE_GAIN * 32768.0),
+                      -32768, 32767).astype("<i2")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+        scp.append(f"{u.id} {path}")
+        text.append(f"{u.id} " + "".join(chr(RECIPE_CHAR0 + t)
+                                         for t in u.tokens))
+    paths = (os.path.join(data_dir, f"{split}.wav.scp"),
+             os.path.join(data_dir, f"{split}.text"))
+    for path, lines in zip(paths, (scp, text)):
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return paths
+
+
+def prepare_recipe_data(workdir, data) -> tuple[str, str, str, list]:
+    """Stages 0 and 1 of egs/aishell/run.sh on phase 8's corpus (`data`,
+    synthetic_aishell's): write_kaldi_split for train and dev, then
+    python -m tpu_asr_torch.prepare_data on each as run.sh runs it
+    (--dict-out on train, --dict on dev). Every train transcript must
+    come back through the dict as its tokens' characters, every dev one
+    likewise or as <unk>. -> (train manifest, dev manifest, dict, dev
+    utterances)."""
+    from tpu_asr_torch import prepare_data
+    from tpu_asr_torch.utils.vocab import Vocab
+    train, cv, _, waves = data
+    out = os.path.join(workdir, "data")
+    t0 = time.perf_counter()
+    dict_path = os.path.join(out, "dict.txt")
+    manifests, got = {}, {}
+    for split, utts, dict_flag in (("train", train, "--dict-out"),
+                                   ("dev", cv, "--dict")):
+        scp, text = write_kaldi_split(out, split, utts, waves)
+        manifests[split] = os.path.join(out, f"{split}.jsonl")
+        got[split] = prepare_data.main([
+            "--wav-scp", scp, "--text", text, dict_flag, dict_path,
+            "--out", manifests[split]])
+    vocab = Vocab.load(dict_path)
+    for split, utts in (("train", train), ("dev", cv)):
+        for u, g in zip(utts, got[split]):
+            want = [chr(RECIPE_CHAR0 + t) for t in u.tokens]
+            back = [vocab.tokens[i] for i in g.tokens]
+            if g.id != u.id or g.num_samples != len(waves[u.id]) or any(
+                    b != w and (split == "train" or b != "<unk>")
+                    for b, w in zip(back, want)) or len(back) != len(want):
+                raise AssertionError(f"prepare_data {split}: {g} from "
+                                     f"{u.id} ({len(waves[u.id])} samples,"
+                                     f" tokens {u.tokens})")
+        if len(got[split]) != len(utts):
+            raise AssertionError(f"prepare_data {split}: "
+                                 f"{len(got[split])} of {len(utts)} "
+                                 f"utterances")
+    unk = sum(vocab.tokens[i] == "<unk>" for g in got["dev"]
+              for i in g.tokens)
+    log(f"prepare_data (wav.scp + text, as egs/aishell/run.sh): "
+        f"{len(train)} train + {len(cv)} dev utterances, dict of "
+        f"{len(vocab)} tokens from the train text, {unk} dev tokens <unk>,"
+        f" in {time.perf_counter() - t0:.1f} s")
+    return manifests["train"], manifests["dev"], dict_path, got["dev"]
+
+
+def recipe_cmvn(card, workdir, train_manifest) -> str:
+    """python -m tpu_asr_torch.compute_cmvn on the train manifest (the
+    card's frontend); the card's stats over the first CMVN_CHECK_UTTS
+    utterances against the CPU frontend's: frames equal, mean and istd
+    within CMVN_MEAN_ATOL and CMVN_ISTD_RTOL. -> the stats path."""
+    from tpu_asr_torch import compute_cmvn
+    stats = os.path.join(workdir, "cmvn.npz")
+    t0 = time.perf_counter()
+    full = compute_cmvn.main(["--manifest", train_manifest, "--out", stats])
+    wall = time.perf_counter() - t0
+    few = {dev: compute_cmvn.main([
+        "--manifest", train_manifest, "--limit", str(CMVN_CHECK_UTTS),
+        "--out", os.path.join(workdir, f"cmvn_{dev}.npz"), "--device", dev])
+        for dev in (DEVICE, "cpu")}
+    card_s, cpu_s = few[DEVICE], few["cpu"]
+    mean_gap = float(np.abs(card_s["mean"] - cpu_s["mean"]).max())
+    istd_gap = float(np.abs(card_s["istd"] / cpu_s["istd"] - 1.0).max())
+    if card_s["frames"] != cpu_s["frames"] or not (
+            mean_gap <= CMVN_MEAN_ATOL and istd_gap <= CMVN_ISTD_RTOL):
+        raise AssertionError(f"compute_cmvn on the card and on the CPU "
+                             f"differ: frames {card_s['frames']} vs "
+                             f"{cpu_s['frames']}, mean {mean_gap}, istd "
+                             f"{istd_gap} relative")
+    if not (np.isfinite(full["mean"]).all() and np.isfinite(
+            full["istd"]).all() and full["frames"] > 0):
+        raise AssertionError(f"compute_cmvn wrote {full}")
+    log(f"compute_cmvn: {int(full['frames'])} frames in {wall:.2f} s "
+        f"[{card}]; the first {CMVN_CHECK_UTTS} utterances on the card == "
+        f"on the CPU ({int(cpu_s['frames'])} frames, mean within "
+        f"{mean_gap:.2e} (atol {CMVN_MEAN_ATOL}), istd within {istd_gap:.2e}"
+        f" relative (rtol {CMVN_ISTD_RTOL}))")
+    return stats
+
+
+def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir):
+    """python -m tpu_asr_torch.recognize --ckpt on the cv manifest in
+    each of RECIPE_DECODES: a hypothesis per utterance and a summary with
+    cer each; ctc_prefix_scan launches once per joint step (a decoder
+    step) and nothing launches in attn_rescore. The joint path's first
+    and a later prefix-scan call of each T' are kept (PathLabels). ->
+    ({decode name: summary}, prefix launches, the kept calls)."""
+    from tpu_asr_torch import recognize
+    from tpu_asr_torch.decode import ctc_prefix as scorer_module
+    from tpu_asr_torch.models.decoder import Decoder
+
+    counters = kernel_counters()
+    summaries, caps, prefix_launches = {}, {}, 0
+    for name, flags in RECIPE_DECODES:
+        hyp = os.path.join(workdir, f"hyp_{name}.jsonl")
+        steps = [0]
+
+        def step():
+            steps[0] += 1
+        records = contextlib.ExitStack()
+        if name == "joint":
+            records.enter_context(record_inputs(
+                scorer_module, "ctc_prefix_scan", caps,
+                PathLabels(RECIPE_PATH).prefix))
+        # main path: counts from 0 just before, read just after
+        for fn in counters.values():
+            fn.launches = 0
+        with records, wrap_method(Decoder, "step", before=step):
+            summary, printed = run_cli(recognize.main, [
+                "--ckpt", ckpt, "--manifest", cv_manifest, "--output",
+                hyp] + flags)
+        launches = {k: f.launches for k, f in counters.items() if f.launches}
+        with open(hyp) as f:
+            hyps = [json.loads(x) for x in f]
+        if printed != summary or summary["n_utts"] != n_cv or \
+                len(hyps) != n_cv or "cer" not in summary or \
+                not all("hyp_tokens" in h for h in hyps):
+            raise AssertionError(f"recognize {name}: summary {summary}, "
+                                 f"{len(hyps)} hypotheses for {n_cv} "
+                                 f"utterances")
+        want = {"ctc_prefix_scan": steps[0]} if name == "joint" else {}
+        check_launches(f"recognize {name} (conformer)", launches, want)
+        prefix_launches += launches.get("ctc_prefix_scan", 0)
+        log(f"recognize {name} (conformer checkpoint): "
+            f"{json.dumps(summary)}; kernel launches {json.dumps(launches)} "
+            f"for {steps[0]} decoder steps [{card}]")
+        summaries[name] = summary
+    return summaries, prefix_launches, caps
+
+
+def run_recipe_serving(card, ckpt, stats_path, wav):
+    """python -m tpu_asr_torch.serve's build_server with --ckpt
+    --restore latest (the model type's mode: joint); one POST
+    /recognize must answer with the tokens that submit() gives for the
+    same wav. The server must hold the stats file's mean and istd, and
+    the latest checkpoint's weights (cast as the Recognizer casts)."""
+    from tpu_asr_torch.serve import build_server, parse_args
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    server = build_server(parse_args([
+        "--ckpt", ckpt, "--restore", "latest", "--bucket-frames",
+        ",".join(map(str, BUCKETS)), "--batch-size", str(BATCH)]))
+    ck = Checkpointer(ckpt)
+    saved = ck.restore(ck.latest_step())["model"]
+    served = server.rec.model.state_dict()
+    stale = [k for k, v in served.items() if not torch.equal(
+        saved[k].to(device=v.device, dtype=v.dtype), v)]
+    with np.load(stats_path) as z:
+        want_stats = (z["mean"], z["istd"])
+    got_stats = server.rec.cmvn_stats
+    if set(saved) != set(served) or stale or got_stats is None or not all(
+            np.array_equal(g.cpu().numpy(), w)
+            for g, w in zip(got_stats, want_stats)):
+        raise AssertionError(f"serve --ckpt --restore latest (conformer): "
+                             f"weights not the latest step's {stale[:4]}, "
+                             f"or CMVN stats {got_stats} not {stats_path}'s")
+    server.warmup(kinds=("wav",))
+    server.start()
+    try:
+        status, body = post_recognize(server, wav)
+        want = server.submit("wav", wav, timeout=600.0)
+    finally:
+        server.stop()
+    if status != 200 or "tokens" not in body or \
+            server.frontend.cmvn_mode != "global" or \
+            body["tokens"] != want[0]["yseq"]:
+        raise AssertionError(f"serve --ckpt (conformer): /recognize "
+                             f"answered {status}: {body}, submit() "
+                             f"{want[0]['yseq']}; frontend "
+                             f"{server.frontend}")
+    log(f"serve --ckpt --restore latest (conformer, {server.rec.mode}, "
+        f"global CMVN, step {ck.latest_step()}'s weights, the stats "
+        f"file's mean and istd): POST /recognize -> 200, "
+        f"{len(body['tokens'])} tokens, == submit()")
+
+
+def run_recipe_phase(card, workdir, data, aishell_stats):
+    """Phase 11: the aishell recipe with the conformer preset through the
+    port's CLIs, on phase 8's corpus (`data`) written as Kaldi splits:
+    prepare_data, compute_cmvn, the trainer with --cmvn global and the
+    recipe's dict (run_training: the Solver that python -m
+    tpu_asr_torch.train builds from these flags; --vocab-size 4233 keeps
+    the preset's output width, since 461 train transcripts do not hold
+    every token), recognize in attn_rescore and joint, serve;
+    then the CTC pair and the prefix scan on the inputs this path gave
+    them against their plain versions. -> (training launches, joint
+    prefix-scan launches, {"prefix", "ctc": path timings}, errors)."""
+    from tpu_asr_torch.data.audio import read_wav
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    train_m, cv_m, dict_path, cv = prepare_recipe_data(workdir, data)
+    stats_path = recipe_cmvn(card, workdir, train_m)
+    ckpt = os.path.join(workdir, "conformer")
+    ctc_caps, stats = {}, {}
+    launches = run_training(card, ckpt, "conformer", None, {}, None, None,
+                            ctc_caps, argv=[
+                                "--train-manifest", train_m,
+                                "--cv-manifest", cv_m, "--dict",
+                                dict_path, "--vocab-size", "4233",
+                                "--cmvn", "global", "--cmvn-stats",
+                                stats_path], stats=stats)
+    frontend = Checkpointer(ckpt).load_frontend()
+    train_loss = [h["train_loss"] for h in stats["history"]]
+    if frontend is None or frontend.cmvn_mode != "global" or \
+            frontend.cmvn_stats_path != os.path.abspath(stats_path) or \
+            not train_loss[-1] < train_loss[0]:
+        raise AssertionError(f"conformer training: frontend.json {frontend},"
+                             f" train loss by epoch {train_loss}")
+    keys = ("step_ms_median", "steps_per_s", "audio_s_per_s", "peak_gib",
+            "device_ms_per_step", "busy_share", "device_events_per_step",
+            "fixed_step_ms_median")
+    log("conformer training beside aishell (phase 8), same corpus shape: "
+        + json.dumps({"conformer": {k: stats[k] for k in keys},
+                      "aishell": {k: aishell_stats[k] for k in keys}})
+        + f"; conformer train loss by epoch {train_loss}, frontend.json "
+        f"cmvn_mode {frontend.cmvn_mode} [{card}]")
+    summaries, prefix_launches, prefix_caps = run_recipe_decodes(
+        card, ckpt, cv_m, len(cv), workdir)
+    log("conformer recognize inverse RTF: " + json.dumps(
+        {k: v["inverse_rtf"] for k, v in summaries.items()}) + f" [{card}]")
+    run_recipe_serving(card, ckpt, stats_path, read_wav(cv[0].wav))
+    paths, errs = {}, {}
+    paths["prefix"], errs["prefix"] = check_prefix_on_paths(prefix_caps)
+    paths["ctc"], pair_errs, bitwise = check_ctc_pair_on_paths(ctc_caps)
+    errs.update(pair_errs)
+    if not paths["prefix"] or len(paths["ctc"]) != 1:
+        raise AssertionError(f"the conformer path recorded "
+                             f"{len(paths['prefix'])} prefix scans and "
+                             f"{len(paths['ctc'])} CTC backwards")
+    log(f"ctc_prefix_scan, ctc_loss_fwd and ctc_loss_bwd vs plain on the "
+        f"conformer path's inputs: {len(paths['prefix'])} + 1 + 1 calls "
+        f"agree (the forward's bits the plain version's: {bitwise}): "
+        + json.dumps(errs))
+    return launches, prefix_launches, paths, errs
 
 
 def main() -> int:
@@ -3277,6 +3667,7 @@ def main() -> int:
     check_agreement()
     check_train_agreement()
     check_train_agreement(use_pallas=True)
+    check_conformer_agreement()
     check_cif_agreement()
     check_pallas_agreement()
     check_lm_agreement()
@@ -3291,6 +3682,7 @@ def main() -> int:
     log(f"training: {len(data[0])} + {len(data[1])} synthetic utterances "
         f"made in {time.perf_counter() - t0:.1f} s")
     training, bwd_caps, ctc_caps = {}, {"flash": {}, "ln": {}}, {}
+    train_stats = {}
     pallas = f"{PRESET} use_pallas"
     # the hybrid and use_pallas checkpoints stay for phase 10's decodes;
     # phase 10 runs last, after phase 9's traced kernel timings
@@ -3302,7 +3694,9 @@ def main() -> int:
                                         {"use_pallas": True})):
             wd = os.path.join(workdir, key.replace(" ", "_"))
             training[key] = run_training(card, wd, preset, data, captures,
-                                         overrides, bwd_caps, ctc_caps)
+                                         overrides, bwd_caps, ctc_caps,
+                                         stats=train_stats.setdefault(key,
+                                                                      {}))
             ckpts[key] = wd
         path_err, path_timings = check_cif_fire_on_paths(captures)
         flash_path, ln_path, path_errs = check_flash_ln_on_paths(flash_caps,
@@ -3314,6 +3708,9 @@ def main() -> int:
         lm_launches, lm_paths, lm_errs = run_lm_phase(
             card, workdir, data,
             {"aishell": ckpts[PRESET], "use_pallas": ckpts[pallas]})
+        (training["conformer"], recipe_prefix, recipe_paths,
+         recipe_errs) = run_recipe_phase(card, workdir, data,
+                                         train_stats[PRESET])
 
     def ctc_build(symbol):
         return {k: v for k, v in build_report.items() if symbol in k}
@@ -3324,13 +3721,15 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_asr_torch/csrc/ctc_prefix_scan.cu",
         "replaces": "tpu_asr/ops/pallas/ctc_prefix.py:114",
-        "launches": launches + lm_launches["joint"]["ctc_prefix_scan"],
+        "launches": (launches + lm_launches["joint"]["ctc_prefix_scan"]
+                     + recipe_prefix),
         "launches_by_path": {
             "joint serving": launches,
             "LM-fused joint (recognize)":
-                lm_launches["joint"]["ctc_prefix_scan"]},
+                lm_launches["joint"]["ctc_prefix_scan"],
+            RECIPE_PATH: recipe_prefix},
         "max_abs_err": max(max_err, ctc_path_errs["prefix"],
-                           lm_errs["prefix"]),
+                           lm_errs["prefix"], recipe_errs["prefix"]),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
@@ -3343,11 +3742,13 @@ def main() -> int:
         "design": "a block a beam, the chain's operands staged through a "
                   "ring of shared-memory tiles by cp.async",
         "build": ctc_build(ctc_prefix.KERNEL_SYMBOL),
-        "path_max_abs_err": max(ctc_path_errs["prefix"], lm_errs["prefix"]),
+        "path_max_abs_err": max(ctc_path_errs["prefix"], lm_errs["prefix"],
+                                recipe_errs["prefix"]),
         "other_shapes": dict({f"T={t} hist={h}": v for (t, h), v
                               in timings.items() if (t, h) != (249, True)},
                              **{f"path {k}": v for k, v in
-                                (prefix_path | lm_paths["prefix"]).items()}),
+                                (prefix_path | lm_paths["prefix"]
+                                 | recipe_paths["prefix"]).items()}),
     }]
     designs = {"fwd": "warp route: a chain warp an utterance, two positions "
                       "a lane, shuffles up; a helper warp stages rows of E "
@@ -3363,7 +3764,8 @@ def main() -> int:
         other = {"B=32 T=249 S=61 (U=30)": dict(
             ctc_timings[(name, 61)], library_ms=ctc_library[61][name]),
                  "B=32 T=249 S=65 (U=32)": ctc_timings[(name, 65)]}
-        other.update({f"path {k}": v[name] for k, v in ctc_path.items()})
+        other.update({f"path {k}": v[name] for k, v in
+                      (ctc_path | recipe_paths["ctc"]).items()})
         kernels.append({
             "name": f"ctc_loss_{name}",
             "route": "cuda",
@@ -3371,7 +3773,8 @@ def main() -> int:
             "replaces": f"tpu_asr/ops/pallas/ctc.py:{line}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(ctc_errs[name], ctc_path_errs[name]),
+            "max_abs_err": max(ctc_errs[name], ctc_path_errs[name],
+                               recipe_errs[name]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -3382,7 +3785,8 @@ def main() -> int:
             "ctc_route": t["route"],     # "route" is the contract's "cuda"
             "design": designs[name],
             "build": ctc_build(t["symbol"]),
-            "path_max_abs_err": ctc_path_errs[name],
+            "path_max_abs_err": max(ctc_path_errs[name],
+                                    recipe_errs[name]),
             "shape": "B=32 T=249 S=49 (U=24)",
             "other_shapes": other,
             "ctc_loss_kernel_e2e_ms": ctc_library[49]["port_e2e"],

@@ -2,6 +2,7 @@
 build made, the flash bounds and the rounding-flip count, the kernel
 names it times and the CTC kernels' launch plans, on the CPU."""
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -562,3 +563,118 @@ def test_lm_cv_floor_is_the_length_aware_uniform_model(seed):
     assert got < math.log(4229) < math.log(4233)
     assert chip_smoke.lm_cv_floor([[5] * 12] * 4, 4229) == \
         pytest.approx(12 * math.log(4229) / 13, rel=1e-12)
+
+
+# ---- phase 11's helpers ----
+
+def _small_aishell(n=20):
+    """synthetic_aishell's corpus (8-30 tokens of 320 ms over 4233
+    tokens, a tenth for cv) at `n` utterances."""
+    from tpu_asr_torch.data.synthetic import make_synthetic_dataset
+    utts, waves = make_synthetic_dataset(n, 4233, min_tokens=8,
+                                         max_tokens=30, tone_ms=320,
+                                         seed=chip_smoke.SEED)
+    return utts[n // 10:], utts[:n // 10], "wav", waves
+
+
+def test_write_kaldi_split_round_trips(tmp_path):
+    """The .wav files read back as the waves at RECIPE_GAIN within one
+    16-bit step; wav.scp and text list the utterances in order, each
+    token t as chr(RECIPE_CHAR0 + t)."""
+    from tpu_asr_torch.data.audio import read_wav
+    train, _, _, waves = _small_aishell(6)
+    scp, text = chip_smoke.write_kaldi_split(str(tmp_path), "train", train,
+                                             waves)
+    with open(scp) as f:
+        scp_lines = [x.split() for x in f.read().splitlines()]
+    with open(text, encoding="utf-8") as f:
+        text_lines = [x.split() for x in f.read().splitlines()]
+    assert [x[0] for x in scp_lines] == [u.id for u in train]
+    assert text_lines == [[u.id, "".join(chr(chip_smoke.RECIPE_CHAR0 + t)
+                                         for t in u.tokens)] for u in train]
+    for (_, path), u in zip(scp_lines, train):
+        back = read_wav(path)
+        assert back.shape == waves[u.id].shape
+        np.testing.assert_allclose(back, waves[u.id] * chip_smoke.RECIPE_GAIN,
+                                   atol=1.0 / 32768)
+
+
+def test_prepare_recipe_data_runs_the_recipes_stage_1(tmp_path):
+    """prepare_data on the Kaldi splits, as egs/aishell/run.sh: the dict
+    from the train text (its characters, sorted, between the specials),
+    train tokens through it, dev tokens through it or <unk>."""
+    from tpu_asr_torch.data import load_manifest
+    from tpu_asr_torch.utils.vocab import Vocab
+    data = _small_aishell()
+    train_m, dev_m, dict_path, dev = chip_smoke.prepare_recipe_data(
+        str(tmp_path), data)
+    vocab = Vocab.load(dict_path)
+    chars = sorted({chr(chip_smoke.RECIPE_CHAR0 + t) for u in data[0]
+                    for t in u.tokens})
+    assert vocab.tokens == ["<blank>", "<unk>"] + chars + ["<sos>", "<eos>"]
+    train = load_manifest(train_m)
+    assert [u.id for u in train] == [u.id for u in data[0]]
+    assert [u.tokens for u in train] == [
+        [vocab.tokens.index(chr(chip_smoke.RECIPE_CHAR0 + t))
+         for t in u.tokens] for u in data[0]]
+    assert [u.id for u in load_manifest(dev_m)] == [u.id for u in dev] == \
+        [u.id for u in data[1]]
+    assert all(u.wav.endswith(".wav") and os.path.exists(u.wav)
+               for u in dev)
+
+
+@pytest.mark.parametrize("shift,ok", [(0.0, True), (2.5e-5, True),
+                                      (1.5e-4, False)])
+def test_recipe_cmvn_holds_the_card_to_the_cpu(tmp_path, monkeypatch, shift,
+                                               ok):
+    """recipe_cmvn with compute_cmvn run on the CPU in place of the card,
+    the "card's" mean shifted by `shift`: within atol 5e-5 it passes and
+    writes the stats, past it the phase fails."""
+    from tpu_asr_torch import compute_cmvn, prepare_data
+    manifest = str(tmp_path / "all.jsonl")
+    prepare_data.main(["--synthetic", "4", "--vocab-size", "16", "--out",
+                       manifest])
+    real = compute_cmvn.main
+
+    def on_cpu(argv):
+        argv = list(argv)
+        if "--device" not in argv:
+            argv += ["--device", chip_smoke.DEVICE]
+        card = argv[argv.index("--device") + 1] != "cpu"
+        argv[argv.index("--device") + 1] = "cpu"
+        out = real(argv)
+        return dict(out, mean=out["mean"] + shift) if card else out
+    monkeypatch.setattr(compute_cmvn, "main", on_cpu)
+    if ok:
+        stats = chip_smoke.recipe_cmvn("cpu", str(tmp_path), manifest)
+        with np.load(stats) as z:
+            assert int(z["frames"]) > 0
+    else:
+        with pytest.raises(AssertionError, match="differ"):
+            chip_smoke.recipe_cmvn("cpu", str(tmp_path), manifest)
+
+
+def test_post_recognize_answers_through_http():
+    """The one POST of phases 6, 10 and 11, against a CPU server."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.serve import AsrServer
+    from tpu_asr_torch.weights import init_random
+    cfg = dataclasses.replace(get_preset("conformer_dev").model,
+                              vocab_size=16)
+    rec = Recognizer(cfg, init_random(Transformer(cfg), 0), mode="joint",
+                     device="cpu", beam=BeamConfig(beam=2, max_len=4,
+                                                   nbest=2))
+    server = AsrServer(rec, bucket_frames=(128,), batch_size=2,
+                       device="cpu")
+    wav = np.random.default_rng(0).standard_normal(8000).astype(np.float32)
+    server.start()
+    try:
+        status, body = chip_smoke.post_recognize(server, wav)
+        want = server.submit("wav", wav)
+    finally:
+        server.stop()
+    assert status == 200
+    assert body["tokens"] == want[0]["yseq"]

@@ -86,7 +86,8 @@ def test_unported_options_raise():
     wav, lens = torch.zeros(1, 4000), torch.tensor([4000])
     with pytest.raises(NotImplementedError):
         tfe.wav_to_features(wav, lens, tfe.FrontendConfig(add_pitch=True))
-    with pytest.raises(NotImplementedError):
+    # global CMVN is ported; without a stats file it refuses to run
+    with pytest.raises(ValueError, match="cmvn_stats_path"):
         tfe.wav_to_features(wav, lens, dataclasses.replace(
             tfe.FrontendConfig(), cmvn_mode="global"))
     with pytest.raises(ValueError):

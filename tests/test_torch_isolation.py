@@ -120,3 +120,30 @@ def test_chip_smoke_refuses_without_card():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_recipe_and_conformer_modules_are_covered():
+    """The import checks above walk the modules of the recipe CLIs and of
+    the conformer."""
+    files = {os.path.relpath(f, REPO) for f in _port_files()}
+    for name in ("models/conformer.py", "prepare_data.py",
+                 "compute_cmvn.py"):
+        path = os.path.join("tpu_asr_torch", name)
+        assert path in files
+        assert not [m for m in _imported_roots(os.path.join(REPO, path))
+                    if m in FORBIDDEN]
+
+
+def test_compute_cmvn_refuses_cpu_without_asking(tmp_path):
+    manifest = tmp_path / "m.jsonl"
+    manifest.write_text("")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; torch.cuda.is_available = lambda: False\n"
+         "from tpu_asr_torch.compute_cmvn import main\n"
+         f"main(['--manifest', {str(manifest)!r}, '--out', "
+         f"{str(tmp_path / 's.npz')!r}])"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not (tmp_path / "s.npz").exists()

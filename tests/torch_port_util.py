@@ -143,3 +143,48 @@ def lm_pair(vocab: int = VOCAB, seed: int = 3, tie_embedding: bool = True):
     lm = TransformerLM(tcfg)
     load_jax_params(lm, v)
     return JaxLM(jcfg), v, lm
+
+
+# ---- the conformer at conformer_dev widths (d64, h2, 2+2 layers, conv
+# kernel 7; the hybrid objective) ----
+
+def conformer_jax_cfg(**kw):
+    from tpu_asr.configs.presets import get_preset
+    return dataclasses.replace(get_preset("conformer_dev").model,
+                               vocab_size=VOCAB, conv_channels=CONV, **kw)
+
+
+def conformer_torch_cfg(**kw):
+    from tpu_asr_torch.configs.presets import get_preset
+    return dataclasses.replace(get_preset("conformer_dev").model,
+                               vocab_size=VOCAB, conv_channels=CONV, **kw)
+
+
+@functools.lru_cache(maxsize=2)
+def conformer_flax_params(seed: int = 0):
+    """Flax variables of tpu_asr.models.Transformer with the conformer
+    encoder, as numpy (host) arrays. The rel-pos biases u and v start at
+    zero in flax; they are drawn here so that a mix-up of the two shows."""
+    from tpu_asr.models import Transformer
+    v = Transformer(conformer_jax_cfg()).init(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 80, 80)),
+        jnp.full((1,), 80, jnp.int32), jnp.zeros((1, 4), jnp.int32),
+        jnp.full((1,), 4, jnp.int32))
+    v = jax.tree_util.tree_map(np.asarray, jax.device_get(v))
+    rng = np.random.default_rng(seed + 100)
+    enc = v["params"]["encoder"]
+    for name, layer in enc.items():
+        if name.startswith("layer_"):
+            for b in ("u_bias", "v_bias"):
+                shape = layer["slf_attn"][b].shape
+                layer["slf_attn"][b] = (0.5 * rng.standard_normal(shape)
+                                        ).astype(np.float32)
+    return v
+
+
+def conformer_torch_model(seed: int = 0, **cfg_kw):
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.weights import load_jax_params
+    model = Transformer(conformer_torch_cfg(**cfg_kw))
+    load_jax_params(model, conformer_flax_params(seed))
+    return model

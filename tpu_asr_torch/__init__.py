@@ -7,19 +7,23 @@ torch and numpy only: nothing of JAX and nothing of `tpu_asr`.
 Entry points (`decode.recognizer.Recognizer`, `serve.AsrServer`,
 `train.TrainStep`, `train_lm.LMTrainStep`, `python -m
 tpu_asr_torch.serve`, `python -m tpu_asr_torch.train`, `python -m
-tpu_asr_torch.train_lm`, `python -m tpu_asr_torch.recognize`) run on the
-CUDA card unless the caller asks for `device="cpu"`; with no card and no
-explicit CPU request they raise. `python -m tpu_asr_torch.score` runs on
-the host.
+tpu_asr_torch.train_lm`, `python -m tpu_asr_torch.recognize`, `python -m
+tpu_asr_torch.compute_cmvn`) run on the CUDA card unless the caller asks
+for `device="cpu"`; with no card and no explicit CPU request they raise.
+`python -m tpu_asr_torch.score` and `python -m
+tpu_asr_torch.prepare_data` run on the host.
 Kernels that the JAX package wrote in Pallas are CUDA C++ sources under
 `csrc/`, built with nvcc at first use into `_build/` (ignored by git); on
 CPU tensors each wrapper runs its plain PyTorch version.
 
-Ported so far (serving and training of the hybrid CTC/attention model
-and of the CIF model, the external LM, the decode CLIs):
-  tpu_asr_torch.frontend   waveform -> log-mel + per-utterance CMVN
+Ported so far (serving and training of the hybrid CTC/attention model,
+with the transformer or the conformer encoder, and of the CIF model, the
+external LM, the decode CLIs, the aishell recipe's data and CMVN CLIs):
+  tpu_asr_torch.frontend   waveform -> log-mel + per-utterance or global
+                           CMVN
   tpu_asr_torch.augment    SpecAugment (masks, time warp) on the device
-  tpu_asr_torch.models     conv2d subsampling, transformer encoder/decoder,
+  tpu_asr_torch.models     conv2d subsampling, transformer or conformer
+                           encoder, decoder,
                            the hybrid CTC/attention objective, the CIF
                            model (assigner, fire, causal decoder), the
                            external Transformer LM
@@ -30,11 +34,15 @@ and of the CIF model, the external LM, the decode CLIs):
                            prefix beam, attention rescoring (each with
                            the LM), CIF greedy/beam, Recognizer
   tpu_asr_torch.train      Noam/Adam, TrainStep/Solver, checkpoints, CLI
-  tpu_asr_torch.data       manifests, length buckets, batch loader
+  tpu_asr_torch.data       manifests (and espnet data.json), length
+                           buckets, batch loader, synthetic corpora
   tpu_asr_torch.serve      micro-batching server + HTTP front end
   tpu_asr_torch.train_lm   the LM's trainer (CLI)
   tpu_asr_torch.recognize  manifest decode -> hypotheses + CER (CLI)
   tpu_asr_torch.score      hypotheses vs references -> CER (CLI)
+  tpu_asr_torch.prepare_data  wav.scp/text, data.json or synthetic ->
+                           manifest + char dict (CLI)
+  tpu_asr_torch.compute_cmvn  manifest -> global CMVN stats .npz (CLI)
   tpu_asr_torch.utils      vocab, CER, result formatting, device choice
   tpu_asr_torch.weights    flax params -> torch modules, seeded random init
 """

@@ -1,8 +1,9 @@
 """Named experiment presets (port of tpu_asr/configs/presets.py).
 
 Only the presets of the families the port runs are here (CTC,
-attention, hybrid CTC/attention and CIF); the other families' presets
-(conformer, transducer, streaming, LFR input) come with their ports.
+attention, hybrid CTC/attention with the transformer or the conformer
+encoder, and CIF); the other families' presets (transducer, streaming,
+LFR input) come with their ports.
 Each preset is a TrainConfig with the reference's field names and
 values; the CLIs override fields from flags.
 """
@@ -80,6 +81,27 @@ PRESETS: dict[str, TrainConfig] = {
         model=dataclasses.replace(_BASE, model_type="hybrid",
                                   ctc_weight=0.3, dtype=torch.bfloat16,
                                   conv_channels=(32, 128), pallas_ctc=True),
+        epochs=80, batch_frames=32000, num_buckets=6,
+        specaug=SpecAugmentConfig(),
+        decode_mode="attn_rescore",
+        beam=BeamConfig(beam=10, max_len=100, ctc_weight=0.3)),
+    # conformer encoder: macaron blocks with relative-position MHSA and a
+    # depthwise-conv module under the hybrid objective (the encoder type
+    # swapped, everything else unchanged)
+    "conformer_dev": TrainConfig(
+        model=dataclasses.replace(
+            _BASE, model_type="hybrid", ctc_weight=0.3, d_model=64,
+            d_inner=128, num_heads=2, num_enc_layers=2, num_dec_layers=2,
+            dropout=0.0, encoder_type="conformer", conv_kernel=7),
+        epochs=30, warmup_steps=100, lr_k=1.0, batch_frames=8000,
+        num_buckets=2, decode_mode="joint",
+        beam=BeamConfig(beam=5, max_len=24, ctc_weight=0.3)),
+    # the aishell recipe with the conformer encoder
+    "conformer": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="hybrid",
+                                  ctc_weight=0.3, dtype=torch.bfloat16,
+                                  conv_channels=(32, 128), pallas_ctc=True,
+                                  encoder_type="conformer"),
         epochs=80, batch_frames=32000, num_buckets=6,
         specaug=SpecAugmentConfig(),
         decode_mode="attn_rescore",

@@ -5,8 +5,9 @@ Native format: JSONL, one utterance per line:
      "wav": path-or-null, "feat": path-or-null (npy [T,80] or kaldi ark
      offset spec "file.ark:123"), "num_frames": T, "num_samples": S}
 
-The reader of the reference's espnet-style data.json is not copied: only
-bin/prepare_data.py uses it, which is not ported.
+Also reads the reference's espnet-style `data.json` (utts -> {input:
+[{feat, shape}], output: [{tokenid, shape}]}), for python -m
+tpu_asr_torch.prepare_data --espnet-json.
 """
 
 from __future__ import annotations
@@ -50,3 +51,18 @@ def save_manifest(utts: list[Utterance], path: str) -> None:
     with open(path, "w", encoding="utf-8") as f:
         for u in utts:
             f.write(json.dumps(dataclasses.asdict(u)) + "\n")
+
+
+def load_espnet_json(path: str) -> list[Utterance]:
+    """Read an espnet-style data.json (the reference's manifest format)."""
+    with open(path, encoding="utf-8") as f:
+        data = json.load(f)
+    utts = []
+    for uid, d in data["utts"].items():
+        inp = d["input"][0]
+        out = d["output"][0]
+        tokens = [int(x) for x in str(out["tokenid"]).split()]
+        utts.append(Utterance(
+            id=uid, tokens=tokens, text=out.get("text", ""),
+            feat=inp.get("feat"), num_frames=int(inp["shape"][0])))
+    return utts

@@ -24,7 +24,8 @@ from tpu_asr_torch.decode.cif_decode import cif_beam_decode, cif_greedy_decode
 from tpu_asr_torch.decode.ctc_beam import ctc_prefix_beam_search
 from tpu_asr_torch.decode.greedy_ctc import ctc_greedy_decode
 from tpu_asr_torch.decode.rescore import attention_rescore
-from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
+from tpu_asr_torch.frontend import (FrontendConfig, cmvn_stats_for,
+                                    wav_to_features)
 from tpu_asr_torch.models.cif import CifModel
 from tpu_asr_torch.models.lm import LMConfig, TransformerLM
 from tpu_asr_torch.models.transformer import Transformer
@@ -109,6 +110,7 @@ class Recognizer:
         else:
             self.lm = None       # as the reference: no weight, no LM
         self.device = resolve_device(self.device)
+        self.cmvn_stats = cmvn_stats_for(self.frontend, self.device)
         self.model = cast_for_inference(self.model.to(self.device).eval(),
                                         self.cfg.dtype)
         if self.lm is not None:
@@ -123,7 +125,7 @@ class Recognizer:
             return torch.as_tensor(batch[key], device=self.device)
         if "wav" in batch:
             return wav_to_features(tensor("wav"), tensor("wav_lengths"),
-                                   self.frontend)
+                                   self.frontend, cmvn_stats=self.cmvn_stats)
         return tensor("feats").float(), tensor("feat_lengths")
 
     def _greedy_ctc(self, feats, flens):

@@ -7,7 +7,10 @@ hop @ 16 kHz, remove-DC-offset per frame, preemphasis 0.97, povey window,
 The DFT (window folded in) and the mel projection are three matrix
 products; the constants are built in numpy float64 and stored as float32.
 
-Ported: `cmvn_mode` "utterance" and "none". Global CMVN, pitch and LFR
+Ported: `cmvn_mode` "utterance", "global" and "none". Global CMVN reads
+the train set's mean and istd from an .npz (python -m
+tpu_asr_torch.compute_cmvn, or the reference's bin/compute_cmvn.py:
+both write the same keys and the same fingerprint). Pitch and LFR
 stacking raise NotImplementedError until a later slice ports them.
 """
 
@@ -36,7 +39,10 @@ class FrontendConfig:
     log_floor: float = 1e-10
     remove_dc: bool = True
     dtype: torch.dtype = torch.float32
-    cmvn_mode: str = "utterance"  # utterance | none (global: not ported)
+    # CMVN policy: per-utterance online stats (the default), "global"
+    # train-set mean/istd loaded from cmvn_stats_path (an .npz written by
+    # compute_cmvn; the causal choice for streaming), or none
+    cmvn_mode: str = "utterance"  # utterance | global | none
     cmvn_stats_path: str = ""
     add_pitch: bool = False       # not ported
     pitch_min_f0: float = 60.0
@@ -205,12 +211,85 @@ def cmvn(feats: torch.Tensor, lengths: torch.Tensor | None = None,
     return out
 
 
+def feature_fingerprint(cfg: FrontendConfig) -> str:
+    """Canonical string of every FrontendConfig field that changes the
+    feature space, stored in CMVN-stats .npz files so that stats of one
+    frontend cannot normalize the features of another. Character for
+    character the reference's, so a stats file written by either package
+    loads in the other (the pitch part included, though pitch is not
+    ported)."""
+    pitch = (f";pitch={cfg.pitch_min_f0}-{cfg.pitch_max_f0}"
+             f";psmooth={cfg.pitch_smooth_weight}"
+             if cfg.add_pitch else "")
+    return (f"sr={cfg.sample_rate};flen={cfg.frame_length_ms};"
+            f"fshift={cfg.frame_shift_ms};mels={cfg.num_mel_bins};"
+            f"lo={cfg.low_freq};hi={cfg.high_freq};"
+            f"preemph={cfg.preemphasis};win={cfg.window};"
+            f"log={cfg.use_log};floor={cfg.log_floor};dc={cfg.remove_dc}"
+            + pitch)
+
+
+@functools.lru_cache(maxsize=8)
+def load_cmvn_stats(
+        path: str) -> tuple[np.ndarray, np.ndarray, str | None]:
+    """(mean [D], istd [D], fingerprint or None) from a CMVN-stats .npz
+    (no fingerprint in files written before the reference stored one).
+    Cached as numpy: the tensors are made on the features' device at
+    each use, so the cache holds no device memory."""
+    with np.load(path) as z:
+        fp = str(z["fingerprint"]) if "fingerprint" in z else None
+        return (np.asarray(z["mean"], np.float32),
+                np.asarray(z["istd"], np.float32), fp)
+
+
+def global_cmvn_tensors(cfg: FrontendConfig, device: torch.device | str
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean [D], istd [D]) of cfg's stats file on `device`. Raises
+    ValueError when there is no stats path or the stats' fingerprint is
+    not the active frontend's. A caller that normalizes many batches
+    (TrainStep, EvalStep, Recognizer) makes the pair once and passes it
+    to wav_to_features, so the stats cross to the device once."""
+    if not cfg.cmvn_stats_path:
+        raise ValueError("cmvn_mode='global' needs cmvn_stats_path")
+    mean, istd, fp = load_cmvn_stats(cfg.cmvn_stats_path)
+    want = feature_fingerprint(cfg)
+    if fp is not None and fp != want:
+        raise ValueError(
+            f"CMVN stats {cfg.cmvn_stats_path} were computed under a "
+            f"different frontend:\n  stats:  {fp}\n  active: {want}\n"
+            f"recompute them with python -m tpu_asr_torch.compute_cmvn "
+            f"and the matching frontend (--frontend-json)")
+    return (torch.from_numpy(mean).to(device),
+            torch.from_numpy(istd).to(device))
+
+
+def cmvn_stats_for(cfg: FrontendConfig, device: torch.device | str
+                   ) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """global_cmvn_tensors under cmvn_mode "global", else None."""
+    return (global_cmvn_tensors(cfg, device) if cfg.cmvn_mode == "global"
+            else None)
+
+
+def apply_global_cmvn(feats: torch.Tensor, cfg: FrontendConfig,
+                      stats: tuple[torch.Tensor, torch.Tensor] | None = None
+                      ) -> torch.Tensor:
+    """(feats - mean) * istd with the train set's stats (Kaldi
+    apply-cmvn): `stats` from global_cmvn_tensors on feats' device, or,
+    without it, cfg's stats file read here (ValueError as there)."""
+    mean, istd = stats if stats is not None else global_cmvn_tensors(
+        cfg, feats.device)
+    return (feats - mean) * istd
+
+
 def wav_to_features(wav: torch.Tensor, wav_lengths: torch.Tensor,
                     cfg: FrontendConfig = FrontendConfig(),
-                    apply_cmvn: bool = True
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    apply_cmvn: bool = True,
+                    cmvn_stats: tuple[torch.Tensor, torch.Tensor] | None
+                    = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Padded waveforms [B, S] + lengths [B] -> (feats [B, T, D],
-    frame_lengths [B]). Frames past frame_lengths[b] are zeroed."""
+    frame_lengths [B]). Frames past frame_lengths[b] are zeroed.
+    `cmvn_stats`: global CMVN's (mean, istd) on the device
+    (cmvn_stats_for), else read from cfg's stats file at each call."""
     if cfg.add_pitch:
         raise NotImplementedError("pitch features are not ported yet")
     feats = log_mel_spectrogram(wav, cfg)
@@ -221,7 +300,7 @@ def wav_to_features(wav: torch.Tensor, wav_lengths: torch.Tensor,
     if apply_cmvn and cfg.cmvn_mode == "utterance":
         feats = cmvn(feats, frame_lengths)
     elif apply_cmvn and cfg.cmvn_mode == "global":
-        raise NotImplementedError("global CMVN is not ported yet")
+        feats = apply_global_cmvn(feats, cfg, cmvn_stats)
     elif apply_cmvn and cfg.cmvn_mode != "none":
         raise ValueError(f"unknown cmvn_mode {cfg.cmvn_mode!r}")
     t = feats.shape[-2]

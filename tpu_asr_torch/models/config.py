@@ -14,7 +14,8 @@ implementation of a formulation runs is still chosen by the device of
 the tensors: the CUDA kernel on a card, its plain PyTorch version on the
 CPU. `ctc_pallas` and `cif_pallas` are resolved but not read: the CTC
 loss and the CIF fire always go through their kernel dispatchers, since
-the two forms of each agree.
+the two forms of each agree (`train --pallas-ctc 0` sets the field and
+changes no route).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ class ModelConfig:
     dropout: float = 0.1
     pe_maxlen: int = 5000
     input_layer: str = "conv2d"       # conv2d (4x subsample) | linear (LFR)
-    encoder_type: str = "transformer"  # only "transformer" is ported
+    encoder_type: str = "transformer"  # transformer | conformer
     conv_kernel: int = 15
     conv_channels: int | tuple = 256  # int, or (conv1, conv2) channels
     lfr_m: int = 4

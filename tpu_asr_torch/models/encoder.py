@@ -1,8 +1,11 @@
-"""Transformer encoder with conv2d subsampling (port of
-tpu_asr/models/encoder.py, transformer blocks, full-context mask).
+"""Encoder with conv2d subsampling: transformer or conformer blocks,
+full-context mask (port of tpu_asr/models/encoder.py).
 
-The chunk (streaming) mask, the conformer blocks, the LFR+linear input
-layer and `encode_chunk` come with the streaming and conformer slices.
+The transformer adds the absolute sinusoidal PE; the conformer adds
+none (its attention scores carry relative positions) and passes each
+layer a relative-position table and the frame mask. The chunk
+(streaming) mask, `init_cache`/`encode_chunk` and the LFR+linear input
+layer come with the streaming and frontend slices.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from torch import nn
 
 from tpu_asr_torch.models.attention import MultiHeadAttention, mask_to_bias
 from tpu_asr_torch.models.config import ModelConfig
+from tpu_asr_torch.models.conformer import ConformerLayer, rel_table
 from tpu_asr_torch.models.conv import Conv2dSubsampling
 from tpu_asr_torch.models.modules import (PositionalEncoding,
                                           PositionwiseFeedForward,
@@ -54,25 +58,37 @@ class Encoder(nn.Module):
             raise NotImplementedError(
                 f"input_layer={c.input_layer!r}: the LFR+linear input layer "
                 f"is not ported yet")
-        if c.encoder_type != "transformer" or c.enc_chunk_size > 0:
+        if c.enc_chunk_size > 0:
             raise NotImplementedError(
-                "conformer and chunk-masked (streaming) encoders are not "
-                "ported yet")
+                "the chunk-masked (streaming) encoder is not ported yet")
+        if c.encoder_type not in ("transformer", "conformer"):
+            raise ValueError(f"unknown encoder_type {c.encoder_type!r}")
         self.cfg = c
+        self.conformer = c.encoder_type == "conformer"
         self.subsample = Conv2dSubsampling(c.d_input, c.d_model,
                                            c.conv_channels, c.dtype,
                                            c.param_dtype)
-        self.pe = PositionalEncoding(c.d_model, c.pe_maxlen, c.dtype)
+        if not self.conformer:
+            self.pe = PositionalEncoding(c.d_model, c.pe_maxlen, c.dtype)
         self.dropout = nn.Dropout(c.dropout)
-        self.layers = nn.ModuleList(EncoderLayer(c)
+        layer = ConformerLayer if self.conformer else EncoderLayer
+        self.layers = nn.ModuleList(layer(c)
                                     for _ in range(c.num_enc_layers))
 
     def forward(self, feats, feat_lengths):
         """[B, T, D_in] + [B] -> ([B, T', d_model], [B] lengths)."""
+        c = self.cfg
         x, out_lengths = self.subsample(feats, feat_lengths)
-        x = self.dropout(self.pe(x))
-        valid = make_valid_mask(out_lengths, x.shape[1])        # [B, T']
-        bias = mask_to_bias(valid[:, None, None, :], self.cfg.dtype)
-        for layer in self.layers:
-            x = layer(x, bias)
+        t = x.shape[1]
+        valid = make_valid_mask(out_lengths, t)                 # [B, T']
+        bias = mask_to_bias(valid[:, None, None, :], c.dtype)
+        if self.conformer:
+            x = self.dropout(x)
+            pos_emb = rel_table(t, c.d_model, c.dtype, x.device)
+            for layer in self.layers:
+                x = layer(x, pos_emb, bias, valid)
+        else:
+            x = self.dropout(self.pe(x))
+            for layer in self.layers:
+                x = layer(x, bias)
         return x.masked_fill(~valid[..., None], 0.0), out_lengths

@@ -311,8 +311,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--preset", default="aishell",
                    help="model preset (aishell | hybrid | hybrid_dev | "
-                        "attention | ctc_dev | cif | cif_dev); not read "
-                        "with --ckpt")
+                        "attention | ctc_dev | conformer | conformer_dev | "
+                        "cif | cif_dev); not read with --ckpt")
     p.add_argument("--mode", default=None,
                    choices=["greedy_ctc", "ctc_beam", "beam", "joint",
                             "attn_rescore", "cif_greedy", "cif_beam"],

@@ -6,16 +6,27 @@
       --save-folder exp/dev --device cpu
   python -m tpu_asr_torch.train --preset cif_dev --synthetic 32 --epochs 2 \\
       --save-folder exp/cif_dev --device cpu
+  python -m tpu_asr_torch.train --preset conformer --train-manifest \\
+      train.jsonl --cv-manifest dev.jsonl --cmvn global --cmvn-stats \\
+      exp/cmvn.npz --save-folder exp/conformer
 
 Preset + flag overrides -> bucketed loaders -> TrainStep/Solver with a
 checkpoint per epoch and JSONL metrics in the save folder. Runs on the
 CUDA card unless given --device cpu; with no card and no such flag it
 raises. The preset's model_type picks the model (models.build_model:
-the hybrid Transformer or the CIF model). `--params-npz` starts from
-flax params of tpu_asr (see tpu_asr_torch.weights); otherwise the
-weights are a seeded random init. A caller in Python may also change
-the preset's ModelConfig (`build_solver(..., model_overrides=...)`, e.g.
-{"use_pallas": True}); as in bin/train.py no flag does that.
+the hybrid Transformer, with the transformer or the conformer encoder,
+or the CIF model). `--cmvn global --cmvn-stats <npz>` (stats from
+python -m tpu_asr_torch.compute_cmvn) normalizes the features with the
+train set's stats; the stats path goes into the checkpoint's
+frontend.json made absolute, so recognize and serve pick the policy up.
+`--pallas-ctc` sets ModelConfig.pallas_ctc as bin/train.py does; the
+port reads it nowhere, since the device picks the CTC loss's route (the
+kernels on the card, their plain versions on the CPU). `--params-npz`
+starts from flax params of tpu_asr (see tpu_asr_torch.weights);
+otherwise the weights are a seeded random init. A caller in Python may
+also change the preset's ModelConfig (`build_solver(...,
+model_overrides=...)`, e.g. {"use_pallas": True}); as in bin/train.py no
+flag does that.
 """
 
 from __future__ import annotations
@@ -45,7 +56,8 @@ def parse_args(argv=None):
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="aishell",
                    help="aishell | hybrid | hybrid_dev | attention | "
-                        "ctc_dev | cif | cif_dev")
+                        "ctc_dev | conformer | conformer_dev | cif | "
+                        "cif_dev")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic utterances (demo/smoke)")
     p.add_argument("--train-manifest")
@@ -72,6 +84,18 @@ def parse_args(argv=None):
                         "the reference's behaviour; -1 = preset default)")
     p.add_argument("--dtype", default="", choices=["", "bf16", "f32"],
                    help="override the preset's compute dtype")
+    p.add_argument("--pallas-ctc", type=int, default=-1, choices=[-1, 0, 1],
+                   help="override the preset's pallas_ctc (1/0; -1 = "
+                        "preset default); kept for the reference's CLI: "
+                        "the card always takes the CTC kernels")
+    p.add_argument("--cmvn", default="",
+                   choices=["", "utterance", "global", "none"],
+                   help="feature normalization: per-utterance (the "
+                        "default), global train-set stats (--cmvn-stats), "
+                        "or none")
+    p.add_argument("--cmvn-stats", default="",
+                   help=".npz of python -m tpu_asr_torch.compute_cmvn "
+                        "(with --cmvn global)")
     p.add_argument("--print-freq", type=int, default=0,
                    help="a train metrics line every N steps (0 = preset)")
     p.add_argument("--debug-nans", action="store_true",
@@ -115,11 +139,20 @@ def configure(args, model_overrides: dict | None = None
     elif args.specaug_warp >= 0 and tc.specaug is not None:
         overrides["specaug"] = dataclasses.replace(
             tc.specaug, time_warp_window=args.specaug_warp)
+    if args.cmvn:
+        if args.cmvn == "global" and not args.cmvn_stats:
+            raise SystemExit("--cmvn global needs --cmvn-stats")
+        overrides["frontend"] = dataclasses.replace(
+            tc.frontend, cmvn_mode=args.cmvn,
+            cmvn_stats_path=(os.path.abspath(args.cmvn_stats)
+                             if args.cmvn_stats else ""))
     tc = dataclasses.replace(tc, **overrides)
     model = {"vocab_size": vocab}
     if args.dtype:
         model["dtype"] = {"bf16": torch.bfloat16,
                           "f32": torch.float32}[args.dtype]
+    if args.pallas_ctc in (0, 1):
+        model["pallas_ctc"] = bool(args.pallas_ctc)
     return tc, dataclasses.replace(tc.model, **model,
                                    **(model_overrides or {}))
 

@@ -48,6 +48,12 @@ def model_config_from_json(d: dict) -> ModelConfig:
     return ModelConfig(**d)
 
 
+def frontend_config_from_json(d: dict) -> FrontendConfig:
+    d = dict(d)
+    d["dtype"] = getattr(torch, d["dtype"])
+    return FrontendConfig(**d)
+
+
 class Checkpointer:
     def __init__(self, directory: str, max_to_keep: int = 5):
         self.directory = os.path.abspath(directory)
@@ -84,10 +90,7 @@ class Checkpointer:
     def load_frontend(self) -> FrontendConfig | None:
         """FrontendConfig from the sidecar; None if absent."""
         d = self._read_json("frontend.json")
-        if d is None:
-            return None
-        d["dtype"] = getattr(torch, d["dtype"])
-        return FrontendConfig(**d)
+        return None if d is None else frontend_config_from_json(d)
 
     def all_steps(self) -> list[int]:
         return sorted(int(m.group(1)) for m in map(

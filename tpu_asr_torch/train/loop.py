@@ -20,7 +20,8 @@ from typing import Any
 import torch
 
 from tpu_asr_torch.augment import SpecAugmentConfig, spec_augment
-from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
+from tpu_asr_torch.frontend import (FrontendConfig, cmvn_stats_for,
+                                    wav_to_features)
 from tpu_asr_torch.train.optim import NoamAdam, global_norm
 from tpu_asr_torch.utils.device import resolve_device
 
@@ -30,16 +31,17 @@ PROFILE_STEPS = (10, 15)
 
 
 def batch_features(batch: dict, frontend: FrontendConfig,
-                   device: torch.device):
+                   device: torch.device, cmvn_stats=None):
     """A loader batch (numpy or tensors) -> (feats [B, T, D] float32,
     feat_lengths [B], targets [B, U] int64, target_lengths [B]) on
-    `device`; wav batches go through the frontend there."""
+    `device`; wav batches go through the frontend there (`cmvn_stats`:
+    cmvn_stats_for's pair on `device`)."""
     def get(key):
         return torch.as_tensor(batch[key]).to(device, non_blocking=True)
 
     if "wav" in batch:
         feats, flens = wav_to_features(get("wav"), get("wav_lengths"),
-                                       frontend)
+                                       frontend, cmvn_stats=cmvn_stats)
     else:
         feats, flens = get("feats").float(), get("feat_lengths")
     return feats, flens, get("targets").long(), get("target_lengths")
@@ -65,6 +67,7 @@ class TrainStep:
         self.optimizer = optimizer
         self.specaug = specaug
         self.frontend = frontend or FrontendConfig()
+        self.cmvn_stats = cmvn_stats_for(self.frontend, self.device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.debug_nans = debug_nans
         self.steps = 0       # calls taken (micro-batches)
@@ -74,8 +77,8 @@ class TrainStep:
         loss_ctc or loss_qty as the model has them) and grad_norm (0-d
         device tensors; grad_norm of the raw, unclipped gradients)."""
         self.model.train()
-        feats, flens, targets, tlens = batch_features(batch, self.frontend,
-                                                      self.device)
+        feats, flens, targets, tlens = batch_features(
+            batch, self.frontend, self.device, self.cmvn_stats)
         if self.specaug is not None:
             feats = spec_augment(self.gen, feats, flens, self.specaug)
         out = self.model(feats, flens, targets, tlens)
@@ -120,11 +123,13 @@ class EvalStep:
         self.device = resolve_device(device)
         self.model = model
         self.frontend = frontend or FrontendConfig()
+        self.cmvn_stats = cmvn_stats_for(self.frontend, self.device)
 
     @torch.no_grad()
     def __call__(self, batch: dict) -> dict[str, torch.Tensor]:
         self.model.eval()
-        return self.model(*batch_features(batch, self.frontend, self.device))
+        return self.model(*batch_features(batch, self.frontend, self.device,
+                                          self.cmvn_stats))
 
 
 def _mean(values: list[torch.Tensor]) -> float:

@@ -2,7 +2,8 @@
 seeded random init.
 
 `load_jax_params(model, params)` takes the flax variable tree of
-tpu_asr.models.Transformer, CifModel or lm.TransformerLM as nested dicts of numpy arrays (what
+tpu_asr.models.Transformer (transformer or conformer encoder), CifModel
+or lm.TransformerLM as nested dicts of numpy arrays (what
 `jax.device_get(variables)` returns), or an .npz file / flat dict whose
 keys are the "/"-joined flax paths. The port's module names follow the
 flax paths, so each key maps mechanically:
@@ -14,6 +15,9 @@ flax paths, so each key maps mechanically:
   out_proj kernel [H, dh, D]         -> [D, H*dh]
   Conv kernel HWIO (3,3,I,O)         -> OIHW
   assigner/conv kernel WIO (3,I,O)   -> Conv1d OIW
+  depthwise kernel [k, 1, C]         -> [C, 1, k] (Conv1d, groups=C)
+  pos_proj kernel [D, H, dh]         -> [H*dh, D] (no bias)
+  u_bias/v_bias [H, dh]              -> kept as they are
   embed/embedding [V, D]             -> embed.weight (tied output proj)
 
 Any missing key, extra key or shape mismatch raises.
@@ -53,6 +57,11 @@ def flax_to_torch(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
             v = v.transpose(3, 2, 0, 1)
         elif owner == "conv" and v.ndim == 3:            # Conv WIO -> OIW
             v = v.transpose(2, 1, 0)
+        elif owner == "depthwise":                       # [k, 1, C]
+            if v.ndim != 3 or v.shape[1] != 1:
+                raise ValueError(f"{path}: a depthwise kernel is [k, 1, C], "
+                                 f"not {list(v.shape)}")
+            v = v.transpose(2, 1, 0)                     # -> [C, 1, k]
         elif owner == "out_proj" and v.ndim == 3:        # [H, dh, D]
             v = v.reshape(-1, v.shape[-1]).T
         elif v.ndim == 3:                                # [D, H, dh]
@@ -71,10 +80,11 @@ def flax_to_torch(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def load_jax_params(model: nn.Module, params) -> None:
-    """Fill `model` (a tpu_asr_torch Transformer, CifModel or
-    TransformerLM) from flax params; see the module docstring for the
-    accepted forms. Strict: raises KeyError on a missing or extra key and
-    ValueError on a shape mismatch."""
+    """Fill `model` (a tpu_asr_torch Transformer, with either encoder,
+    CifModel or TransformerLM) from flax params; see the module docstring
+    for the accepted forms. Strict: raises KeyError on a missing or extra
+    key and ValueError on a shape mismatch (a depthwise kernel that is
+    not [k, 1, C] included)."""
     if isinstance(params, (str, os.PathLike)):
         with np.load(params) as z:
             params = {k: z[k] for k in z.files}
