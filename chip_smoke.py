@@ -67,7 +67,13 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      scores within 1e-3; attn_rescore with the LM term and use_pallas
      equal tokens. A small conformer (conformer_dev) as the hybrid:
      joint and attn_rescore tokens equal, two train steps' losses within
-     1e-4 and step 1's grad norm within 1e-3 relative.
+     1e-4 and step 1's grad norm within 1e-3 relative. The transducer
+     (transducer_dev, conformer_transducer_dev, and the latter with
+     enc_chunk_size 4): transducer_greedy, transducer_beam 4 and
+     transducer_rescore tokens equal (greedy's times too, in order and
+     below each encoder length), beam and rescore scores within 1e-3;
+     two train steps' losses within 1e-4, step 1's grad norm within 1e-3
+     relative, the CTC kernels once a step on the card.
   5. serving: the aishell-width hybrid model (d512, h8, 6+6 layers, conv
      (32, 128), vocab 4233, bf16; random weights from a seed) in joint
      CTC/attention beam-5 mode behind AsrServer; 16 wav requests from
@@ -157,6 +163,29 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      tokens; then the CTC pair and the
      prefix scan on the inputs this path gave them against their plain
      versions, timed.
+ 12. the transducer family: the transducer preset at full width (d512,
+     h8, 6 encoder layers, conv 256, 2 predictor layers, d_joint 512,
+     vocab 4233, float32, dropout 0.1, aux CTC 0.3, 16000-frame batches)
+     through the Solver of `python -m tpu_asr_torch.train --preset
+     transducer` on phase 8's corpus for >= 20 steps (as phase 8: every
+     step's losses, loss_rnnt and loss_ctc included, and grad norm
+     finite, the CTC kernels once per step and cv batch on their warp
+     route, a profile, the fixed shape, the checkpoint restore; the
+     train loss falls), beside phase 8's aishell numbers; the loss (the
+     checkpointed joint and the lattice) and the lattice recursion alone
+     on the first train batch's inputs: device time, share of a step,
+     peak memory against all frames' logits materialized; `python -m
+     tpu_asr_torch.recognize --ckpt` on phase 10's cv manifest in
+     transducer_greedy, transducer_beam 5, transducer_beam 5 with phase
+     10's LM (lm 0.3) and transducer_rescore 10 (ctc weight 0.5): a
+     hypothesis per utterance, a cer and an inverse RTF each, no kernel
+     launched, greedy's times non-decreasing and below each encoder
+     length; the server with --ckpt answers POST /recognize with
+     submit()'s tokens; the full-width conformer_transducer preset
+     (chunk 16) takes 4 train steps (finite losses, the CTC kernels once
+     a step) and one greedy decode batch (a hypothesis per row, times in
+     order and range); then the CTC pair on the inputs the transducer
+     training gave it against the plain versions, timed.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -2161,6 +2190,104 @@ def check_conformer_agreement():
                       "step2": {k: [card2[k], cpu2[k]] for k in losses}}))
 
 
+# the transducer presets phase 4 holds card against CPU: (preset, fields
+# changed); the conformer's also with the offline chunk mask
+TRANSDUCER_AGREEMENT = (("transducer_dev", {}),
+                        ("conformer_transducer_dev", {}),
+                        ("conformer_transducer_dev", {"enc_chunk_size": 4}))
+
+
+def check_greedy_times(card_out, cpu_out, wav_lengths, cfg, name):
+    """transducer_greedy's times on the card equal the CPU's, and each
+    row's are non-decreasing and below its encoder length."""
+    from tpu_asr_torch.frontend import FrontendConfig
+    frames = FrontendConfig().num_frames
+    for i, (a, b) in enumerate(zip(card_out, cpu_out)):
+        times = a[0]["times"]
+        enc = cfg.subsampled_length(frames(int(wav_lengths[i]))) \
+            if wav_lengths[i] else 0
+        if times != b[0]["times"] or times != sorted(times) or \
+                any(not 0 <= x < enc for x in times):
+            raise AssertionError(f"{name} greedy row {i}: times {times} "
+                                 f"(CPU {b[0]['times']}), encoder length "
+                                 f"{enc}")
+
+
+def check_transducer_agreement():
+    """transducer_dev and conformer_transducer_dev (the latter also with
+    enc_chunk_size 4) in float32, dropout 0: transducer_greedy,
+    transducer_beam 4 and transducer_rescore 4 give equal tokens on the
+    card and on the CPU (greedy's times too, non-decreasing and below
+    each encoder length), beam and rescore scores within 1e-3; two
+    TrainSteps from the same init on one batch: both steps' losses within
+    1e-4, step 1's grad norm within 1e-3 relative, the CTC kernels (the
+    aux head) launched once a step on the card."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transducer import TransducerModel
+    from tpu_asr_torch.weights import init_random
+
+    rng = np.random.default_rng(SEED)
+    lens = np.array([16000, 12000, 7000, 0], np.int32)
+    wav = np.zeros((4, 16000), np.float32)
+    for i, n in enumerate(lens):
+        wav[i, :n] = synth_wav(int(n), rng)
+    wavs = {"wav": wav, "wav_lengths": lens}
+    batch = train_batch(rng, 4, 200, [200, 151, 0, 97], [8, 5, 0, 3], 8)
+    modes = (("transducer_greedy", BeamConfig(beam=1, max_len=12)),
+             ("transducer_beam", BeamConfig(beam=4, max_len=12, nbest=4)),
+             ("transducer_rescore", BeamConfig(beam=4, max_len=12, nbest=4,
+                                               ctc_weight=0.5)))
+    report = {}
+    for preset, fields in TRANSDUCER_AGREEMENT:
+        cfg = dataclasses.replace(get_preset(preset).model, vocab_size=64,
+                                  **fields)
+        name = preset + "".join(f" {k}={v}" for k, v in fields.items())
+        gaps = {}
+        for mode, beam in modes:
+            out = {}
+            for dev in (DEVICE, "cpu"):
+                rec = Recognizer(cfg, init_random(TransducerModel(cfg), SEED),
+                                 mode=mode, device=dev, beam=beam)
+                out[dev] = rec.decode_batch_nbest(wavs)
+            tokens = {d: [[h["yseq"] for h in row] for row in out[d]]
+                      for d in out}
+            gap = max(abs(a["score"] - b["score"])
+                      for ra, rb in zip(out[DEVICE], out["cpu"])
+                      for a, b in zip(ra, rb) if b["score"] > -1e29)
+            if tokens[DEVICE] != tokens["cpu"] or gap > 1e-3:
+                raise AssertionError(f"{name} {mode}: card {tokens[DEVICE]} "
+                                     f"!= CPU {tokens['cpu']}, or a score "
+                                     f"gap {gap} > 1e-3")
+            gaps[mode] = gap
+            if mode == "transducer_greedy":
+                check_greedy_times(out[DEVICE], out["cpu"], lens, cfg, name)
+        runs = train_on_both(TransducerModel, cfg, batch, 2)
+        (card, card2), (cpu, cpu2) = (runs[d][0] for d in ("card", "cpu"))
+        losses = ("loss", "loss_rnnt", "loss_ctc")
+        bad = [k for k in losses if abs(card[k] - cpu[k]) > 1e-4]
+        bad += [f"step 2 {k}" for k in losses
+                if abs(card2[k] - cpu2[k]) > 1e-4]
+        if bad or abs(card["grad_norm"] - cpu["grad_norm"]) > \
+                1e-3 * abs(cpu["grad_norm"]):
+            raise AssertionError(f"{name} train step on the card {card} "
+                                 f"{card2} != on the CPU {cpu} {cpu2}: {bad}")
+        launches = {k: n for k, n in runs["card"][2].items() if n}
+        if launches != {"ctc_loss_fwd": 2, "ctc_loss_bwd": 2} or \
+                any(runs["cpu"][2].values()):
+            raise AssertionError(f"{name} train steps launched {launches}")
+        report[name] = {"score_gap": gaps,
+                        "step1": {k: [card[k], cpu[k]] for k in sorted(card)},
+                        "step2": {k: [card2[k], cpu2[k]] for k in losses}}
+    log("agreement: transducer_dev, conformer_transducer_dev and "
+        "conformer_transducer_dev with enc_chunk_size 4: greedy, beam-4 "
+        "and rescore-4 tokens on the card == on the CPU (scores within "
+        "1e-3); train steps on the card == on the CPU (losses of steps 1 "
+        "and 2 within 1e-4, grad norm within 1e-3 relative; CTC kernels "
+        "once a step on the card): " + json.dumps(report))
+
+
 def check_cif_agreement():
     """cif_dev in float32 (dropout 0): the same batch decodes to the same
     tokens on the card (the CIF kernel) and on the CPU (its plain
@@ -2719,12 +2846,14 @@ def ln_bwd_label(r, *_):
 
 def run_training(card, workdir, preset, data, captures,
                  model_overrides=None, bwd_caps=None, ctc_caps=None,
-                 argv=(), stats=None):
+                 argv=(), stats=None, profiled_steps=4):
     """The Solver that `python -m tpu_asr_torch.train --preset <preset>
     <argv>` builds (with `model_overrides` to its ModelConfig, as
     build_solver takes them), on `data` (None: the manifests argv names),
     for >= MIN_TRAIN_STEPS steps; then a checkpoint restore, a profile
-    and 20 steps at the fixed shape; `stats` (a dict) gets the epochs'
+    of `profiled_steps` steps (the profiler takes about half a
+    millisecond of host time an event to read its trace) and 20 steps at
+    the fixed shape; `stats` (a dict) gets the epochs'
     history, the step times, throughput, peak memory and the profile.
     A CIF model's firing inputs of its first train and cv batch go into
     `captures`; with use_pallas, the inputs of the flash and LN backward
@@ -2789,8 +2918,10 @@ def run_training(card, workdir, preset, data, captures,
               "ctc_loss_bwd": ctc_module.BWD_ROUTE_LAUNCHES}
     for r in routes.values():
         r.update(warp=0, block=0)
+    step_metrics = []      # every train step's losses and grad norm
     wall0 = time.perf_counter()
-    with records:
+    with records, wrap_method(type(ts), "__call__",
+                              after=step_metrics.append):
         solver.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
@@ -2806,8 +2937,17 @@ def run_training(card, workdir, preset, data, captures,
 
     steps = sum(h["train_steps"] for h in solver.history)
     cv_batches = sum(h["cv_batches"] for h in solver.history)
-    if steps < MIN_TRAIN_STEPS or ts.optimizer.count != steps:
-        raise AssertionError(f"{steps} steps, {ts.optimizer.count} updates")
+    if steps < MIN_TRAIN_STEPS or ts.optimizer.count != steps or \
+            len(step_metrics) != steps:
+        raise AssertionError(f"{steps} steps, {ts.optimizer.count} updates,"
+                             f" {len(step_metrics)} step metrics")
+    loss_keys = sorted(k for k in step_metrics[0]
+                       if k.startswith("loss") or k == "grad_norm")
+    per_step = torch.stack([torch.stack([m[k].float() for k in loss_keys])
+                            for m in step_metrics]).cpu()
+    if not torch.isfinite(per_step).all():
+        raise AssertionError(f"{what}: a non-finite {loss_keys} in "
+                             f"{per_step.tolist()}")
     if any(h["nonfinite_steps"] for h in solver.history) or not all(
             np.isfinite([h["loss"], h["train_loss"], h["grad_norm_max"]]).all()
             for h in solver.history):
@@ -2835,8 +2975,11 @@ def run_training(card, workdir, preset, data, captures,
     steady_s = sum(a.elapsed_time(b) for a, b, _, _ in steady) / 1e3
     utts = sum(n for _, _, n, _ in steady)
     audio_s = sum(x for _, _, _, x in steady) / 16000.0
+    second = (f"{cfg.num_pred_layers} predictor layers, d_joint "
+              f"{cfg.d_joint}" if cfg.model_type == "transducer" else
+              f"{cfg.num_dec_layers} decoder layers")
     log(f"{what}: {cfg.model_type} model (d{cfg.d_model}, h{cfg.num_heads},"
-        f" {cfg.num_enc_layers}+{cfg.num_dec_layers} layers, conv "
+        f" {cfg.encoder_type} x{cfg.num_enc_layers} + {second}, conv "
         f"{cfg.conv_channels}, vocab {cfg.vocab_size}, {cfg.dtype}, "
         f"dropout {cfg.dropout}, SpecAugment "
         f"{'on' if ts.specaug else 'off'}) {epochs} epochs, {steps} steps + "
@@ -2845,6 +2988,9 @@ def run_training(card, workdir, preset, data, captures,
         f"post-norm calls of >= {FUSED_LN_MIN_ROWS}"
         f" rows {json.dumps(fused)}")
     log(f"{what}: per epoch " + json.dumps(solver.history))
+    log(f"{what}: every step's {loss_keys} finite; first and last step "
+        + json.dumps({k: [float(per_step[0, i]), float(per_step[-1, i])]
+                      for i, k in enumerate(loss_keys)}))
     log(f"{what}: step ms median {statistics.median(step_ms):.2f}, min "
         f"{min(step_ms):.2f}, max {max(step_ms):.2f}; steady (steps 2..): "
         f"{len(steady) / steady_s:.2f} steps/s, {utts / steady_s:.1f} "
@@ -2863,7 +3009,7 @@ def run_training(card, workdir, preset, data, captures,
         f"parameters ({len(restored.state_dict())} tensors)")
 
     it = iter(solver.train_loader.loader)
-    batches = [next(it) for _ in range(4)]
+    batches = [next(it) for _ in range(profiled_steps)]
     it.close()
     prof = profile_device(lambda: [ts(b) for b in batches], what, card)
 
@@ -3332,7 +3478,8 @@ def run_lm_serving(card, ckpt, lm_dir, workdir, wav, want_tokens=None):
 def run_lm_phase(card, workdir, data, ckpts):
     """Phase 10: train_lm, three LM decodes through recognize and their
     score, the cost of fusion in the joint beam, and the server with
-    --dict --lm-ckpt. -> what run_lm_decodes returns."""
+    --dict --lm-ckpt. -> (what run_lm_decodes returns, the LM folder,
+    the cv wav manifest)."""
     from tpu_asr_torch.data import save_manifest
     train_utts, cv_utts, _, waves = data
     train_manifest = os.path.join(workdir, "lm_train.jsonl")
@@ -3345,7 +3492,7 @@ def run_lm_phase(card, workdir, data, ckpts):
     time_lm_fusion(card, ckpts["aishell"], lm_dir, cv_utts, waves)
     run_lm_serving(card, ckpts["aishell"], lm_dir, workdir,
                    waves[cv_utts[0].id])
-    return decodes
+    return decodes, lm_dir, cv_manifest
 
 
 # ---- phase 11: the conformer recipe through the CLIs ----
@@ -3628,6 +3775,302 @@ def run_recipe_phase(card, workdir, data, aishell_stats):
     return launches, prefix_launches, paths, errs
 
 
+# ---- phase 12: the transducer family ----
+
+TRANSDUCER_DECODES = (        # (name, recognize flags; "LM": phase 10's)
+    ("transducer_greedy", ["--mode", "transducer_greedy"]),
+    ("transducer_beam", ["--mode", "transducer_beam", "--beam", "5"]),
+    ("transducer_beam_lm", ["--mode", "transducer_beam", "--beam", "5",
+                            "--lm-ckpt", "LM", "--lm-weight", "0.3"]),
+    ("transducer_rescore", ["--mode", "transducer_rescore", "--beam", "10",
+                            "--ctc-weight", "0.5"]))
+CONFORMER_TRANSDUCER_STEPS = 4
+LATTICE_CHUNK_FRAMES = 32     # frames a no-grad chunk of the log-probs
+
+
+def transducer_loss_label(*_, **__):
+    """record_inputs' label for models.transducer.transducer_loss: one
+    label for the train steps (autograd on), so the first is kept; none
+    for a cv batch."""
+    return "transducer training" if torch.is_grad_enabled() else None
+
+
+def time_transducer_lattice(card, args, step_device_ms):
+    """The transducer loss on the first train batch's inputs, as the
+    model gave them to transducer_loss (f, g, w_out, b_out, labels,
+    lengths): forward and backward of the whole loss (the chunked,
+    checkpointed joint and the lattice recursion) and of the recursion
+    alone on the same log-probs, each under torch.profiler (device time)
+    and timed by CUDA events; their share of a train step's device time;
+    the peak memory of the loss with the checkpointed joint against the
+    joint's logits materialized for all frames (what the checkpoint
+    saves). -> the numbers."""
+    from tpu_asr_torch.ops.transducer import (joint_log_probs,
+                                              transducer_forward,
+                                              transducer_loss,
+                                              transducer_loss_from_logits)
+    f, g, w, b, labels, ll, ul = args[:7]
+    params = (f, g, w, b)
+
+    def loss_fwd_bwd():
+        xs = [x.detach().requires_grad_(True) for x in params]
+        nll = transducer_loss(*xs, labels, ll, ul, reduction="none")
+        torch.autograd.grad(nll.sum(), xs)
+
+    with torch.no_grad():
+        parts = [joint_log_probs(f[:, s: s + LATTICE_CHUNK_FRAMES], g, w, b,
+                                 labels)
+                 for s in range(0, f.shape[1], LATTICE_CHUNK_FRAMES)]
+        blank = torch.cat([p[0] for p in parts], 1)
+        emit = torch.cat([p[1] for p in parts], 1)
+
+    def lattice_fwd_bwd():
+        xs = [x.detach().requires_grad_(True) for x in (blank, emit)]
+        torch.autograd.grad(transducer_forward(*xs, ll, ul).sum(), xs)
+
+    def materialized_fwd_bwd():
+        xs = [x.detach().requires_grad_(True) for x in params]
+        joint = torch.tanh(xs[0][:, :, None, :] + xs[1][:, None])
+        nll = transducer_loss_from_logits(joint @ xs[2] + xs[3], labels, ll,
+                                          ul)
+        torch.autograd.grad(nll.sum(), xs)
+
+    out = {"shape": f"B={f.shape[0]} T'={f.shape[1]} U+1={g.shape[1]} "
+                    f"V={w.shape[1]} d_joint={w.shape[0]}"}
+    for key, fn in (("loss", loss_fwd_bwd), ("lattice", lattice_fwd_bwd),
+                    ("materialized", materialized_fwd_bwd)):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{key}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                  - base) / 2**30
+        if key != "materialized":
+            out[f"{key}_ms"] = cuda_ms(fn, reps=3, warmup=0)
+            prof = profile_device(fn, f"transducer {key} fwd+bwd "
+                                  f"({out['shape']})", card)
+            out[f"{key}_device_ms"] = prof["device_ms"]
+            out[f"{key}_device_events"] = prof["device_events"]
+            out[f"{key}_share_of_step"] = prof["device_ms"] / step_device_ms
+    log("transducer loss on the first train batch's inputs (joint + "
+        "lattice, and the lattice recursion alone), forward and backward; "
+        "peak memory above the inputs with the checkpointed joint against "
+        "all frames' logits materialized: " + json.dumps(out)
+        + f" [{card}]")
+    return out
+
+
+def run_transducer_decodes(card, ckpt, lm_dir, cv_manifest, cv_utts,
+                           workdir):
+    """python -m tpu_asr_torch.recognize --ckpt on the cv manifest in
+    each of TRANSDUCER_DECODES: a hypothesis per utterance and a summary
+    with cer and inverse RTF each; no kernel launches on these paths (the
+    transducer lattice and the CTC prefix beam have none); greedy's times
+    non-decreasing and below each utterance's encoder length. -> {name:
+    summary}."""
+    from tpu_asr_torch import recognize
+    from tpu_asr_torch.frontend import FrontendConfig
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+
+    cfg = Checkpointer(ckpt).load_config()
+    frontend = FrontendConfig()
+    enc_len = {u.id: cfg.subsampled_length(frontend.num_frames(
+        u.num_samples)) for u in cv_utts}
+    counters = kernel_counters()
+    summaries = {}
+    for name, flags in TRANSDUCER_DECODES:
+        hyp = os.path.join(workdir, f"hyp_{name}.jsonl")
+        flags = [lm_dir if x == "LM" else x for x in flags]
+        # main path: counts from 0 just before, read just after
+        for fn in counters.values():
+            fn.launches = 0
+        summary, printed = run_cli(recognize.main, [
+            "--ckpt", ckpt, "--manifest", cv_manifest, "--output",
+            hyp] + flags)
+        launches = {k: f.launches for k, f in counters.items() if f.launches}
+        with open(hyp) as f:
+            hyps = [json.loads(x) for x in f]
+        if printed != summary or summary["n_utts"] != len(cv_utts) or \
+                len(hyps) != len(cv_utts) or "cer" not in summary or \
+                "inverse_rtf" not in summary or \
+                not all("hyp_tokens" in h for h in hyps):
+            raise AssertionError(f"recognize {name}: summary {summary}, "
+                                 f"{len(hyps)} hypotheses for "
+                                 f"{len(cv_utts)} utterances")
+        check_launches(f"recognize {name}", launches, {})
+        if name == "transducer_greedy":
+            bad = [h["id"] for h in hyps
+                   if len(h["times"]) != len(h["hyp_tokens"])
+                   or h["times"] != sorted(h["times"])
+                   or any(not 0 <= x < enc_len[h["id"]] for x in h["times"])]
+            if bad:
+                raise AssertionError(f"greedy times out of order or past "
+                                     f"the encoder length: {bad[:4]}")
+        n_tokens = sum(len(h["hyp_tokens"]) for h in hyps)
+        log(f"recognize {name} (transducer checkpoint): "
+            f"{json.dumps(summary)}; {n_tokens} tokens in all [{card}]")
+        summaries[name] = summary
+    return summaries
+
+
+def run_transducer_serving(card, ckpt, wav):
+    """python -m tpu_asr_torch.serve's build_server with --ckpt
+    --restore latest (the model type's mode: transducer_greedy); one POST
+    /recognize must answer with the tokens that submit() gives."""
+    from tpu_asr_torch.serve import build_server, parse_args
+    server = build_server(parse_args([
+        "--ckpt", ckpt, "--restore", "latest", "--bucket-frames",
+        ",".join(map(str, BUCKETS)), "--batch-size", str(BATCH)]))
+    server.warmup(kinds=("wav",))
+    server.start()
+    try:
+        status, body = post_recognize(server, wav)
+        want = server.submit("wav", wav, timeout=600.0)
+    finally:
+        server.stop()
+    if status != 200 or server.rec.mode != "transducer_greedy" or \
+            body.get("tokens") != want[0]["yseq"]:
+        raise AssertionError(f"serve --ckpt (transducer, "
+                             f"{server.rec.mode}): /recognize answered "
+                             f"{status}: {body}, submit() {want[0]}")
+    log(f"serve --ckpt --restore latest (transducer, {server.rec.mode}): "
+        f"POST /recognize -> 200, {len(body['tokens'])} tokens, == "
+        f"submit()")
+
+
+def run_conformer_transducer(card, workdir, data):
+    """The full-width conformer_transducer preset (chunk 16) from the
+    Solver that `python -m tpu_asr_torch.train --preset
+    conformer_transducer` builds: CONFORMER_TRANSDUCER_STEPS train steps
+    on its first batches (losses and grad norms finite, the CTC kernels
+    once a step) and one greedy decode of a cv batch (a hypothesis per
+    row, its times non-decreasing and below the row's encoder length).
+    -> kernel launches of the steps."""
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.train.__main__ import build_solver, parse_args
+
+    solver = build_solver(parse_args([
+        "--preset", "conformer_transducer", "--save-folder",
+        os.path.join(workdir, "conformer_transducer")]), data)
+    ts = solver.train_step
+    cfg = ts.model.cfg
+    it = iter(solver.train_loader)
+    batches = [next(it) for _ in range(CONFORMER_TRANSDUCER_STEPS)]
+    it.close()
+    counters = kernel_counters()
+    # main path: counts from 0 just before, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = [ts(b) for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    keys = ("loss", "loss_rnnt", "loss_ctc", "grad_norm")
+    got = torch.stack([torch.stack([m[k].float() for k in keys])
+                       for m in metrics]).cpu()
+    steps = CONFORMER_TRANSDUCER_STEPS
+    check_launches("conformer_transducer training", launches,
+                   {"ctc_loss_fwd": steps, "ctc_loss_bwd": steps})
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"conformer_transducer: {keys} {got.tolist()}")
+    it = iter(solver.cv_loader)
+    cv = next(it)
+    it.close()
+    rec = Recognizer(cfg, ts.model, mode="transducer_greedy", device=DEVICE,
+                     frontend=ts.frontend, beam=BeamConfig(beam=1,
+                                                           max_len=100))
+    hyps = rec.decode_batch_nbest(cv)
+    if len(hyps) != len(cv["wav_lengths"]) or not all(
+            len(h) == 1 and "times" in h[0] for h in hyps):
+        raise AssertionError(f"conformer_transducer greedy: {len(hyps)} "
+                             f"hypotheses for {len(cv['wav_lengths'])} rows")
+    # no CPU decode here: only the times' order and range are checked
+    check_greedy_times(hyps, hyps, cv["wav_lengths"], cfg,
+                       "conformer_transducer")
+    log(f"conformer_transducer (d{cfg.d_model}, h{cfg.num_heads}, "
+        f"conformer x{cfg.num_enc_layers} chunk {cfg.enc_chunk_size} + "
+        f"{cfg.num_pred_layers} predictor layers, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}): {steps} train steps in {wall:.2f} s, "
+        + json.dumps({k: got[:, i].tolist() for i, k in enumerate(keys)})
+        + f"; launches {json.dumps(launches)}; greedy decode of a cv batch "
+        f"of {len(hyps)} rows: "
+        f"{[len(h[0]['yseq']) for h in hyps]} tokens [{card}]")
+    return launches
+
+
+def run_transducer_phase(card, workdir, data, aishell_stats, lm_dir,
+                         cv_manifest):
+    """Phase 12: the transducer preset at full width through the Solver
+    that python -m tpu_asr_torch.train --preset transducer builds, on
+    phase 8's corpus (run_training: >= 20 steps, the CTC kernels once a
+    step on their warp route and once per cv batch, a profile, the fixed
+    shape, the checkpoint restore), beside phase 8's aishell numbers, the
+    train loss falling; the loss and the lattice alone on the first train
+    batch's inputs (time_transducer_lattice); recognize in the four
+    TRANSDUCER_DECODES on phase 10's cv manifest (with phase 10's LM),
+    serve --ckpt; conformer_transducer; then the CTC pair on the inputs
+    the transducer training gave it against the plain versions. ->
+    ({"transducer", "conformer_transducer": training launches},
+    {"ctc": path timings}, errors)."""
+    from tpu_asr_torch.models import transducer as transducer_module
+    _, cv_utts, _, waves = data
+    ckpt = os.path.join(workdir, "transducer")
+    ctc_caps, loss_caps, stats = {}, {}, {}
+    wall = {"start": time.perf_counter()}      # seconds by part, logged
+
+    def lap(part):
+        wall[part] = time.perf_counter() - wall["start"] - sum(
+            v for k, v in wall.items() if k != "start")
+    with record_inputs(transducer_module, "transducer_loss", loss_caps,
+                       transducer_loss_label):
+        # ~47000 device events a step on an H100 (PERF.md): two profiled
+        launches = run_training(card, ckpt, "transducer", data, {}, None,
+                                None, ctc_caps, stats=stats,
+                                profiled_steps=2)
+    lap("training")
+    train_loss = [h["train_loss"] for h in stats["history"]]
+    if not train_loss[-1] < train_loss[0] or len(loss_caps) != 1:
+        raise AssertionError(f"transducer training: train loss by epoch "
+                             f"{train_loss}; {len(loss_caps)} loss inputs "
+                             f"kept")
+    keys = ("step_ms_median", "steps_per_s", "audio_s_per_s", "peak_gib",
+            "device_ms_per_step", "busy_share", "device_events_per_step",
+            "fixed_step_ms_median")
+    log("transducer training beside aishell (phase 8), same corpus: "
+        + json.dumps({"transducer": {k: stats[k] for k in keys},
+                      "aishell": {k: aishell_stats[k] for k in keys}})
+        + f"; transducer train loss by epoch {train_loss} [{card}]")
+    lattice = time_transducer_lattice(card, next(iter(loss_caps.values())),
+                                      stats["device_ms_per_step"])
+    lap("lattice")
+    summaries = run_transducer_decodes(card, ckpt, lm_dir, cv_manifest,
+                                       cv_utts, workdir)
+    log("transducer recognize inverse RTF: " + json.dumps(
+        {k: v["inverse_rtf"] for k, v in summaries.items()}) + f" [{card}]")
+    lap("decodes")
+    run_transducer_serving(card, ckpt, waves[cv_utts[0].id])
+    lap("serving")
+    conformer = run_conformer_transducer(card, workdir, data)
+    lap("conformer_transducer")
+    paths, errs, bitwise = check_ctc_pair_on_paths(ctc_caps)
+    lap("ctc_pair")
+    del wall["start"]
+    log("phase 12 wall seconds by part: " + json.dumps(wall))
+    if len(paths) != 1:
+        raise AssertionError(f"the transducer path recorded {len(paths)} "
+                             f"CTC backwards")
+    log(f"ctc_loss_fwd and ctc_loss_bwd vs plain on the transducer path's "
+        f"inputs: 1 + 1 calls agree (the forward's bits the plain "
+        f"version's: {bitwise}): " + json.dumps(errs))
+    stats["lattice"] = lattice
+    return ({"transducer": launches, "conformer_transducer": conformer},
+            {"ctc": paths}, errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3637,6 +4080,10 @@ def main() -> int:
                                    flash_attention, layernorm)
     from tpu_asr_torch.ops.cuda_build import load_all
 
+    started = time.perf_counter()
+
+    def mark(phases):
+        log(f"phases {phases} done at {time.perf_counter() - started:.1f} s")
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3664,19 +4111,23 @@ def main() -> int:
     ln_err, ln_ulps, ln_raw, ln_timings = check_layer_norm()
     flash_bwd_errs, flash_bwd_timings = check_flash_bwd()
     ln_bwd_errs, ln_bwd_timings = check_ln_bwd()
+    mark("1-3")
     check_agreement()
     check_train_agreement()
     check_train_agreement(use_pallas=True)
     check_conformer_agreement()
+    check_transducer_agreement()
     check_cif_agreement()
     check_pallas_agreement()
     check_lm_agreement()
+    mark("1-4")
     prefix_caps = {}
     launches = run_serving(card, prefix_caps)
     captures = {}
     cif_serving = run_cif_serving(card, captures)
     flash_caps, ln_caps = {}, {}
     flash_serving, ln_serving = run_pallas_serving(card, flash_caps, ln_caps)
+    mark("1-7")
     t0 = time.perf_counter()
     data = synthetic_aishell()
     log(f"training: {len(data[0])} + {len(data[1])} synthetic utterances "
@@ -3698,6 +4149,7 @@ def main() -> int:
                                          stats=train_stats.setdefault(key,
                                                                       {}))
             ckpts[key] = wd
+        mark("1-8")
         path_err, path_timings = check_cif_fire_on_paths(captures)
         flash_path, ln_path, path_errs = check_flash_ln_on_paths(flash_caps,
                                                                  ln_caps)
@@ -3705,12 +4157,21 @@ def main() -> int:
             bwd_caps)
         prefix_path, ctc_path, ctc_path_errs = check_ctc_on_paths(
             prefix_caps, ctc_caps)
-        lm_launches, lm_paths, lm_errs = run_lm_phase(
-            card, workdir, data,
-            {"aishell": ckpts[PRESET], "use_pallas": ckpts[pallas]})
+        mark("1-9")
+        (lm_launches, lm_paths, lm_errs), lm_dir, cv_manifest = \
+            run_lm_phase(card, workdir, data,
+                         {"aishell": ckpts[PRESET],
+                          "use_pallas": ckpts[pallas]})
+        mark("1-10")
         (training["conformer"], recipe_prefix, recipe_paths,
          recipe_errs) = run_recipe_phase(card, workdir, data,
                                          train_stats[PRESET])
+        mark("1-11")
+        transducer_launches, transducer_paths, transducer_errs = \
+            run_transducer_phase(card, workdir, data, train_stats[PRESET],
+                                 lm_dir, cv_manifest)
+        training.update(transducer_launches)
+        mark("1-12")
 
     def ctc_build(symbol):
         return {k: v for k, v in build_report.items() if symbol in k}
@@ -3765,7 +4226,8 @@ def main() -> int:
             ctc_timings[(name, 61)], library_ms=ctc_library[61][name]),
                  "B=32 T=249 S=65 (U=32)": ctc_timings[(name, 65)]}
         other.update({f"path {k}": v[name] for k, v in
-                      (ctc_path | recipe_paths["ctc"]).items()})
+                      (ctc_path | recipe_paths["ctc"]
+                       | transducer_paths["ctc"]).items()})
         kernels.append({
             "name": f"ctc_loss_{name}",
             "route": "cuda",
@@ -3774,7 +4236,7 @@ def main() -> int:
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(ctc_errs[name], ctc_path_errs[name],
-                               recipe_errs[name]),
+                               recipe_errs[name], transducer_errs[name]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -3786,7 +4248,8 @@ def main() -> int:
             "design": designs[name],
             "build": ctc_build(t["symbol"]),
             "path_max_abs_err": max(ctc_path_errs[name],
-                                    recipe_errs[name]),
+                                    recipe_errs[name],
+                                    transducer_errs[name]),
             "shape": "B=32 T=249 S=49 (U=24)",
             "other_shapes": other,
             "ctc_loss_kernel_e2e_ms": ctc_library[49]["port_e2e"],

@@ -678,3 +678,114 @@ def test_post_recognize_answers_through_http():
         server.stop()
     assert status == 200
     assert body["tokens"] == want[0]["yseq"]
+
+
+# ---- phase 12: the transducer family ----
+
+def test_transducer_loss_label_keeps_a_train_step_not_a_cv_batch():
+    """record_inputs with transducer_loss_label keeps the inputs of the
+    first call under autograd only (a train step, not a cv batch), and
+    the loss the model sees is unchanged."""
+    from tpu_asr_torch.models import transducer as module
+    from tpu_asr_torch.ops.transducer import transducer_loss
+    rng = np.random.default_rng(1)
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((2, 4, 3), (2, 3, 3), (3, 5), (5,))]
+    args += [torch.tensor([[1, 2], [3, 0]]), torch.tensor([4, 2]),
+             torch.tensor([2, 1])]
+    want = transducer_loss(*args, reduction="none")
+    caps = {}
+    with chip_smoke.record_inputs(module, "transducer_loss", caps,
+                                  chip_smoke.transducer_loss_label):
+        with torch.no_grad():
+            module.transducer_loss(*args, reduction="none")
+        assert caps == {}
+        got = module.transducer_loss(*args, reduction="none")
+        module.transducer_loss(*[a + 1 if a.is_floating_point() else a
+                                 for a in args], reduction="none")
+    assert torch.equal(got, want)
+    assert list(caps) == ["transducer training"]
+    assert all(torch.equal(a, b) for a, b in zip(caps["transducer training"],
+                                                 args))
+    assert module.transducer_loss is transducer_loss      # restored
+
+
+@pytest.mark.parametrize("card_times,cpu_times,ok", [
+    ([0, 0, 3, 5], [0, 0, 3, 5], True),
+    ([], [], True),
+    ([0, 3, 2], [0, 3, 2], False),                # out of order
+    ([0, 1, 99], [0, 1, 99], False),              # past the encoder length
+    ([0, 1, 2], [0, 1, 3], False),                # card != CPU
+])
+def test_check_greedy_times(card_times, cpu_times, ok):
+    from tpu_asr_torch.configs.presets import get_preset
+    cfg = get_preset("transducer_dev").model
+    lens = np.array([16000, 0])                   # 98 frames, 23 encoder
+    card = [[{"times": card_times}], [{"times": []}]]
+    cpu = [[{"times": cpu_times}], [{"times": []}]]
+    assert cfg.subsampled_length(98) == 23
+    if ok:
+        chip_smoke.check_greedy_times(card, cpu, lens, cfg, "t")
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_greedy_times(card, cpu, lens, cfg, "t")
+
+
+def test_transducer_decodes_cover_the_three_modes_and_the_lm():
+    """Phase 12 decodes through recognize in the three modes, the beam
+    also with the LM (weight 0.3), rescore at the preset's beam 10 and
+    ctc weight 0.5; the modes parse."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.recognize import parse_args
+    modes = [parse_args(["--ckpt", "c", "--manifest", "m"] + [
+        "x" if a == "LM" else a for a in flags]).mode
+        for _, flags in chip_smoke.TRANSDUCER_DECODES]
+    assert modes == ["transducer_greedy", "transducer_beam",
+                     "transducer_beam", "transducer_rescore"]
+    flags = dict(chip_smoke.TRANSDUCER_DECODES)
+    assert flags["transducer_beam_lm"][-2:] == ["--lm-weight", "0.3"]
+    rescore = parse_args(["--ckpt", "c", "--manifest", "m"]
+                         + flags["transducer_rescore"])
+    beam = get_preset("transducer").beam
+    assert (rescore.beam, rescore.ctc_weight) == (beam.beam, beam.ctc_weight)
+    assert [p for p, _ in chip_smoke.TRANSDUCER_AGREEMENT] == [
+        "transducer_dev", "conformer_transducer_dev",
+        "conformer_transducer_dev"]
+
+
+def test_time_transducer_lattice_counts_what_it_times(monkeypatch):
+    """On the CPU with the CUDA timers stubbed: the loss, the lattice
+    alone and the materialized logits each run; the shares divide by the
+    step's device time."""
+    from tpu_asr_torch.ops import transducer as tt
+
+    class Event:
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.0
+
+    monkeypatch.setattr(torch.cuda, "Event", lambda **kw: Event())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for name in ("reset_peak_memory_stats", "max_memory_allocated",
+                 "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    calls = []
+    monkeypatch.setattr(chip_smoke, "profile_device", lambda fn, what, card: (
+        calls.append(what), fn(), {"device_ms": 2.0, "wall_ms": 4.0,
+                                   "device_events": 7})[2])
+    rng = np.random.default_rng(0)
+    b, t, u1, v, h = 2, 5, 3, 7, 4
+    args = (torch.from_numpy(rng.standard_normal((b, t, h)).astype(
+        np.float32)), torch.from_numpy(rng.standard_normal((b, u1, h)).astype(
+            np.float32)), torch.randn(h, v), torch.zeros(v),
+        torch.tensor([[1, 2], [3, 4]]), torch.tensor([5, 3]),
+        torch.tensor([2, 1]))
+    out = chip_smoke.time_transducer_lattice("card", args, 8.0)
+    assert len(calls) == 2 and out["loss_share_of_step"] == 0.25
+    assert out["shape"] == "B=2 T'=5 U+1=3 V=7 d_joint=4"
+    assert tt.JOINT_CHUNK_BYTES > 0

@@ -778,3 +778,31 @@ def test_lm_steps_on_the_card_equal_teacher_forced(no_tf32):
             torch.testing.assert_close(step, full[:, pos], atol=1e-5,
                                        rtol=0)
             torch.testing.assert_close(at, step, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_transducer_loss_on_the_card_equals_the_cpu(no_tf32):
+    """The RNN-T loss (chunked, checkpointed joint and the lattice) at a
+    training shape, forward and backward, on the card against the CPU:
+    NLL rtol 1e-5 / atol 1e-4, gradients rtol 1e-4 / atol 1e-5."""
+    _need_card()
+    from tpu_asr_torch.ops.transducer import transducer_loss
+    rng = np.random.default_rng(3)
+    b, t, u1, h, v = 6, 60, 13, 64, 300
+    f, g = (rng.standard_normal(s).astype(np.float32)
+            for s in ((b, t, h), (b, u1, h)))
+    w = (0.3 * rng.standard_normal((h, v))).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(v)).astype(np.float32)
+    labels = rng.integers(1, v, (b, u1 - 1))
+    tl = np.array([60, 57, 31, 0, 12, 44])
+    ul = np.array([12, 9, 5, 3, 0, 12])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xs = [torch.tensor(a, device=dev, requires_grad=True)
+              for a in (f, g, w, bias)]
+        nll = transducer_loss(*xs, *(torch.tensor(a, device=dev) for a in
+                                     (labels, tl, ul)), reduction="none")
+        out[dev] = [nll] + list(torch.autograd.grad(nll.sum(), xs))
+    _close(out["cuda"][0].detach(), out["cpu"][0].detach(), "nll")
+    for name, got, want in zip("fgwb", out["cuda"][1:], out["cpu"][1:]):
+        _close(got, want, name, GRAD_TOL)

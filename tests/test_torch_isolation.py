@@ -147,3 +147,29 @@ def test_compute_cmvn_refuses_cpu_without_asking(tmp_path):
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert not (tmp_path / "s.npz").exists()
+
+
+def test_transducer_modules_are_covered(monkeypatch):
+    """The import checks above walk the transducer's modules, and its
+    Recognizer and TrainStep refuse the CPU unless asked."""
+    files = {os.path.relpath(f, REPO) for f in _port_files()}
+    for name in ("ops/transducer.py", "models/transducer.py",
+                 "decode/transducer_decode.py"):
+        path = os.path.join("tpu_asr_torch", name)
+        assert path in files
+        assert not [m for m in _imported_roots(os.path.join(REPO, path))
+                    if m in FORBIDDEN]
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.models.transducer import TransducerModel
+    from tpu_asr_torch.train import NoamAdam, TrainStep
+    from torch_port_util import transducer_torch_cfg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transducer_torch_cfg()
+    model = TransducerModel(cfg)
+    for mode in ("transducer_greedy", "transducer_beam",
+                 "transducer_rescore"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Recognizer(cfg, model, mode=mode)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainStep(model, NoamAdam(model.parameters(), cfg.d_model))

@@ -112,8 +112,9 @@ def test_cif_greedy_with_use_pallas_matches_jax():
 
 @pytest.mark.parametrize("mode", ["transducer_greedy", "transducer_beam",
                                   "transducer_rescore"])
-def test_unported_modes_raise(mode):
-    with pytest.raises(NotImplementedError):
+def test_transducer_modes_need_a_transducer(mode):
+    """The transducer modes raise ValueError on a hybrid model."""
+    with pytest.raises(ValueError, match="transducer"):
         Recognizer(torch_cfg(), torch_model(), mode=mode, device="cpu")
 
 

@@ -188,3 +188,54 @@ def conformer_torch_model(seed: int = 0, **cfg_kw):
     model = Transformer(conformer_torch_cfg(**cfg_kw))
     load_jax_params(model, conformer_flax_params(seed))
     return model
+
+
+# ---- the transducer at transducer_dev / conformer_transducer_dev widths
+# (d64, h2, 2 encoder layers, 1 predictor layer, d_joint 64, aux CTC 0.3)
+
+def transducer_jax_cfg(preset: str = "transducer_dev", **kw):
+    from tpu_asr.configs.presets import get_preset
+    return dataclasses.replace(get_preset(preset).model, vocab_size=VOCAB,
+                               conv_channels=CONV, **kw)
+
+
+def transducer_torch_cfg(preset: str = "transducer_dev", **kw):
+    from tpu_asr_torch.configs.presets import get_preset
+    return dataclasses.replace(get_preset(preset).model, vocab_size=VOCAB,
+                               conv_channels=CONV, **kw)
+
+
+@functools.lru_cache(maxsize=8)
+def transducer_flax_params(preset: str = "transducer_dev", seed: int = 0,
+                           ctc_weight: float = 0.3):
+    """Flax variables of tpu_asr.models.TransducerModel as numpy. The
+    joint bias and a conformer's rel-pos biases start at zero in flax;
+    they are drawn here so that a mix-up shows."""
+    from tpu_asr.models import TransducerModel
+    v = TransducerModel(transducer_jax_cfg(preset, ctc_weight=ctc_weight)
+                        ).init(jax.random.PRNGKey(seed),
+                               jnp.zeros((1, 80, 80)),
+                               jnp.full((1,), 80, jnp.int32),
+                               jnp.zeros((1, 4), jnp.int32),
+                               jnp.full((1,), 4, jnp.int32))
+    v = jax.tree_util.tree_map(np.asarray, jax.device_get(v))
+    rng = np.random.default_rng(seed + 200)
+    p = v["params"]
+    p["joint_out_bias"] = (0.1 * rng.standard_normal(
+        p["joint_out_bias"].shape)).astype(np.float32)
+    for name, layer in p["encoder"].items():
+        if name.startswith("layer_") and "u_bias" in layer["slf_attn"]:
+            for b in ("u_bias", "v_bias"):
+                layer["slf_attn"][b] = (0.5 * rng.standard_normal(
+                    layer["slf_attn"][b].shape)).astype(np.float32)
+    return v
+
+
+def transducer_torch_model(preset: str = "transducer_dev", seed: int = 0,
+                           ctc_weight: float = 0.3, **cfg_kw):
+    from tpu_asr_torch.models.transducer import TransducerModel
+    from tpu_asr_torch.weights import load_jax_params
+    model = TransducerModel(transducer_torch_cfg(preset, ctc_weight=ctc_weight,
+                                                 **cfg_kw))
+    load_jax_params(model, transducer_flax_params(preset, seed, ctc_weight))
+    return model

@@ -17,22 +17,25 @@ Kernels that the JAX package wrote in Pallas are CUDA C++ sources under
 CPU tensors each wrapper runs its plain PyTorch version.
 
 Ported so far (serving and training of the hybrid CTC/attention model,
-with the transformer or the conformer encoder, and of the CIF model, the
-external LM, the decode CLIs, the aishell recipe's data and CMVN CLIs):
+with the transformer or the conformer encoder, of the CIF model and of
+the transducer, the external LM, the decode CLIs, the aishell recipe's
+data and CMVN CLIs):
   tpu_asr_torch.frontend   waveform -> log-mel + per-utterance or global
                            CMVN
   tpu_asr_torch.augment    SpecAugment (masks, time warp) on the device
   tpu_asr_torch.models     conv2d subsampling, transformer or conformer
-                           encoder, decoder,
+                           encoder (with the offline chunk mask), decoder,
                            the hybrid CTC/attention objective, the CIF
                            model (assigner, fire, causal decoder), the
+                           transducer (predictor, joint, aux CTC), the
                            external Transformer LM
   tpu_asr_torch.ops        exact top-k, CTC lattice, CTC loss kernels,
                            CTC prefix-scan kernel, CIF fire kernel,
-                           label-smoothed CE
+                           label-smoothed CE, RNN-T loss
   tpu_asr_torch.decode     greedy CTC, joint CTC/attention beam, CTC
                            prefix beam, attention rescoring (each with
-                           the LM), CIF greedy/beam, Recognizer
+                           the LM), CIF greedy/beam, transducer greedy,
+                           beam (with the LM) and rescoring, Recognizer
   tpu_asr_torch.train      Noam/Adam, TrainStep/Solver, checkpoints, CLI
   tpu_asr_torch.data       manifests (and espnet data.json), length
                            buckets, batch loader, synthetic corpora

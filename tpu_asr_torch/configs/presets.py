@@ -2,8 +2,9 @@
 
 Only the presets of the families the port runs are here (CTC,
 attention, hybrid CTC/attention with the transformer or the conformer
-encoder, and CIF); the other families' presets (transducer, streaming,
-LFR input) come with their ports.
+encoder, CIF, and the transducer with either encoder); the streaming
+presets (`streaming`, `transducer_streaming`) and the LFR input's come
+with their ports.
 Each preset is a TrainConfig with the reference's field names and
 values; the CLIs override fields from flags.
 """
@@ -120,6 +121,43 @@ PRESETS: dict[str, TrainConfig] = {
         model=dataclasses.replace(_BASE, model_type="cif", ctc_weight=0.5,
                                   cif_quantity_weight=1.0),
         decode_mode="cif_greedy",
+        beam=BeamConfig(beam=1, max_len=100)),
+    # transducer: RNN-T with a causal-transformer predictor and an aux
+    # CTC head (ctc_weight), which also gives greedy_ctc/ctc_beam
+    "transducer_dev": TrainConfig(
+        model=dataclasses.replace(
+            _BASE, model_type="transducer", ctc_weight=0.3, d_model=64,
+            d_inner=128, num_heads=2, num_enc_layers=2, num_pred_layers=1,
+            d_joint=64, dropout=0.0),
+        epochs=30, warmup_steps=100, lr_k=1.0, batch_frames=8000,
+        num_buckets=2, decode_mode="transducer_greedy",
+        beam=BeamConfig(beam=1, max_len=24)),
+    # the transducer with the conformer encoder (CPU-runnable slice)
+    "conformer_transducer_dev": TrainConfig(
+        model=dataclasses.replace(
+            _BASE, model_type="transducer", ctc_weight=0.3, d_model=64,
+            d_inner=128, num_heads=2, num_enc_layers=2, num_pred_layers=1,
+            d_joint=64, dropout=0.0, encoder_type="conformer",
+            conv_kernel=7),
+        epochs=30, warmup_steps=100, lr_k=1.0, batch_frames=8000,
+        num_buckets=2, decode_mode="transducer_greedy",
+        beam=BeamConfig(beam=1, max_len=24)),
+    # d512/h8/6 encoder layers, 2 predictor layers, d_joint 512; the
+    # reference's default decode is the two-pass rescore (CTC prefix beam
+    # n-best ranked by the exact transducer marginal)
+    "transducer": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="transducer",
+                                  ctc_weight=0.3, num_pred_layers=2,
+                                  d_joint=512),
+        decode_mode="transducer_rescore",
+        beam=BeamConfig(beam=10, max_len=100, ctc_weight=0.5)),
+    # the conformer-transducer with the offline chunk mask (16 frames)
+    "conformer_transducer": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="transducer",
+                                  ctc_weight=0.3, num_pred_layers=2,
+                                  d_joint=512, encoder_type="conformer",
+                                  enc_chunk_size=16),
+        decode_mode="transducer_greedy",
         beam=BeamConfig(beam=1, max_len=100)),
 }
 

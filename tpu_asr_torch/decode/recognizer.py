@@ -1,15 +1,17 @@
 """High-level batched recognizer: padded batches -> hypothesis tokens
 (port of tpu_asr/decode/recognizer.py).
 
-Ported modes: greedy_ctc and ctc_beam (CTC prefix beam search) for the
-models with a CTC head, joint (CTC/attention beam) and beam (the same
-loop with ctc_weight = 0) for those with an attention decoder,
-attn_rescore (the CTC n-best rescored by one teacher-forced decoder
-pass) for the hybrid model, cif_greedy and cif_beam for the CIF model.
-An external LM (models/lm.py) fuses into beam, joint and ctc_beam and
-rescores attn_rescore's n-best, weighted by beam.lm_weight. The
-reference's transducer_* modes are not ported yet and raise
-NotImplementedError.
+Modes: greedy_ctc and ctc_beam (CTC prefix beam search) for the models
+with a CTC head (a transducer's aux head included), joint (CTC/attention
+beam) and beam (the same loop with ctc_weight = 0) for those with an
+attention decoder, attn_rescore (the CTC n-best rescored by one
+teacher-forced decoder pass) for the hybrid model, cif_greedy and
+cif_beam for the CIF model, transducer_greedy (with times and
+confidences), transducer_beam (ALSD) and transducer_rescore (the aux-CTC
+n-best ranked by the transducer marginal, beam.ctc_weight) for the
+transducer. An external LM (models/lm.py) fuses into beam, joint,
+ctc_beam and transducer_beam and rescores attn_rescore's n-best,
+weighted by beam.lm_weight.
 """
 
 from __future__ import annotations
@@ -24,19 +26,24 @@ from tpu_asr_torch.decode.cif_decode import cif_beam_decode, cif_greedy_decode
 from tpu_asr_torch.decode.ctc_beam import ctc_prefix_beam_search
 from tpu_asr_torch.decode.greedy_ctc import ctc_greedy_decode
 from tpu_asr_torch.decode.rescore import attention_rescore
+from tpu_asr_torch.decode.transducer_decode import (transducer_beam_search,
+                                                    transducer_greedy_decode,
+                                                    transducer_rescore)
 from tpu_asr_torch.frontend import (FrontendConfig, cmvn_stats_for,
                                     wav_to_features)
 from tpu_asr_torch.models.cif import CifModel
 from tpu_asr_torch.models.lm import LMConfig, TransformerLM
+from tpu_asr_torch.models.transducer import TransducerModel
 from tpu_asr_torch.models.transformer import Transformer
 from tpu_asr_torch.utils.device import resolve_device
 from tpu_asr_torch.weights import cast_for_inference
 
-PORTED_MODES = ("greedy_ctc", "ctc_beam", "beam", "joint", "attn_rescore",
-                "cif_greedy", "cif_beam")
-REFERENCE_MODES = ("transducer_greedy", "transducer_beam",
-                   "transducer_rescore")
-LM_MODES = ("beam", "joint", "attn_rescore", "ctc_beam")
+TRANSDUCER_MODES = ("transducer_greedy", "transducer_beam",
+                    "transducer_rescore")
+MODES = ("greedy_ctc", "ctc_beam", "beam", "joint", "attn_rescore",
+         "cif_greedy", "cif_beam") + TRANSDUCER_MODES
+LM_MODES = ("beam", "joint", "attn_rescore", "ctc_beam", "transducer_beam")
+CTC_WEIGHT_MODES = ("joint", "attn_rescore", "transducer_rescore")
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
@@ -55,8 +62,8 @@ def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
 
 @dataclasses.dataclass(eq=False)
 class Recognizer:
-    """cfg + a tpu_asr_torch Transformer or CifModel -> batched decode on
-    `device`.
+    """cfg + a tpu_asr_torch Transformer, CifModel or TransducerModel ->
+    batched decode on `device`.
 
     device None means the CUDA card (RuntimeError when there is none);
     pass device="cpu" to run on the CPU. The model is moved to the device
@@ -65,9 +72,9 @@ class Recognizer:
     (in LM_MODES, over the model's vocabulary); it is moved and cast
     likewise, to its own config's dtype."""
     cfg: object
-    model: Transformer | CifModel
+    model: Transformer | CifModel | TransducerModel
     beam: BeamConfig = BeamConfig()
-    mode: str = "beam"   # one of PORTED_MODES
+    mode: str = "beam"   # one of MODES
     frontend: FrontendConfig = FrontendConfig()
     device: str | torch.device | None = None
     # CIF fire-time alphas: True = scaled to the rounded fire count (the
@@ -77,15 +84,13 @@ class Recognizer:
     lm: TransformerLM | None = None
 
     def __post_init__(self):
-        if self.mode in REFERENCE_MODES:
-            raise NotImplementedError(
-                f"decode mode {self.mode!r} is not ported yet; ported modes "
-                f"are {PORTED_MODES}")
-        if self.mode not in PORTED_MODES:
+        if self.mode not in MODES:
             raise ValueError(f"unknown decode mode {self.mode!r}")
         mt = self.cfg.model_type
-        if self.mode in ("greedy_ctc", "ctc_beam", "joint") and \
-                mt not in ("ctc", "hybrid"):
+        aux_ctc = mt == "transducer" and self.cfg.ctc_weight > 0.0
+        if self.mode in ("greedy_ctc", "ctc_beam", "joint") and not (
+                mt in ("ctc", "hybrid") or
+                (aux_ctc and self.mode != "joint")):
             raise ValueError(f"mode {self.mode} needs a CTC head "
                              f"(model_type={mt})")
         if self.mode == "attn_rescore" and mt != "hybrid":
@@ -98,6 +103,12 @@ class Recognizer:
         if self.mode in ("cif_greedy", "cif_beam") and mt != "cif":
             raise ValueError(f"mode {self.mode} needs model_type=cif "
                              f"(model_type={mt})")
+        if self.mode in TRANSDUCER_MODES and mt != "transducer":
+            raise ValueError(f"mode {self.mode} needs model_type=transducer"
+                             f" (model_type={mt})")
+        if self.mode == "transducer_rescore" and not aux_ctc:
+            raise ValueError("transducer_rescore needs the aux CTC head "
+                             "(ctc_weight > 0)")
         if (self.lm_cfg is None) != (self.lm is None):
             raise ValueError("lm_cfg and lm go together")
         if self.lm is not None and self.beam.lm_weight > 0.0:
@@ -116,7 +127,7 @@ class Recognizer:
         if self.lm is not None:
             self.lm = cast_for_inference(self.lm.to(self.device).eval(),
                                          self.lm_cfg.dtype)
-        self.decode_steps = 0    # decoder steps taken, all batches
+        self.decode_steps = 0    # decoder/transducer steps, all batches
 
     # --- device work ---
 
@@ -170,6 +181,28 @@ class Recognizer:
             beam=self.beam.beam, max_len=self.beam.max_len,
             ctc_weight=self.beam.ctc_weight, lm=self.lm,
             lm_weight=self.beam.lm_weight)
+        return out["tokens"], out["lengths"], out["scores"]
+
+    def _transducer_greedy(self, feats, flens):
+        *out, steps = transducer_greedy_decode(
+            self.model, feats, flens, max_tokens=self.beam.max_len)
+        self.decode_steps += steps
+        return out
+
+    def _transducer_beam(self, feats, flens):
+        out = transducer_beam_search(
+            self.model, feats, flens, beam=self.beam.beam,
+            max_tokens=self.beam.max_len,
+            length_penalty=self.beam.length_penalty, lm=self.lm,
+            lm_weight=self.beam.lm_weight)
+        self.decode_steps += out["steps"]
+        return out["tokens"], out["lengths"], out["scores"]
+
+    def _transducer_rescore(self, feats, flens):
+        out = transducer_rescore(self.model, feats, flens,
+                                 beam=self.beam.beam,
+                                 max_len=self.beam.max_len,
+                                 ctc_weight=self.beam.ctc_weight)
         return out["tokens"], out["lengths"], out["scores"]
 
     def _cif(self, feats, flens):
@@ -228,10 +261,15 @@ class Recognizer:
         feats, flens = self._features(batch)
         if self.mode == "greedy_ctc":
             return "greedy", self._greedy_ctc(feats, flens)
+        if self.mode == "transducer_greedy":
+            return "greedy", self._transducer_greedy(feats, flens)
         if isinstance(self.model, CifModel):   # no times or confidences
             return "cif", self._cif(feats, flens)
         run = {"ctc_beam": self._ctc_beam,
-               "attn_rescore": self._attn_rescore}.get(self.mode, self._beam)
+               "attn_rescore": self._attn_rescore,
+               "transducer_beam": self._transducer_beam,
+               "transducer_rescore": self._transducer_rescore}.get(
+                   self.mode, self._beam)
         return "beam", run(feats, flens)
 
     def _finalize(self, kind: str, fetched) -> list[list[dict]]:

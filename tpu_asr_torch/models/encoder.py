@@ -1,15 +1,19 @@
-"""Encoder with conv2d subsampling: transformer or conformer blocks,
-full-context mask (port of tpu_asr/models/encoder.py).
+"""Encoder with conv2d subsampling: transformer or conformer blocks
+(port of tpu_asr/models/encoder.py).
 
 The transformer adds the absolute sinusoidal PE; the conformer adds
 none (its attention scores carry relative positions) and passes each
-layer a relative-position table and the frame mask. The chunk
-(streaming) mask, `init_cache`/`encode_chunk` and the LFR+linear input
-layer come with the streaming and frontend slices.
+layer a relative-position table and the frame mask. With enc_chunk_size
+> 0 the self-attention takes the offline chunk mask: frame q attends to
+the frames of chunks <= its own (and >= its own - enc_left_chunks when
+that is >= 0), and the conformer's depthwise conv turns causal. The
+incremental chunk encoder (`init_cache`/`encode_chunk`) comes with the
+streaming slice, the LFR+linear input layer with the frontend slice.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from tpu_asr_torch.models.attention import MultiHeadAttention, mask_to_bias
@@ -58,9 +62,6 @@ class Encoder(nn.Module):
             raise NotImplementedError(
                 f"input_layer={c.input_layer!r}: the LFR+linear input layer "
                 f"is not ported yet")
-        if c.enc_chunk_size > 0:
-            raise NotImplementedError(
-                "the chunk-masked (streaming) encoder is not ported yet")
         if c.encoder_type not in ("transformer", "conformer"):
             raise ValueError(f"unknown encoder_type {c.encoder_type!r}")
         self.cfg = c
@@ -81,7 +82,14 @@ class Encoder(nn.Module):
         x, out_lengths = self.subsample(feats, feat_lengths)
         t = x.shape[1]
         valid = make_valid_mask(out_lengths, t)                 # [B, T']
-        bias = mask_to_bias(valid[:, None, None, :], c.dtype)
+        mask = valid[:, None, None, :]                          # [B,1,1,T']
+        if c.enc_chunk_size > 0:
+            cid = torch.arange(t, device=x.device) // c.enc_chunk_size
+            allow = cid[:, None] >= cid[None, :]                # [T', T']
+            if c.enc_left_chunks >= 0:
+                allow &= (cid[:, None] - cid[None, :]) <= c.enc_left_chunks
+            mask = mask & allow[None, None]                     # [B,1,T',T']
+        bias = mask_to_bias(mask, c.dtype)
         if self.conformer:
             x = self.dropout(x)
             pos_emb = rel_table(t, c.d_model, c.dtype, x.device)

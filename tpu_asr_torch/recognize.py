@@ -11,14 +11,18 @@ and cer when the manifest has reference tokens):
   python -m tpu_asr_torch.recognize --ckpt exp/hybrid \\
       --manifest test.jsonl --mode ctc_beam --beam 10 \\
       --lm-ckpt exp/lm --lm-weight 0.1
+  python -m tpu_asr_torch.recognize --ckpt exp/transducer \\
+      --manifest test.jsonl --mode transducer_rescore --beam 10 \\
+      --ctc-weight 0.5
 
 The checkpoint's frontend.json gives the feature policy. Every bucket
 shape is decoded once before the timed pass, which decodes through
 `Recognizer.decode_batches_nbest` (a window of batches a host copy).
 --lm-ckpt reads a `python -m tpu_asr_torch.train_lm` folder (its best
-step by cv loss) for shallow fusion (beam, joint, ctc_beam) or n-best
-rescoring (attn_rescore). Runs on the CUDA card unless given --device
-cpu; with no card and no such flag it raises.
+step by cv loss) for shallow fusion (beam, joint, ctc_beam,
+transducer_beam) or n-best rescoring (attn_rescore). Runs on the CUDA
+card unless given --device cpu; with no card and no such flag it
+raises.
 
 Not ported: the reference's --torch-ckpt (its parity/ bridge to the
 original PyTorch checkpoints) and --dp (data-parallel decode over a
@@ -35,11 +39,12 @@ import time
 import numpy as np
 
 DEFAULT_MODES = {"ctc": "greedy_ctc", "transformer": "beam",
-                 "hybrid": "joint", "cif": "cif_greedy"}
+                 "hybrid": "joint", "cif": "cif_greedy",
+                 "transducer": "transducer_greedy"}
 
 
 def parse_args(argv=None):
-    from tpu_asr_torch.decode.recognizer import PORTED_MODES
+    from tpu_asr_torch.decode.recognizer import MODES
     p = argparse.ArgumentParser(prog="python -m tpu_asr_torch.recognize",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--ckpt", required=True,
@@ -47,10 +52,11 @@ def parse_args(argv=None):
     p.add_argument("--manifest", required=True)
     p.add_argument("--output", default="",
                    help="hypothesis JSONL (default: <ckpt>/hyp.jsonl)")
-    p.add_argument("--mode", default="", choices=("",) + PORTED_MODES,
+    p.add_argument("--mode", default="", choices=("",) + MODES,
                    help="default: by model type (hybrid -> joint, "
                         "transformer -> beam, ctc -> greedy_ctc, cif -> "
-                        "cif_greedy); joint falls back to beam off hybrid")
+                        "cif_greedy, transducer -> transducer_greedy); "
+                        "joint falls back to beam off hybrid")
     p.add_argument("--beam", type=int, default=5)
     p.add_argument("--nbest", type=int, default=1)
     p.add_argument("--max-len", type=int, default=100)
@@ -62,7 +68,8 @@ def parse_args(argv=None):
     p.add_argument("--length-penalty", type=float, default=0.0,
                    help="per-token reward added to final beam scores")
     p.add_argument("--ctc-weight", type=float, default=0.3,
-                   help="CTC weight of joint and attn_rescore")
+                   help="CTC weight of joint, attn_rescore and "
+                        "transducer_rescore")
     p.add_argument("--lm-ckpt", default="",
                    help="LM folder of python -m tpu_asr_torch.train_lm")
     p.add_argument("--lm-weight", type=float, default=0.3,
@@ -92,7 +99,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from tpu_asr_torch.data import DataLoader, load_manifest, make_buckets
     from tpu_asr_torch.decode.beam import BeamConfig
-    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.decode.recognizer import CTC_WEIGHT_MODES, Recognizer
     from tpu_asr_torch.frontend import FrontendConfig
     from tpu_asr_torch.models import build_model
     from tpu_asr_torch.models.lm import load_lm
@@ -120,7 +127,7 @@ def main(argv=None) -> dict:
                         minlenratio=args.minlenratio,
                         length_penalty=args.length_penalty,
                         ctc_weight=args.ctc_weight
-                        if mode in ("joint", "attn_rescore") else 0.0,
+                        if mode in CTC_WEIGHT_MODES else 0.0,
                         lm_weight=args.lm_weight if lm is not None
                         else 0.0))
 

@@ -20,6 +20,8 @@ Run as a module to serve over HTTP:
   python -m tpu_asr_torch.serve --ckpt exp/aishell --mode attn_rescore \\
       --beam 10 --dict dict.txt --lm-ckpt exp/lm --lm-weight 0.3
   python -m tpu_asr_torch.serve --random-init --preset cif --mode cif_greedy
+  python -m tpu_asr_torch.serve --ckpt exp/transducer \\
+      --mode transducer_rescore --beam 10 --ctc-weight 0.5
 """
 
 from __future__ import annotations
@@ -294,6 +296,7 @@ def make_http_server(host: str, port: int, server: AsrServer,
 # --- command line ---
 
 def parse_args(argv=None):
+    from tpu_asr_torch.decode.recognizer import MODES
     p = argparse.ArgumentParser(
         prog="python -m tpu_asr_torch.serve",
         description="Serve the PyTorch port over HTTP (/healthz, "
@@ -301,8 +304,8 @@ def parse_args(argv=None):
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--params-npz",
                      help="flax params of the preset's tpu_asr model "
-                          "(Transformer or CifModel) saved as .npz with "
-                          "'/'-joined keys")
+                          "(Transformer, CifModel or TransducerModel) saved "
+                          "as .npz with '/'-joined keys")
     src.add_argument("--random-init", action="store_true",
                      help="seeded random weights (no checkpoint)")
     src.add_argument("--ckpt",
@@ -312,20 +315,22 @@ def parse_args(argv=None):
     p.add_argument("--preset", default="aishell",
                    help="model preset (aishell | hybrid | hybrid_dev | "
                         "attention | ctc_dev | conformer | conformer_dev | "
-                        "cif | cif_dev); not read with --ckpt")
-    p.add_argument("--mode", default=None,
-                   choices=["greedy_ctc", "ctc_beam", "beam", "joint",
-                            "attn_rescore", "cif_greedy", "cif_beam"],
+                        "cif | cif_dev | transducer | transducer_dev | "
+                        "conformer_transducer | conformer_transducer_dev);"
+                        " not read with --ckpt")
+    p.add_argument("--mode", default=None, choices=MODES,
                    help="default: by model type (hybrid -> joint, "
                         "transformer -> beam, ctc -> greedy_ctc, cif -> "
-                        "cif_greedy)")
+                        "cif_greedy, transducer -> transducer_greedy)")
     p.add_argument("--beam", type=int, default=5)
     p.add_argument("--max-len", type=int, default=100)
-    p.add_argument("--ctc-weight", type=float, default=0.3)
+    p.add_argument("--ctc-weight", type=float, default=0.3,
+                   help="CTC weight of joint, attn_rescore and "
+                        "transducer_rescore")
     p.add_argument("--lm-ckpt", default="",
                    help="LM folder of python -m tpu_asr_torch.train_lm for "
-                        "shallow fusion (beam, joint, ctc_beam) or n-best "
-                        "rescoring (attn_rescore)")
+                        "shallow fusion (beam, joint, ctc_beam, "
+                        "transducer_beam) or n-best rescoring (attn_rescore)")
     p.add_argument("--lm-weight", type=float, default=0.3,
                    help="LM score weight (only with --lm-ckpt)")
     p.add_argument("--dict", dest="dict_path", default="",
@@ -350,10 +355,10 @@ def parse_args(argv=None):
 def build_server(args) -> AsrServer:
     from tpu_asr_torch.configs.presets import get_preset
     from tpu_asr_torch.decode.beam import BeamConfig
-    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.decode.recognizer import CTC_WEIGHT_MODES, Recognizer
     from tpu_asr_torch.models import build_model
     from tpu_asr_torch.models.lm import load_lm
-    from tpu_asr_torch.recognize import restore_step
+    from tpu_asr_torch.recognize import DEFAULT_MODES, restore_step
     from tpu_asr_torch.train.checkpoints import Checkpointer
     from tpu_asr_torch.weights import init_random, load_jax_params
 
@@ -373,9 +378,7 @@ def build_server(args) -> AsrServer:
             load_jax_params(model, args.params_npz)
         else:
             init_random(model, args.seed)
-    mode = args.mode or {"ctc": "greedy_ctc", "transformer": "beam",
-                         "hybrid": "joint", "cif": "cif_greedy"}[
-                             cfg.model_type]
+    mode = args.mode or DEFAULT_MODES[cfg.model_type]
     lm = load_lm(args.lm_ckpt) if args.lm_ckpt else None
     rec = Recognizer(
         cfg, model, mode=mode, device=device, frontend=frontend,
@@ -383,7 +386,7 @@ def build_server(args) -> AsrServer:
         beam=BeamConfig(beam=args.beam, max_len=args.max_len,
                         nbest=args.beam,   # requests slice their own nbest
                         ctc_weight=args.ctc_weight
-                        if mode in ("joint", "attn_rescore") else 0.0,
+                        if mode in CTC_WEIGHT_MODES else 0.0,
                         lm_weight=args.lm_weight if lm is not None
                         else 0.0))
     buckets = tuple(int(x) for x in args.bucket_frames.split(","))

@@ -9,13 +9,16 @@
   python -m tpu_asr_torch.train --preset conformer --train-manifest \\
       train.jsonl --cv-manifest dev.jsonl --cmvn global --cmvn-stats \\
       exp/cmvn.npz --save-folder exp/conformer
+  python -m tpu_asr_torch.train --preset transducer_dev --synthetic 32 \\
+      --epochs 2 --save-folder exp/transducer_dev --device cpu
 
 Preset + flag overrides -> bucketed loaders -> TrainStep/Solver with a
 checkpoint per epoch and JSONL metrics in the save folder. Runs on the
 CUDA card unless given --device cpu; with no card and no such flag it
 raises. The preset's model_type picks the model (models.build_model:
 the hybrid Transformer, with the transformer or the conformer encoder,
-or the CIF model). `--cmvn global --cmvn-stats <npz>` (stats from
+the CIF model, or the TransducerModel, whose metrics carry loss_rnnt).
+`--cmvn global --cmvn-stats <npz>` (stats from
 python -m tpu_asr_torch.compute_cmvn) normalizes the features with the
 train set's stats; the stats path goes into the checkpoint's
 frontend.json made absolute, so recognize and serve pick the policy up.
@@ -57,7 +60,8 @@ def parse_args(argv=None):
     p.add_argument("--preset", default="aishell",
                    help="aishell | hybrid | hybrid_dev | attention | "
                         "ctc_dev | conformer | conformer_dev | cif | "
-                        "cif_dev")
+                        "cif_dev | transducer | transducer_dev | "
+                        "conformer_transducer | conformer_transducer_dev")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic utterances (demo/smoke)")
     p.add_argument("--train-manifest")
@@ -111,8 +115,8 @@ def parse_args(argv=None):
                         "dropout (preset default if unset)")
     p.add_argument("--params-npz",
                    help="start from flax params of the preset's tpu_asr "
-                        "model (Transformer or CifModel) saved as .npz "
-                        "with '/'-joined keys")
+                        "model (Transformer, CifModel or TransducerModel) "
+                        "saved as .npz with '/'-joined keys")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 

@@ -2,8 +2,8 @@
 seeded random init.
 
 `load_jax_params(model, params)` takes the flax variable tree of
-tpu_asr.models.Transformer (transformer or conformer encoder), CifModel
-or lm.TransformerLM as nested dicts of numpy arrays (what
+tpu_asr.models.Transformer (transformer or conformer encoder), CifModel,
+TransducerModel or lm.TransformerLM as nested dicts of numpy arrays (what
 `jax.device_get(variables)` returns), or an .npz file / flat dict whose
 keys are the "/"-joined flax paths. The port's module names follow the
 flax paths, so each key maps mechanically:
@@ -19,6 +19,8 @@ flax paths, so each key maps mechanically:
   pos_proj kernel [D, H, dh]         -> [H*dh, D] (no bias)
   u_bias/v_bias [H, dh]              -> kept as they are
   embed/embedding [V, D]             -> embed.weight (tied output proj)
+  joint_out_kernel [dj, V], joint_out_bias [V] (TransducerModel's raw
+    top-level params)                -> kept as they are, same names
 
 Any missing key, extra key or shape mismatch raises.
 """
@@ -81,10 +83,10 @@ def flax_to_torch(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
 
 def load_jax_params(model: nn.Module, params) -> None:
     """Fill `model` (a tpu_asr_torch Transformer, with either encoder,
-    CifModel or TransformerLM) from flax params; see the module docstring
-    for the accepted forms. Strict: raises KeyError on a missing or extra
-    key and ValueError on a shape mismatch (a depthwise kernel that is
-    not [k, 1, C] included)."""
+    CifModel, TransducerModel or TransformerLM) from flax params; see the
+    module docstring for the accepted forms. Strict: raises KeyError on a
+    missing or extra key and ValueError on a shape mismatch (a depthwise
+    kernel that is not [k, 1, C] included)."""
     if isinstance(params, (str, os.PathLike)):
         with np.load(params) as z:
             params = {k: z[k] for k in z.files}
@@ -114,14 +116,22 @@ def load_jax_params(model: nn.Module, params) -> None:
 TRUNC_STD = 0.87962566103423978
 
 
+def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+    return w / (fan_in ** 0.5 * TRUNC_STD)
+
+
 def init_random(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random init on the CPU with flax's default initializers:
     Dense and Conv weights lecun_normal (a normal truncated at +-2 sigma,
     sigma = 1 / (sqrt(fan_in) * TRUNC_STD), so the variance is 1/fan_in),
     Embed N(0, 1/D) (nn.Embed's variance_scaling(1, fan_in, normal) over
-    [V, D]; also the TransformerLM's `embed`), biases 0, LayerNorm scale 1. fan_in is the input
-    width (a conv's in_channels times its kernel size). Same seed, same
-    weights, on any machine."""
+    [V, D]; also the TransformerLM's `embed`), biases 0, LayerNorm scale
+    1. fan_in is the input width (a conv's in_channels times its kernel
+    size; dim 0 of the TransducerModel's raw joint_out_kernel [d_joint,
+    V], whose joint_out_bias is 0). Same seed, same weights, on any
+    machine."""
     g = torch.Generator().manual_seed(seed)
 
     with torch.no_grad():
@@ -130,16 +140,20 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
-                w = torch.empty(m.weight.shape)
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(w / (fan_in ** 0.5 * TRUNC_STD))
+                m.weight.copy_(_lecun_normal(m.weight.shape,
+                                             m.weight[0].numel(), g))
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 d = m.weight.shape[1]
                 m.weight.copy_(torch.randn(m.weight.shape, generator=g)
                                / d ** 0.5)
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "joint_out_kernel":
+                p.copy_(_lecun_normal(p.shape, p.shape[0], g))
+            elif leaf == "joint_out_bias":
+                p.zero_()
     return model
 
 
