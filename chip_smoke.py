@@ -73,7 +73,13 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      transducer_rescore tokens equal (greedy's times too, in order and
      below each encoder length), beam and rescore scores within 1e-3;
      two train steps' losses within 1e-4, step 1's grad norm within 1e-3
-     relative, the CTC kernels once a step on the card.
+     relative, the CTC kernels once a step on the card. The streaming
+     recognizers (STREAMING_AGREEMENT: greedy CTC and CTC beam 4 on
+     hybrid_dev, greedy CTC on conformer_dev, CIF on cif_dev on the
+     incremental and the recompute paths, the transducer on
+     transducer_dev; all with enc_chunk_size 4) stream the same features
+     in pushes of 37 frames on the card and on the CPU: every push's
+     return, the final hypothesis and the times equal.
   5. serving: the aishell-width hybrid model (d512, h8, 6+6 layers, conv
      (32, 128), vocab 4233, bf16; random weights from a seed) in joint
      CTC/attention beam-5 mode behind AsrServer; 16 wav requests from
@@ -186,6 +192,32 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      a step) and one greedy decode batch (a hypothesis per row, times in
      order and range); then the CTC pair on the inputs the transducer
      training gave it against the plain versions, timed.
+ 13. streaming: 13a, the `streaming` preset at full width (d512, h8, 6
+     encoder layers, conv 256, vocab 4233, float32, chunk 16, unbounded
+     left context, 16000-frame batches) through the Solver of `python -m
+     tpu_asr_torch.train --preset streaming` on phase 8's corpus (as
+     phase 8: >= 20 steps and cv, finite losses, the CTC kernels once a
+     step on their warp route, a profile, the fixed shape), beside phase
+     8's aishell numbers; 13b, on 13a's checkpoint and on random weights
+     of the preset (seed 0), each of phase 10's 51 cv utterances pushed
+     64 feature frames at a time through StreamingCTCRecognizer: tokens
+     and times equal the offline greedy_ctc of the Recognizer on the
+     card, confidences within 1e-4, the streamed encode_chunk frames
+     within 1e-4 of Encoder.forward's; StreamingCTCBeamRecognizer beam 5
+     against the offline ctc_beam 5 (the 1-best equal, its score within
+     1e-3); the full-recompute path on 8 utterances; no kernel launched;
+     13c, `python -m tpu_asr_torch.stream_demo --ckpt <13a> --manifest
+     <cv> --chunk-frames 64`, greedy and --beam 5: 13b's hypotheses and
+     the summary; 13d, random full-width transducer_streaming and
+     conformer_transducer (chunk 16) streamed against the offline
+     transducer_greedy on 8 cv utterances (tokens and times equal,
+     confidences within 1e-4); 13e, make_http_server with StreamSessions
+     on 13b's random model: 4 concurrent /stream sessions answer 13b's
+     tokens with times and confidence, a push after final answers 410,
+     /healthz shows streaming and active_streams; the per-push latency,
+     each session's inverse RTF, and one session under torch.profiler
+     (device ms and events a chunk step, busy share); then the CTC pair
+     on the inputs 13a's training gave it against the plain versions.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -204,6 +236,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -2288,6 +2321,51 @@ def check_transducer_agreement():
         "once a step on the card): " + json.dumps(report))
 
 
+# the streaming recognizers phase 4 holds card against CPU: (name,
+# preset, recognizer, its keyword arguments)
+STREAMING_AGREEMENT = (
+    ("greedy CTC", "hybrid_dev", "StreamingCTCRecognizer", {}),
+    ("CTC beam 4", "hybrid_dev", "StreamingCTCBeamRecognizer", {"beam": 4}),
+    ("conformer greedy CTC", "conformer_dev", "StreamingCTCRecognizer", {}),
+    ("CIF", "cif_dev", "StreamingCIFRecognizer", {}),
+    ("CIF recompute", "cif_dev", "StreamingCIFRecognizer",
+     {"incremental": False}),
+    ("transducer", "transducer_dev", "StreamingTransducerRecognizer", {}))
+
+
+def check_streaming_agreement():
+    """Each STREAMING_AGREEMENT recognizer on its dev preset with
+    enc_chunk_size 4 (float32, random weights from SEED) streams the same
+    features in pushes of 37 frames on the card and on the CPU: every
+    push's return and the final hypothesis equal, and the times where the
+    recognizer gives them."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode import streaming
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.weights import init_random
+
+    rng = np.random.default_rng(SEED)
+    feats = (rng.standard_normal((300, 80)) * 3).astype(np.float32)
+    report = {}
+    for name, preset, cls, kw in STREAMING_AGREEMENT:
+        cfg = dataclasses.replace(get_preset(preset).model, vocab_size=64,
+                                  enc_chunk_size=4)
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            rec = getattr(streaming, cls)(
+                cfg, init_random(build_model(cfg), SEED), max_frames=320,
+                device=dev, **kw)
+            outs, hyp, _ = stream_pushes(rec, feats, 37)
+            out[dev] = (outs, hyp, getattr(rec, "hypothesis_times", None))
+        if out[DEVICE] != out["cpu"] or not out["cpu"][1]:
+            raise AssertionError(f"streaming {name} ({preset}, chunk 4): "
+                                 f"card {out[DEVICE]} != CPU {out['cpu']}")
+        report[name] = len(out["cpu"][1])
+    log("agreement: streaming with enc_chunk_size 4, pushes of 37 frames: "
+        "every push and the final hypothesis (and the times) on the card =="
+        " on the CPU; tokens by recognizer " + json.dumps(report))
+
+
 def check_cif_agreement():
     """cif_dev in float32 (dropout 0): the same batch decodes to the same
     tokens on the card (the CIF kernel) and on the CPU (its plain
@@ -2977,6 +3055,7 @@ def run_training(card, workdir, preset, data, captures,
     audio_s = sum(x for _, _, _, x in steady) / 16000.0
     second = (f"{cfg.num_pred_layers} predictor layers, d_joint "
               f"{cfg.d_joint}" if cfg.model_type == "transducer" else
+              "no decoder" if cfg.model_type == "ctc" else
               f"{cfg.num_dec_layers} decoder layers")
     log(f"{what}: {cfg.model_type} model (d{cfg.d_model}, h{cfg.num_heads},"
         f" {cfg.encoder_type} x{cfg.num_enc_layers} + {second}, conv "
@@ -4071,6 +4150,581 @@ def run_transducer_phase(card, workdir, data, aishell_stats, lm_dir,
             {"ctc": paths}, errs)
 
 
+# ---- phase 13: streaming ----
+
+STREAM_PUSH_FRAMES = 64       # feature frames a push (0.64 s)
+STREAM_BEAM = 5
+STREAM_FRAME_TOL = 1e-4       # encode_chunk against Encoder.forward, float32
+STREAM_CONF_TOL = 1e-4
+STREAM_SCORE_TOL = 1e-3
+STREAM_TIE_MARGIN = 1e-4      # offline top-2 logit margin of a rounding tie
+STREAM_RECOMPUTE_UTTS = 8     # utterances the full-recompute oracle streams
+STREAM_COMPOSE_UTTS = 8       # utterances of the one-search beam check
+STREAM_TRANSDUCER_UTTS = 8    # utterances of each transducer comparison
+STREAM_SESSIONS = 4           # concurrent HTTP /stream sessions
+STREAM_MAX_TOKENS = 100       # the streaming presets' decode max_len
+
+
+def stream_pushes(rec, feats, step=STREAM_PUSH_FRAMES):
+    """Push feats a step at a time, then finish -> (each push's return,
+    the final hypothesis, each push's wall seconds)."""
+    outs, waits = [], []
+    for p in range(0, len(feats), step):
+        t0 = time.perf_counter()
+        outs.append(rec.push(feats[p:p + step]))
+        waits.append(time.perf_counter() - t0)
+    return outs, rec.finish(), waits
+
+
+def latency_summary(seconds) -> dict:
+    """Wall latencies in seconds -> {"n", "p50_ms", "max_ms"}."""
+    ms = sorted(s * 1e3 for s in seconds)
+    return {"n": len(ms), "p50_ms": statistics.median(ms) if ms else None,
+            "max_ms": ms[-1] if ms else None}
+
+
+def top2_margins(logits, streamed_ids) -> list:
+    """The frames where the streamed argmax differs from the offline
+    logits' [T, V] argmax -> [(frame, offline top-1 - top-2 margin)]."""
+    top = torch.topk(logits.float(), 2, dim=-1)
+    ids = top.indices[:, 0].cpu().tolist()
+    gap = (top.values[:, 0] - top.values[:, 1]).cpu().tolist()
+    return [(t, gap[t]) for t, (a, b) in enumerate(zip(ids, streamed_ids))
+            if a != b]
+
+
+def compare_streamed(what, streamed, offline, eos, margins=None) -> dict:
+    """streamed {id: (tokens, times or None, confidences or None)} against
+    offline {id: n-best hypothesis dict} (eos stripped, as Recognizer
+    cleans it): the tokens equal with the stream's eos dropped, the times
+    equal, the confidences within STREAM_CONF_TOL. margins(id), when
+    given, lists the frames where the streamed argmax differs from the
+    offline one with the offline top-2 margin there (top2_margins): an
+    utterance that differs only at frames whose margin is at most
+    STREAM_TIE_MARGIN is a rounding tie, reported and not failed. ->
+    {"n_utts", "n_tokens", "max_conf_gap", "ties": {id: margins}}."""
+    bad, ties, conf_gap, n_tokens = [], {}, 0.0, 0
+    for uid, (toks, times, confs) in streamed.items():
+        want = offline[uid]
+        keep = [j for j, t in enumerate(toks) if t != eos]
+        got = [toks[j] for j in keep]
+        n_tokens += len(got)
+        if got != want["yseq"] or (times is not None and [
+                times[j] for j in keep] != want["times"]):
+            frames = margins(uid) if margins else []
+            if frames and all(m <= STREAM_TIE_MARGIN for _, m in frames):
+                ties[uid] = frames
+            else:
+                bad.append(uid)
+            continue
+        if confs is not None:
+            gaps = [abs(confs[j] - c) for j, c in zip(keep,
+                                                      want["confidence"])]
+            conf_gap = max([conf_gap] + gaps)
+    if bad or conf_gap > STREAM_CONF_TOL:
+        detail = {uid: {"streamed": streamed[uid][0],
+                        "offline": offline[uid]["yseq"],
+                        "margins": margins(uid) if margins else None}
+                  for uid in bad[:3]}
+        raise AssertionError(f"{what}: {len(bad)} of {len(streamed)} "
+                             f"utterances differ from the offline decode, "
+                             f"confidence gap {conf_gap}: "
+                             + json.dumps(detail))
+    return {"n_utts": len(streamed), "n_tokens": n_tokens,
+            "max_conf_gap": conf_gap, "ties": ties}
+
+
+def stream_features(cfg, frontend, utts):
+    """{id: [T, D] features} of the cv utterances, made on the card as
+    python -m tpu_asr_torch.stream_demo makes them."""
+    from tpu_asr_torch.frontend import cmvn_stats_for
+    from tpu_asr_torch.stream_demo import utterance_features
+    stats = cmvn_stats_for(frontend, DEVICE)
+    return {u.id: utterance_features(u, frontend, DEVICE, stats)
+            for u in utts}
+
+
+def offline_decode(cfg, model, feats, mode, beam):
+    """{id: 1-best hypothesis dict} of the port's Recognizer on the card,
+    one utterance a batch."""
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    rec = Recognizer(cfg, model, mode=mode, device=DEVICE, beam=beam)
+    return {uid: rec.decode_batch_nbest({
+        "feats": x[None], "feat_lengths": np.asarray([len(x)], np.int32)}
+        )[0][0] for uid, x in feats.items()}
+
+
+def beam_states_prefixes(state) -> dict:
+    """{prefix tuple: total log score} of a CTC prefix beam state's live
+    beams (row 0)."""
+    from tpu_asr_torch.decode.ctc_beam import _logaddexp
+    prefixes, lens, pb, pnb = (x[0] for x in state[:4])
+    totals = _logaddexp(pb, pnb).tolist()
+    return {tuple(prefixes[w, :int(lens[w])].tolist()): totals[w]
+            for w in range(len(totals)) if totals[w] > -1e29}
+
+
+def beam_divergence(logp_a, logp_b, n_frames: int, beam: int):
+    """Two CTC prefix beams stepped a frame at a time over frame
+    log-probs [1, T, V] (the streamed frames' and the full pass's) ->
+    None when they hold the same prefixes after every frame, else (the
+    first frame where they differ, the margin there): the largest |total
+    of a prefix one beam kept - the other beam's weakest survivor|, how
+    near the dropped prefix came to surviving."""
+    from tpu_asr_torch.decode.ctc_beam import beam_advance, beam_init
+    dev = logp_a.device
+    states = [beam_init(1, beam, n_frames, device=dev) for _ in range(2)]
+    valid = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    for t in range(n_frames):
+        states = [beam_advance(st, lp[:, t:t + 1], valid)
+                  for st, lp in zip(states, (logp_a, logp_b))]
+        a, b = (beam_states_prefixes(st) for st in states)
+        if set(a) != set(b):
+            margin = max((abs((a if p in a else b)[p]
+                              - min((b if p in a else a).values()))
+                          for p in set(a) ^ set(b)))
+            return t, margin
+    return None
+
+
+def chunk_log_probs(model, frames, n: int):
+    """CTC log-probs [1, n, V] of the streamed encoder frames (every
+    chunk's rows, [k C, D]) as the streaming beam makes them: the head
+    a chunk at a time."""
+    chunk = model.cfg.enc_chunk_size
+    logits = torch.cat([model.ctc_logits(frames[None, i:i + chunk])
+                        for i in range(0, len(frames), chunk)], dim=1)
+    return torch.log_softmax(logits[:, :n].float(), dim=-1)
+
+
+def check_beam_scores(name, model, feats, stream_frames, streamed, offline):
+    """The streamed beam's 1-best score against the offline ctc_beam's
+    ({id: score} each), within STREAM_SCORE_TOL, unless the two searches
+    pruned differently at a near-tie: an utterance over the limit is
+    stepped again a frame at a time on both sets of frames
+    (beam_divergence), and passes only when the beams part at a frame
+    where the dropped prefix stood within STREAM_SCORE_TOL of the
+    weakest survivor. -> (the largest gap, {id: that tie})."""
+    ties, worst = {}, 0.0
+    for uid, score in streamed.items():
+        gap = abs(score - offline[uid])
+        worst = max(worst, gap)
+        if gap <= STREAM_SCORE_TOL:
+            continue
+        x = feats[uid]
+        with torch.inference_mode():
+            enc, el = model.encode(torch.from_numpy(x[None]).to(DEVICE),
+                                   torch.tensor([len(x)], device=DEVICE))
+            n = int(el[0])
+            div = beam_divergence(
+                chunk_log_probs(model, stream_frames[uid], n),
+                torch.log_softmax(model.ctc_logits(enc).float(), dim=-1),
+                n, STREAM_BEAM)
+        if div is None or div[1] > STREAM_SCORE_TOL:
+            raise AssertionError(f"{name}: streamed beam score {score} vs "
+                                 f"offline {offline[uid]} on {uid}; the "
+                                 f"beams part at {div} (frame, margin)")
+        ties[uid] = {"score_gap": gap, "frame": div[0], "margin": div[1]}
+    return worst, ties
+
+
+def check_beam_composition(name, model, stream_frames, lengths, beams,
+                           scores):
+    """On the first STREAM_COMPOSE_UTTS utterances, one beam search over
+    all the streamed frames' log-probs (chunk_log_probs, the first
+    lengths[id] frames: the same inputs) gives the streamed beam's 1-best
+    and its score (within STREAM_SCORE_TOL): advancing a chunk at a time
+    composes to the whole search. -> the largest score gap."""
+    from tpu_asr_torch.decode.ctc_beam import (beam_advance, beam_finalize,
+                                               beam_init)
+    worst = 0.0
+    for uid in list(stream_frames)[:STREAM_COMPOSE_UTTS]:
+        frames = stream_frames[uid]
+        with torch.inference_mode():
+            logp = chunk_log_probs(model, frames, lengths[uid])
+            state = beam_init(1, STREAM_BEAM, 200, device=frames.device)
+            toks, lens, sc = beam_finalize(beam_advance(
+                state, logp, torch.ones(logp.shape[:2], dtype=torch.bool,
+                                        device=frames.device)))
+        got = toks[0, 0, :int(lens[0, 0])].tolist()
+        worst = max(worst, abs(float(sc[0, 0]) - scores[uid]))
+        if got != beams[uid][0] or worst > STREAM_SCORE_TOL:
+            raise AssertionError(f"{name}: the beam over the streamed frames "
+                                 f"in one call gives {got} ({float(sc[0, 0])})"
+                                 f", the streamed beam {beams[uid][0]} "
+                                 f"({scores[uid]}) on {uid}")
+    return worst
+
+
+def check_stream_ctc(card, name, cfg, model, feats):
+    """13b on one model: StreamingCTCRecognizer (64-frame pushes) on every
+    utterance against the offline greedy_ctc of the port's Recognizer on
+    the card (tokens, times equal; confidences within 1e-4); the streamed
+    encode_chunk frames against Encoder.forward (within 1e-4);
+    StreamingCTCBeamRecognizer beam 5 against the offline ctc_beam 5 (the
+    1-best equal; its score within 1e-3 unless the searches part at a
+    pruning tie, check_beam_scores) and against one search over the
+    streamed frames (check_beam_composition); the full-recompute path
+    on STREAM_RECOMPUTE_UTTS utterances (the same tokens). No kernel
+    launches on these paths. -> ({id: greedy tokens}, {id: beam tokens},
+    the numbers)."""
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.ctc_beam import beam_finalize
+    from tpu_asr_torch.decode.streaming import (StreamingCTCBeamRecognizer,
+                                                StreamingCTCRecognizer)
+    eos = cfg.vocab_size - 1
+    counters = kernel_counters()
+    # main path: counts from 0 just before, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    greedy, frames_gap, chunks, waits = {}, 0.0, [0], []
+    streamed_ids, stream_frames = {}, {}
+    t0 = time.perf_counter()
+    for uid, x in feats.items():
+        rows = []
+        with wrap_method(model.encoder, "encode_chunk",
+                         after=lambda out: rows.append(out[0][0])):
+            rec = StreamingCTCRecognizer(cfg, model, max_frames=3000,
+                                         device=DEVICE)
+            _, hyp, w = stream_pushes(rec, x)
+        waits += w
+        chunks[0] += len(rows)
+        el = cfg.subsampled_length(len(x))
+        with torch.inference_mode():
+            enc, _ = model.encode(torch.from_numpy(x[None]).to(DEVICE),
+                                  torch.tensor([len(x)], device=DEVICE))
+            got = torch.cat(rows)
+            frames_gap = max(frames_gap,
+                             float((got[:el] - enc[0, :el]).abs().max()))
+            streamed_ids[uid] = chunk_log_probs(model, got, el)[0].argmax(
+                -1).tolist()
+            stream_frames[uid] = got
+        greedy[uid] = (hyp, rec.hypothesis_times, rec.hypothesis_confidence)
+    stream_s = time.perf_counter() - t0
+    beams, beam_scores = {}, {}
+    t0 = time.perf_counter()
+    for uid, x in feats.items():
+        rec = StreamingCTCBeamRecognizer(cfg, model, beam=STREAM_BEAM,
+                                         max_frames=3000, device=DEVICE)
+        _, hyp, _ = stream_pushes(rec, x)
+        beams[uid] = (hyp, None, None)
+        beam_scores[uid] = float(beam_finalize(rec._bstate)[2][0, 0])
+    beam_s = time.perf_counter() - t0
+    recompute = {}
+    for uid in list(feats)[:STREAM_RECOMPUTE_UTTS]:
+        rec = StreamingCTCRecognizer(cfg, model, max_frames=3000,
+                                     incremental=False, device=DEVICE)
+        outs, hyp, _ = stream_pushes(rec, feats[uid])
+        recompute[uid] = hyp
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    check_launches(f"{name}: streaming decodes", launches, {})
+    if frames_gap > STREAM_FRAME_TOL:
+        raise AssertionError(f"{name}: encode_chunk frames {frames_gap} from "
+                             f"Encoder.forward's (limit {STREAM_FRAME_TOL})")
+    bad = [u for u in recompute if recompute[u] != greedy[u][0]]
+    if bad:
+        raise AssertionError(f"{name}: the full-recompute path differs on "
+                             f"{bad}")
+
+    def margins(uid):
+        with torch.inference_mode():
+            x = feats[uid]
+            enc, _ = model.encode(torch.from_numpy(x[None]).to(DEVICE),
+                                  torch.tensor([len(x)], device=DEVICE))
+            return top2_margins(model.ctc_logits(enc[0]), streamed_ids[uid])
+
+    offline = offline_decode(cfg, model, feats, "greedy_ctc",
+                             BeamConfig(beam=1))
+    greedy_cmp = compare_streamed(f"{name}: streamed greedy CTC", greedy,
+                                  offline, eos, margins)
+    offline_beam = offline_decode(cfg, model, feats, "ctc_beam",
+                                  BeamConfig(beam=STREAM_BEAM, max_len=200))
+    beam_cmp = compare_streamed(f"{name}: streamed CTC beam "
+                                f"{STREAM_BEAM}", beams, offline_beam, eos)
+    score_gap, ties = check_beam_scores(
+        name, model, feats, stream_frames, beam_scores,
+        {u: h["score"] for u, h in offline_beam.items()})
+    compose_gap = check_beam_composition(
+        name, model, stream_frames,
+        {u: cfg.subsampled_length(len(x)) for u, x in feats.items()}, beams,
+        beam_scores)
+    audio_s = sum(len(x) for x in feats.values()) / 100.0
+    out = {"utterances": len(feats), "audio_s": audio_s,
+           "chunk_steps": chunks[0], "frames_max_abs_gap": frames_gap,
+           "greedy": greedy_cmp,
+           "beam": dict(beam_cmp, max_score_gap=score_gap,
+                        pruning_ties=ties,
+                        same_frames_max_score_gap=compose_gap),
+           "recompute_utts": len(recompute),
+           "greedy_stream_s": stream_s, "greedy_inverse_rtf":
+               audio_s / stream_s, "beam_stream_s": beam_s,
+           "push_latency": latency_summary(waits)}
+    log(f"13b {name}: streamed (pushes of {STREAM_PUSH_FRAMES} frames) == "
+        f"offline on the card: " + json.dumps(out) + f" [{card}]")
+    return ({u: v[0] for u, v in greedy.items()},
+            {u: v[0] for u, v in beams.items()}, out)
+
+
+def run_stream_demo(card, ckpt, cv_manifest, greedy, beams):
+    """13c: python -m tpu_asr_torch.stream_demo on 13a's checkpoint and
+    the cv manifest, greedy and --beam 5: each utterance's hypothesis is
+    13b's on that checkpoint. -> the two summaries."""
+    import io
+    from tpu_asr_torch import stream_demo
+    summaries = {}
+    for name, flags, want in (("greedy", [], greedy),
+                              (f"beam {STREAM_BEAM}",
+                               ["--beam", str(STREAM_BEAM), "--quiet"],
+                               beams)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = stream_demo.main([
+                "--ckpt", ckpt, "--manifest", cv_manifest, "--chunk-frames",
+                str(STREAM_PUSH_FRAMES)] + flags)
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()
+                 if x.startswith("{")]
+        pushes = [x for x in buf.getvalue().splitlines()
+                  if x.strip().startswith("[")]
+        hyps = {x["id"]: x["tokens"] for x in lines[:-1]}
+        if lines[-1] != summary or summary["n_utts"] != len(want) or \
+                hyps != want:
+            diff = [u for u in want if hyps.get(u) != want[u]]
+            raise AssertionError(f"stream_demo {name}: summary {summary}, "
+                                 f"{len(hyps)} hypotheses, differing from "
+                                 f"13b's on {diff[:4]}")
+        log(f"13c stream_demo --ckpt <13a> {name}: {len(pushes)} push lines "
+            f"(e.g. {pushes[:2]}), hypotheses == 13b's; summary "
+            + json.dumps(summary) + f" [{card}]")
+        summaries[name] = summary
+    return summaries
+
+
+def check_stream_transducers(card, utts, frontend):
+    """13d: random full-width transducer_streaming and conformer_transducer
+    (chunk 16) weights: StreamingTransducerRecognizer on
+    STREAM_TRANSDUCER_UTTS cv utterances against the offline
+    transducer_greedy of the port's Recognizer on the card (tokens and
+    times equal, confidences within 1e-4). -> the numbers."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.streaming import StreamingTransducerRecognizer
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.weights import init_random
+    out = {}
+    for preset in ("transducer_streaming", "conformer_transducer"):
+        cfg = get_preset(preset).model
+        model = init_random(build_model(cfg), SEED)
+        feats = stream_features(cfg, frontend,
+                                utts[:STREAM_TRANSDUCER_UTTS])
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        streamed, waits = {}, []
+        t0 = time.perf_counter()
+        for uid, x in feats.items():
+            rec = StreamingTransducerRecognizer(
+                cfg, model, max_frames=3000, max_tokens=STREAM_MAX_TOKENS,
+                device=DEVICE)
+            outs, hyp, w = stream_pushes(rec, x)
+            waits += w
+            mid = [t for o in outs for t in o]
+            if mid != hyp[:len(mid)]:
+                raise AssertionError(f"{preset}: pushes {mid} are not a "
+                                     f"prefix of {hyp}")
+            streamed[uid] = (hyp, rec.hypothesis_times,
+                             rec.hypothesis_confidence)
+        wall = time.perf_counter() - t0
+        check_launches(f"{preset} streaming", {
+            k: f.launches for k, f in counters.items() if f.launches}, {})
+        offline = offline_decode(cfg, model, feats, "transducer_greedy",
+                                 BeamConfig(beam=1,
+                                            max_len=STREAM_MAX_TOKENS))
+        cmp = compare_streamed(f"{preset}: streamed transducer greedy",
+                               streamed, offline, cfg.vocab_size - 1)
+        audio_s = sum(len(x) for x in feats.values()) / 100.0
+        out[preset] = dict(cmp, encoder=cfg.encoder_type,
+                           chunk=cfg.enc_chunk_size, stream_s=wall,
+                           inverse_rtf=audio_s / wall,
+                           push_latency=latency_summary(waits))
+    log("13d transducers (random full-width weights, seed 0): streamed == "
+        "offline transducer_greedy on the card: " + json.dumps(out)
+        + f" [{card}]")
+    return out
+
+
+def run_stream_serving(card, cfg, model, feats, want):
+    """13e: make_http_server with StreamSessions on 13b's random-weight
+    model: STREAM_SESSIONS concurrent sessions, one cv utterance each in
+    64-frame pushes; each final reply's tokens are 13b's and carry times
+    and confidence; a push after final answers 410; /healthz shows
+    streaming and the active sessions. Then one session through
+    StreamSessions.push under torch.profiler. -> the numbers."""
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.serve import (AsrServer, StreamSessions,
+                                     make_http_server)
+    rec = Recognizer(cfg, model, mode="greedy_ctc", device=DEVICE,
+                     beam=BeamConfig(beam=1))
+    server = AsrServer(rec, bucket_frames=BUCKETS, batch_size=BATCH,
+                       device=DEVICE)
+    streams = StreamSessions(cfg, rec.model, device=DEVICE)
+    httpd = make_http_server("127.0.0.1", 0, server, None, streams)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, obj):
+        req = urllib.request.Request(base + path,
+                                     data=json.dumps(obj).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    uids = list(feats)[:STREAM_SESSIONS]
+    results = {}
+
+    def session(uid):
+        x, waits = feats[uid], []
+        t0 = time.perf_counter()
+        for p in range(0, len(x), STREAM_PUSH_FRAMES):
+            s = time.perf_counter()
+            code, body = post("/stream", {
+                "session": uid, "feats": x[p:p + STREAM_PUSH_FRAMES].tolist()})
+            waits.append(time.perf_counter() - s)
+            if code != 200:
+                raise AssertionError(f"/stream {uid}: {code} {body}")
+        s = time.perf_counter()
+        code, final = post("/stream", {"session": uid, "final": True})
+        waits.append(time.perf_counter() - s)
+        results[uid] = (code, final, waits, time.perf_counter() - t0)
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(STREAM_SESSIONS) as pool:
+            list(pool.map(session, uids))
+        code_late, _ = post("/stream", {"session": uids[0], "feats": []})
+        post("/stream", {"session": "probe",
+                         "feats": feats[uids[0]][:8].tolist()})
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        post("/stream", {"session": "probe", "final": True})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    for uid, (code, final, _, _) in results.items():
+        if code != 200 or not final.get("final") or \
+                final["tokens"] != want[uid] or \
+                len(final.get("times", ())) != len(want[uid]) or \
+                len(final.get("confidence", ())) != len(want[uid]):
+            raise AssertionError(f"/stream {uid}: {code} {final}, 13b's "
+                                 f"tokens {want[uid]}")
+    if code_late != 410 or health.get("streaming") is not True or \
+            health.get("active_streams") != 1:
+        raise AssertionError(f"/stream after final answered {code_late}; "
+                             f"/healthz {health}")
+    sessions = {uid: {"pushes": len(w), "inverse_rtf":
+                      len(feats[uid]) / 100.0 / wall,
+                      "tokens": len(want[uid])}
+                for uid, (_, _, w, wall) in results.items()}
+    lat = latency_summary([s for r in results.values() for s in r[2]])
+
+    # one session under the profiler, pushed in this thread
+    uid = uids[0]
+    steps = []
+    local = StreamSessions(cfg, rec.model, device=DEVICE)
+    with wrap_method(model.encoder, "encode_chunk",
+                     after=lambda _: steps.append(1)):
+        prof = profile_device(lambda: [local.push(
+            "p", feats[uid][p:p + STREAM_PUSH_FRAMES]) for p in range(
+                0, len(feats[uid]), STREAM_PUSH_FRAMES)] + [local.push(
+                    "p", [], final=True)], "one /stream session", card)
+    per_chunk = {"chunk_steps": len(steps),
+                 "device_ms_per_chunk": prof["device_ms"] / len(steps),
+                 "device_events_per_chunk": prof["device_events"]
+                 / len(steps),
+                 "busy_share": prof["device_ms"] / prof["wall_ms"]}
+    out = {"sessions": sessions, "push_latency": lat, "late_push": code_late,
+           "healthz": {k: health[k] for k in ("streaming",
+                                              "active_streams")},
+           "profiled_session": per_chunk}
+    log(f"13e {STREAM_SESSIONS} concurrent HTTP /stream sessions == 13b's "
+        f"tokens (with times and confidence): " + json.dumps(out)
+        + f" [{card}]")
+    return out
+
+
+def run_streaming_phase(card, workdir, data, aishell_stats, cv_manifest):
+    """Phase 13: the streaming preset trained at full width (13a), its
+    checkpoint and random weights streamed against the offline decodes
+    on the card (13b), python -m tpu_asr_torch.stream_demo (13c), the
+    streaming transducers (13d), /stream serving (13e); then the CTC pair
+    on the inputs 13a's training gave it against the plain versions. ->
+    ({"streaming": training launches}, {"ctc": path timings}, errors)."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.data import load_manifest
+    from tpu_asr_torch.frontend import FrontendConfig
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.recognize import restore_step
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    from tpu_asr_torch.weights import init_random
+    ckpt = os.path.join(workdir, "streaming")
+    ctc_caps, stats = {}, {}
+    wall = {"start": time.perf_counter()}
+
+    def lap(part):
+        wall[part] = time.perf_counter() - wall["start"] - sum(
+            v for k, v in wall.items() if k != "start")
+    launches = run_training(card, ckpt, "streaming", data, {}, None, None,
+                            ctc_caps, stats=stats, profiled_steps=2)
+    keys = ("step_ms_median", "steps_per_s", "audio_s_per_s", "peak_gib",
+            "device_ms_per_step", "busy_share", "device_events_per_step",
+            "fixed_step_ms_median")
+    log("13a streaming training beside aishell (phase 8), same corpus: "
+        + json.dumps({"streaming": {k: stats[k] for k in keys},
+                      "aishell": {k: aishell_stats[k] for k in keys}})
+        + f"; train loss by epoch "
+        f"{[h['train_loss'] for h in stats['history']]} [{card}]")
+    lap("training")
+    utts = load_manifest(cv_manifest)
+    ck = Checkpointer(ckpt)
+    cfg = ck.load_config()
+    trained = build_model(cfg)
+    trained.load_state_dict(ck.restore(restore_step(ck, -1, "best"))
+                            ["model"])
+    frontend = ck.load_frontend() or FrontendConfig()
+    feats = stream_features(cfg, frontend, utts)
+    greedy, beams, numbers = check_stream_ctc(card, "13a's checkpoint", cfg,
+                                              trained, feats)
+    rcfg = get_preset("streaming").model
+    random_model = init_random(build_model(rcfg), SEED)
+    r_greedy, _, r_numbers = check_stream_ctc(
+        card, "random streaming weights (seed 0)", rcfg, random_model,
+        feats)
+    lap("streamed_vs_offline")
+    demo = run_stream_demo(card, ckpt, cv_manifest, greedy, beams)
+    lap("stream_demo")
+    transducers = check_stream_transducers(card, utts, frontend)
+    lap("transducers")
+    serving = run_stream_serving(card, rcfg, random_model, feats, r_greedy)
+    lap("serving")
+    paths, errs, bitwise = check_ctc_pair_on_paths(ctc_caps)
+    lap("ctc_pair")
+    del wall["start"]
+    log("phase 13 wall seconds by part: " + json.dumps(wall))
+    if len(paths) != 1:
+        raise AssertionError(f"the streaming training recorded {len(paths)} "
+                             f"CTC backwards")
+    log(f"ctc_loss_fwd and ctc_loss_bwd vs plain on the streaming "
+        f"training's inputs: 1 + 1 calls agree (the forward's bits the "
+        f"plain version's: {bitwise}): " + json.dumps(errs))
+    stats.update(stream={"checkpoint": numbers, "random": r_numbers,
+                         "demo": demo, "transducers": transducers,
+                         "serving": serving})
+    return {"streaming": launches}, {"ctc": paths}, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4117,6 +4771,7 @@ def main() -> int:
     check_train_agreement(use_pallas=True)
     check_conformer_agreement()
     check_transducer_agreement()
+    check_streaming_agreement()
     check_cif_agreement()
     check_pallas_agreement()
     check_lm_agreement()
@@ -4172,6 +4827,11 @@ def main() -> int:
                                  lm_dir, cv_manifest)
         training.update(transducer_launches)
         mark("1-12")
+        streaming_launches, streaming_paths, streaming_errs = \
+            run_streaming_phase(card, workdir, data, train_stats[PRESET],
+                                cv_manifest)
+        training.update(streaming_launches)
+        mark("1-13")
 
     def ctc_build(symbol):
         return {k: v for k, v in build_report.items() if symbol in k}
@@ -4227,7 +4887,8 @@ def main() -> int:
                  "B=32 T=249 S=65 (U=32)": ctc_timings[(name, 65)]}
         other.update({f"path {k}": v[name] for k, v in
                       (ctc_path | recipe_paths["ctc"]
-                       | transducer_paths["ctc"]).items()})
+                       | transducer_paths["ctc"]
+                       | streaming_paths["ctc"]).items()})
         kernels.append({
             "name": f"ctc_loss_{name}",
             "route": "cuda",
@@ -4236,7 +4897,8 @@ def main() -> int:
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(ctc_errs[name], ctc_path_errs[name],
-                               recipe_errs[name], transducer_errs[name]),
+                               recipe_errs[name], transducer_errs[name],
+                               streaming_errs[name]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -4249,7 +4911,8 @@ def main() -> int:
             "build": ctc_build(t["symbol"]),
             "path_max_abs_err": max(ctc_path_errs[name],
                                     recipe_errs[name],
-                                    transducer_errs[name]),
+                                    transducer_errs[name],
+                                    streaming_errs[name]),
             "shape": "B=32 T=249 S=49 (U=24)",
             "other_shapes": other,
             "ctc_loss_kernel_e2e_ms": ctc_library[49]["port_e2e"],

@@ -789,3 +789,145 @@ def test_time_transducer_lattice_counts_what_it_times(monkeypatch):
     assert len(calls) == 2 and out["loss_share_of_step"] == 0.25
     assert out["shape"] == "B=2 T'=5 U+1=3 V=7 d_joint=4"
     assert tt.JOINT_CHUNK_BYTES > 0
+
+
+# ---- phase 13's helpers ----
+
+def test_latency_summary():
+    got = chip_smoke.latency_summary([0.004, 0.002, 0.010])
+    assert got == {"n": 3, "p50_ms": 4.0, "max_ms": 10.0}
+    assert chip_smoke.latency_summary([]) == {"n": 0, "p50_ms": None,
+                                              "max_ms": None}
+
+
+def test_top2_margins_names_the_frames_that_differ():
+    logits = torch.tensor([[0.0, 3.0, 1.0], [2.0, 1.99, 0.0],
+                           [5.0, 0.0, 0.0]])
+    got = chip_smoke.top2_margins(logits, [1, 1, 0])
+    assert [(f, round(m, 4)) for f, m in got] == [(1, 0.01)]
+    assert chip_smoke.top2_margins(logits, [1, 0, 0]) == []
+
+
+def _hyp(yseq, times=None, conf=None):
+    out = {"yseq": yseq, "score": 0.0}
+    if times is not None:
+        out.update(times=times, confidence=conf)
+    return out
+
+
+def test_compare_streamed_drops_eos_and_holds_times_and_confidences():
+    eos = 9
+    streamed = {"a": ([3, eos, 4], [1, 2, 5], [0.5, 0.9, 0.25]),
+                "b": ([], [], [])}
+    offline = {"a": _hyp([3, 4], [1, 5], [0.50004, 0.25]),
+               "b": _hyp([], [], [])}
+    got = chip_smoke.compare_streamed("x", streamed, offline, eos)
+    assert got["n_utts"] == 2 and got["n_tokens"] == 2 and not got["ties"]
+    assert got["max_conf_gap"] == pytest.approx(4e-5)
+    for bad in ({"a": _hyp([3, 5], [1, 5], [0.5, 0.25])},    # a token
+                {"a": _hyp([3, 4], [1, 6], [0.5, 0.25])},    # a time
+                {"a": _hyp([3, 4], [1, 5], [0.6, 0.25])}):   # a confidence
+        with pytest.raises(AssertionError):
+            chip_smoke.compare_streamed("x", {"a": streamed["a"]}, bad, eos)
+    beams = {"a": ([3, eos, 4], None, None)}
+    assert chip_smoke.compare_streamed("x", beams, {"a": _hyp([3, 4])},
+                                       eos)["n_tokens"] == 2
+
+
+@pytest.mark.parametrize("margin,ok", [(5e-5, True), (1e-3, False)])
+def test_compare_streamed_reports_a_rounding_tie(margin, ok):
+    """A differing utterance passes only when every differing frame's
+    offline top-2 margin is a rounding tie (<= STREAM_TIE_MARGIN)."""
+    streamed = {"a": ([3, 4], [1, 5], [0.5, 0.25])}
+    offline = {"a": _hyp([3, 7], [1, 5], [0.5, 0.25])}
+    margins = lambda uid: [(5, margin)]        # noqa: E731
+    if ok:
+        got = chip_smoke.compare_streamed("x", streamed, offline, 0, margins)
+        assert got["ties"] == {"a": [(5, margin)]}
+    else:
+        with pytest.raises(AssertionError, match="margins"):
+            chip_smoke.compare_streamed("x", streamed, offline, 0, margins)
+
+
+def test_stream_pushes_covers_the_features_once():
+    class Rec:
+        def __init__(self):
+            self.seen = []
+
+        def push(self, x):
+            self.seen.append(len(x))
+            return [len(self.seen)]
+
+        def finish(self):
+            return [0]
+
+    rec = Rec()
+    outs, hyp, waits = chip_smoke.stream_pushes(rec, np.zeros((150, 2)), 64)
+    assert rec.seen == [64, 64, 22] and outs == [[1], [2], [3]]
+    assert hyp == [0] and len(waits) == 3
+
+
+def _tiny_ctc(chunk=4):
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.weights import init_random
+    cfg = dataclasses.replace(get_preset("hybrid_dev").model, vocab_size=24,
+                              model_type="ctc", enc_chunk_size=chunk)
+    return cfg, init_random(build_model(cfg), 0)
+
+
+def test_beam_divergence_finds_the_frame_and_its_margin():
+    gen = torch.Generator().manual_seed(0)
+    logp = torch.log_softmax(torch.randn(1, 12, 24, generator=gen), -1)
+    assert chip_smoke.beam_divergence(logp, logp.clone(), 12, 3) is None
+    other = logp.clone()
+    other[0, 6] = torch.log_softmax(torch.randn(24, generator=gen), -1)
+    frame, margin = chip_smoke.beam_divergence(logp, other, 12, 3)
+    assert frame == 6 and margin > 0
+
+
+def test_beam_composition_and_scores_on_streamed_frames(monkeypatch):
+    """On the CPU: the streaming beam's frames (recorded from
+    encode_chunk) searched in one call give its 1-best and score
+    exactly; check_beam_scores passes equal scores and fails a gap
+    without a pruning tie."""
+    from tpu_asr_torch.decode.ctc_beam import beam_finalize
+    from tpu_asr_torch.decode.streaming import StreamingCTCBeamRecognizer
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "STREAM_BEAM", 3)
+    cfg, model = _tiny_ctc()
+    x = (np.random.default_rng(1).standard_normal((90, 80)) * 3).astype(
+        np.float32)
+    rows = []
+    with chip_smoke.wrap_method(model.encoder, "encode_chunk",
+                                after=lambda out: rows.append(out[0][0])):
+        rec = StreamingCTCBeamRecognizer(cfg, model, beam=3, max_frames=128,
+                                         device="cpu")
+        _, hyp, _ = chip_smoke.stream_pushes(rec, x, 37)
+    score = float(beam_finalize(rec._bstate)[2][0, 0])
+    frames = {"a": torch.cat(rows)}
+    el = cfg.subsampled_length(90)
+    gap = chip_smoke.check_beam_composition(
+        "t", model, frames, {"a": el}, {"a": (hyp, None, None)},
+        {"a": score})
+    assert gap == 0.0 and hyp
+    feats = {"a": x}
+    assert chip_smoke.check_beam_scores("t", model, feats, frames,
+                                        {"a": score}, {"a": score}) == (0.0,
+                                                                        {})
+    with pytest.raises(AssertionError, match="part at None"):
+        chip_smoke.check_beam_scores("t", model, feats, frames,
+                                     {"a": score}, {"a": score - 0.5})
+
+
+def test_streaming_agreement_covers_the_four_recognizers():
+    from tpu_asr_torch.decode import streaming
+    classes = {cls for _, _, cls, _ in chip_smoke.STREAMING_AGREEMENT}
+    assert classes == {"StreamingCTCRecognizer", "StreamingCTCBeamRecognizer",
+                       "StreamingCIFRecognizer",
+                       "StreamingTransducerRecognizer"}
+    assert all(hasattr(streaming, c) for c in classes)
+    kinds = {(p, kw.get("incremental", True))
+             for _, p, c, kw in chip_smoke.STREAMING_AGREEMENT
+             if c == "StreamingCIFRecognizer"}
+    assert kinds == {("cif_dev", True), ("cif_dev", False)}

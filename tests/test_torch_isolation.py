@@ -173,3 +173,27 @@ def test_transducer_modules_are_covered(monkeypatch):
             Recognizer(cfg, model, mode=mode)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TrainStep(model, NoamAdam(model.parameters(), cfg.d_model))
+
+
+def test_streaming_modules_are_covered():
+    """The import checks above walk the streaming recognizers and the
+    stream demo, and neither imports JAX or tpu_asr."""
+    files = {os.path.relpath(f, REPO) for f in _port_files()}
+    for name in ("decode/streaming.py", "stream_demo.py", "serve.py"):
+        path = os.path.join("tpu_asr_torch", name)
+        assert path in files
+        assert not [m for m in _imported_roots(os.path.join(REPO, path))
+                    if m in FORBIDDEN]
+
+
+def test_serve_cli_with_streams_refuses_cpu_without_asking():
+    """serve with /stream on (a chunked model) still needs the card."""
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; torch.cuda.is_available = lambda: False\n"
+         "from tpu_asr_torch.serve import main\n"
+         "main(['--random-init', '--preset', 'streaming', "
+         "'--stream-beam', '3'])"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr

@@ -87,7 +87,12 @@ def test_http_recognize_and_healthz(server):
             assert r.status == 200
             body = json.loads(r.read())
         assert body["tokens"] == _direct(server.rec, wav, 64)[0]["yseq"]
+        assert health["streaming"] is False
         req = urllib.request.Request(base + "/stream", data=b"{}")
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=30)
+        assert e.value.code == 400          # no StreamSessions given
+        req = urllib.request.Request(base + "/nowhere", data=b"{}")
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(req, timeout=30)
         assert e.value.code == 404

@@ -2,9 +2,9 @@
 
 Only the presets of the families the port runs are here (CTC,
 attention, hybrid CTC/attention with the transformer or the conformer
-encoder, CIF, and the transducer with either encoder); the streaming
-presets (`streaming`, `transducer_streaming`) and the LFR input's come
-with their ports.
+encoder, CIF, the transducer with either encoder, and the chunk-masked
+streaming CTC and transducer models); the LFR input's come with its
+port.
 Each preset is a TrainConfig with the reference's field names and
 values; the CLIs override fields from flags.
 """
@@ -158,6 +158,22 @@ PRESETS: dict[str, TrainConfig] = {
                                   d_joint=512, encoder_type="conformer",
                                   enc_chunk_size=16),
         decode_mode="transducer_greedy",
+        beam=BeamConfig(beam=1, max_len=100)),
+    # the streaming transducer: the chunk-masked transformer encoder
+    # (16 frames a chunk) under the transducer's frame-synchronous decode
+    "transducer_streaming": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="transducer",
+                                  ctc_weight=0.3, num_pred_layers=2,
+                                  d_joint=512, enc_chunk_size=16),
+        decode_mode="transducer_greedy",
+        beam=BeamConfig(beam=1, max_len=100)),
+    # streaming CTC: the chunk-masked encoder, 16 encoder frames (0.64 s)
+    # a chunk; decoded offline (greedy_ctc) or as it arrives
+    # (decode/streaming.py, python -m tpu_asr_torch.stream_demo)
+    "streaming": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="ctc",
+                                  enc_chunk_size=16),
+        decode_mode="greedy_ctc",
         beam=BeamConfig(beam=1, max_len=100)),
 }
 

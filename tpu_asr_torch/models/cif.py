@@ -38,7 +38,11 @@ from tpu_asr_torch.ops.losses import (label_smoothing_loss, masked_row_mean,
                                       token_accuracy)
 from tpu_asr_torch.utils.padding import make_causal_mask, make_valid_mask
 
-ASSIGNER_CONV_WIDTH = 3       # alpha_j reads encoder frames j-1 .. j+1
+# The assigner's SAME conv: alpha_j reads encoder frames j - LOOKAHEAD ..
+# j + LOOKAHEAD. Streaming (decode/streaming.py) sizes its halo window and
+# its horizon of final alphas from these.
+ASSIGNER_CONV_WIDTH = 3
+ASSIGNER_LOOKAHEAD = (ASSIGNER_CONV_WIDTH - 1) // 2
 
 
 class Assigner(nn.Module):
@@ -48,7 +52,7 @@ class Assigner(nn.Module):
     def __init__(self, c: ModelConfig):
         super().__init__()
         self.conv = nn.Conv1d(c.d_model, c.d_model, ASSIGNER_CONV_WIDTH,
-                              padding=ASSIGNER_CONV_WIDTH // 2,
+                              padding=ASSIGNER_LOOKAHEAD,
                               dtype=c.param_dtype)
         self.proj = Dense(c.d_model, 1, dtype=c.dtype,
                           param_dtype=c.param_dtype)

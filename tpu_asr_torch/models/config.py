@@ -100,3 +100,30 @@ class ModelConfig:
             t1 = (t - 1) // 2
             return (t1 - 1) // 2
         return (t + self.lfr_n - 1) // self.lfr_n
+
+    # The conv2d front-end's geometry, from its two k=3 s=2 VALID convs
+    # (models/conv.py). Streaming (decode/streaming.py) sizes its feature
+    # windows from these.
+
+    def _conv2d_only(self):
+        if self.input_layer != "conv2d":
+            raise ValueError(f"the conv geometry needs input_layer='conv2d',"
+                             f" not {self.input_layer!r}")
+
+    @property
+    def conv_total_stride(self) -> int:
+        """Input frames consumed per encoder output frame step."""
+        self._conv2d_only()
+        return 2 * 2
+
+    @property
+    def conv_receptive_field(self) -> int:
+        """Input frames one encoder output frame depends on: k + (k-1)*s
+        for the two stacked convs (k=3, s=2)."""
+        self._conv2d_only()
+        return 3 + (3 - 1) * 2
+
+    def conv_input_window(self, n_out: int) -> int:
+        """Input frames that produce n_out encoder frames from an output
+        frame boundary: stride * (n_out - 1) + receptive field (4n + 3)."""
+        return self.conv_total_stride * (n_out - 1) + self.conv_receptive_field

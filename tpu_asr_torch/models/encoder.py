@@ -6,9 +6,15 @@ none (its attention scores carry relative positions) and passes each
 layer a relative-position table and the frame mask. With enc_chunk_size
 > 0 the self-attention takes the offline chunk mask: frame q attends to
 the frames of chunks <= its own (and >= its own - enc_left_chunks when
-that is >= 0), and the conformer's depthwise conv turns causal. The
-incremental chunk encoder (`init_cache`/`encode_chunk`) comes with the
-streaming slice, the LFR+linear input layer with the frontend slice.
+that is >= 0), and the conformer's depthwise conv turns causal.
+
+The incremental chunk encoder (`init_cache`, `encode_chunk`) is what
+streaming (decode/streaming.py) runs: one chunk of C encoder frames a
+call from the 4C+3 feature frames whose VALID conv fields make exactly
+those frames, against per-layer K/V caches (and the conformer's conv
+cache) of the frames before it. Its outputs equal the full pass's under
+the same chunk mask up to the rounding of GEMMs over C rows against T'
+rows. The LFR+linear input layer comes with the frontend slice.
 """
 
 from __future__ import annotations
@@ -43,13 +49,15 @@ class EncoderLayer(nn.Module):
         return self.post_ffn(x, self.ffn(x))
 
     def step(self, x_t, pos: int, k_self, v_self, self_bias):
-        """Cached causal step (the CIF decoder's decode loop): x_t
-        [B, 1, D] -> [B, 1, D]. Writes this step's K/V into row `pos` of
-        the caches k_self/v_self [B, U_max, H, dh] in place; self_bias
-        masks the rows after pos."""
+        """Cached step over C new rows (C = 1 in the CIF decoder's decode
+        loop, a chunk in the streaming encoder): x_t [B, C, D] -> [B, C,
+        D]. Writes the rows' K/V into rows pos .. pos+C-1 of the caches
+        k_self/v_self [B, T_max, H, dh] in place; self_bias masks the rows
+        a query may not read."""
         k_t, v_t = self.slf_attn.project_kv(x_t)
-        k_self[:, pos] = k_t[:, 0]
-        v_self[:, pos] = v_t[:, 0]
+        c = x_t.shape[1]
+        k_self[:, pos:pos + c] = k_t
+        v_self[:, pos:pos + c] = v_t
         x = self.post_attn(x_t, self.slf_attn.step(x_t, k_self, v_self,
                                                    self_bias))
         return self.post_ffn(x, self.ffn(x))
@@ -100,3 +108,68 @@ class Encoder(nn.Module):
             for layer in self.layers:
                 x = layer(x, bias)
         return x.masked_fill(~valid[..., None], 0.0), out_lengths
+
+    # ---- incremental (KV-cached) chunk encoding for streaming ----
+
+    def init_cache(self, batch: int, t_max: int, device=None) -> dict:
+        """Per-layer self-attention K/V caches over t_max encoder frames,
+        {"layer_<i>": {"k", "v": [B, t_max, H, dh]}}, plus a conformer
+        layer's depthwise-conv cache "conv" [B, kernel-1, D]: zeros, as
+        the offline causal conv's left padding."""
+        c = self.cfg
+        shape = (batch, t_max, c.num_heads, c.d_head)
+        caches = {}
+        for i in range(c.num_enc_layers):
+            entry = {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+                     "v": torch.zeros(shape, dtype=c.dtype, device=device)}
+            if self.conformer:
+                entry["conv"] = torch.zeros(
+                    (batch, c.conv_kernel - 1, c.d_model), dtype=c.dtype,
+                    device=device)
+            caches[f"layer_{i}"] = entry
+        return caches
+
+    def encode_chunk(self, feat_window, chunk_idx: int, caches: dict,
+                     valid_upto: int | None = None):
+        """Encode chunk `chunk_idx`: feat_window [B, 4C+3, D_in] holds the
+        feature frames from 4 C chunk_idx on, whose VALID conv fields give
+        exactly the chunk's C encoder frames. Each layer writes the
+        chunk's K/V into its caches (init_cache) in place; a query attends
+        to the cached frames before the chunk's end (and from chunk_idx -
+        enc_left_chunks on when that is >= 0), and to none at or past
+        valid_upto (the stream's encoder length, which a last partial
+        chunk does not fill). -> (enc_chunk [B, C, d_model], caches)."""
+        c = self.cfg
+        chunk = c.enc_chunk_size
+        if chunk <= 0:
+            raise ValueError("chunked encoding needs enc_chunk_size > 0")
+        if feat_window.shape[1] != c.conv_input_window(chunk):
+            raise ValueError(f"a chunk's window is "
+                             f"{c.conv_input_window(chunk)} frames, not "
+                             f"{feat_window.shape[1]}")
+        b, win = feat_window.shape[:2]
+        x, _ = self.subsample(feat_window, torch.full(
+            (b,), win, dtype=torch.long, device=feat_window.device))
+        pos = chunk_idx * chunk
+        if not self.conformer:
+            x = self.pe(x, offset=pos)
+        t_max = caches["layer_0"]["k"].shape[1]
+        idx = torch.arange(t_max, device=x.device)
+        allowed = idx < pos + chunk
+        if valid_upto is not None:
+            allowed &= idx < valid_upto
+        if c.enc_left_chunks >= 0:
+            allowed &= idx >= max(chunk_idx - c.enc_left_chunks, 0) * chunk
+        bias = mask_to_bias(allowed[None, None, None, :], c.dtype)
+        new_caches = {}
+        for i, layer in enumerate(self.layers):
+            key = f"layer_{i}"
+            entry = caches[key]
+            if self.conformer:
+                x, k, v, conv = layer.step(x, pos, entry["k"], entry["v"],
+                                           entry["conv"], bias)
+                new_caches[key] = {"k": k, "v": v, "conv": conv}
+            else:
+                x = layer.step(x, pos, entry["k"], entry["v"], bias)
+                new_caches[key] = {"k": entry["k"], "v": entry["v"]}
+        return x, new_caches

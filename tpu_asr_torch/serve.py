@@ -1,5 +1,5 @@
-"""Model server: dynamic micro-batching onto static bucket shapes (port of
-tpu_asr/serve.py, offline /recognize path).
+"""Model server: dynamic micro-batching onto static bucket shapes, and
+streaming sessions (port of tpu_asr/serve.py).
 
 - requests enqueue; a collector thread drains up to `batch_size` of them,
   waiting at most `window_ms` after the first arrival;
@@ -10,8 +10,11 @@ tpu_asr/serve.py, offline /recognize path).
 
 A decode failure is caught on the collector thread (which must keep
 serving), stored on each request of the batch, and raised to the
-submitter as RuntimeError. The /stream endpoint and its StreamSessions
-are not ported yet.
+submitter as RuntimeError.
+
+/stream sessions (StreamSessions) ride the streaming recognizers
+(decode/streaming.py): each session's state lives on the host, its
+chunk steps run on the server's device, and the model is shared.
 
 Run as a module to serve over HTTP:
 
@@ -22,6 +25,7 @@ Run as a module to serve over HTTP:
   python -m tpu_asr_torch.serve --random-init --preset cif --mode cif_greedy
   python -m tpu_asr_torch.serve --ckpt exp/transducer \\
       --mode transducer_rescore --beam 10 --ctc-weight 0.5
+  python -m tpu_asr_torch.serve --ckpt exp/streaming --stream-beam 5
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import queue
 import sys
 import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 
@@ -42,6 +47,12 @@ from tpu_asr_torch.utils.device import resolve_device
 
 class UtteranceTooLong(ValueError):
     """Input exceeds the longest configured frame bucket (HTTP 413)."""
+
+
+class SessionExpired(ValueError):
+    """A push to a stream session that already finished or was closed for
+    idling (HTTP 410): restarting its hypothesis mid-stream would corrupt
+    the client's transcript."""
 
 
 @dataclasses.dataclass
@@ -216,13 +227,127 @@ class AsrServer:
         self.stats["rows_decoded"] += b
 
 
-def make_http_server(host: str, port: int, server: AsrServer,
-                     char_list: list[str] | None = None):
-    """stdlib ThreadingHTTPServer with two endpoints:
+class StreamSessions:
+    """Per-session incremental decoding for the /stream endpoint.
 
-    GET  /healthz    -> model/server info + stats
+    A session owns a StreamingCTCRecognizer (beam 1),
+    StreamingCTCBeamRecognizer (beam > 1) or, for a transducer,
+    StreamingTransducerRecognizer. A push returns the newly final tokens
+    (greedy, transducer) or the current 1-best (beam). model: the port's
+    Transformer or TransducerModel, shared by the sessions and moved to
+    `device` (None: the CUDA card; RuntimeError without one).
+
+    The global lock guards only the session map and the ring of closed
+    ids; a per-session lock serializes that session's decode, so
+    independent sessions overlap."""
+
+    def __init__(self, cfg, model, beam: int = 1, max_frames: int = 3000,
+                 idle_timeout_s: float = 300.0, device=None):
+        self.cfg, self.model = cfg, model
+        self.beam, self.max_frames = beam, max_frames
+        self.idle_timeout_s = idle_timeout_s
+        self.device = resolve_device(device)
+        # session -> [recognizer, session lock, last touch, finished]
+        self._sessions: dict[str, list] = {}
+        self._lock = threading.Lock()
+        # ids that finished or idled out, so that a late push gets
+        # SessionExpired; a bounded ring (an OrderedDict as LRU)
+        self._closed: OrderedDict[str, str] = OrderedDict()
+        self._closed_cap = 4096
+
+    def _new_recognizer(self):
+        from tpu_asr_torch.decode.streaming import make_streaming_recognizer
+        return make_streaming_recognizer(self.cfg, self.model, self.beam,
+                                         max_frames=self.max_frames,
+                                         device=self.device)
+
+    def _close(self, session_id: str, reason: str):
+        """Caller holds self._lock."""
+        self._sessions.pop(session_id, None)
+        self._closed[session_id] = reason
+        self._closed.move_to_end(session_id)
+        while len(self._closed) > self._closed_cap:
+            self._closed.popitem(last=False)
+
+    def _gc(self, now: float):
+        """Caller holds self._lock."""
+        dead = [k for k, (_, _, ts, _) in self._sessions.items()
+                if now - ts > self.idle_timeout_s]
+        for k in dead:
+            self._close(k, "expired")
+
+    def push(self, session_id: str, feats, final: bool = False) -> dict:
+        """feats: [t, d_input] newly arrived frames (may be empty with
+        final=True, to flush) -> {"new_tokens", "tokens", "final"}, with
+        "times" and "confidence" where the recognizer gives them.
+
+        Raises SessionExpired for an id that already finished or idled
+        out. The decode runs under the session's lock only."""
+        now = time.monotonic()
+        with self._lock:
+            self._gc(now)
+            entry = self._sessions.get(session_id)
+            if entry is None:
+                if session_id in self._closed:
+                    raise SessionExpired(
+                        f"session {session_id!r} already "
+                        f"{self._closed[session_id]}; start a new session "
+                        f"id (the partial hypothesis was discarded)")
+                entry = [self._new_recognizer(), threading.Lock(), now,
+                         False]
+                self._sessions[session_id] = entry
+            entry[2] = now
+        rec, slock = entry[0], entry[1]
+        with slock:
+            # a concurrent final push may have finished the recognizer
+            # while this one waited on the session lock
+            if entry[3]:
+                raise SessionExpired(
+                    f"session {session_id!r} already finished; start a new "
+                    f"session id (the partial hypothesis was discarded)")
+            feats = np.asarray(feats, np.float32).reshape(-1,
+                                                          self.cfg.d_input)
+            new = rec.push(feats) if feats.shape[0] else []
+            if final:
+                tokens = rec.finish()
+                entry[3] = True
+            else:
+                tokens = getattr(rec, "hypothesis", None)
+            resp = {"new_tokens": new, "tokens": tokens, "final": final}
+            if hasattr(rec, "hypothesis_times"):
+                resp["times"] = rec.hypothesis_times
+                resp["confidence"] = rec.hypothesis_confidence
+        if final:
+            with self._lock:
+                self._close(session_id, "finished")
+        return resp
+
+    @property
+    def n_active(self) -> int:
+        with self._lock:
+            return len(self._sessions)
+
+
+def streams_supported(cfg) -> bool:
+    """The reference's rule for serving /stream: the conv2d front-end and
+    a CTC head (ctc, hybrid) or a chunked transducer."""
+    return cfg.input_layer == "conv2d" and (
+        cfg.model_type in ("ctc", "hybrid")
+        or (cfg.model_type == "transducer" and cfg.enc_chunk_size > 0))
+
+
+def make_http_server(host: str, port: int, server: AsrServer,
+                     char_list: list[str] | None = None,
+                     streams: StreamSessions | None = None):
+    """stdlib ThreadingHTTPServer with three endpoints:
+
+    GET  /healthz    -> model/server info + stats (+ "streaming",
+                        "active_streams")
     POST /recognize  -> {"feats": [[...]]} | {"wav": [...]} (+ "nbest": k)
                         -> n-best hypotheses
+    POST /stream     -> {"session": id, "feats": [[...]], "final": bool}
+                        -> incremental tokens (400 without `streams`,
+                        410 for a finished or expired session)
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -234,6 +359,9 @@ def make_http_server(host: str, port: int, server: AsrServer,
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # TCP_NODELAY: the body follows the headers in a second write, which
+        # Nagle's algorithm would hold until the client's delayed ACK
+        disable_nagle_algorithm = True
 
         def log_message(self, *a):      # quiet: stats live in /healthz
             pass
@@ -257,6 +385,8 @@ def make_http_server(host: str, port: int, server: AsrServer,
                 "bucket_frames": list(server.bucket_frames),
                 "batch_size": server.batch_size,
                 "window_ms": server.window_s * 1000.0,
+                "streaming": streams is not None,
+                "active_streams": streams.n_active if streams else 0,
                 "stats": dict(server.stats),
             })
 
@@ -266,8 +396,13 @@ def make_http_server(host: str, port: int, server: AsrServer,
                 req = json.loads(self.rfile.read(n) or b"{}")
             except (ValueError, json.JSONDecodeError) as e:
                 return self._json(400, {"error": f"bad json: {e}"})
-            if self.path != "/recognize":
-                return self._json(404, {"error": "not found"})
+            if self.path == "/recognize":
+                return self._recognize(req)
+            if self.path == "/stream":
+                return self._stream(req)
+            return self._json(404, {"error": "not found"})
+
+        def _recognize(self, req: dict):
             if ("feats" in req) == ("wav" in req):
                 return self._json(
                     400, {"error": "send exactly one of 'feats'/'wav'"})
@@ -288,6 +423,25 @@ def make_http_server(host: str, port: int, server: AsrServer,
             return self._json(200, {"nbest": out, "tokens": out[0]["tokens"],
                                     "text": out[0]["text"]})
 
+        def _stream(self, req: dict):
+            if streams is None:
+                return self._json(400, {"error": "streaming disabled "
+                                        "(--no-streaming or the model "
+                                        "cannot stream)"})
+            sid = req.get("session")
+            if not sid:
+                return self._json(400, {"error": "missing 'session'"})
+            try:
+                out = streams.push(sid, req.get("feats", []),
+                                   final=bool(req.get("final", False)))
+            except SessionExpired as e:
+                return self._json(410, {"error": str(e), "expired": True})
+            except Exception as e:
+                return self._json(500, {"error": str(e)})
+            if out.get("tokens") is not None:
+                out["text"] = ids_to_text(out["tokens"])
+            return self._json(200, out)
+
     httpd = ThreadingHTTPServer((host, port), Handler)
     httpd.daemon_threads = True
     return httpd
@@ -300,7 +454,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m tpu_asr_torch.serve",
         description="Serve the PyTorch port over HTTP (/healthz, "
-                    "/recognize) with micro-batched decode.")
+                    "/recognize, /stream) with micro-batched decode.")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--params-npz",
                      help="flax params of the preset's tpu_asr model "
@@ -316,8 +470,9 @@ def parse_args(argv=None):
                    help="model preset (aishell | hybrid | hybrid_dev | "
                         "attention | ctc_dev | conformer | conformer_dev | "
                         "cif | cif_dev | transducer | transducer_dev | "
-                        "conformer_transducer | conformer_transducer_dev);"
-                        " not read with --ckpt")
+                        "conformer_transducer | conformer_transducer_dev "
+                        "| transducer_streaming | streaming); not read "
+                        "with --ckpt")
     p.add_argument("--mode", default=None, choices=MODES,
                    help="default: by model type (hybrid -> joint, "
                         "transformer -> beam, ctc -> greedy_ctc, cif -> "
@@ -347,6 +502,11 @@ def parse_args(argv=None):
                    help="input kinds to warm up (feats,wav)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--stream-beam", type=int, default=1,
+                   help="beam of /stream sessions (1 = greedy CTC)")
+    p.add_argument("--no-streaming", action="store_true",
+                   help="no /stream endpoint (else on for a conv2d "
+                        "ctc/hybrid model or a chunked transducer)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -394,6 +554,16 @@ def build_server(args) -> AsrServer:
                      window_ms=args.window_ms, device=device)
 
 
+def build_streams(args, server: AsrServer) -> StreamSessions | None:
+    """/stream sessions on the server's model and device, or None with
+    --no-streaming or a model that cannot stream (streams_supported)."""
+    cfg = server.rec.cfg
+    if args.no_streaming or not streams_supported(cfg):
+        return None
+    return StreamSessions(cfg, server.rec.model, beam=args.stream_beam,
+                          device=server.device)
+
+
 def load_char_list(args) -> list[str] | None:
     """The --dict file's tokens, by id (None without --dict): what
     make_http_server turns hypotheses into text with."""
@@ -412,13 +582,15 @@ def main(argv=None):
           f"batch={args.batch_size})...", file=sys.stderr, flush=True)
     server.warmup(kinds=kinds)
     server.start()
+    streams = build_streams(args, server)
     httpd = make_http_server(args.host, args.port, server,
-                             load_char_list(args))
+                             load_char_list(args), streams)
     print(json.dumps({"serving": f"http://{args.host}:{args.port}",
                       "mode": server.rec.mode,
                       "device": str(server.device),
                       "buckets": list(server.bucket_frames),
-                      "batch_size": args.batch_size}), flush=True)
+                      "batch_size": args.batch_size,
+                      "streaming": streams is not None}), flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -11,6 +11,8 @@
       exp/cmvn.npz --save-folder exp/conformer
   python -m tpu_asr_torch.train --preset transducer_dev --synthetic 32 \\
       --epochs 2 --save-folder exp/transducer_dev --device cpu
+  python -m tpu_asr_torch.train --preset hybrid_dev --enc-chunk-size 4 \\
+      --synthetic 32 --epochs 2 --save-folder exp/stream_dev --device cpu
 
 Preset + flag overrides -> bucketed loaders -> TrainStep/Solver with a
 checkpoint per epoch and JSONL metrics in the save folder. Runs on the
@@ -22,6 +24,9 @@ the CIF model, or the TransducerModel, whose metrics carry loss_rnnt).
 python -m tpu_asr_torch.compute_cmvn) normalizes the features with the
 train set's stats; the stats path goes into the checkpoint's
 frontend.json made absolute, so recognize and serve pick the policy up.
+`--enc-chunk-size`/`--enc-left-chunks` set the encoder's chunk mask
+(the model then streams: decode/streaming.py, python -m
+tpu_asr_torch.stream_demo) as bin/train.py does.
 `--pallas-ctc` sets ModelConfig.pallas_ctc as bin/train.py does; the
 port reads it nowhere, since the device picks the CTC loss's route (the
 kernels on the card, their plain versions on the CPU). `--params-npz`
@@ -61,7 +66,8 @@ def parse_args(argv=None):
                    help="aishell | hybrid | hybrid_dev | attention | "
                         "ctc_dev | conformer | conformer_dev | cif | "
                         "cif_dev | transducer | transducer_dev | "
-                        "conformer_transducer | conformer_transducer_dev")
+                        "conformer_transducer | conformer_transducer_dev "
+                        "| transducer_streaming | streaming")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic utterances (demo/smoke)")
     p.add_argument("--train-manifest")
@@ -88,6 +94,13 @@ def parse_args(argv=None):
                         "the reference's behaviour; -1 = preset default)")
     p.add_argument("--dtype", default="", choices=["", "bf16", "f32"],
                    help="override the preset's compute dtype")
+    p.add_argument("--enc-chunk-size", type=int, default=-1,
+                   help="encoder frames a chunk of the chunk-masked "
+                        "(streaming) encoder; -1 = preset default, 0 = "
+                        "full context")
+    p.add_argument("--enc-left-chunks", type=int, default=-2,
+                   help="chunks of left context (-1 = unbounded; -2 = "
+                        "preset default)")
     p.add_argument("--pallas-ctc", type=int, default=-1, choices=[-1, 0, 1],
                    help="override the preset's pallas_ctc (1/0; -1 = "
                         "preset default); kept for the reference's CLI: "
@@ -155,6 +168,10 @@ def configure(args, model_overrides: dict | None = None
     if args.dtype:
         model["dtype"] = {"bf16": torch.bfloat16,
                           "f32": torch.float32}[args.dtype]
+    if args.enc_chunk_size >= 0:
+        model["enc_chunk_size"] = args.enc_chunk_size
+    if args.enc_left_chunks >= -1:
+        model["enc_left_chunks"] = args.enc_left_chunks
     if args.pallas_ctc in (0, 1):
         model["pallas_ctc"] = bool(args.pallas_ctc)
     return tc, dataclasses.replace(tc.model, **model,
