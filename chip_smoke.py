@@ -79,7 +79,12 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      incremental and the recompute paths, the transducer on
      transducer_dev; all with enc_chunk_size 4) stream the same features
      in pushes of 37 frames on the card and on the CPU: every push's
-     return, the final hypothesis and the times equal.
+     return, the final hypothesis and the times equal. The reference's
+     own inputs: a small attention_lfr-shaped model (the linear input
+     layer, LFR 4/3) and hybrid_dev with 83-dim fbank + pitch inputs, on
+     features the CPU made once: beam (joint) tokens equal, two train
+     steps' losses within 1e-4 and step 1's grad norm within 1e-3
+     relative.
   5. serving: the aishell-width hybrid model (d512, h8, 6+6 layers, conv
      (32, 128), vocab 4233, bf16; random weights from a seed) in joint
      CTC/attention beam-5 mode behind AsrServer; 16 wav requests from
@@ -176,8 +181,9 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      transducer` on phase 8's corpus for >= 20 steps (as phase 8: every
      step's losses, loss_rnnt and loss_ctc included, and grad norm
      finite, the CTC kernels once per step and cv batch on their warp
-     route, a profile, the fixed shape, the checkpoint restore; the
-     train loss falls), beside phase 8's aishell numbers; the loss (the
+     route, a profile of one step, 5 steps at the fixed shape, the
+     checkpoint restore; the train loss falls), beside phase 8's aishell
+     numbers; the loss (the
      checkpointed joint and the lattice) and the lattice recursion alone
      on the first train batch's inputs: device time, share of a step,
      peak memory against all frames' logits materialized; `python -m
@@ -218,8 +224,44 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      each session's inverse RTF, and one session under torch.profiler
      (device ms and events a chunk step, busy share); then the CTC pair
      on the inputs 13a's training gave it against the plain versions.
+ 14. the reference's own inputs, forced alignment and averaging: 14a,
+     pitch of phase 8's first 64 train utterances on the card against
+     the CPU, with the --pitch default (per-frame picks) and with the
+     Viterbi track (smooth weight 4.0), under the margin rule
+     (compare_pitch: the NCCF within 1e-4, a lag may differ only where
+     the CPU's own decision was within a stated margin of flipping, the
+     features within 1e-3 on every utterance without a flip, at most 1%
+     of the frames flipped; the CPU's Viterbi track over the card's own
+     band equal to the card's bit for bit); wav_to_features with and without pitch on
+     one ~32000-frame batch (ms, device ms and events, peak memory);
+     14b, `python -m tpu_asr_torch.train --preset aishell --pitch` at
+     full width on phase 8's corpus (as phase 8, >= 3 epochs; d_input 83
+     in model_config.json, add_pitch in frontend.json) beside phase 8's
+     aishell numbers, recognize --ckpt on phase 10's cv manifest in
+     joint beam 5 (ctc_prefix_scan once a joint step; CER, inverse RTF),
+     serve --ckpt (POST /recognize == submit()), then the CTC pair and
+     the prefix scan on this path's inputs against their plain versions;
+     14c, phase 8's corpus as a Kaldi dump (80-dim fbank written with
+     write_mat into one .ark, espnet data.json files, prepare_data
+     --espnet-json), compute_cmvn on it equal to the .npy features'
+     bitwise and to the wav manifest's within 5e-5, the attention_lfr
+     preset at full width (d512, h8, 6+6, linear input 320 -> 512, vocab
+     4233, float32, 16000-frame batches) trained from the ark manifests
+     with --cmvn global (as phase 8; no kernel), recognize beam 5 tokens
+     equal on the ark and the .npy cv manifests; 14d, `python -m
+     tpu_asr_torch.align` on 14b's checkpoint over the cv manifest:
+     spans well formed and equal to the CPU's ctc_viterbi_align on the
+     card's logits; 14e, `python -m tpu_asr_torch.average_checkpoints
+     --last 3` on 14b's folder: every float weight the float32 mean of
+     the three steps, frontend.json kept, recognize decodes the output.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
+
+  python3 chip_smoke.py --beam-ties N
+
+measures instead, and checks nothing: 13b's streamed beam 5 against the
+offline one on N streaming checkpoints trained as 13a (seeds 0 .. N-1),
+logging where the two searches part for every 1-best that differs.
 """
 
 from __future__ import annotations
@@ -571,7 +613,7 @@ def time_prefix(args, hist, what):
     ms = cuda_ms(fn)
     alone = kernel_device_ms(fn, KERNEL_SYMBOL)
     plain = cuda_ms(lambda: ctc_prefix_scan_reference(
-        *args, return_hist=hist), reps=20, warmup=1)
+        *args, return_hist=hist), reps=5, warmup=1)
     bound, by = prefix_scan_bound_ms(n, t, k, lengths, hist)
     log(f"ctc_prefix_scan {what} hist={hist}: wrapper {ms:.4f} ms, the "
         f"kernel alone {ms4(alone)} ms (profiler), plain {plain:.3f} ms, "
@@ -2073,16 +2115,17 @@ def pallas_train_batch(rng):
 
 
 def train_on_both(model_cls, cfg, batch, steps):
-    """`steps` TrainSteps from the same seeded init on one batch, on the
-    card and on the CPU. -> {"card" | "cpu": (metrics of each step, step
-    1's update, kernel launches)}."""
+    """`steps` TrainSteps (with the model's LFR) from the same seeded init
+    on one batch, on the card and on the CPU. -> {"card" | "cpu":
+    (metrics of each step, step 1's update, kernel launches)}."""
     from tpu_asr_torch.train import NoamAdam, TrainStep
+    from tpu_asr_torch.train.loop import model_lfr
     from tpu_asr_torch.weights import init_random
     out = {}
     for key, dev in (("card", DEVICE), ("cpu", "cpu")):
         model = init_random(model_cls(cfg), SEED).to(dev)
         ts = TrainStep(model, NoamAdam(model.parameters(), cfg.d_model, 100),
-                       device=dev, seed=SEED)
+                       device=dev, seed=SEED, lfr=model_lfr(cfg))
         p0 = torch.cat([p.detach().flatten() for p in model.parameters()])
         counters = kernel_counters()
         before = {k: f.launches for k, f in counters.items()}
@@ -2221,6 +2264,88 @@ def check_conformer_agreement():
         "relative; CTC kernels once a step on the card): "
         + json.dumps({"step1": {k: [card[k], cpu[k]] for k in sorted(card)},
                       "step2": {k: [card2[k], cpu2[k]] for k in losses}}))
+
+
+def check_input_agreement():
+    """Phase 4, the reference's own inputs: a small attention_lfr-shaped
+    model (hybrid_dev widths, model_type transformer, the linear input
+    layer, LFR (4, 3)) and hybrid_dev with 83-dim (fbank + pitch) inputs,
+    each on a feats batch whose features the CPU made once (so pitch's
+    lag decisions cannot flip between the two runs): beam (joint for the
+    hybrid) beam-4 tokens equal on the card and on the CPU, scores within
+    1e-3; two TrainSteps from the same init: both steps' losses within
+    1e-4, step 1's grad norm within 1e-3 relative; the CTC kernels once a
+    step on the card for the hybrid, no kernel for the attention-only
+    model."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.weights import init_random
+
+    dev = dataclasses.replace(get_preset("hybrid_dev").model, vocab_size=64)
+    rng = np.random.default_rng(SEED)
+    lens = np.array([16000, 12000, 7000, 0], np.int32)
+    wav = np.zeros((4, 16000), np.float32)
+    for i, n in enumerate(lens):
+        wav[i, :n] = synth_wav(int(n), rng)
+    tlens = np.array([8, 5, 3, 0], np.int32)
+    targets = np.full((4, 8), -1, np.int32)
+    for i, n in enumerate(tlens):
+        targets[i, :n] = rng.integers(2, 62, n)
+    cases = (
+        ("attention_lfr-shaped (linear input, LFR 4/3)",
+         dataclasses.replace(dev, model_type="transformer",
+                             input_layer="linear", lfr_m=4, lfr_n=3),
+         FrontendConfig(), "beam", {}),
+        ("hybrid_dev with 83-dim fbank + pitch",
+         dataclasses.replace(dev, d_input=83),
+         FrontendConfig(add_pitch=True), "joint",
+         {"ctc_loss_fwd": 2, "ctc_loss_bwd": 2}))
+    for name, cfg, fcfg, mode, want_launches in cases:
+        feats, flens = wav_to_features(torch.from_numpy(wav),
+                                       torch.from_numpy(lens), fcfg)
+        batch = {"feats": feats.numpy(), "feat_lengths": flens.numpy()}
+        out = {}
+        for d in (DEVICE, "cpu"):
+            rec = Recognizer(cfg, init_random(Transformer(cfg), SEED),
+                             mode=mode, device=d,
+                             beam=BeamConfig(beam=4, max_len=12, nbest=4,
+                                             ctc_weight=0.3 if mode ==
+                                             "joint" else 0.0))
+            out[d] = rec.decode_batch_nbest(batch)
+        for a, b in zip(out[DEVICE], out["cpu"]):
+            for ha, hb in zip(a, b):
+                if ha["yseq"] != hb["yseq"] or \
+                        abs(ha["score"] - hb["score"]) > 1e-3:
+                    raise AssertionError(f"{name} {mode}: card {ha} != CPU "
+                                         f"{hb}")
+        runs = train_on_both(Transformer, cfg, dict(
+            batch, targets=targets, target_lengths=tlens), 2)
+        (card, card2), (cpu, cpu2) = (runs[d][0] for d in ("card", "cpu"))
+        losses = [k for k in ("loss", "loss_att", "loss_ctc", "acc")
+                  if k in card]
+        bad = [k for k in losses if abs(card[k] - cpu[k]) > 1e-4]
+        bad += [f"step 2 {k}" for k in losses
+                if abs(card2[k] - cpu2[k]) > 1e-4]
+        if bad or abs(card["grad_norm"] - cpu["grad_norm"]) > \
+                1e-3 * abs(cpu["grad_norm"]):
+            raise AssertionError(f"{name} train step on the card {card} "
+                                 f"{card2} != on the CPU {cpu} {cpu2}: {bad}")
+        launches = {k: n for k, n in runs["card"][2].items() if n}
+        if launches != want_launches:
+            raise AssertionError(f"{name} train steps launched {launches}, "
+                                 f"expected {want_launches}")
+        log(f"agreement: {name}: {mode} beam-4 tokens on the card == on the "
+            f"CPU (features made once on the CPU, D = {feats.shape[2]}); "
+            f"train steps on the card == on the CPU (losses of steps 1 and "
+            f"2 within 1e-4, grad norm within 1e-3 relative; card launches "
+            f"{json.dumps(launches)}): "
+            + json.dumps({"step1": {k: [card[k], cpu[k]] for k in
+                                    sorted(card)},
+                          "step2": {k: [card2[k], cpu2[k]] for k in
+                                    losses}}))
 
 
 # the transducer presets phase 4 holds card against CPU: (preset, fields
@@ -2555,7 +2680,7 @@ def check_lm_agreement():
         "8 (lm 0.3) tokens equal; card launches " + json.dumps(card))
 
 
-def profile_device(fn, what, card, host_top=0):
+def profile_device(fn, what, card, host_top=0, warmup=False):
     """Run fn() under torch.profiler: device time by kernel, and the
     device's busy share of the wall time (-> wall ms, device ms, device
     events; with host_top, also the host's self CPU ms and its host_top
@@ -2563,16 +2688,27 @@ def profile_device(fn, what, card, host_top=0):
     (kernels, copies, memsets) count: a CPU op's self device time is the
     time of the kernels it launched, which are listed themselves, and a
     record_function range (Optimizer.step) spans its kernels and the gaps
-    between them."""
+    between them. With warmup, fn() runs once first as the profiler's
+    warm-up step, whose events are dropped: a call of a few ms late in a
+    long process otherwise loses its first kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    steps = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup \
+        else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=steps) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         wall0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - wall0
-    avg = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+        if warmup:
+            prof.step()
+    averages = prof.key_averages()
+    avg = [e for e in averages if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in avg)
     top = sorted(avg, key=lambda e: -e.self_device_time_total)[:20]
@@ -2586,8 +2722,7 @@ def profile_device(fn, what, card, host_top=0):
     out = {"wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
            "device_events": events}
     if host_top:
-        ops = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CPU]
+        ops = [e for e in averages if e.device_type == DeviceType.CPU]
         out["host_self_ms"] = sum(e.self_cpu_time_total for e in ops) / 1e3
         log(f"profile {what}: host self CPU {out['host_self_ms']:.1f} ms "
             f"(profiler on); largest host ops:")
@@ -2868,10 +3003,12 @@ def run_serving(card, prefix_caps):
 class TimedLoader:
     """A train loader that records a CUDA event (no sync) at every batch
     boundary, so each step's time on the device's timeline is read after
-    the run, and counts the real utterances and audio of each batch."""
+    the run, and counts the real utterances and audio samples of each
+    batch (a feature frame is the frontend's frame_shift samples)."""
 
-    def __init__(self, loader):
+    def __init__(self, loader, frame_shift: int):
         self.loader = loader
+        self.frame_shift = frame_shift
         self.steps = []          # (start event, end event, utts, samples)
 
     def __iter__(self):
@@ -2881,7 +3018,10 @@ class TimedLoader:
             ev.record()
             if prev is not None:
                 self.steps.append((prev[0], ev) + prev[1:])
-            prev = (ev, len(batch["ids"]), int(batch["wav_lengths"].sum()))
+            samples = (int(batch["wav_lengths"].sum()) if "wav" in batch
+                       else int(batch["feat_lengths"].sum())
+                       * self.frame_shift)
+            prev = (ev, len(batch["ids"]), samples)
             yield batch
         if prev is not None:
             ev = torch.cuda.Event(enable_timing=True)
@@ -2901,9 +3041,9 @@ def synthetic_aishell():
     return utts[n_cv:], utts[:n_cv], "wav", waves
 
 
-def fixed_shape_batch(b=32, t=1000, u=24, v=4233):
+def fixed_shape_batch(b=32, t=1000, u=24, v=4233, d=80):
     rng = np.random.default_rng(SEED)
-    return {"feats": rng.standard_normal((b, t, 80)).astype(np.float32),
+    return {"feats": rng.standard_normal((b, t, d)).astype(np.float32),
             "feat_lengths": np.full(b, t, np.int32),
             "targets": rng.integers(2, v - 2, (b, u)).astype(np.int32),
             "target_lengths": np.full(b, u, np.int32)}
@@ -2924,20 +3064,23 @@ def ln_bwd_label(r, *_):
 
 def run_training(card, workdir, preset, data, captures,
                  model_overrides=None, bwd_caps=None, ctc_caps=None,
-                 argv=(), stats=None, profiled_steps=4):
+                 argv=(), stats=None, profiled_steps=4, min_epochs=2,
+                 fixed_steps=20):
     """The Solver that `python -m tpu_asr_torch.train --preset <preset>
     <argv>` builds (with `model_overrides` to its ModelConfig, as
     build_solver takes them), on `data` (None: the manifests argv names),
-    for >= MIN_TRAIN_STEPS steps; then a checkpoint restore, a profile
+    for >= MIN_TRAIN_STEPS steps and >= min_epochs epochs (a checkpoint
+    an epoch); then a checkpoint restore, a profile
     of `profiled_steps` steps (the profiler takes about half a
-    millisecond of host time an event to read its trace) and 20 steps at
-    the fixed shape; `stats` (a dict) gets the epochs'
+    millisecond of host time an event to read its trace) and
+    `fixed_steps` steps at the fixed shape; `stats` (a dict) gets the epochs'
     history, the step times, throughput, peak memory and the profile.
     A CIF model's firing inputs of its first train and cv batch go into
     `captures`; with use_pallas, the inputs of the flash and LN backward
     of the first train batch of each bucket into bwd_caps["flash"] and
     bwd_caps["ln"]; the inputs of the first ctc_loss_bwd into ctc_caps.
-    Every ctc_loss_fwd and ctc_loss_bwd must take the warp route. ->
+    Every ctc_loss_fwd and ctc_loss_bwd must take the warp route; an
+    attention-only model (model_type transformer) launches neither. ->
     {kernel name: launches in the Solver run}."""
     from tpu_asr_torch.models import build_model
     from tpu_asr_torch.models.modules import FUSED_LN_MIN_ROWS, PostNormBlock
@@ -2948,14 +3091,16 @@ def run_training(card, workdir, preset, data, captures,
     args = parse_args(["--preset", preset, "--save-folder", workdir]
                       + list(argv))
     solver = build_solver(args, data, model_overrides)
-    epochs = max(2, -(-MIN_TRAIN_STEPS // len(solver.train_loader)))
+    epochs = max(min_epochs,
+                 -(-MIN_TRAIN_STEPS // len(solver.train_loader)))
     solver.epochs = epochs
-    timed = TimedLoader(solver.train_loader)
-    solver.train_loader = timed
     ts = solver.train_step
+    timed = TimedLoader(solver.train_loader, ts.frontend.frame_shift)
+    solver.train_loader = timed
     cfg = ts.model.cfg
     what = f"{preset} training" + (" with use_pallas" if cfg.use_pallas
-                                   else "")
+                                   else "") + (
+        " with pitch" if ts.frontend.add_pitch else "")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3036,7 +3181,9 @@ def run_training(card, workdir, preset, data, captures,
     # per post-norm call of >= 512 rows
     n_attn = (cfg.num_enc_layers + 2 * cfg.num_dec_layers
               if cfg.attention_pallas else 0)
-    expect = {"ctc_loss_fwd": steps + cv_batches, "ctc_loss_bwd": steps,
+    ctc = int(cfg.model_type != "transformer")
+    expect = {"ctc_loss_fwd": ctc * (steps + cv_batches),
+              "ctc_loss_bwd": ctc * steps,
               "cif_fire": (steps + cv_batches if cfg.model_type == "cif"
                            else 0),
               "flash_attention_fwd": n_attn * (steps + cv_batches),
@@ -3052,14 +3199,17 @@ def run_training(card, workdir, preset, data, captures,
     steady = timed.steps[1:]              # the first step warms up
     steady_s = sum(a.elapsed_time(b) for a, b, _, _ in steady) / 1e3
     utts = sum(n for _, _, n, _ in steady)
-    audio_s = sum(x for _, _, _, x in steady) / 16000.0
+    audio_s = sum(x for _, _, _, x in steady) / ts.frontend.sample_rate
     second = (f"{cfg.num_pred_layers} predictor layers, d_joint "
               f"{cfg.d_joint}" if cfg.model_type == "transducer" else
               "no decoder" if cfg.model_type == "ctc" else
               f"{cfg.num_dec_layers} decoder layers")
+    front = (f"conv {cfg.conv_channels}" if cfg.input_layer == "conv2d"
+             else f"LFR ({cfg.lfr_m}, {cfg.lfr_n}) + linear "
+                  f"{cfg.encoder_input_dim} -> {cfg.d_model}")
     log(f"{what}: {cfg.model_type} model (d{cfg.d_model}, h{cfg.num_heads},"
-        f" {cfg.encoder_type} x{cfg.num_enc_layers} + {second}, conv "
-        f"{cfg.conv_channels}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f" {cfg.encoder_type} x{cfg.num_enc_layers} + {second}, {front}, "
+        f"d_input {cfg.d_input}, vocab {cfg.vocab_size}, {cfg.dtype}, "
         f"dropout {cfg.dropout}, SpecAugment "
         f"{'on' if ts.specaug else 'off'}) {epochs} epochs, {steps} steps + "
         f"{cv_batches} cv batches in {wall:.2f} s; kernel launches "
@@ -3092,21 +3242,22 @@ def run_training(card, workdir, preset, data, captures,
     it.close()
     prof = profile_device(lambda: [ts(b) for b in batches], what, card)
 
-    batch = fixed_shape_batch()
+    batch = fixed_shape_batch(d=cfg.d_input)
     for _ in range(3):
         ts(batch)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(21)]
+    n = fixed_steps
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     events[0].record()
-    for i in range(20):
+    for i in range(n):
         ts(batch)
         events[i + 1].record()
     torch.cuda.synchronize()
     fixed = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     total_s = events[0].elapsed_time(events[-1]) / 1e3
-    log(f"{what}: fixed shape feats [32, 1000, 80], U=24: 20 steps, "
-        f"step ms median {statistics.median(fixed):.2f}, min "
-        f"{min(fixed):.2f}; {20 / total_s:.2f} steps/s, "
-        f"{20 * 32 / total_s:.1f} utterances/s, {20 * 32 * 10 / total_s:.1f}"
+    log(f"{what}: fixed shape feats [32, 1000, {cfg.d_input}], U=24: {n} "
+        f"steps, step ms median {statistics.median(fixed):.2f}, min "
+        f"{min(fixed):.2f}; {n / total_s:.2f} steps/s, "
+        f"{n * 32 / total_s:.1f} utterances/s, {n * 32 * 10 / total_s:.1f}"
         f" audio s/s [{card}]")
     if stats is not None:
         stats.update(
@@ -3476,9 +3627,11 @@ def time_lm_fusion(card, ckpt, lm_dir, utts, waves):
     """The joint beam 5 (max_len 40, LM weight 0.3) and ctc_beam 10 (LM
     weight 0.1) of the aishell checkpoint on one batch of 8 cv utterances
     padded to 1000 frames, without and with the LM: wall ms (median of 3
-    after a warm-up) and, under torch.profiler, device ms, device
-    events and the host's self CPU ms, and the joint beam's decode steps.
-    A reading, not a gate."""
+    after a warm-up) and the decode steps; for the joint beam also,
+    under torch.profiler, device ms, device events and the host's self
+    CPU ms (ctc_beam's traces hold 27000-56000 events, which the
+    profiler takes about half a ms each to read). A reading, not a
+    gate."""
     from tpu_asr_torch.decode.beam import BeamConfig
     from tpu_asr_torch.decode.recognizer import Recognizer
     from tpu_asr_torch.models import build_model
@@ -3516,7 +3669,7 @@ def time_lm_fusion(card, ckpt, lm_dir, utts, waves):
             walls.append((time.perf_counter() - t0) * 1e3)
         steps = rec.decode_steps // 3
         prof = profile_device(lambda: rec.decode_batch_nbest(batch), key,
-                              card, host_top=10)
+                              card, host_top=10) if mode == "joint" else {}
         readings[key] = dict(prof, wall_ms_median=statistics.median(walls),
                              steps=steps)
     log("LM fusion cost on 8 cv utterances (a reading): "
@@ -3700,20 +3853,23 @@ def recipe_cmvn(card, workdir, train_manifest) -> str:
     return stats
 
 
-def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir):
+def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir,
+                       decodes=RECIPE_DECODES, path=RECIPE_PATH,
+                       what="conformer"):
     """python -m tpu_asr_torch.recognize --ckpt on the cv manifest in
-    each of RECIPE_DECODES: a hypothesis per utterance and a summary with
-    cer each; ctc_prefix_scan launches once per joint step (a decoder
-    step) and nothing launches in attn_rescore. The joint path's first
-    and a later prefix-scan call of each T' are kept (PathLabels). ->
-    ({decode name: summary}, prefix launches, the kept calls)."""
+    each of `decodes` (name, flags): a hypothesis per utterance and a
+    summary with cer each; ctc_prefix_scan launches once per joint step
+    (a decoder step) and nothing launches in the other modes. The joint
+    path's first and a later prefix-scan call of each T' are kept
+    (PathLabels(path)). -> ({decode name: summary}, prefix launches, the
+    kept calls)."""
     from tpu_asr_torch import recognize
     from tpu_asr_torch.decode import ctc_prefix as scorer_module
     from tpu_asr_torch.models.decoder import Decoder
 
     counters = kernel_counters()
     summaries, caps, prefix_launches = {}, {}, 0
-    for name, flags in RECIPE_DECODES:
+    for name, flags in decodes:
         hyp = os.path.join(workdir, f"hyp_{name}.jsonl")
         steps = [0]
 
@@ -3723,7 +3879,7 @@ def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir):
         if name == "joint":
             records.enter_context(record_inputs(
                 scorer_module, "ctc_prefix_scan", caps,
-                PathLabels(RECIPE_PATH).prefix))
+                PathLabels(path).prefix))
         # main path: counts from 0 just before, read just after
         for fn in counters.values():
             fn.launches = 0
@@ -3741,9 +3897,9 @@ def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir):
                                  f"{len(hyps)} hypotheses for {n_cv} "
                                  f"utterances")
         want = {"ctc_prefix_scan": steps[0]} if name == "joint" else {}
-        check_launches(f"recognize {name} (conformer)", launches, want)
+        check_launches(f"recognize {name} ({what})", launches, want)
         prefix_launches += launches.get("ctc_prefix_scan", 0)
-        log(f"recognize {name} (conformer checkpoint): "
+        log(f"recognize {name} ({what} checkpoint): "
             f"{json.dumps(summary)}; kernel launches {json.dumps(launches)} "
             f"for {steps[0]} decoder steps [{card}]")
         summaries[name] = summary
@@ -3879,8 +4035,11 @@ def time_transducer_lattice(card, args, step_device_ms):
     model gave them to transducer_loss (f, g, w_out, b_out, labels,
     lengths): forward and backward of the whole loss (the chunked,
     checkpointed joint and the lattice recursion) and of the recursion
-    alone on the same log-probs, each under torch.profiler (device time)
-    and timed by CUDA events; their share of a train step's device time;
+    alone on the same log-probs, each timed by CUDA events; the
+    recursion also under torch.profiler (device time, events), and its
+    share of a train step's device time (the whole loss is not traced:
+    the profiler takes about half a ms to read each of its ~35000
+    events);
     the peak memory of the loss with the checkpointed joint against the
     joint's logits materialized for all frames (what the checkpoint
     saves). -> the numbers."""
@@ -3928,6 +4087,7 @@ def time_transducer_lattice(card, args, step_device_ms):
                                   - base) / 2**30
         if key != "materialized":
             out[f"{key}_ms"] = cuda_ms(fn, reps=3, warmup=0)
+        if key == "lattice":
             prof = profile_device(fn, f"transducer {key} fwd+bwd "
                                   f"({out['shape']})", card)
             out[f"{key}_device_ms"] = prof["device_ms"]
@@ -3994,10 +4154,10 @@ def run_transducer_decodes(card, ckpt, lm_dir, cv_manifest, cv_utts,
     return summaries
 
 
-def run_transducer_serving(card, ckpt, wav):
+def run_ckpt_serving(card, ckpt, wav, what, mode):
     """python -m tpu_asr_torch.serve's build_server with --ckpt
-    --restore latest (the model type's mode: transducer_greedy); one POST
-    /recognize must answer with the tokens that submit() gives."""
+    --restore latest (the model type's mode, which must be `mode`); one
+    POST /recognize must answer with the tokens that submit() gives."""
     from tpu_asr_torch.serve import build_server, parse_args
     server = build_server(parse_args([
         "--ckpt", ckpt, "--restore", "latest", "--bucket-frames",
@@ -4009,12 +4169,12 @@ def run_transducer_serving(card, ckpt, wav):
         want = server.submit("wav", wav, timeout=600.0)
     finally:
         server.stop()
-    if status != 200 or server.rec.mode != "transducer_greedy" or \
+    if status != 200 or server.rec.mode != mode or \
             body.get("tokens") != want[0]["yseq"]:
-        raise AssertionError(f"serve --ckpt (transducer, "
+        raise AssertionError(f"serve --ckpt ({what}, "
                              f"{server.rec.mode}): /recognize answered "
                              f"{status}: {body}, submit() {want[0]}")
-    log(f"serve --ckpt --restore latest (transducer, {server.rec.mode}): "
+    log(f"serve --ckpt --restore latest ({what}, {server.rec.mode}): "
         f"POST /recognize -> 200, {len(body['tokens'])} tokens, == "
         f"submit()")
 
@@ -4106,10 +4266,12 @@ def run_transducer_phase(card, workdir, data, aishell_stats, lm_dir,
             v for k, v in wall.items() if k != "start")
     with record_inputs(transducer_module, "transducer_loss", loss_caps,
                        transducer_loss_label):
-        # ~47000 device events a step on an H100 (PERF.md): two profiled
+        # ~51000 device events a step and ~1 s a fixed-shape step on an
+        # H100 (PERF.md), and a trace reads at ~0.5 ms an event: one
+        # profiled step and 5 at the fixed shape keep the run in time
         launches = run_training(card, ckpt, "transducer", data, {}, None,
                                 None, ctc_caps, stats=stats,
-                                profiled_steps=2)
+                                profiled_steps=1, fixed_steps=5)
     lap("training")
     train_loss = [h["train_loss"] for h in stats["history"]]
     if not train_loss[-1] < train_loss[0] or len(loss_caps) != 1:
@@ -4131,7 +4293,8 @@ def run_transducer_phase(card, workdir, data, aishell_stats, lm_dir,
     log("transducer recognize inverse RTF: " + json.dumps(
         {k: v["inverse_rtf"] for k, v in summaries.items()}) + f" [{card}]")
     lap("decodes")
-    run_transducer_serving(card, ckpt, waves[cv_utts[0].id])
+    run_ckpt_serving(card, ckpt, waves[cv_utts[0].id], "transducer",
+                     "transducer_greedy")
     lap("serving")
     conformer = run_conformer_transducer(card, workdir, data)
     lap("conformer_transducer")
@@ -4193,15 +4356,19 @@ def top2_margins(logits, streamed_ids) -> list:
             if a != b]
 
 
-def compare_streamed(what, streamed, offline, eos, margins=None) -> dict:
+def compare_streamed(what, streamed, offline, eos, margins=None,
+                     tie_margin=STREAM_TIE_MARGIN) -> dict:
     """streamed {id: (tokens, times or None, confidences or None)} against
     offline {id: n-best hypothesis dict} (eos stripped, as Recognizer
     cleans it): the tokens equal with the stream's eos dropped, the times
     equal, the confidences within STREAM_CONF_TOL. margins(id), when
-    given, lists the frames where the streamed argmax differs from the
-    offline one with the offline top-2 margin there (top2_margins): an
-    utterance that differs only at frames whose margin is at most
-    STREAM_TIE_MARGIN is a rounding tie, reported and not failed. ->
+    given, lists the frames where the streamed decode's decisions part
+    from the offline one's with the margin of that decision (greedy: the
+    offline top-2 margin, top2_margins; beam: where the two searches
+    prune apart, beam_tie): an utterance that differs only at frames whose
+    margin is at most tie_margin is a rounding tie, reported and not
+    failed. With tie_margin None no utterance may differ, and the margins
+    only go into the failure's report. ->
     {"n_utts", "n_tokens", "max_conf_gap", "ties": {id: margins}}."""
     bad, ties, conf_gap, n_tokens = [], {}, 0.0, 0
     for uid, (toks, times, confs) in streamed.items():
@@ -4211,15 +4378,18 @@ def compare_streamed(what, streamed, offline, eos, margins=None) -> dict:
         n_tokens += len(got)
         if got != want["yseq"] or (times is not None and [
                 times[j] for j in keep] != want["times"]):
-            frames = margins(uid) if margins else []
-            if frames and all(m <= STREAM_TIE_MARGIN for _, m in frames):
+            frames = margins(uid) if margins and tie_margin else []
+            if frames and all(m <= tie_margin for _, m in frames):
                 ties[uid] = frames
             else:
                 bad.append(uid)
             continue
         if confs is not None:
-            gaps = [abs(confs[j] - c) for j, c in zip(keep,
-                                                      want["confidence"])]
+            # Both sides round confidences to 4 places, so one step of
+            # that rounding differs by 1e-4 plus the subtraction's float
+            # error; rounding the gap to 9 places drops only that error.
+            gaps = [round(abs(confs[j] - c), 9)
+                    for j, c in zip(keep, want["confidence"])]
             conf_gap = max([conf_gap] + gaps)
     if bad or conf_gap > STREAM_CONF_TOL:
         detail = {uid: {"streamed": streamed[uid][0],
@@ -4297,6 +4467,20 @@ def chunk_log_probs(model, frames, n: int):
     return torch.log_softmax(logits[:, :n].float(), dim=-1)
 
 
+def beam_tie(model, x, frames):
+    """beam_divergence of the streamed beam search (on the streamed
+    encoder frames `frames`) and the offline one (on the full pass over
+    the features x [T, D]) -> None, or (frame, margin) where they part."""
+    with torch.inference_mode():
+        enc, el = model.encode(torch.from_numpy(x[None]).to(DEVICE),
+                               torch.tensor([len(x)], device=DEVICE))
+        n = int(el[0])
+        return beam_divergence(
+            chunk_log_probs(model, frames, n),
+            torch.log_softmax(model.ctc_logits(enc).float(), dim=-1),
+            n, STREAM_BEAM)
+
+
 def check_beam_scores(name, model, feats, stream_frames, streamed, offline):
     """The streamed beam's 1-best score against the offline ctc_beam's
     ({id: score} each), within STREAM_SCORE_TOL, unless the two searches
@@ -4311,15 +4495,7 @@ def check_beam_scores(name, model, feats, stream_frames, streamed, offline):
         worst = max(worst, gap)
         if gap <= STREAM_SCORE_TOL:
             continue
-        x = feats[uid]
-        with torch.inference_mode():
-            enc, el = model.encode(torch.from_numpy(x[None]).to(DEVICE),
-                                   torch.tensor([len(x)], device=DEVICE))
-            n = int(el[0])
-            div = beam_divergence(
-                chunk_log_probs(model, stream_frames[uid], n),
-                torch.log_softmax(model.ctc_logits(enc).float(), dim=-1),
-                n, STREAM_BEAM)
+        div = beam_tie(model, feats[uid], stream_frames[uid])
         if div is None or div[1] > STREAM_SCORE_TOL:
             raise AssertionError(f"{name}: streamed beam score {score} vs "
                                  f"offline {offline[uid]} on {uid}; the "
@@ -4439,8 +4615,16 @@ def check_stream_ctc(card, name, cfg, model, feats):
                                   offline, eos, margins)
     offline_beam = offline_decode(cfg, model, feats, "ctc_beam",
                                   BeamConfig(beam=STREAM_BEAM, max_len=200))
+    def beam_margins(uid):
+        div = beam_tie(model, feats[uid], stream_frames[uid])
+        return [] if div is None else [div]
+
+    # the 1-best is held equal; where it is not, the report says where
+    # the two searches part (python3 chip_smoke.py --beam-ties measures
+    # how often they do)
     beam_cmp = compare_streamed(f"{name}: streamed CTC beam "
-                                f"{STREAM_BEAM}", beams, offline_beam, eos)
+                                f"{STREAM_BEAM}", beams, offline_beam, eos,
+                                beam_margins, tie_margin=None)
     score_gap, ties = check_beam_scores(
         name, model, feats, stream_frames, beam_scores,
         {u: h["score"] for u, h in offline_beam.items()})
@@ -4725,6 +4909,623 @@ def run_streaming_phase(card, workdir, data, aishell_stats, cv_manifest):
     return {"streaming": launches}, {"ctc": paths}, errs
 
 
+def measure_beam_ties(card, trials: int) -> int:
+    """python3 chip_smoke.py --beam-ties N: 13b's streamed CTC beam 5
+    against the offline ctc_beam 5 on N streaming checkpoints trained as
+    13a (seeds 0 .. N-1), checking nothing: every utterance whose 1-best
+    differs is logged with where the two searches part (beam_tie: frame,
+    margin), the 1-best scores' gap and the offline top-2 gap. This
+    measures the margins the phase's beam token check is set from."""
+    from tpu_asr_torch.data import load_manifest
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.ctc_beam import beam_finalize
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from tpu_asr_torch.decode.streaming import StreamingCTCBeamRecognizer
+    from tpu_asr_torch.frontend import FrontendConfig
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.ops import ctc_loss
+    from tpu_asr_torch.ops.cuda_build import load_all
+    from tpu_asr_torch.recognize import restore_step
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    load_all(ctc_loss.LIBRARY)
+    data = synthetic_aishell()
+    found, n_utts = [], 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        utts = load_manifest(write_wav_manifest(
+            data[1], data[3], os.path.join(workdir, "cv")))
+        for seed in range(trials):
+            ckpt = os.path.join(workdir, f"streaming_{seed}")
+            run_training(card, ckpt, "streaming", data, {}, None, None, None,
+                         argv=["--seed", str(seed)], profiled_steps=1,
+                         fixed_steps=1)
+            ck = Checkpointer(ckpt)
+            cfg = ck.load_config()
+            model = build_model(cfg)
+            model.load_state_dict(ck.restore(restore_step(ck, -1, "best"))
+                                  ["model"])
+            feats = stream_features(cfg, ck.load_frontend()
+                                    or FrontendConfig(), utts)
+            offline = Recognizer(cfg, model, mode="ctc_beam", device=DEVICE,
+                                 beam=BeamConfig(beam=STREAM_BEAM,
+                                                 max_len=200))
+            for uid, x in feats.items():
+                rows = []
+                with wrap_method(model.encoder, "encode_chunk",
+                                 after=lambda out: rows.append(out[0][0])):
+                    rec = StreamingCTCBeamRecognizer(
+                        cfg, model, beam=STREAM_BEAM, max_frames=3000,
+                        device=DEVICE)
+                    _, hyp, _ = stream_pushes(rec, x)
+                score = float(beam_finalize(rec._bstate)[2][0, 0])
+                nbest = offline.decode_batch_nbest({
+                    "feats": x[None],
+                    "feat_lengths": np.asarray([len(x)], np.int32)})[0]
+                n_utts += 1
+                got = [t for t in hyp if t != cfg.vocab_size - 1]
+                if got == nbest[0]["yseq"]:
+                    continue
+                found.append({
+                    "seed": seed, "id": uid,
+                    "part": beam_tie(model, x, torch.cat(rows)),
+                    "score_gap": score - nbest[0]["score"],
+                    "offline_top2_gap": (nbest[0]["score"]
+                                         - nbest[1]["score"]
+                                         if len(nbest) > 1 else None),
+                    "is_offline_2nd": len(nbest) > 1
+                    and got == nbest[1]["yseq"]})
+                log(f"beam tie: {json.dumps(found[-1])}")
+    log(f"beam ties: {len(found)} of {n_utts} utterances on {trials} "
+        f"streaming checkpoints differ in their beam-{STREAM_BEAM} 1-best; "
+        f"the searches part with margins "
+        f"{[f['part'][1] if f['part'] else None for f in found]} [{card}]")
+    return 0
+
+
+# ---- phase 14: the reference's own inputs (pitch, LFR, Kaldi ark),
+# forced alignment and checkpoint averaging ----
+
+# pitch on one side (the card, or the port) against a reference side (the
+# CPU, or tpu_asr in the tests): the picks are decisions a rounding can
+# flip, so the lags are held equal except where the reference side's own
+# decision is within a margin of flipping, and the features only on the
+# utterances whose lags all agree. A flip shifts the utterance's
+# POV-weighted log-pitch mean, so such an utterance is counted, not held.
+PITCH_NCCF_ATOL = 1e-4        # the NCCF at every frame and lag
+PITCH_MARGIN = 2e-4           # a band value this near peak - 0.025 may
+#                               flip a pick (2 x the NCCF tolerance)
+PITCH_VITERBI_MARGIN = 1e-3   # a predecessor this near the best may flip
+#                               a Viterbi track (path sums of T frames)
+PITCH_FEAT_ATOL = 1e-3        # POV, log-pitch and delta of a flip-free
+#                               utterance (the parabolic refinement divides
+#                               by the NCCF's curvature)
+PITCH_MAX_FLIP_SHARE = 0.01   # of the valid frames, lags that may differ
+
+
+def pitch_viterbi_gaps(band, lags, weight: float, min_lag: int):
+    """The Viterbi track's decisions on band [B, T, L] (torch) whose
+    track is lags [B, T]: [B, T] the best less the second-best score of
+    the decision that picked each frame's lag (the predecessor choice of
+    frame t + 1's state, the final argmax for the last frame), float32
+    on band's device."""
+    b, t, n = band.shape
+    ll = np.log(np.arange(min_lag, min_lag + n, dtype=np.float64))
+    trans = torch.from_numpy((-weight * (ll[:, None] - ll[None, :]) ** 2)
+                             .astype(np.float32)).to(band.device)
+    state = (lags - min_lag).long().to(band.device)
+    gaps = torch.empty((b, t), device=band.device)
+    carry = band[:, 0]
+    for i in range(1, t):
+        scores = carry[:, :, None] + trans                 # [B, prev, cur]
+        col = scores.gather(2, state[:, i, None, None].expand(b, n, 1))
+        top = col[..., 0].topk(2, dim=-1).values
+        gaps[:, i - 1] = top[:, 0] - top[:, 1]
+        carry = scores.max(dim=1).values + band[:, i]
+    top = carry.topk(2, dim=-1).values
+    gaps[:, t - 1] = top[:, 0] - top[:, 1]
+    return gaps
+
+
+def pitch_margins(nccf, lags, cfg, device="cpu"):
+    """[B, T] numpy: how near each frame's lag pick on this side came to
+    flipping. Per-frame picks (pitch_smooth_weight 0): the least distance
+    of a band value from peak - 0.025; Viterbi: pitch_viterbi_gaps."""
+    from tpu_asr_torch.frontend import _pitch_constants
+    min_lag, max_lag = _pitch_constants(cfg)[:2]
+    band = torch.tensor(nccf[..., min_lag:max_lag + 1], device=device,
+                        dtype=torch.float32)
+    if cfg.pitch_smooth_weight > 0.0:
+        gaps = pitch_viterbi_gaps(band, torch.tensor(lags),
+                                  cfg.pitch_smooth_weight, min_lag)
+        return gaps.cpu().numpy()
+    thr = band.max(dim=-1, keepdim=True).values - 0.025
+    return (band - thr).abs().min(dim=-1).values.cpu().numpy()
+
+
+def port_viterbi_lags(band, cfg):
+    """The port's _viterbi_lags on the CPU over a numpy band [B, T, L]
+    -> numpy lags [B, T]."""
+    from tpu_asr_torch.frontend import _pitch_constants, _viterbi_lags
+    min_lag, max_lag = _pitch_constants(cfg)[:2]
+    return _viterbi_lags(torch.from_numpy(band), min_lag, max_lag,
+                         cfg.pitch_smooth_weight).numpy()
+
+
+def compare_pitch(what, ref, got, frame_lengths, cfg, device="cpu",
+                  viterbi_lags=port_viterbi_lags) -> dict:
+    """Pitch of one side `got` against a reference side `ref`, each a
+    dict of numpy "nccf" [B, T, max_lag + 2], "lags" [B, T] (the integer
+    picks) and "feats" [B, T, 3], over frame_lengths [B]: the NCCF within
+    PITCH_NCCF_ATOL; every lag that differs explained by a near flip on
+    the reference side (pitch_margins within PITCH_MARGIN at that frame;
+    Viterbi: within PITCH_VITERBI_MARGIN anywhere on that row, whose
+    track a flip re-routes); at most PITCH_MAX_FLIP_SHARE of the valid
+    frames differing; the features within PITCH_FEAT_ATOL on every
+    utterance whose lags all agree. The margins are computed on
+    `device`. With the Viterbi track the decision is also held apart
+    from the NCCF's rounding: the reference side's track
+    (viterbi_lags(band, cfg), band [B, T, L] numpy) over got's own band
+    must give got's lags bit for bit, as max and add are exact. -> the
+    counts and gaps."""
+    viterbi = cfg.pitch_smooth_weight > 0.0
+    lens = np.asarray(frame_lengths)
+    t = ref["lags"].shape[-1]
+    valid = np.arange(t)[None, :] < lens[:, None]
+    nccf_gap = float(np.abs(ref["nccf"] - got["nccf"]).max()) if t else 0.0
+    margins = (pitch_margins(ref["nccf"], ref["lags"], cfg, device) if t
+               else np.zeros((len(lens), 0)))
+    differ = ref["lags"] != got["lags"]
+    if viterbi:
+        near_row = (margins <= PITCH_VITERBI_MARGIN).any(axis=-1)
+        unexplained = differ & ~near_row[:, None]
+    else:
+        unexplained = differ & (margins > PITCH_MARGIN)
+    flipped = differ.any(axis=-1)
+    flips = int((differ & valid).sum())
+    same = ~flipped
+    feat_gap = (float(np.abs(ref["feats"][same] - got["feats"][same]).max())
+                if same.any() and t else 0.0)
+    out = {"utts": len(lens), "valid_frames": int(valid.sum()),
+           "flipped_frames": flips, "flipped_utts": int(flipped.sum()),
+           "near_flip_frames": int((margins <= (PITCH_VITERBI_MARGIN
+                                               if viterbi else PITCH_MARGIN))
+                                   .sum()),
+           "nccf_max_abs_err": nccf_gap, "feat_max_abs_err": feat_gap}
+    if viterbi and t:
+        from tpu_asr_torch.frontend import _pitch_constants
+        min_lag, max_lag = _pitch_constants(cfg)[:2]
+        band = np.ascontiguousarray(got["nccf"][..., min_lag:max_lag + 1])
+        track = viterbi_lags(band, cfg) != got["lags"]
+        out["track_differs_frames"] = int(track.sum())
+        if track.any():
+            rows = sorted(set(np.nonzero(track)[0].tolist()))[:3]
+            raise AssertionError(
+                f"{what}: the reference side's Viterbi track over this "
+                f"side's own band differs at {int(track.sum())} frames "
+                f"(rows {rows}, frames "
+                f"{[np.nonzero(track[r])[0][:5].tolist() for r in rows]})")
+    if nccf_gap > PITCH_NCCF_ATOL or unexplained.any() or \
+            flips > PITCH_MAX_FLIP_SHARE * max(int(valid.sum()), 1) or \
+            feat_gap > PITCH_FEAT_ATOL:
+        rows = sorted(set(np.nonzero(unexplained)[0].tolist()))[:3]
+        raise AssertionError(
+            f"{what}: pitch differs beyond the margin rule: {out}; "
+            f"unexplained lag flips in rows {rows} at frames "
+            f"{[np.nonzero(unexplained[r])[0][:5].tolist() for r in rows]}")
+    return out
+
+
+def pitch_run(wav, wav_lengths, cfg, device) -> dict:
+    """The port's pitch of a padded batch on `device`: numpy "nccf",
+    "lags" (pitch_track) and "feats" (pitch_from_track of them), and the
+    frame lengths."""
+    from tpu_asr_torch.frontend import pitch_from_track, pitch_track
+    w = torch.as_tensor(wav, device=device)
+    lens = torch.as_tensor(wav_lengths, device=device)
+    flens = torch.where(lens < cfg.frame_length, 0, 1 + torch.clamp(
+        lens - cfg.frame_length, min=0) // cfg.frame_shift)
+    nccf, lags = pitch_track(w, cfg)
+    feats = pitch_from_track(nccf, lags, flens, cfg)
+    return {"nccf": nccf.cpu().numpy(), "lags": lags.cpu().numpy(),
+            "feats": feats.cpu().numpy(), "frame_lengths":
+            flens.cpu().numpy()}
+
+
+PITCH_CHECK_UTTS = 64         # 14a: phase 8's first train utterances
+PITCH_BATCH_FRAMES = 32000    # 14a: the batch wav_to_features is timed on
+AVERAGE_LAST = 3              # 14e: average_checkpoints --last
+PITCH_DECODES = (("joint", ["--mode", "joint", "--beam", "5", "--max-len",
+                            "40"]),)
+PITCH_PATH = "aishell --pitch joint (recognize)"
+# a model of 40 steps ends every hypothesis at once; --minlenratio bans
+# eos before 5% of the encoder length, so the two decodes emit tokens
+LFR_BEAM = ["--mode", "beam", "--beam", "5", "--max-len", "40",
+            "--minlenratio", "0.05"]
+
+
+def padded_waves(utts, waves):
+    """The utterances' waves as one zero-padded batch -> (wav [B, S]
+    float32, lengths [B] int32)."""
+    lens = np.array([len(waves[u.id]) for u in utts], np.int32)
+    wav = np.zeros((len(utts), int(lens.max())), np.float32)
+    for i, u in enumerate(utts):
+        wav[i, :lens[i]] = waves[u.id]
+    return wav, lens
+
+
+def check_pitch_on_card(card, data) -> dict:
+    """14a: pitch of phase 8's first PITCH_CHECK_UTTS train utterances on
+    the card against the CPU (compare_pitch), with the --pitch default
+    (pitch_smooth_weight 0: per-frame picks) and with 4.0 (the Viterbi
+    track); then wav_to_features with and without pitch on one batch of
+    about PITCH_BATCH_FRAMES frames: CUDA-event ms, device ms and events
+    under the profiler, and the peak memory above the inputs."""
+    from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
+    train, _, _, waves = data
+    wav, lens = padded_waves(train[:PITCH_CHECK_UTTS], waves)
+    out = {}
+    for weight in (0.0, 4.0):
+        cfg = FrontendConfig(add_pitch=True, pitch_smooth_weight=weight)
+        t0 = time.perf_counter()
+        on_card = pitch_run(wav, lens, cfg, DEVICE)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = pitch_run(wav, lens, cfg, "cpu")
+        cpu_s = time.perf_counter() - t0
+        what = f"14a pitch, smooth weight {weight}, card vs CPU"
+        res = compare_pitch(what, on_cpu, on_card, on_cpu["frame_lengths"],
+                            cfg, device=DEVICE)
+        out[f"smooth_weight_{weight}"] = dict(res, card_wall_s=card_s,
+                                              cpu_wall_s=cpu_s)
+        log(f"{what} on {len(wav)} utterances [{wav.shape[1]} samples]: "
+            f"{json.dumps(res)} (NCCF atol {PITCH_NCCF_ATOL}, margins "
+            f"{PITCH_MARGIN} / {PITCH_VITERBI_MARGIN}, features atol "
+            f"{PITCH_FEAT_ATOL}, flips <= {PITCH_MAX_FLIP_SHARE} of the "
+            f"frames); wall {card_s:.2f} s on the card, {cpu_s:.2f} s on "
+            f"the CPU [{card}]")
+    n, shift = 1, FrontendConfig().frame_shift
+    while n < len(train) and (n + 1) * max(
+            len(waves[u.id]) for u in train[:n + 1]) // shift <= \
+            PITCH_BATCH_FRAMES:
+        n += 1
+    wav, lens = padded_waves(train[:n], waves)
+    w = torch.as_tensor(wav, device=DEVICE)
+    wl = torch.as_tensor(lens, device=DEVICE)
+    frames = n * FrontendConfig().num_frames(wav.shape[1])
+    for add_pitch in (False, True):
+        cfg = FrontendConfig(add_pitch=add_pitch)
+        what = f"14a wav_to_features {'with' if add_pitch else 'without'} " \
+               f"pitch, [{n}, {wav.shape[1]}] ({frames} frames)"
+        ms = cuda_ms(lambda: wav_to_features(w, wl, cfg), reps=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        wav_to_features(w, wl, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        prof = profile_device(lambda: wav_to_features(w, wl, cfg), what,
+                              card, warmup=True)
+        out[f"features_pitch_{add_pitch}"] = dict(
+            prof, ms=ms, peak_mib=peak / 2**20, frames=frames)
+        log(f"{what}: {ms:.4f} ms by CUDA events (median of 10), device "
+            f"{prof['device_ms']:.4f} ms in {prof['device_events']} events "
+            f"under the profiler, peak {peak / 2**20:.1f} MiB above the "
+            f"inputs [{card}]")
+    return out
+
+
+def run_pitch_path(card, workdir, data, aishell_stats, cv_manifest):
+    """14b: `python -m tpu_asr_torch.train --preset aishell --pitch` at
+    full width on phase 8's corpus (run_training: the phase 8 checks;
+    AVERAGE_LAST epochs at least, a checkpoint each, for 14e):
+    model_config.json's d_input 83 and frontend.json's add_pitch; beside
+    phase 8's aishell numbers. recognize --ckpt on the cv manifest in
+    joint beam 5 (ctc_prefix_scan once a joint step), serve --ckpt; then
+    the CTC pair and the prefix scan on the inputs this path gave them,
+    against their plain versions. -> (checkpoint folder, training
+    launches, joint prefix-scan launches, {"prefix", "ctc": path
+    timings}, errors, {decode: summary})."""
+    from tpu_asr_torch.data import load_manifest
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    ckpt = os.path.join(workdir, "aishell_pitch")
+    ctc_caps, stats = {}, {}
+    launches = run_training(card, ckpt, PRESET, data, {}, None, None,
+                            ctc_caps, argv=["--pitch"], stats=stats,
+                            min_epochs=AVERAGE_LAST)
+    ck = Checkpointer(ckpt)
+    cfg, frontend = ck.load_config(), ck.load_frontend()
+    if cfg.d_input != 83 or frontend is None or not frontend.add_pitch or \
+            len(ck.all_steps()) < AVERAGE_LAST:
+        raise AssertionError(f"aishell --pitch: model_config d_input "
+                             f"{cfg.d_input}, frontend.json {frontend}, "
+                             f"steps {ck.all_steps()}")
+    keys = ("step_ms_median", "steps_per_s", "audio_s_per_s", "peak_gib",
+            "device_ms_per_step", "busy_share", "device_events_per_step",
+            "fixed_step_ms_median")
+    log("14b aishell --pitch training beside aishell (phase 8), same "
+        "corpus: " + json.dumps({"aishell --pitch": {k: stats[k]
+                                                     for k in keys},
+                                 "aishell": {k: aishell_stats[k]
+                                             for k in keys}})
+        + f"; d_input {cfg.d_input}, frontend.json add_pitch "
+        f"{frontend.add_pitch} [{card}]")
+    cv = load_manifest(cv_manifest)
+    decode_dir = os.path.join(workdir, "aishell_pitch_decode")
+    os.makedirs(decode_dir, exist_ok=True)
+    summaries, prefix_launches, prefix_caps = run_recipe_decodes(
+        card, ckpt, cv_manifest, len(cv), decode_dir, decodes=PITCH_DECODES,
+        path=PITCH_PATH, what="aishell --pitch")
+    log("14b aishell --pitch recognize: " + json.dumps(
+        {k: {"cer": v["cer"], "inverse_rtf": v["inverse_rtf"]}
+         for k, v in summaries.items()}) + f" [{card}]")
+    run_ckpt_serving(card, ckpt, np.load(cv[0].wav), "aishell --pitch",
+                     "joint")
+    paths, errs = {}, {}
+    paths["prefix"], errs["prefix"] = check_prefix_on_paths(prefix_caps)
+    paths["ctc"], pair_errs, bitwise = check_ctc_pair_on_paths(ctc_caps)
+    errs.update(pair_errs)
+    if not paths["prefix"] or len(paths["ctc"]) != 1:
+        raise AssertionError(f"the --pitch path recorded "
+                             f"{len(paths['prefix'])} prefix scans and "
+                             f"{len(paths['ctc'])} CTC backwards")
+    log(f"ctc_prefix_scan, ctc_loss_fwd and ctc_loss_bwd vs plain on the "
+        f"aishell --pitch path's inputs: {len(paths['prefix'])} + 1 + 1 "
+        f"calls agree (the forward's bits the plain version's: {bitwise}): "
+        + json.dumps(errs))
+    return ckpt, launches, prefix_launches, paths, errs, summaries
+
+
+def write_ark_corpus(workdir, data) -> dict:
+    """Phase 8's corpus as a Kaldi dump holds it: each utterance's 80-dim
+    fbank (not normalized), made on the card, written with the port's
+    write_mat into one .ark; an espnet data.json a split pointing into
+    it, turned into a manifest by python -m tpu_asr_torch.prepare_data
+    --espnet-json; the same features as .npy files with a manifest a
+    split. -> {split: {"ark", "npy": manifest path}}."""
+    from tpu_asr_torch import prepare_data
+    from tpu_asr_torch.data import Utterance, save_manifest
+    from tpu_asr_torch.data.kaldi_io import write_mat
+    from tpu_asr_torch.frontend import FrontendConfig, wav_to_features
+    train, cv, _, waves = data
+    fcfg = FrontendConfig(cmvn_mode="none")
+    out_dir = os.path.join(workdir, "ark")
+    os.makedirs(out_dir, exist_ok=True)
+    ark = os.path.join(out_dir, "feats.ark")
+    out = {}
+    t0 = time.perf_counter()
+    with open(ark, "wb") as f:
+        for split, utts in (("train", train), ("dev", cv)):
+            entries, npy = {}, []
+            for u in utts:
+                w = torch.as_tensor(waves[u.id], device=DEVICE)[None]
+                feats, fl = wav_to_features(
+                    w, torch.tensor([w.shape[1]], device=DEVICE), fcfg)
+                feats = feats[0, :int(fl[0])].cpu().numpy()
+                offset = write_mat(f, feats, key=u.id)
+                entries[u.id] = {
+                    "input": [{"feat": f"{ark}:{offset}", "name": "input1",
+                               "shape": list(feats.shape)}],
+                    "output": [{"name": "target1",
+                                "shape": [len(u.tokens), 4233],
+                                "tokenid": " ".join(map(str, u.tokens))}]}
+                path = os.path.join(out_dir, f"{u.id}.npy")
+                np.save(path, feats)
+                npy.append(Utterance(id=u.id, tokens=u.tokens, feat=path,
+                                     num_frames=len(feats)))
+            js = os.path.join(out_dir, f"data.{split}.json")
+            with open(js, "w") as g:
+                json.dump({"utts": entries}, g)
+            out[split] = {"ark": os.path.join(out_dir, f"{split}.jsonl"),
+                          "npy": os.path.join(out_dir, f"{split}.npy.jsonl")}
+            prepare_data.main(["--espnet-json", js, "--out",
+                               out[split]["ark"]])
+            save_manifest(npy, out[split]["npy"])
+    log(f"14c Kaldi dump: {len(train)} + {len(cv)} utterances of 80-dim "
+        f"fbank in {ark} ({os.path.getsize(ark) / 2**20:.1f} MiB), "
+        f"data.json + prepare_data --espnet-json, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def run_ark_lfr(card, workdir, data, aishell_stats) -> dict:
+    """14c: compute_cmvn on the ark train manifest equals it on the .npy
+    one bitwise and on the wav manifest within CMVN_MEAN_ATOL /
+    CMVN_ISTD_RTOL; the attention_lfr preset at full width trained from
+    the ark manifests with --cmvn global (run_training: phase 8's checks,
+    no kernel; the features of a feature manifest go in as they are, as
+    in the reference, so the stats only reach frontend.json); recognize
+    beam 5 gives equal tokens on the ark and the .npy cv manifests. ->
+    the numbers."""
+    from tpu_asr_torch import compute_cmvn, recognize
+    manifests = write_ark_corpus(workdir, data)
+    stats = {}
+    for name, manifest in (("ark", manifests["train"]["ark"]),
+                           ("npy", manifests["train"]["npy"]),
+                           ("wav", write_wav_manifest(
+                               data[0], data[3],
+                               os.path.join(workdir, "train_wav")))):
+        stats[name] = compute_cmvn.main([
+            "--manifest", manifest, "--out",
+            os.path.join(workdir, f"cmvn_{name}.npz")])
+    ark_s, npy_s, wav_s = stats["ark"], stats["npy"], stats["wav"]
+    mean_gap = float(np.abs(ark_s["mean"] - wav_s["mean"]).max())
+    istd_gap = float(np.abs(ark_s["istd"] / wav_s["istd"] - 1.0).max())
+    if not all(np.array_equal(ark_s[k], npy_s[k])
+               for k in ("mean", "istd", "frames")) or \
+            ark_s["frames"] != wav_s["frames"] or \
+            not (mean_gap <= CMVN_MEAN_ATOL and istd_gap <= CMVN_ISTD_RTOL):
+        raise AssertionError(f"compute_cmvn: ark {ark_s}, npy {npy_s}, wav "
+                             f"mean gap {mean_gap}, istd gap {istd_gap}")
+    log(f"14c compute_cmvn: the ark manifest's stats == the .npy one's "
+        f"bitwise ({int(ark_s['frames'])} frames); the wav manifest's within"
+        f" {mean_gap:.2e} (mean) and {istd_gap:.2e} (istd, relative)")
+    ckpt = os.path.join(workdir, "attention_lfr")
+    train_stats = {}
+    launches = run_training(card, ckpt, "attention_lfr", None, {},
+                            argv=["--train-manifest",
+                                  manifests["train"]["ark"],
+                                  "--cv-manifest", manifests["dev"]["ark"],
+                                  "--vocab-size", "4233", "--cmvn",
+                                  "global", "--cmvn-stats",
+                                  os.path.join(workdir, "cmvn_ark.npz")],
+                            stats=train_stats)
+    if any(launches.values()):
+        raise AssertionError(f"attention_lfr training launched {launches}")
+    keys = ("step_ms_median", "steps_per_s", "audio_s_per_s", "peak_gib",
+            "device_ms_per_step", "busy_share", "device_events_per_step",
+            "fixed_step_ms_median")
+    log("14c attention_lfr training (ark features) beside aishell (phase "
+        "8): " + json.dumps({"attention_lfr": {k: train_stats[k]
+                                               for k in keys},
+                             "aishell": {k: aishell_stats[k]
+                                         for k in keys}})
+        + f"; train loss by epoch "
+        f"{[h['train_loss'] for h in train_stats['history']]} [{card}]")
+    counters = kernel_counters()
+    hyps, summaries = {}, {}
+    for name in ("ark", "npy"):
+        hyp = os.path.join(workdir, f"hyp_lfr_{name}.jsonl")
+        for fn in counters.values():
+            fn.launches = 0
+        summaries[name], _ = run_cli(recognize.main, [
+            "--ckpt", ckpt, "--manifest", manifests["dev"][name],
+            "--output", hyp] + LFR_BEAM)
+        check_launches(f"recognize beam (attention_lfr, {name})",
+                       {k: f.launches for k, f in counters.items()
+                        if f.launches}, {})
+        with open(hyp) as f:
+            hyps[name] = {x["id"]: x["hyp_tokens"] for x in map(json.loads,
+                                                                 f)}
+    if hyps["ark"] != hyps["npy"] or len(hyps["ark"]) != len(data[1]):
+        raise AssertionError(f"attention_lfr beam: the ark manifest's "
+                             f"{len(hyps['ark'])} hypotheses differ from "
+                             f"the .npy one's")
+    log(f"14c attention_lfr recognize beam 5: tokens equal on the ark and "
+        f"the .npy cv manifests ({len(hyps['ark'])} utterances, "
+        f"{sum(map(len, hyps['ark'].values()))} tokens): "
+        + json.dumps(summaries) + f" [{card}]")
+    return {"training": train_stats, "recognize": summaries,
+            "cmvn_gap": [mean_gap, istd_gap]}
+
+
+def run_align_check(card, ckpt, cv_manifest, workdir) -> dict:
+    """14d: python -m tpu_asr_torch.align on 14b's checkpoint over the cv
+    manifest: a line an utterance; each call's spans well formed (0 <=
+    start <= end < the encoder length, each token after the last), and
+    equal to ctc_viterbi_align on the CPU given the card's logits copied
+    to the host (max and add are exact, so bit for bit)."""
+    from tpu_asr_torch import align
+    from tpu_asr_torch.ops import ctc as ctc_ops
+    real = ctc_ops.ctc_viterbi_align
+    calls = []
+
+    def recorded(logits, labels, logit_lengths, label_lengths, *a, **kw):
+        out = real(logits, labels, logit_lengths, label_lengths, *a, **kw)
+        calls.append(([x.cpu() for x in (logits, labels, logit_lengths,
+                                         label_lengths)], out))
+        return out
+    out_path = os.path.join(workdir, "align.jsonl")
+    ctc_ops.ctc_viterbi_align = recorded
+    t0 = time.perf_counter()
+    try:
+        summary, printed = run_cli(align.main, [
+            "--ckpt", ckpt, "--manifest", cv_manifest, "--output", out_path])
+    finally:
+        ctc_ops.ctc_viterbi_align = real
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        lines = [json.loads(x) for x in f]
+    n_tokens = 0
+    for args, (starts, ends) in calls:
+        cpu = real(*args)
+        if not (torch.equal(cpu[0], starts) and torch.equal(cpu[1], ends)):
+            raise AssertionError("align: the card's spans differ from the "
+                                 "CPU's on the same logits")
+        for i in range(len(starts)):
+            ul, el = int(args[3][i]), int(args[2][i])
+            st, en = starts[i, :ul], ends[i, :ul]
+            n_tokens += ul
+            if not (bool((st >= 0).all()) and bool((en >= st).all()) and
+                    bool((en < el).all()) and bool((st[1:] > en[:-1])
+                                                   .all())):
+                raise AssertionError(f"align: ill-formed spans {st} {en} "
+                                     f"for encoder length {el}")
+    if printed != summary or summary["n_utts"] != len(lines) or \
+            sum(len(x["tokens"]) for x in lines) != n_tokens:
+        raise AssertionError(f"align: {summary}, {len(lines)} lines")
+    log(f"14d align: {json.dumps(summary)}; {len(calls)} batches, "
+        f"{n_tokens} token spans well formed and equal to the CPU's on the "
+        f"card's logits; wall {wall:.2f} s [{card}]")
+    return dict(summary, batches=len(calls), tokens=n_tokens, wall_s=wall)
+
+
+def run_average_check(card, ckpt, cv_manifest, workdir) -> dict:
+    """14e: python -m tpu_asr_torch.average_checkpoints --last
+    AVERAGE_LAST on 14b's folder: each floating-point weight equals the
+    float32 mean of the loaded steps' cast back (others the newest
+    step's); frontend.json kept; recognize --ckpt on the output decodes
+    the cv manifest (greedy_ctc)."""
+    from tpu_asr_torch import average_checkpoints, recognize
+    from tpu_asr_torch.data import load_manifest
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    out = os.path.join(workdir, "aishell_pitch_avg")
+    t0 = time.perf_counter()
+    steps = average_checkpoints.main(["--ckpt", ckpt, "--out", out,
+                                      "--last", str(AVERAGE_LAST)])
+    wall = time.perf_counter() - t0
+    src = Checkpointer(ckpt)
+    states = [src.restore(s)["model"] for s in steps]
+    got = Checkpointer(out).restore()["model"]
+    for k, v in got.items():
+        acc = sum(s[k].float() for s in states)
+        want = ((acc / torch.full_like(acc, float(len(states)))).to(v.dtype)
+                if v.is_floating_point() else states[-1][k])
+        if not torch.equal(v, want):
+            raise AssertionError(f"average_checkpoints: {k} is not the "
+                                 f"mean of steps {steps}")
+    frontend = Checkpointer(out).load_frontend()
+    summary, _ = run_cli(recognize.main, [
+        "--ckpt", out, "--manifest", cv_manifest, "--mode", "greedy_ctc",
+        "--output", os.path.join(workdir, "hyp_avg.jsonl")])
+    n_cv = len(load_manifest(cv_manifest))
+    if len(steps) != AVERAGE_LAST or frontend is None or \
+            not frontend.add_pitch or summary["n_utts"] != n_cv:
+        raise AssertionError(f"average_checkpoints: steps {steps}, "
+                             f"frontend {frontend}, recognize {summary}")
+    log(f"14e average_checkpoints --last {AVERAGE_LAST}: steps {steps}, "
+        f"{len(got)} tensors the float32 mean, frontend.json kept (add_pitch"
+        f"), in {wall:.2f} s; recognize greedy_ctc on it: "
+        f"{json.dumps(summary)} [{card}]")
+    return {"steps": steps, "wall_s": wall, "recognize": summary}
+
+
+def run_inputs_phase(card, workdir, data, aishell_stats, cv_manifest):
+    """Phase 14: pitch on the card (14a), the aishell preset with --pitch
+    trained, decoded and served (14b), the Kaldi ark dump and the
+    attention_lfr preset (14c), forced alignment (14d) and checkpoint
+    averaging (14e). -> ({"aishell --pitch": training launches}, joint
+    prefix-scan launches, {"prefix", "ctc": path timings}, errors)."""
+    wall = {"start": time.perf_counter()}
+
+    def lap(part):
+        wall[part] = time.perf_counter() - wall["start"] - sum(
+            v for k, v in wall.items() if k != "start")
+    numbers = {"pitch": check_pitch_on_card(card, data)}
+    lap("14a")
+    ckpt, launches, prefix_launches, paths, errs, numbers["decode"] = \
+        run_pitch_path(card, workdir, data, aishell_stats, cv_manifest)
+    lap("14b")
+    numbers["lfr"] = run_ark_lfr(card, workdir, data, aishell_stats)
+    lap("14c")
+    numbers["align"] = run_align_check(card, ckpt, cv_manifest, workdir)
+    lap("14d")
+    numbers["average"] = run_average_check(card, ckpt, cv_manifest,
+                                           workdir)
+    lap("14e")
+    del wall["start"]
+    log("phase 14 wall seconds by part: " + json.dumps(wall))
+    return {"aishell --pitch": launches}, prefix_launches, paths, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4744,6 +5545,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--beam-ties"]:
+        return measure_beam_ties(card, int(sys.argv[2]))
 
     t0 = time.perf_counter()
     libraries = (ctc_prefix.LIBRARY, ctc_loss.LIBRARY, cif_fire.LIBRARY,
@@ -4775,6 +5578,7 @@ def main() -> int:
     check_cif_agreement()
     check_pallas_agreement()
     check_lm_agreement()
+    check_input_agreement()
     mark("1-4")
     prefix_caps = {}
     launches = run_serving(card, prefix_caps)
@@ -4832,6 +5636,11 @@ def main() -> int:
                                 cv_manifest)
         training.update(streaming_launches)
         mark("1-13")
+        input_launches, pitch_prefix, input_paths, input_errs = \
+            run_inputs_phase(card, workdir, data, train_stats[PRESET],
+                             cv_manifest)
+        training.update(input_launches)
+        mark("1-14")
 
     def ctc_build(symbol):
         return {k: v for k, v in build_report.items() if symbol in k}
@@ -4843,14 +5652,15 @@ def main() -> int:
         "source": "tpu_asr_torch/csrc/ctc_prefix_scan.cu",
         "replaces": "tpu_asr/ops/pallas/ctc_prefix.py:114",
         "launches": (launches + lm_launches["joint"]["ctc_prefix_scan"]
-                     + recipe_prefix),
+                     + recipe_prefix + pitch_prefix),
         "launches_by_path": {
             "joint serving": launches,
             "LM-fused joint (recognize)":
                 lm_launches["joint"]["ctc_prefix_scan"],
-            RECIPE_PATH: recipe_prefix},
+            RECIPE_PATH: recipe_prefix, PITCH_PATH: pitch_prefix},
         "max_abs_err": max(max_err, ctc_path_errs["prefix"],
-                           lm_errs["prefix"], recipe_errs["prefix"]),
+                           lm_errs["prefix"], recipe_errs["prefix"],
+                           input_errs["prefix"]),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
@@ -4864,12 +5674,13 @@ def main() -> int:
                   "ring of shared-memory tiles by cp.async",
         "build": ctc_build(ctc_prefix.KERNEL_SYMBOL),
         "path_max_abs_err": max(ctc_path_errs["prefix"], lm_errs["prefix"],
-                                recipe_errs["prefix"]),
+                                recipe_errs["prefix"], input_errs["prefix"]),
         "other_shapes": dict({f"T={t} hist={h}": v for (t, h), v
                               in timings.items() if (t, h) != (249, True)},
                              **{f"path {k}": v for k, v in
                                 (prefix_path | lm_paths["prefix"]
-                                 | recipe_paths["prefix"]).items()}),
+                                 | recipe_paths["prefix"]
+                                 | input_paths["prefix"]).items()}),
     }]
     designs = {"fwd": "warp route: a chain warp an utterance, two positions "
                       "a lane, shuffles up; a helper warp stages rows of E "
@@ -4888,7 +5699,8 @@ def main() -> int:
         other.update({f"path {k}": v[name] for k, v in
                       (ctc_path | recipe_paths["ctc"]
                        | transducer_paths["ctc"]
-                       | streaming_paths["ctc"]).items()})
+                       | streaming_paths["ctc"]
+                       | input_paths["ctc"]).items()})
         kernels.append({
             "name": f"ctc_loss_{name}",
             "route": "cuda",
@@ -4898,7 +5710,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": max(ctc_errs[name], ctc_path_errs[name],
                                recipe_errs[name], transducer_errs[name],
-                               streaming_errs[name]),
+                               streaming_errs[name], input_errs[name]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -4912,7 +5724,7 @@ def main() -> int:
             "path_max_abs_err": max(ctc_path_errs[name],
                                     recipe_errs[name],
                                     transducer_errs[name],
-                                    streaming_errs[name]),
+                                    streaming_errs[name], input_errs[name]),
             "shape": "B=32 T=249 S=49 (U=24)",
             "other_shapes": other,
             "ctc_loss_kernel_e2e_ms": ctc_library[49]["port_e2e"],

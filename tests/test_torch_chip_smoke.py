@@ -786,7 +786,9 @@ def test_time_transducer_lattice_counts_what_it_times(monkeypatch):
         torch.tensor([[1, 2], [3, 4]]), torch.tensor([5, 3]),
         torch.tensor([2, 1]))
     out = chip_smoke.time_transducer_lattice("card", args, 8.0)
-    assert len(calls) == 2 and out["loss_share_of_step"] == 0.25
+    assert calls == ["transducer lattice fwd+bwd (B=2 T'=5 U+1=3 V=7 "
+                     "d_joint=4)"] and out["lattice_share_of_step"] == 0.25
+    assert out["loss_ms"] == 1.0 and "loss_device_ms" not in out
     assert out["shape"] == "B=2 T'=5 U+1=3 V=7 d_joint=4"
     assert tt.JOINT_CHUNK_BYTES > 0
 
@@ -834,6 +836,23 @@ def test_compare_streamed_drops_eos_and_holds_times_and_confidences():
                                        eos)["n_tokens"] == 2
 
 
+@pytest.mark.parametrize("offline_conf,ok", [(0.9007, True), (0.9006, False)])
+def test_compare_streamed_holds_rounded_confidences_to_one_step(
+        offline_conf, ok):
+    """Confidences rounded to 4 places on both sides: one step (1e-4) is
+    within STREAM_CONF_TOL although 0.9008 - 0.9007 > 1e-4 in floats;
+    two steps are not."""
+    assert 0.9008 - 0.9007 > chip_smoke.STREAM_CONF_TOL
+    streamed = {"a": ([3], [1], [0.9008])}
+    offline = {"a": _hyp([3], [1], [offline_conf])}
+    if ok:
+        got = chip_smoke.compare_streamed("x", streamed, offline, 0)
+        assert got["max_conf_gap"] == pytest.approx(1e-4)
+    else:
+        with pytest.raises(AssertionError, match="confidence gap"):
+            chip_smoke.compare_streamed("x", streamed, offline, 0)
+
+
 @pytest.mark.parametrize("margin,ok", [(5e-5, True), (1e-3, False)])
 def test_compare_streamed_reports_a_rounding_tie(margin, ok):
     """A differing utterance passes only when every differing frame's
@@ -847,6 +866,22 @@ def test_compare_streamed_reports_a_rounding_tie(margin, ok):
     else:
         with pytest.raises(AssertionError, match="margins"):
             chip_smoke.compare_streamed("x", streamed, offline, 0, margins)
+
+
+@pytest.mark.parametrize("margin", [5e-6, 5e-4])
+def test_compare_streamed_holds_the_beams_1best_and_reports_the_parting(
+        margin):
+    """With tie_margin None (the streamed beam's check) a differing
+    1-best fails however near the two searches part, and the failure
+    reports where they part."""
+    streamed = {"a": ([3, 4], None, None)}
+    offline = {"a": _hyp([3, 7])}
+    margins = lambda uid: [(12, margin)]       # noqa: E731
+    with pytest.raises(AssertionError, match=f"margins.*12, {margin}"):
+        chip_smoke.compare_streamed("x", streamed, offline, 0, margins,
+                                    tie_margin=None)
+    assert chip_smoke.compare_streamed("x", streamed, {"a": _hyp([3, 4])}, 0,
+                                       margins, tie_margin=None)["ties"] == {}
 
 
 def test_stream_pushes_covers_the_features_once():

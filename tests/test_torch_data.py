@@ -87,7 +87,11 @@ def test_feature_mode_npy_and_manifest_roundtrip(tmp_path):
 
 
 def test_ark_features_are_refused(tmp_path):
-    u = Utterance(id="a", tokens=[2], feat="feats.ark:12", num_frames=10)
+    """Kaldi ark features are read (tests/test_torch_kaldi_io.py); a
+    compressed ark record is refused, as the reference refuses it."""
+    ark = tmp_path / "feats.ark"
+    ark.write_bytes(b"a \x00BCM \x04\x0a\x00\x00\x00")
+    u = Utterance(id="a", tokens=[2], feat=f"{ark}:2", num_frames=10)
     loader = DataLoader([u], make_buckets([u], num_buckets=1), mode="feat")
-    with pytest.raises(NotImplementedError, match="ark"):
+    with pytest.raises(ValueError, match="compressed"):
         list(loader)

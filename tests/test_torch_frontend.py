@@ -84,8 +84,10 @@ def test_frame_signal_matches_jax():
 
 def test_unported_options_raise():
     wav, lens = torch.zeros(1, 4000), torch.tensor([4000])
-    with pytest.raises(NotImplementedError):
-        tfe.wav_to_features(wav, lens, tfe.FrontendConfig(add_pitch=True))
+    # pitch is ported (tests/test_torch_pitch.py): 3 dims pasted on
+    feats, _ = tfe.wav_to_features(wav, lens,
+                                   tfe.FrontendConfig(add_pitch=True))
+    assert feats.shape == (1, 23, 83)
     # global CMVN is ported; without a stats file it refuses to run
     with pytest.raises(ValueError, match="cmvn_stats_path"):
         tfe.wav_to_features(wav, lens, dataclasses.replace(

@@ -806,3 +806,57 @@ def test_transducer_loss_on_the_card_equals_the_cpu(no_tf32):
     _close(out["cuda"][0].detach(), out["cpu"][0].detach(), "nll")
     for name, got, want in zip("fgwb", out["cuda"][1:], out["cpu"][1:]):
         _close(got, want, name, GRAD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weight", [0.0, 4.0])
+def test_pitch_on_the_card_equals_the_cpu_under_the_margin_rule(weight,
+                                                                no_tf32):
+    """Pitch of a ragged batch (tones, noise, a vibrato) on the card
+    against the CPU under chip_smoke.py's compare_pitch (its stated
+    tolerances), with per-frame picks and with the Viterbi track."""
+    _need_card()
+    import importlib.util
+    import os
+    from tpu_asr_torch.frontend import FrontendConfig
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    rng = np.random.default_rng(5)
+    t = np.arange(16000) / 16000
+    f0 = 200.0 + 20.0 * np.sin(2 * np.pi * 6.0 * t)
+    wav = np.stack([np.sin(2 * np.pi * 220.0 * t), rng.standard_normal(16000),
+                    np.sin(2 * np.pi * np.cumsum(f0) / 16000)]).astype(
+        np.float32)
+    lens = np.array([16000, 11000, 6000], np.int32)
+    wav[np.arange(16000)[None, :] >= lens[:, None]] = 0.0
+    cfg = FrontendConfig(add_pitch=True, pitch_smooth_weight=weight)
+    card = chip_smoke.pitch_run(wav, lens, cfg, "cuda")
+    cpu = chip_smoke.pitch_run(wav, lens, cfg, "cpu")
+    out = chip_smoke.compare_pitch("card vs CPU", cpu, card,
+                                   cpu["frame_lengths"], cfg)
+    assert out["valid_frames"] == 98 + 67 + 36
+
+
+@pytest.mark.gpu
+def test_viterbi_alignment_on_the_card_equals_the_cpu():
+    """ctc_viterbi_align's max-product recursion on the card gives the
+    CPU's spans bit for bit (max and add are exact), ties included."""
+    _need_card()
+    from tpu_asr_torch.ops.ctc import ctc_viterbi_align
+    rng = np.random.default_rng(6)
+    for quantize in (False, True):
+        x = rng.standard_normal((5, 120, 40)).astype(np.float32)
+        if quantize:
+            x = np.round(x * 2) / 4
+        labels = torch.from_numpy(rng.integers(1, 40, (5, 20)))
+        tl = torch.tensor([120, 97, 40, 0, 64])
+        ul = torch.tensor([20, 14, 11, 3, 0])
+        got = ctc_viterbi_align(torch.from_numpy(x).cuda(), labels.cuda(),
+                                tl.cuda(), ul.cuda(), log_input=quantize)
+        want = ctc_viterbi_align(torch.from_numpy(x), labels, tl, ul,
+                                 log_input=quantize)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

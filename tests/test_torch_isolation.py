@@ -197,3 +197,27 @@ def test_serve_cli_with_streams_refuses_cpu_without_asking():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
+
+
+def test_input_alignment_and_averaging_modules_are_covered():
+    """The import checks above walk the Kaldi ark reader, the frontend's
+    pitch and LFR, align and average_checkpoints; their CLIs refuse the
+    CPU unless asked."""
+    files = {os.path.relpath(f, REPO) for f in _port_files()}
+    for name in ("data/kaldi_io.py", "data/loader.py", "frontend.py",
+                 "align.py", "average_checkpoints.py", "ops/ctc.py"):
+        path = os.path.join("tpu_asr_torch", name)
+        assert path in files
+        assert not [m for m in _imported_roots(os.path.join(REPO, path))
+                    if m in FORBIDDEN]
+    for module, argv in (
+            ("align", "['--ckpt', 'x', '--manifest', 'y']"),
+            ("average_checkpoints", "['--ckpt', 'x', '--out', 'y']")):
+        out = subprocess.run(
+            [sys.executable, "-c",
+             "import torch; torch.cuda.is_available = lambda: False\n"
+             f"from tpu_asr_torch.{module} import main\n"
+             f"main({argv})"],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert "no CUDA device" in out.stderr, module

@@ -6,12 +6,14 @@ bin/compute_cmvn.py): the recipe's compute-cmvn-stats stage.
   python -m tpu_asr_torch.train ... --cmvn global --cmvn-stats exp/cmvn.npz
 
 Accumulates the per-dimension mean and variance of the un-normalized
-log-mel features of every utterance, then writes an .npz with mean [D],
-istd [D] (float32), frames (the count) and the frontend's fingerprint,
-the keys bin/compute_cmvn.py writes: either package loads the other's
-file. The features come from the port's frontend on the device (the
-CUDA card unless --device cpu); the sums are taken on the host in
-float64, an utterance at a time, as the reference takes them.
+features of every utterance (log-mel, with pitch if the frontend has
+it; a feature manifest's .npy or Kaldi ark features), then writes an
+.npz with mean [D], istd [D] (float32), frames (the count) and the
+frontend's fingerprint, the keys bin/compute_cmvn.py writes: either
+package loads the other's file. Wav features come from the port's
+frontend on the device (the CUDA card unless --device cpu); the sums
+are taken on the host in float64, an utterance at a time, as the
+reference takes them.
 --frontend-json (a frontend.json, or a checkpoint folder holding one)
 names the frontend the stats are for; its CMVN fields are ignored.
 """
@@ -56,15 +58,14 @@ def load_frontend_json(path: str):
 
 def utterance_features(utt, fcfg, device) -> np.ndarray:
     """[T, D] float64 un-normalized features of one utterance: its wave
-    through the port's frontend on `device`, or its .npy features."""
+    through the port's frontend on `device`, or its feature file (.npy
+    or a Kaldi ark record)."""
     import torch
 
     from tpu_asr_torch.frontend import wav_to_features
     if not utt.wav:
-        if utt.feat and utt.feat.endswith(".npy"):
-            return np.asarray(np.load(utt.feat), np.float64)
-        raise NotImplementedError(
-            f"{utt.feat}: Kaldi ark features are not ported yet (use .npy)")
+        from tpu_asr_torch.data.loader import load_features
+        return np.asarray(load_features(utt.feat), np.float64)
     if utt.wav.endswith(".npy"):
         wav = np.load(utt.wav)
     else:

@@ -1,10 +1,10 @@
 """Named experiment presets (port of tpu_asr/configs/presets.py).
 
 Only the presets of the families the port runs are here (CTC,
-attention, hybrid CTC/attention with the transformer or the conformer
-encoder, CIF, the transducer with either encoder, and the chunk-masked
-streaming CTC and transducer models); the LFR input's come with its
-port.
+attention, with the conv2d or the LFR + linear input layer, hybrid
+CTC/attention with the transformer or the conformer encoder, CIF, the
+transducer with either encoder, and the chunk-masked streaming CTC and
+transducer models).
 Each preset is a TrainConfig with the reference's field names and
 values; the CLIs override fields from flags.
 """
@@ -57,6 +57,13 @@ PRESETS: dict[str, TrainConfig] = {
     # attention-only Speech-Transformer: label smoothing + beam search
     "attention": TrainConfig(
         model=dataclasses.replace(_BASE, model_type="transformer"),
+        decode_mode="beam",
+        beam=BeamConfig(beam=5, max_len=100)),
+    # the same with the reference lineage's default LFR(4, 3) + linear
+    # input layer (kaituoxu/Speech-Transformer) instead of conv2d
+    "attention_lfr": TrainConfig(
+        model=dataclasses.replace(_BASE, model_type="transformer",
+                                  input_layer="linear", lfr_m=4, lfr_n=3),
         decode_mode="beam",
         beam=BeamConfig(beam=5, max_len=100)),
     # CPU-runnable hybrid slice (tests, demos)

@@ -4,8 +4,9 @@
 The collate pads to the bucket's static shape with numpy (the reference
 calls its native C++ helper); feature extraction runs on the device (wav
 mode), and one background thread keeps the next batches ready while the
-step runs. Inputs are wavs (.wav or .npy) or .npy features; Kaldi ark
-input is not ported yet.
+step runs. Inputs are wavs (.wav or .npy) or features (.npy, or a
+Kaldi ark record "x.ark:offset" as an espnet data.json names it; read by
+data/kaldi_io.py, where the reference calls its native C++ reader).
 """
 
 from __future__ import annotations
@@ -17,8 +18,15 @@ import numpy as np
 
 from tpu_asr_torch import IGNORE_ID
 from tpu_asr_torch.data.bucketing import Bucket, plan_batches
+from tpu_asr_torch.data.kaldi_io import read_mat
 from tpu_asr_torch.data.manifest import Utterance
 from tpu_asr_torch.utils.padding import pad_list
+
+
+def load_features(path: str) -> np.ndarray:
+    """[T, D] features of one utterance: an .npy file, or a Kaldi ark
+    matrix ("x.ark:offset" or an ark file holding one record)."""
+    return np.load(path) if path.endswith(".npy") else read_mat(path)
 
 
 class DataLoader:
@@ -53,7 +61,7 @@ class DataLoader:
         self.epoch = epoch
         self.length_key = "num_samples" if mode == "wav" else "num_frames"
 
-    def _load_input(self, u: Utterance) -> np.ndarray:
+    def load_input(self, u: Utterance) -> np.ndarray:
         if self.mode == "wav":
             if u.id in self.waves:
                 return self.waves[u.id]
@@ -67,10 +75,7 @@ class DataLoader:
             return self.feats[u.id]
         if not u.feat:
             raise ValueError(f"no feat for {u.id}")
-        if u.feat.endswith(".npy"):
-            return np.load(u.feat)
-        raise NotImplementedError(
-            f"{u.feat}: Kaldi ark features are not ported yet (use .npy)")
+        return load_features(u.feat)
 
     def _make_batch(self, bucket: Bucket, idxs: list[int]) -> dict:
         """Collate one batch, padded to the bucket's STATIC shape.
@@ -87,7 +92,7 @@ class DataLoader:
         for j, u in enumerate(us):
             targets[j, : len(u.tokens)] = u.tokens
             tlens[j] = len(u.tokens)
-        xs = [np.asarray(self._load_input(u), np.float32) for u in us]
+        xs = [np.asarray(self.load_input(u), np.float32) for u in us]
         lens = np.zeros((n,), np.int32)
         lens[:n_real] = [x.shape[0] for x in xs]
         padded = pad_list(xs, 0.0, bucket.max_frames)

@@ -29,7 +29,8 @@ from tpu_asr_torch.decode.rescore import attention_rescore
 from tpu_asr_torch.decode.transducer_decode import (transducer_beam_search,
                                                     transducer_greedy_decode,
                                                     transducer_rescore)
-from tpu_asr_torch.frontend import (FrontendConfig, cmvn_stats_for,
+from tpu_asr_torch.frontend import (FrontendConfig, build_lfr_features,
+                                    cmvn_stats_for, lfr_length,
                                     wav_to_features)
 from tpu_asr_torch.models.cif import CifModel
 from tpu_asr_torch.models.lm import LMConfig, TransformerLM
@@ -132,12 +133,22 @@ class Recognizer:
     # --- device work ---
 
     def _features(self, batch):
+        """A wav or feats batch -> (feats, lengths) on the device, LFR
+        stacked for a linear-input model."""
         def tensor(key):
             return torch.as_tensor(batch[key], device=self.device)
         if "wav" in batch:
-            return wav_to_features(tensor("wav"), tensor("wav_lengths"),
-                                   self.frontend, cmvn_stats=self.cmvn_stats)
-        return tensor("feats").float(), tensor("feat_lengths")
+            feats, lens = wav_to_features(
+                tensor("wav"), tensor("wav_lengths"), self.frontend,
+                cmvn_stats=self.cmvn_stats)
+        else:
+            feats, lens = tensor("feats").float(), tensor("feat_lengths")
+        # the reference's own condition (tpu_asr/decode/recognizer.py:106),
+        # kept on purpose; train.loop.model_lfr also stacks (1, n > 1)
+        if self.cfg.input_layer == "linear" and self.cfg.lfr_m > 1:
+            feats = build_lfr_features(feats, self.cfg.lfr_m, self.cfg.lfr_n)
+            lens = lfr_length(lens, self.cfg.lfr_n)
+        return feats, lens
 
     def _greedy_ctc(self, feats, flens):
         enc_out, el = self.model.encode(feats, flens)

@@ -1,5 +1,5 @@
-"""Acoustic frontend: waveform -> 80-dim log-mel fbank + CMVN (port of
-tpu_asr/frontend.py).
+"""Acoustic frontend: waveform -> 80-dim log-mel fbank (+ 3 pitch dims)
++ CMVN, and LFR frame stacking (port of tpu_asr/frontend.py).
 
 Conventions follow Kaldi fbank defaults (dither off): 25 ms window / 10 ms
 hop @ 16 kHz, remove-DC-offset per frame, preemphasis 0.97, povey window,
@@ -10,8 +10,15 @@ products; the constants are built in numpy float64 and stored as float32.
 Ported: `cmvn_mode` "utterance", "global" and "none". Global CMVN reads
 the train set's mean and istd from an .npz (python -m
 tpu_asr_torch.compute_cmvn, or the reference's bin/compute_cmvn.py:
-both write the same keys and the same fingerprint). Pitch and LFR
-stacking raise NotImplementedError until a later slice ports them.
+both write the same keys and the same fingerprint).
+
+Pitch (`add_pitch`, Kaldi's "fbank+pitch" of the AISHELL recipe) pastes
+POV, normalized log-pitch and delta-pitch onto the fbank, before CMVN:
+a per-frame NCCF from three float32 DFT products and an inverse
+projection (TF32 off), the shortest lag within 0.025 of the peak or,
+with `pitch_smooth_weight` > 0, a Viterbi lag track, then a parabolic
+refinement. `build_lfr_features` stacks frames for the linear input
+layer (the reference lineage's LFR(4, 3)).
 """
 
 from __future__ import annotations
@@ -44,7 +51,10 @@ class FrontendConfig:
     # compute_cmvn; the causal choice for streaming), or none
     cmvn_mode: str = "utterance"  # utterance | global | none
     cmvn_stats_path: str = ""
-    add_pitch: bool = False       # not ported
+    # pitch: 3 dims (POV, normalized log-pitch, delta) pasted onto the
+    # fbank; pitch_smooth_weight > 0 tracks lags by Viterbi (see
+    # pitch_features)
+    add_pitch: bool = False
     pitch_min_f0: float = 60.0
     pitch_max_f0: float = 400.0
     pitch_smooth_weight: float = 0.0
@@ -211,13 +221,206 @@ def cmvn(feats: torch.Tensor, lengths: torch.Tensor | None = None,
     return out
 
 
+@functools.lru_cache(maxsize=8)
+def _pitch_constants(cfg: FrontendConfig):
+    """(min_lag, max_lag, frame DFT cos/sin [n, K], segment DFT cos/sin
+    [seg, K], inverse cos/sin [K, max_lag + 2]) as float32 numpy, built
+    in float64 as the reference builds them. The correlation r[l] =
+    sum_i x[i] x[i + l] at every lag comes from the DFT of the n-sample
+    frame, the DFT of the (n + max_lag + 2)-sample segment and an
+    inverse projection onto the lags 0 .. max_lag + 1."""
+    min_lag = max(2, int(cfg.sample_rate / cfg.pitch_max_f0))
+    max_lag = int(math.ceil(cfg.sample_rate / cfg.pitch_min_f0))
+    n = cfg.frame_length
+    seg = n + max_lag + 2          # +2: parabolic neighbour at max_lag + 1
+    k = seg // 2 + 1
+    i = np.arange(seg, dtype=np.float64)
+    kk = np.arange(k, dtype=np.float64)
+    ang = 2.0 * math.pi * i[:, None] * kk[None, :] / seg
+    cos_b, sin_b = np.cos(ang), np.sin(ang)
+    # real-part weights of the inverse: 1 for bin 0 (and the Nyquist bin
+    # of an even seg), else 2
+    w = np.full(k, 2.0)
+    w[0] = 1.0
+    if seg % 2 == 0:
+        w[-1] = 1.0
+    lags = np.arange(max_lag + 2, dtype=np.float64)
+    lang = 2.0 * math.pi * lags[:, None] * kk[None, :] / seg
+    inv_cos = (np.cos(lang) * w[None, :] / seg).T   # [K, n_lags]
+    inv_sin = (np.sin(lang) * w[None, :] / seg).T
+    f32 = np.float32
+    return (min_lag, max_lag,
+            cos_b[:n].astype(f32), sin_b[:n].astype(f32),
+            cos_b.astype(f32), sin_b.astype(f32),
+            inv_cos.astype(f32), inv_sin.astype(f32))
+
+
+@functools.lru_cache(maxsize=8)
+def _pitch_device_constants(cfg: FrontendConfig, device: torch.device):
+    """_pitch_constants' six bases as tensors on `device`, copied once."""
+    return tuple(torch.from_numpy(c).to(device)
+                 for c in _pitch_constants(cfg)[2:])
+
+
+def _viterbi_lags(band: torch.Tensor, min_lag: int, max_lag: int,
+                  weight: float) -> torch.Tensor:
+    """Smoothed lag track over band [..., T, L] (the NCCF at lags min_lag
+    .. max_lag): the path maximizing sum_t band[t, lag_t] - weight *
+    sum_t (log lag_t - log lag_{t-1})^2, by a max-product pass over the
+    frames (a [..., L, L] max a frame; ties to the first, lower lag, as
+    jnp.argmax) and a backtrace. Runs over every frame of the padded T,
+    as the reference's scan does. The backpointers stay on band's device
+    and the backtrace runs there: no host copy. -> lags [..., T]."""
+    lags = np.arange(min_lag, max_lag + 1, dtype=np.float64)
+    ll = np.log(lags)
+    trans = torch.from_numpy((-weight * (ll[:, None] - ll[None, :]) ** 2)
+                             .astype(np.float32)).to(band.device)
+    t = band.shape[-2]
+    carry = band[..., 0, :]
+    bptrs = torch.empty((t - 1, *carry.shape), dtype=torch.long,
+                        device=band.device)
+    for i in range(1, t):
+        best, _ = torch.max(carry[..., :, None] + trans, dim=-2,
+                            out=(torch.empty_like(carry), bptrs[i - 1]))
+        carry = best + band[..., i, :]
+    state = torch.argmax(carry, dim=-1)
+    path = torch.empty((*carry.shape[:-1], t), dtype=torch.long,
+                       device=band.device)
+    path[..., t - 1] = state
+    for i in range(t - 2, -1, -1):
+        state = bptrs[i].gather(-1, state[..., None])[..., 0]
+        path[..., i] = state
+    return path + min_lag
+
+
+def pitch_track(wav: torch.Tensor, cfg: FrontendConfig
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., S] waveform -> (nccf [..., T, max_lag + 2], the picked
+    integer lags [..., T]): the part of pitch_features whose decisions
+    (the lag picks) a rounding can flip."""
+    fcos, fsin, scos, ssin, icos, isin = _pitch_device_constants(
+        cfg, wav.device)
+    min_lag, max_lag = _pitch_constants(cfg)[:2]
+    n, shift = cfg.frame_length, cfg.frame_shift
+    seg_len = scos.shape[0]
+    s = wav.shape[-1]
+    t = cfg.num_frames(s)
+    if t == 0:
+        return (wav.new_zeros((*wav.shape[:-1], 0, max_lag + 2)),
+                torch.zeros(wav.shape[:-1] + (0,), dtype=torch.long,
+                            device=wav.device))
+    # the segment of each frame (n + max_lag + 2 samples) as a view of the
+    # wave padded past its end; the part past the signal is zeroed below,
+    # so it equals the reference's edge-clamped gather after the masking
+    padded = torch.nn.functional.pad(wav.float(), (0, seg_len - n))
+    seg = padded.unfold(-1, seg_len, shift)[..., :t, :]
+    seg = seg - seg[..., :n].mean(dim=-1, keepdim=True)
+    # zero (do not edge-repeat) the tail past the signal: a constant tail
+    # fakes long-lag periodicity on the last frames
+    raw = np.arange(t)[:, None] * shift + np.arange(seg_len)[None, :]
+    seg = seg * torch.from_numpy((raw < s).astype(np.float32)).to(
+        wav.device)
+    frame = seg[..., :n]
+    with _full_fp32_matmul():
+        a_re, a_im = frame @ fcos, frame @ fsin
+        b_re, b_im = seg @ scos, seg @ ssin
+        # conj(A) B (both bases positive-angle), then the inverse DFT's
+        # real part at the lags 0 .. max_lag + 1
+        c_re = a_re * b_re + a_im * b_im
+        c_im = a_re * b_im - a_im * b_re
+        r = c_re @ icos + c_im @ isin
+    # the energy of every lag-shifted window, from a cumsum of squares
+    csum = torch.cumsum(seg * seg, dim=-1)
+    n_lags = max_lag + 2
+    ends = torch.arange(n_lags, device=wav.device) + n - 1
+    lo = torch.clamp(torch.arange(n_lags, device=wav.device) - 1, min=0)
+    e2 = csum[..., ends] - torch.where(
+        torch.arange(n_lags, device=wav.device) == 0, 0.0, csum[..., lo])
+    e1 = e2[..., :1]
+    nccf = r / (torch.sqrt(torch.clamp(e1 * e2, min=0.0)) + 1e-4 * n)
+    band = nccf[..., min_lag:max_lag + 1]
+    if cfg.pitch_smooth_weight > 0.0:
+        best = _viterbi_lags(band, min_lag, max_lag, cfg.pitch_smooth_weight)
+    else:
+        # a periodic signal scores about equally at every multiple of its
+        # period: take the SHORTEST lag within 0.025 of the peak (argmax
+        # of a 0/1 tensor: the first, as jnp.argmax of the bool)
+        peak = band.max(dim=-1, keepdim=True).values
+        best = torch.argmax((band >= peak - 0.025).to(torch.uint8),
+                            dim=-1) + min_lag
+    return nccf, best
+
+
+def pitch_features(wav: torch.Tensor, frame_lengths: torch.Tensor | None,
+                   cfg: FrontendConfig) -> torch.Tensor:
+    """[..., S] waveform -> [..., T, 3] pitch features: POV, normalized
+    log-pitch and delta-pitch, the dims Kaldi's
+    compute-and-process-kaldi-pitch-feats pastes onto the fbank
+    (pitch_track, then pitch_from_track). Offline: the normalization
+    reads the whole utterance."""
+    nccf, best = pitch_track(wav, cfg)
+    return pitch_from_track(nccf, best, frame_lengths, cfg)
+
+
+def pitch_from_track(nccf: torch.Tensor, best: torch.Tensor,
+                     frame_lengths: torch.Tensor | None,
+                     cfg: FrontendConfig) -> torch.Tensor:
+    """pitch_track's (nccf, lags) -> [..., T, 3] features, as the
+    reference: the lag refined parabolically, POV = the NCCF there
+    clipped to [0, 1], the log-pitch less its utterance-level
+    POV^2-weighted mean over the valid frames, delta a central
+    difference; frames past frame_lengths are 0."""
+    t = nccf.shape[-2]
+    y0 = nccf.gather(-1, best[..., None])[..., 0]
+    ym = nccf.gather(-1, best[..., None] - 1)[..., 0]
+    yp = nccf.gather(-1, best[..., None] + 1)[..., 0]
+    denom = ym - 2.0 * y0 + yp
+    off = torch.where(denom.abs() > 1e-12, 0.5 * (ym - yp) / denom, 0.0)
+    off = torch.clamp(off, -0.5, 0.5)
+    lag = best.float() + off
+    pov = torch.clamp(y0, 0.0, 1.0)
+    log_f0 = torch.log(cfg.sample_rate / lag)
+    if frame_lengths is not None:
+        valid = (torch.arange(t, device=nccf.device)
+                 < frame_lengths[..., None]).float()
+    else:
+        valid = torch.ones_like(log_f0)
+    w = pov * pov * valid + 1e-8
+    mean_lp = ((w * log_f0).sum(dim=-1, keepdim=True)
+               / w.sum(dim=-1, keepdim=True))
+    norm_lp = (log_f0 - mean_lp) * valid
+    nxt = torch.cat([log_f0[..., 1:], log_f0[..., -1:]], dim=-1)
+    prv = torch.cat([log_f0[..., :1], log_f0[..., :-1]], dim=-1)
+    delta = 0.5 * (nxt - prv) * valid
+    return torch.stack([pov * valid, norm_lp, delta], dim=-1).to(cfg.dtype)
+
+
+def build_lfr_features(feats: torch.Tensor, m: int = 4, n: int = 3
+                       ) -> torch.Tensor:
+    """Low frame rate: stack m consecutive frames, keep every n-th.
+    [..., T, D] -> [..., ceil(T / n), m * D]. Frames past the end repeat
+    frame T - 1 of the PADDED batch, as the reference's: in a padded
+    batch a short row's last stacks take its zero padding, not copies of
+    its own last frame."""
+    t = feats.shape[-2]
+    t_out = (t + n - 1) // n
+    idx = np.minimum(np.arange(t_out)[:, None] * n + np.arange(m)[None, :],
+                     t - 1)
+    stacked = feats[..., torch.from_numpy(idx).to(feats.device), :]
+    return stacked.reshape(*stacked.shape[:-2], m * feats.shape[-1])
+
+
+def lfr_length(t, n: int = 3):
+    """Valid frames after LFR subsampling by n (an int or a tensor)."""
+    return (t + n - 1) // n
+
+
 def feature_fingerprint(cfg: FrontendConfig) -> str:
     """Canonical string of every FrontendConfig field that changes the
     feature space, stored in CMVN-stats .npz files so that stats of one
     frontend cannot normalize the features of another. Character for
     character the reference's, so a stats file written by either package
-    loads in the other (the pitch part included, though pitch is not
-    ported)."""
+    loads in the other."""
     pitch = (f";pitch={cfg.pitch_min_f0}-{cfg.pitch_max_f0}"
              f";psmooth={cfg.pitch_smooth_weight}"
              if cfg.add_pitch else "")
@@ -287,16 +490,20 @@ def wav_to_features(wav: torch.Tensor, wav_lengths: torch.Tensor,
                     cmvn_stats: tuple[torch.Tensor, torch.Tensor] | None
                     = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Padded waveforms [B, S] + lengths [B] -> (feats [B, T, D],
-    frame_lengths [B]). Frames past frame_lengths[b] are zeroed.
+    frame_lengths [B]); D = cfg.feature_dim (83 with add_pitch). Frames
+    past frame_lengths[b] are zeroed.
     `cmvn_stats`: global CMVN's (mean, istd) on the device
     (cmvn_stats_for), else read from cfg's stats file at each call."""
-    if cfg.add_pitch:
-        raise NotImplementedError("pitch features are not ported yet")
     feats = log_mel_spectrogram(wav, cfg)
     num = 1 + torch.clamp(wav_lengths - cfg.frame_length, min=0) \
         // cfg.frame_shift
     frame_lengths = torch.where(wav_lengths < cfg.frame_length,
                                 torch.zeros_like(num), num)
+    if cfg.add_pitch:
+        # Kaldi paste-feats order: the fbank, then the 3 pitch dims; CMVN
+        # below normalizes the pasted feature as apply-cmvn does
+        feats = torch.cat([feats, pitch_features(wav, frame_lengths, cfg)],
+                          dim=-1)
     if apply_cmvn and cfg.cmvn_mode == "utterance":
         feats = cmvn(feats, frame_lengths)
     elif apply_cmvn and cfg.cmvn_mode == "global":

@@ -1,5 +1,11 @@
-"""Encoder with conv2d subsampling: transformer or conformer blocks
-(port of tpu_asr/models/encoder.py).
+"""Encoder with conv2d subsampling or the LFR + linear input layer:
+transformer or conformer blocks (port of tpu_asr/models/encoder.py).
+
+The linear input layer (input_layer "linear", the reference lineage's
+default) takes LFR-stacked features [B, T/n, m * d_input]
+(frontend.build_lfr_features, applied by the train steps and the
+Recognizer): a Dense to d_model, then a LayerNorm; the lengths pass
+through.
 
 The transformer adds the absolute sinusoidal PE; the conformer adds
 none (its attention scores carry relative positions) and passes each
@@ -14,7 +20,7 @@ call from the 4C+3 feature frames whose VALID conv fields make exactly
 those frames, against per-layer K/V caches (and the conformer's conv
 cache) of the frames before it. Its outputs equal the full pass's under
 the same chunk mask up to the rounding of GEMMs over C rows against T'
-rows. The LFR+linear input layer comes with the frontend slice.
+rows; it needs the conv2d input layer, as the reference's does.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from tpu_asr_torch.models.attention import MultiHeadAttention, mask_to_bias
 from tpu_asr_torch.models.config import ModelConfig
 from tpu_asr_torch.models.conformer import ConformerLayer, rel_table
 from tpu_asr_torch.models.conv import Conv2dSubsampling
-from tpu_asr_torch.models.modules import (PositionalEncoding,
+from tpu_asr_torch.models.modules import (Dense, LayerNorm,
+                                          PositionalEncoding,
                                           PositionwiseFeedForward,
                                           PostNormBlock)
 from tpu_asr_torch.utils.padding import make_valid_mask
@@ -66,17 +73,20 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, c: ModelConfig):
         super().__init__()
-        if c.input_layer != "conv2d":
-            raise NotImplementedError(
-                f"input_layer={c.input_layer!r}: the LFR+linear input layer "
-                f"is not ported yet")
         if c.encoder_type not in ("transformer", "conformer"):
             raise ValueError(f"unknown encoder_type {c.encoder_type!r}")
         self.cfg = c
         self.conformer = c.encoder_type == "conformer"
-        self.subsample = Conv2dSubsampling(c.d_input, c.d_model,
-                                           c.conv_channels, c.dtype,
-                                           c.param_dtype)
+        if c.input_layer == "conv2d":
+            self.subsample = Conv2dSubsampling(c.d_input, c.d_model,
+                                               c.conv_channels, c.dtype,
+                                               c.param_dtype)
+        elif c.input_layer == "linear":
+            self.linear_in = Dense(c.encoder_input_dim, c.d_model,
+                                   dtype=c.dtype, param_dtype=c.param_dtype)
+            self.norm_in = LayerNorm(c.d_model, c.dtype, c.param_dtype)
+        else:
+            raise ValueError(f"unknown input_layer {c.input_layer!r}")
         if not self.conformer:
             self.pe = PositionalEncoding(c.d_model, c.pe_maxlen, c.dtype)
         self.dropout = nn.Dropout(c.dropout)
@@ -85,9 +95,13 @@ class Encoder(nn.Module):
                                     for _ in range(c.num_enc_layers))
 
     def forward(self, feats, feat_lengths):
-        """[B, T, D_in] + [B] -> ([B, T', d_model], [B] lengths)."""
+        """[B, T, D_in] + [B] -> ([B, T', d_model], [B] lengths); D_in =
+        cfg.encoder_input_dim (m * d_input for the linear input layer)."""
         c = self.cfg
-        x, out_lengths = self.subsample(feats, feat_lengths)
+        if c.input_layer == "conv2d":
+            x, out_lengths = self.subsample(feats, feat_lengths)
+        else:
+            x, out_lengths = self.norm_in(self.linear_in(feats)), feat_lengths
         t = x.shape[1]
         valid = make_valid_mask(out_lengths, t)                 # [B, T']
         mask = valid[:, None, None, :]                          # [B,1,1,T']

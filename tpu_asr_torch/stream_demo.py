@@ -55,13 +55,11 @@ def parse_args(argv=None):
 
 def utterance_features(utt, frontend, device, cmvn_stats=None) -> np.ndarray:
     """[T, D] float32 features of one manifest utterance: its wav through
-    the frontend on `device`, or its .npy feature file."""
+    the frontend on `device`, or its feature file (.npy or a Kaldi ark
+    record)."""
     if not utt.wav:
-        if not (utt.feat or "").endswith(".npy"):
-            raise NotImplementedError(
-                f"{utt.feat}: Kaldi ark features are not ported yet (use "
-                f".npy)")
-        return np.asarray(np.load(utt.feat), np.float32)
+        from tpu_asr_torch.data.loader import load_features
+        return np.asarray(load_features(utt.feat), np.float32)
     from tpu_asr_torch.frontend import wav_to_features
     if utt.wav.endswith(".npy"):
         wav = np.load(utt.wav)

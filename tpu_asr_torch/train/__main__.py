@@ -13,6 +13,12 @@
       --epochs 2 --save-folder exp/transducer_dev --device cpu
   python -m tpu_asr_torch.train --preset hybrid_dev --enc-chunk-size 4 \\
       --synthetic 32 --epochs 2 --save-folder exp/stream_dev --device cpu
+  python -m tpu_asr_torch.train --preset aishell --pitch \\
+      --train-manifest train.jsonl --cv-manifest dev.jsonl \\
+      --save-folder exp/aishell_pitch
+  python -m tpu_asr_torch.train --preset attention_lfr \\
+      --train-manifest data.train.jsonl --cv-manifest data.dev.jsonl \\
+      --save-folder exp/attention_lfr
 
 Preset + flag overrides -> bucketed loaders -> TrainStep/Solver with a
 checkpoint per epoch and JSONL metrics in the save folder. Runs on the
@@ -24,6 +30,14 @@ the CIF model, or the TransducerModel, whose metrics carry loss_rnnt).
 python -m tpu_asr_torch.compute_cmvn) normalizes the features with the
 train set's stats; the stats path goes into the checkpoint's
 frontend.json made absolute, so recognize and serve pick the policy up.
+`--pitch` pastes the 3 Kaldi pitch dims onto the fbank (83 features).
+The model's input width comes from the data, since the port builds its
+input layer before it sees a batch: the frontend's feature_dim for a
+wav manifest, the first utterance's feature width for a feature
+manifest (.npy or Kaldi ark, e.g. an espnet data.json's 83-dim dump);
+model_config.json and frontend.json record it for recognize, serve and
+stream_demo. A linear-input model (`attention_lfr`) trains on LFR-stacked
+features (after SpecAugment).
 `--enc-chunk-size`/`--enc-left-chunks` set the encoder's chunk mask
 (the model then streams: decode/streaming.py, python -m
 tpu_asr_torch.stream_demo) as bin/train.py does.
@@ -52,7 +66,7 @@ from tpu_asr_torch.data import (DataLoader, Utterance, load_manifest,
 from tpu_asr_torch.models import build_model
 from tpu_asr_torch.models.config import ModelConfig
 from tpu_asr_torch.train.checkpoints import Checkpointer
-from tpu_asr_torch.train.loop import Solver, TrainStep
+from tpu_asr_torch.train.loop import Solver, TrainStep, model_lfr
 from tpu_asr_torch.train.metrics import MetricsWriter
 from tpu_asr_torch.train.optim import NoamAdam
 from tpu_asr_torch.utils.device import resolve_device
@@ -64,7 +78,8 @@ def parse_args(argv=None):
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="aishell",
                    help="aishell | hybrid | hybrid_dev | attention | "
-                        "ctc_dev | conformer | conformer_dev | cif | "
+                        "attention_lfr | ctc_dev | conformer | "
+                        "conformer_dev | cif | "
                         "cif_dev | transducer | transducer_dev | "
                         "conformer_transducer | conformer_transducer_dev "
                         "| transducer_streaming | streaming")
@@ -113,6 +128,11 @@ def parse_args(argv=None):
     p.add_argument("--cmvn-stats", default="",
                    help=".npz of python -m tpu_asr_torch.compute_cmvn "
                         "(with --cmvn global)")
+    p.add_argument("--pitch", action="store_true",
+                   help="append 3 Kaldi-style pitch dims (POV, normalized "
+                        "log-pitch, delta-pitch) to the fbank, the "
+                        "reference recipe's fbank+pitch features (wav "
+                        "manifests: the frontend computes them)")
     p.add_argument("--print-freq", type=int, default=0,
                    help="a train metrics line every N steps (0 = preset)")
     p.add_argument("--debug-nans", action="store_true",
@@ -163,6 +183,9 @@ def configure(args, model_overrides: dict | None = None
             tc.frontend, cmvn_mode=args.cmvn,
             cmvn_stats_path=(os.path.abspath(args.cmvn_stats)
                              if args.cmvn_stats else ""))
+    if args.pitch:
+        overrides["frontend"] = dataclasses.replace(
+            overrides.get("frontend", tc.frontend), add_pitch=True)
     tc = dataclasses.replace(tc, **overrides)
     model = {"vocab_size": vocab}
     if args.dtype:
@@ -219,6 +242,11 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
                               seed=tc.seed)
     cv_loader = DataLoader(cv_utts, buckets, mode=mode, waves=waves,
                            shuffle=False)
+    # the input width the data gives (the reference's flax model infers
+    # it at init; the port's input layer is built here)
+    d_input = (tc.frontend.feature_dim if mode == "wav" else
+               train_loader.load_input(train_utts[0]).shape[1])
+    mc = dataclasses.replace(mc, d_input=d_input)
 
     torch.manual_seed(tc.seed)            # dropout draws from this
     model = build_model(mc)
@@ -233,7 +261,8 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
     opt = NoamAdam(model.parameters(), mc.d_model, tc.warmup_steps,
                    tc.lr_k, tc.grad_clip, tc.accum_steps)
     step = TrainStep(model, opt, tc.specaug, tc.frontend, device,
-                     seed=tc.seed, debug_nans=args.debug_nans)
+                     seed=tc.seed, debug_nans=args.debug_nans,
+                     lfr=model_lfr(mc))
 
     ck = Checkpointer(args.save_folder)
     ck.save_config(mc)

@@ -116,9 +116,7 @@ class Checkpointer:
         drop all but the newest max_to_keep saves and the best."""
         meta = {"epoch": epoch, "cv_loss": float(cv_loss),
                 "is_best": bool(is_best)}
-        tmp = self._path(step) + ".tmp"
-        torch.save({**state, "meta": meta}, tmp)
-        os.replace(tmp, self._path(step))          # all or nothing
+        self.write(step, {**state, "meta": meta})
         if is_best:
             self._write_json("best.json", {"step": step, **meta})
         pinned = self._best_json_step()
@@ -126,6 +124,13 @@ class Checkpointer:
         for old in steps[:-self.max_to_keep] if self.max_to_keep else []:
             if old != pinned:
                 os.remove(self._path(old))
+
+    def write(self, step: int, ckpt: dict) -> None:
+        """Write ckpt_<step>.pt (a state with its "meta"), all or
+        nothing."""
+        tmp = self._path(step) + ".tmp"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, self._path(step))
 
     def restore(self, step: int | None = None,
                 map_location="cpu") -> dict:

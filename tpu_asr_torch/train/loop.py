@@ -1,7 +1,8 @@
 """Training loop: the train and eval steps and the epoch-level Solver (port
 of tpu_asr/train/loop.py).
 
-TrainStep runs SpecAugment -> forward (dropout on) -> backward ->
+TrainStep runs SpecAugment -> LFR (linear-input models) -> forward
+(dropout on) -> backward ->
 grad_norm of the raw gradients -> clip -> Adam, as the reference's one
 jitted step does. Parameters stay float32; each Dense casts them to the
 compute dtype at use (as flax does), so autograd returns float32
@@ -20,7 +21,8 @@ from typing import Any
 import torch
 
 from tpu_asr_torch.augment import SpecAugmentConfig, spec_augment
-from tpu_asr_torch.frontend import (FrontendConfig, cmvn_stats_for,
+from tpu_asr_torch.frontend import (FrontendConfig, build_lfr_features,
+                                    cmvn_stats_for, lfr_length,
                                     wav_to_features)
 from tpu_asr_torch.train.optim import NoamAdam, global_norm
 from tpu_asr_torch.utils.device import resolve_device
@@ -47,25 +49,43 @@ def batch_features(batch: dict, frontend: FrontendConfig,
     return feats, flens, get("targets").long(), get("target_lengths")
 
 
+def apply_lfr(feats, feat_lengths, lfr: tuple[int, int]):
+    """LFR stacking (frontend.build_lfr_features) for linear-input
+    models; (1, 1) passes the features through."""
+    m, n = lfr
+    if (m, n) == (1, 1):
+        return feats, feat_lengths
+    return build_lfr_features(feats, m, n), lfr_length(feat_lengths, n)
+
+
+def model_lfr(cfg) -> tuple[int, int]:
+    """The (m, n) LFR a model takes: (lfr_m, lfr_n) for the linear input
+    layer, else (1, 1)."""
+    return (cfg.lfr_m, cfg.lfr_n) if cfg.input_layer == "linear" else (1, 1)
+
+
 class TrainStep:
     """One optimizer step per call (one micro-step with accum_steps > 1).
 
     device None means the CUDA card (RuntimeError when there is none);
     pass device="cpu" to train on the CPU. SpecAugment draws from the
     step's own generator on the device, seeded with `seed`; dropout draws
-    from torch's generator of that device (the CLI seeds it). With
-    debug_nans, a step whose loss or raw gradient norm is not finite
-    raises FloatingPointError before the update (a host sync a step)."""
+    from torch's generator of that device (the CLI seeds it). `lfr`
+    (model_lfr of the model's config) stacks the features after
+    SpecAugment, as the reference's step does. With debug_nans, a step
+    whose loss or raw gradient norm is not finite raises
+    FloatingPointError before the update (a host sync a step)."""
 
     def __init__(self, model, optimizer: NoamAdam,
                  specaug: SpecAugmentConfig | None = None,
                  frontend: FrontendConfig | None = None,
                  device: str | torch.device | None = None, seed: int = 0,
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, lfr: tuple[int, int] = (1, 1)):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
         self.specaug = specaug
+        self.lfr = tuple(lfr)
         self.frontend = frontend or FrontendConfig()
         self.cmvn_stats = cmvn_stats_for(self.frontend, self.device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -81,6 +101,7 @@ class TrainStep:
             batch, self.frontend, self.device, self.cmvn_stats)
         if self.specaug is not None:
             feats = spec_augment(self.gen, feats, flens, self.specaug)
+        feats, flens = apply_lfr(feats, flens, self.lfr)
         out = self.model(feats, flens, targets, tlens)
         grads = list(torch.autograd.grad(out["loss"],
                                          self.optimizer.params))
@@ -116,20 +137,25 @@ class TrainStep:
 
 
 class EvalStep:
-    """Forward without dropout or SpecAugment -> the model's loss dict."""
+    """Forward without dropout or SpecAugment (LFR as TrainStep) -> the
+    model's loss dict."""
 
     def __init__(self, model, frontend: FrontendConfig | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 lfr: tuple[int, int] = (1, 1)):
         self.device = resolve_device(device)
         self.model = model
         self.frontend = frontend or FrontendConfig()
         self.cmvn_stats = cmvn_stats_for(self.frontend, self.device)
+        self.lfr = tuple(lfr)
 
     @torch.no_grad()
     def __call__(self, batch: dict) -> dict[str, torch.Tensor]:
         self.model.eval()
-        return self.model(*batch_features(batch, self.frontend, self.device,
-                                          self.cmvn_stats))
+        feats, flens, targets, tlens = batch_features(
+            batch, self.frontend, self.device, self.cmvn_stats)
+        feats, flens = apply_lfr(feats, flens, self.lfr)
+        return self.model(feats, flens, targets, tlens)
 
 
 def _mean(values: list[torch.Tensor]) -> float:
@@ -151,9 +177,10 @@ def _epoch_summary(step_metrics: list[dict]) -> dict:
 
 @dataclasses.dataclass
 class Solver:
-    """Epoch-level loop: train and cv phases, metrics every print_freq
-    steps, a checkpoint per epoch, best by cv loss, optional half_lr on a
-    cv plateau and early stop. `history` holds one record per epoch (the
+    """Epoch-level loop: train and cv phases (the cv steps take the
+    train step's frontend and LFR), metrics every print_freq steps, a
+    checkpoint per epoch, best by cv loss, optional half_lr on a cv
+    plateau and early stop. `history` holds one record per epoch (the
     cv line of the metrics, with the epoch's step and cv-batch counts)."""
     train_step: TrainStep
     train_loader: Any            # iterable of batch dicts per epoch
@@ -170,7 +197,7 @@ class Solver:
 
     def train(self) -> TrainStep:
         ts = self.train_step
-        eval_step = EvalStep(ts.model, ts.frontend, ts.device)
+        eval_step = EvalStep(ts.model, ts.frontend, ts.device, ts.lfr)
         best_cv = float("inf")
         bad_epochs = 0
         profiler = None

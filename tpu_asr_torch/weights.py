@@ -2,14 +2,16 @@
 seeded random init.
 
 `load_jax_params(model, params)` takes the flax variable tree of
-tpu_asr.models.Transformer (transformer or conformer encoder), CifModel,
+tpu_asr.models.Transformer (transformer or conformer encoder, conv2d or
+LFR + linear input layer), CifModel,
 TransducerModel or lm.TransformerLM as nested dicts of numpy arrays (what
 `jax.device_get(variables)` returns), or an .npz file / flat dict whose
 keys are the "/"-joined flax paths. The port's module names follow the
 flax paths, so each key maps mechanically:
 
   layer_<i>              -> layers.<i>
-  LayerNorm_0/scale|bias -> norm.weight|bias
+  LayerNorm_0/scale|bias -> norm.weight|bias (a named LayerNorm, as
+                            the encoder's norm_in: <name>.weight|bias)
   Dense kernel [in, out]             -> Linear.weight [out, in]
   DenseGeneral q/k/v kernel [D,H,dh] -> [H*dh, D]; bias [H, dh] -> [H*dh]
   out_proj kernel [H, dh, D]         -> [D, H*dh]
