@@ -204,8 +204,9 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      tpu_asr_torch.train --preset streaming` on phase 8's corpus (as
      phase 8: >= 20 steps and cv, finite losses, the CTC kernels once a
      step on their warp route, a profile, the fixed shape), beside phase
-     8's aishell numbers; 13b, on 13a's checkpoint and on random weights
-     of the preset (seed 0), each of phase 10's 51 cv utterances pushed
+     8's aishell numbers; 13b, on 13a's checkpoint (each of phase 10's
+     51 cv utterances) and on random weights of the preset (seed 0; the
+     first 16 of them), each utterance pushed
      64 feature frames at a time through StreamingCTCRecognizer: tokens
      and times equal the offline greedy_ctc of the Recognizer on the
      card, confidences within 1e-4, the streamed encode_chunk frames
@@ -254,6 +255,30 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      card's logits; 14e, `python -m tpu_asr_torch.average_checkpoints
      --last 3` on 14b's folder: every float weight the float32 mean of
      the three steps, frontend.json kept, recognize decodes the output.
+ 15. parallelism (tpu_asr_torch.parallel; 2 ranks share the one card,
+     so they take gloo, which sums the CUDA tensors as they lie): 15a,
+     one step of the aishell preset's model (bf16, dropout 0, seeded
+     random weights) on parallel_batch (lengths, tokens and real rows
+     uneven across the shards) on a dp 2 mesh, held to the same step in
+     this process (PARALLEL_BOUNDS: each loss, the grad norm and every
+     gradient gathered whole, grad_tree_gap), the CTC pair once on each
+     rank, and the same step through a 1-rank NCCL group (its NCCL
+     collectives in the trace); 15b, the use_pallas step on a tp 2 mesh
+     (4 heads a rank: 18 flash forward, dq and dk/dv and 30 LN forward
+     and backward launches on each rank), held likewise; each with
+     device ms, busy share and peak memory for 1 process and for each
+     rank; 15c, `python -m tpu_asr_torch.train --num-devices 2` on phase
+     8's first 32 train utterances for 2 epochs: rank 0 alone wrote the
+     metrics (2 cv lines) and the 2 checkpoints, which load into one
+     process; 15d, `recognize --dp 2` in joint beam 5 on phase 8's
+     aishell checkpoint (bf16) and the cv manifest against one process
+     decoding each rank's shards alone (shard_decodes): the 1-best equal
+     and every score within 1e-5 (compare_shard_hyps); the prefix scan
+     launches on each rank. The ranks of 15c and 15d run the CLIs' own
+     rank functions through counted_rank. Every rank records its
+     kernels' inputs (record_rank_inputs) and holds each call against
+     its plain version as phases 3-14 do (rank_kernel_errs); the errors
+     join each kernel's max_abs_err.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 
@@ -262,6 +287,12 @@ Then one JSON line for the kernels, the card line, and the last line
 measures instead, and checks nothing: 13b's streamed beam 5 against the
 offline one on N streaming checkpoints trained as 13a (seeds 0 .. N-1),
 logging where the two searches part for every 1-best that differs.
+
+  python3 chip_smoke.py --parallel-faults
+
+runs 15a and 15b once with each fault of PARALLEL_FAULTS injected into
+the ranks, and exits 0 only if every fault exceeds a bound of
+PARALLEL_BOUNDS (it logs which).
 """
 
 from __future__ import annotations
@@ -269,6 +300,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -4320,8 +4352,9 @@ STREAM_BEAM = 5
 STREAM_FRAME_TOL = 1e-4       # encode_chunk against Encoder.forward, float32
 STREAM_CONF_TOL = 1e-4
 STREAM_SCORE_TOL = 1e-3
-STREAM_TIE_MARGIN = 1e-4      # offline top-2 logit margin of a rounding tie
+STREAM_TIE_MARGIN = 1e-4      # top-2 logit or beam parting margin of a tie
 STREAM_RECOMPUTE_UTTS = 8     # utterances the full-recompute oracle streams
+STREAM_RANDOM_UTTS = 16       # cv utterances 13b streams on random weights
 STREAM_COMPOSE_UTTS = 8       # utterances of the one-search beam check
 STREAM_TRANSDUCER_UTTS = 8    # utterances of each transducer comparison
 STREAM_SESSIONS = 4           # concurrent HTTP /stream sessions
@@ -4356,8 +4389,7 @@ def top2_margins(logits, streamed_ids) -> list:
             if a != b]
 
 
-def compare_streamed(what, streamed, offline, eos, margins=None,
-                     tie_margin=STREAM_TIE_MARGIN) -> dict:
+def compare_streamed(what, streamed, offline, eos, margins=None) -> dict:
     """streamed {id: (tokens, times or None, confidences or None)} against
     offline {id: n-best hypothesis dict} (eos stripped, as Recognizer
     cleans it): the tokens equal with the stream's eos dropped, the times
@@ -4366,9 +4398,8 @@ def compare_streamed(what, streamed, offline, eos, margins=None,
     from the offline one's with the margin of that decision (greedy: the
     offline top-2 margin, top2_margins; beam: where the two searches
     prune apart, beam_tie): an utterance that differs only at frames whose
-    margin is at most tie_margin is a rounding tie, reported and not
-    failed. With tie_margin None no utterance may differ, and the margins
-    only go into the failure's report. ->
+    margin is at most STREAM_TIE_MARGIN is a rounding tie, reported and
+    not failed; the margins of any other go into the failure's report. ->
     {"n_utts", "n_tokens", "max_conf_gap", "ties": {id: margins}}."""
     bad, ties, conf_gap, n_tokens = [], {}, 0.0, 0
     for uid, (toks, times, confs) in streamed.items():
@@ -4378,8 +4409,8 @@ def compare_streamed(what, streamed, offline, eos, margins=None,
         n_tokens += len(got)
         if got != want["yseq"] or (times is not None and [
                 times[j] for j in keep] != want["times"]):
-            frames = margins(uid) if margins and tie_margin else []
-            if frames and all(m <= tie_margin for _, m in frames):
+            frames = margins(uid) if margins else []
+            if frames and all(m <= STREAM_TIE_MARGIN for _, m in frames):
                 ties[uid] = frames
             else:
                 bad.append(uid)
@@ -4505,8 +4536,9 @@ def check_beam_scores(name, model, feats, stream_frames, streamed, offline):
 
 
 def check_beam_composition(name, model, stream_frames, lengths, beams,
-                           scores):
-    """On the first STREAM_COMPOSE_UTTS utterances, one beam search over
+                           scores, also=()):
+    """On the first STREAM_COMPOSE_UTTS utterances and those named in
+    `also` (the streamed beam's rounding ties), one beam search over
     all the streamed frames' log-probs (chunk_log_probs, the first
     lengths[id] frames: the same inputs) gives the streamed beam's 1-best
     and its score (within STREAM_SCORE_TOL): advancing a chunk at a time
@@ -4514,7 +4546,8 @@ def check_beam_composition(name, model, stream_frames, lengths, beams,
     from tpu_asr_torch.decode.ctc_beam import (beam_advance, beam_finalize,
                                                beam_init)
     worst = 0.0
-    for uid in list(stream_frames)[:STREAM_COMPOSE_UTTS]:
+    uids = list(stream_frames)[:STREAM_COMPOSE_UTTS]
+    for uid in uids + [u for u in also if u not in uids]:
         frames = stream_frames[uid]
         with torch.inference_mode():
             logp = chunk_log_probs(model, frames, lengths[uid])
@@ -4538,10 +4571,12 @@ def check_stream_ctc(card, name, cfg, model, feats):
     the card (tokens, times equal; confidences within 1e-4); the streamed
     encode_chunk frames against Encoder.forward (within 1e-4);
     StreamingCTCBeamRecognizer beam 5 against the offline ctc_beam 5 (the
-    1-best equal; its score within 1e-3 unless the searches part at a
+    1-best equal unless the searches part at a rounding tie, within
+    STREAM_TIE_MARGIN; its score within 1e-3 unless they part at a
     pruning tie, check_beam_scores) and against one search over the
-    streamed frames (check_beam_composition); the full-recompute path
-    on STREAM_RECOMPUTE_UTTS utterances (the same tokens). No kernel
+    streamed frames (check_beam_composition, every tie included); the
+    full-recompute path on STREAM_RECOMPUTE_UTTS utterances (the same
+    tokens). No kernel
     launches on these paths. -> ({id: greedy tokens}, {id: beam tokens},
     the numbers)."""
     from tpu_asr_torch.decode.beam import BeamConfig
@@ -4619,19 +4654,22 @@ def check_stream_ctc(card, name, cfg, model, feats):
         div = beam_tie(model, feats[uid], stream_frames[uid])
         return [] if div is None else [div]
 
-    # the 1-best is held equal; where it is not, the report says where
-    # the two searches part (python3 chip_smoke.py --beam-ties measures
-    # how often they do)
+    # the 1-best is held equal unless the two searches part where the
+    # prefix one drops stood within STREAM_TIE_MARGIN of the other's
+    # weakest survivor: the frames round apart by ~1e-6, and a run's
+    # trained checkpoint has parted at 0.0 and 1.5e-5 (python3
+    # chip_smoke.py --beam-ties measures how often); a tied utterance's
+    # streamed 1-best is then held to one search over its own frames
     beam_cmp = compare_streamed(f"{name}: streamed CTC beam "
                                 f"{STREAM_BEAM}", beams, offline_beam, eos,
-                                beam_margins, tie_margin=None)
+                                beam_margins)
     score_gap, ties = check_beam_scores(
         name, model, feats, stream_frames, beam_scores,
         {u: h["score"] for u, h in offline_beam.items()})
     compose_gap = check_beam_composition(
         name, model, stream_frames,
         {u: cfg.subsampled_length(len(x)) for u, x in feats.items()}, beams,
-        beam_scores)
+        beam_scores, also=beam_cmp["ties"])
     audio_s = sum(len(x) for x in feats.values()) / 100.0
     out = {"utterances": len(feats), "audio_s": audio_s,
            "chunk_steps": chunks[0], "frames_max_abs_gap": frames_gap,
@@ -4883,15 +4921,17 @@ def run_streaming_phase(card, workdir, data, aishell_stats, cv_manifest):
                                               trained, feats)
     rcfg = get_preset("streaming").model
     random_model = init_random(build_model(rcfg), SEED)
+    r_feats = dict(list(feats.items())[:STREAM_RANDOM_UTTS])
     r_greedy, _, r_numbers = check_stream_ctc(
         card, "random streaming weights (seed 0)", rcfg, random_model,
-        feats)
+        r_feats)
     lap("streamed_vs_offline")
     demo = run_stream_demo(card, ckpt, cv_manifest, greedy, beams)
     lap("stream_demo")
     transducers = check_stream_transducers(card, utts, frontend)
     lap("transducers")
-    serving = run_stream_serving(card, rcfg, random_model, feats, r_greedy)
+    serving = run_stream_serving(card, rcfg, random_model, r_feats,
+                                 r_greedy)
     lap("serving")
     paths, errs, bitwise = check_ctc_pair_on_paths(ctc_caps)
     lap("ctc_pair")
@@ -5526,6 +5566,655 @@ def run_inputs_phase(card, workdir, data, aishell_stats, cv_manifest):
     return {"aishell --pitch": launches}, prefix_launches, paths, errs
 
 
+# ---- phase 15: data- and tensor-parallel training and decode ----
+
+# bounds of a 2-rank step against the 1-process step, both bf16 at the
+# aishell preset's widths on parallel_batch: each loss (absolute), the
+# grad norm (relative) and every gradient, gathered whole
+# (grad_tree_gap), set from the readings of run 15-7 (PERF.md) with
+# margin. dp read 3.8e-6, 4.4e-7 and 5.0e-3; tp, whose local heads and
+# columns change the GEMM shapes and so the bf16 roundings, 2.3e-3,
+# 4.8e-4 and 8.1e-2 (a key projection's gradient, a sum that cancels),
+# and keeps tests/test_torch_bf16.py's loss and norm bounds. The faults
+# of PARALLEL_FAULTS read 0.71, 9.5e-2 and 0.26 (dp) and 8.6e-4, 3.2e-4
+# and 0.74 (tp).
+PARALLEL_BOUNDS = {
+    "dp": {"loss_atol": 1e-3, "grad_norm_rtol": 1e-3, "grad_rtol": 2.5e-2},
+    "tp": {"loss_atol": 1e-2, "grad_norm_rtol": 5e-3, "grad_rtol": 0.3}}
+GRAD_FLOOR = 1e-3             # grad_tree_gap's floor, a share of |W|
+PARALLEL_SCORE_TOL = 1e-5      # 15d: a rank's n-best against its shard's
+PARALLEL_TRAIN_UTTS = 32      # 15c: phase 8's first train utterances
+PARALLEL_RANKS = 2
+PARALLEL_DECODE = ["--mode", "joint", "--beam", "5", "--nbest", "2",
+                   "--max-len", "40", "--device", "cuda"]
+PARALLEL_LAYOUTS = (          # (key, n_data, n_model, ModelConfig changes)
+    ("dp", 2, 1, {}), ("tp", 1, 2, {"use_pallas": True}))
+# faults phase 15's bounds must catch (measure_parallel_faults)
+PARALLEL_FAULTS = {
+    "mean_a_shard": "each rank divides its loss sums by its own shard's "
+                    "counts, a mean taken a shard and then averaged",
+    "no_sliced_sum": "the model-axis sum of the gradients of the "
+                     "replicated parameters read by slice is left out"}
+# the capture kinds of record_rank_inputs
+RANK_CAPTURES = ("ctc", "flash", "ln", "flash_bwd", "ln_bwd", "prefix")
+
+
+def parallel_cfg(overrides):
+    """The aishell preset's model at full width (vocab 4233, 80-dim
+    features), dropout 0, with `overrides`."""
+    from tpu_asr_torch.configs.presets import get_preset
+    return dataclasses.replace(get_preset(PRESET).model, vocab_size=4233,
+                               d_input=80, dropout=0.0, **overrides)
+
+
+@functools.lru_cache(maxsize=1)
+def parallel_weights() -> dict:
+    """parallel_cfg's seeded random weights (use_pallas keeps the same
+    parameters), made once a process."""
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.weights import init_random
+    return init_random(build_model(parallel_cfg({})), SEED).state_dict()
+
+
+def parallel_batch(b=32, t=1000, u=24):
+    """fixed_shape_batch with lengths uneven across the two dp shards, as
+    a loader pads a bucket: rows 0 to b/2 - 1 whole (t frames, u
+    tokens); the next 3b/8 rows of 2t/5-t frames and 4-u tokens (zero
+    features and IGNORE_ID targets past them); the last b/8 rows dummies
+    (feat_lengths 0, no targets). The shards hold other frame, token and
+    row counts, so a mean taken a shard weighs the rows otherwise than
+    the global mean."""
+    batch = fixed_shape_batch(b, t, u)
+    rng = np.random.default_rng(SEED + 15)
+    half, dummies = b // 2, b // 8
+    flens, tlens = batch["feat_lengths"], batch["target_lengths"]
+    flens[half:] = rng.integers(2 * t // 5, t + 1, b - half)
+    tlens[half:] = rng.integers(4, u + 1, b - half)
+    flens[b - dummies:] = tlens[b - dummies:] = 0
+    for i in range(half, b):
+        batch["feats"][i, flens[i]:] = 0.0
+        batch["targets"][i, tlens[i]:] = -1
+    return batch
+
+
+def grad_tree_gap(got: dict, want: dict, floor=GRAD_FLOOR) -> dict:
+    """Each gradient's L2 distance |g - w| over max(|w|, floor x |W|), W
+    the whole tree ({name: tensor}, the same names on both sides): a
+    gradient that is 0 in exact arithmetic (a key projection's bias:
+    softmax ignores a shift shared by every key) is rounding noise on
+    both sides and is measured against the floor. -> {"max", "worst"
+    (its name), "top" (the 3 largest: name, gap, |w|, |g - w|),
+    "tree_norm": |W|}."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"gradients {sorted(got.keys() ^ want.keys())}"
+                             f" on one side only")
+    norms = {n: float(w.double().norm()) for n, w in want.items()}
+    tree = sum(v * v for v in norms.values()) ** 0.5
+    rows = []
+    for name, w in want.items():
+        diff = float((got[name].double().to(w.device) - w.double()).norm())
+        rows.append((diff / max(norms[name], floor * tree, 1e-30), name,
+                     norms[name], diff))
+    rows.sort(reverse=True)
+    return {"max": rows[0][0], "worst": rows[0][1],
+            "top": [[n, g, w, d] for g, n, w, d in rows[:3]],
+            "tree_norm": tree}
+
+
+@contextlib.contextmanager
+def record_rank_inputs(caps: dict, path: str):
+    """record_inputs of every kernel wrapper a phase-15 path launches,
+    into caps[kind] (RANK_CAPTURES): the first CTC backward (its
+    forward's inputs and outputs), each kind of flash call and each
+    post-norm LN part a T' (PathLabels), the flash and LN backward a
+    shape, and the prefix scan's first and LATER_PREFIX_CALL-th call a
+    T'."""
+    from tpu_asr_torch.decode import ctc_prefix as scorer_module
+    from tpu_asr_torch.ops import ctc_loss as ctc_module
+    from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
+    labels = PathLabels(path)
+    with contextlib.ExitStack() as stack:
+        for owner, name, kind, label in (
+                (ctc_module, "ctc_loss_bwd", "ctc",
+                 lambda *_, **__: f"{path}: first CTC backward"),
+                (fa, "flash_attention_fwd", "flash", labels.flash),
+                (ln, "layer_norm_residual_fwd", "ln", labels.ln),
+                (fa, "flash_attention_bwd", "flash_bwd", flash_bwd_label),
+                (ln, "layer_norm_residual_bwd", "ln_bwd", ln_bwd_label),
+                (scorer_module, "ctc_prefix_scan", "prefix",
+                 labels.prefix)):
+            stack.enter_context(record_inputs(
+                owner, name, caps.setdefault(kind, {}), label))
+        yield
+
+
+def rank_kernel_errs(caps: dict, what: str) -> dict:
+    """Each kernel against its plain version on the inputs a rank's path
+    gave it (record_rank_inputs, after the rank's counts were read),
+    within the limits phases 3-14 hold; the CTC forward must give the
+    path's nll and alpha bit for bit. -> {kernel name: max abs error}."""
+    errs = {}
+
+    def keep(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+    for label, args in caps.get("ctc", {}).items():
+        at = f"{what}, {label}"
+        got, _, err, _ = compare_ctc_fwd(args[:5], at)
+        if not (torch.equal(got[0], args[6]) and torch.equal(got[1],
+                                                            args[5])):
+            raise AssertionError(f"ctc_loss_fwd at {at}: not the bits the "
+                                 f"path's forward gave")
+        keep("ctc_loss_fwd", err)
+        keep("ctc_loss_bwd", compare_ctc_bwd(args[:5], args[5], args[6], at))
+    for label, (q, k, v, valid, causal) in caps.get("flash", {}).items():
+        keep("flash_attention_fwd", compare_flash(
+            q, k, v, valid, causal, f"{what}, {label}")[0])
+    for label, (r, h, g, b, _eps) in caps.get("ln", {}).items():
+        keep("layer_norm_residual_fwd", compare_ln(r, h, g, b,
+                                                   f"{what}, {label}")[0])
+    for label, args in caps.get("flash_bwd", {}).items():
+        got = compare_flash_bwd(*args, f"{what}, {label}")
+        keep("flash_attention_bwd_dq", got["dq"][0])
+        keep("flash_attention_bwd_dkv", max(got["dk"][0], got["dv"][0]))
+    for label, args in caps.get("ln_bwd", {}).items():
+        keep("layer_norm_residual_bwd", compare_ln_bwd(
+            *args, f"{what}, {label}")[0])
+    for label, args in caps.get("prefix", {}).items():
+        keep("ctc_prefix_scan", compare_prefix(list(args),
+                                               f"{what}, {label}"))
+    return errs
+
+
+def parallel_step(card, what, overrides, mesh=None, nccl=False,
+                  grads_path=None):
+    """One TrainStep of the parallel_cfg model (seeded random weights) on
+    parallel_batch (every rank of `mesh` with the same host batch) ->
+    {"metrics", "launches" (the kernels that step launched), "stats"
+    ({"device_ms", "busy_share", "peak_gib"} of a second step under
+    torch.profiler; with `nccl`, also the NCCL ops and kernels that step
+    ran), "kernel_errs" (each kernel of the step against its plain
+    version on its inputs there), "grad_gap" (under a mesh: the
+    gathered gradients against those that the 1-process step saved to
+    grads_path, grad_tree_gap)}. Without a mesh the step's gradients
+    are saved to grads_path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_asr_torch.train import NoamAdam, TrainStep
+    from tpu_asr_torch.models import build_model
+    cfg = parallel_cfg(overrides)
+    model = build_model(cfg)
+    model.load_state_dict(parallel_weights())
+    ts = TrainStep(model, NoamAdam(model.parameters(), cfg.d_model, 100),
+                   device=DEVICE, seed=SEED, mesh=mesh)
+    batch = parallel_batch()
+    grads = []
+    update = ts.optimizer.update
+
+    def keep_grads(g, norm=None):
+        if not grads:
+            grads.extend(t.detach().clone() for t in g)
+        return update(g, norm)
+    ts.optimizer.update = keep_grads
+    counters = kernel_counters()
+    caps = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: f.launches for k, f in counters.items()}
+    with record_rank_inputs(caps, what):
+        metrics = {k: float(v) for k, v in ts(batch).items()}
+    torch.cuda.synchronize()
+    out = {"metrics": metrics,
+           "launches": {k: f.launches - before[k] for k, f in
+                        counters.items() if f.launches > before[k]}}
+    names = {id(p): n for n, p in model.named_parameters()}
+    by_name = {names[id(p)]: g for p, g in zip(ts.optimizer.params, grads)}
+    if mesh is not None and mesh.n_model > 1:
+        by_name = {n: g if ts.specs[n] is None else
+                   mesh.model.all_gather(g, ts.specs[n])
+                   for n, g in by_name.items()}
+    if mesh is None:
+        torch.save({n: g.cpu() for n, g in by_name.items()}, grads_path)
+    else:
+        out["grad_gap"] = grad_tree_gap(by_name, torch.load(
+            grads_path, map_location=DEVICE))
+    del grads[:], by_name
+    prof = profile_device(lambda: ts(batch), what, card)
+    out["stats"] = {"device_ms": prof["device_ms"],
+                    "busy_share": prof["device_ms"] / prof["wall_ms"],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if nccl:      # NCCL makes a 1-rank sum a device copy, not a kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            ts(batch)
+            torch.cuda.synchronize()
+        ops = [e for e in p.key_averages() if "nccl" in e.key.lower()]
+        out["stats"]["nccl_ops"] = {e.key: e.count for e in ops
+                                    if e.device_type == DeviceType.CPU}
+        out["stats"]["nccl_kernels"] = {e.key: e.count for e in ops
+                                        if e.device_type == DeviceType.CUDA}
+    del ts, model
+    torch.cuda.empty_cache()
+    out["kernel_errs"] = rank_kernel_errs(caps, what)
+    return out
+
+
+def parallel_rank(out_dir: str, card: str) -> None:
+    """One of PARALLEL_RANKS ranks sharing the card (spawn_ranks): a step
+    on each layout of PARALLEL_LAYOUTS, held against the 1-process
+    step's gradients in out_dir/single_<layout>.pt; writes what
+    parallel_step gives to out_dir/rank<r>.pt."""
+    from tpu_asr_torch.parallel import initialize_distributed, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(DEVICE)
+    rank = int(os.environ["PROCESS_ID"])
+    out = {}
+    for key, n_data, n_model, overrides in PARALLEL_LAYOUTS:
+        mesh = make_mesh(n_data, n_model)
+        out[key] = parallel_step(
+            card, f"{PRESET} {key} {n_data}x{n_model} rank {rank}",
+            overrides, mesh,
+            grads_path=os.path.join(out_dir, f"single_{key}.pt"))
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def counted_rank(target: str, argv: list, out_dir: str) -> None:
+    """One rank of a CLI on several ranks (spawn_ranks: what its --dp or
+    --num-devices launch runs): target(argv) with the card set as main()
+    sets it and its standard output captured, the kernels' inputs
+    recorded (record_rank_inputs) and then held against their plain
+    versions (rank_kernel_errs); writes the rank's kernel launches, its
+    output and those errors to out_dir/rank<r>.json."""
+    import importlib
+    import io
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    module, name = target.split(":")
+    fn = getattr(importlib.import_module(module), name)
+    rank = int(os.environ["PROCESS_ID"])
+    what = f"{name} rank {rank}"
+    counters = kernel_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    buf = io.StringIO()
+    caps = {}
+    with contextlib.redirect_stdout(buf), record_rank_inputs(caps, what):
+        fn(argv)
+    launches = {k: c.launches - before[k] for k, c in counters.items()
+                if c.launches > before[k]}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": launches, "stdout": buf.getvalue(),
+                   "kernel_errs": rank_kernel_errs(caps, what)}, f)
+
+
+def spawn_counted(target: str, argv: list, out_dir: str) -> list[dict]:
+    """target(argv) on PARALLEL_RANKS ranks of this host (counted_rank)
+    -> each rank's {"launches", "stdout", "kernel_errs"}."""
+    from tpu_asr_torch.parallel.mesh import spawn_ranks
+    os.makedirs(out_dir, exist_ok=True)
+    spawn_ranks("chip_smoke:counted_rank", PARALLEL_RANKS, target, argv,
+                out_dir)
+    out = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def parallel_gaps(got: dict, want: dict) -> dict:
+    """A mesh step's global metrics against the 1-process step's: each
+    loss's absolute gap and the grad norm's relative one."""
+    gaps = {k: abs(got[k] - want[k]) for k in want if k.startswith("loss")}
+    gaps["grad_norm_rel"] = abs(got["grad_norm"] - want["grad_norm"]) / \
+        want["grad_norm"]
+    return gaps
+
+
+def compare_parallel_step(what, got, want, bounds, grad_gap=None):
+    """A mesh step's metrics (and its gradients' grad_tree_gap) against
+    the 1-process step's, within `bounds` (PARALLEL_BOUNDS); the error
+    names the bounds exceeded. -> the gaps."""
+    gaps = parallel_gaps(got, want)
+    if grad_gap is not None:
+        gaps["grad_rel"], gaps["grad_worst"] = grad_gap["max"], \
+            grad_gap["worst"]
+    over = [name for name, gap in (
+        ("loss_atol", max(v for k, v in gaps.items() if k.startswith("loss"))),
+        ("grad_norm_rtol", gaps["grad_norm_rel"]),
+        ("grad_rtol", gaps.get("grad_rel", 0.0))) if gap > bounds[name]]
+    if over or not np.isfinite(list(got.values())).all():
+        raise AssertionError(f"{what}: {got} against the 1-process step "
+                             f"{want}: gaps {gaps} exceed {over} of "
+                             f"{bounds}")
+    return gaps
+
+
+def check_parallel_launches(what, launches, cfg):
+    """A layout's step on each rank: the CTC pair once; under use_pallas
+    the flash forward, dq and dk/dv once per full-pass attention (on
+    this rank's heads) and the LN pair once per post-norm call of >= 512
+    rows (parallel_batch: 32 x 249 encoder rows, 32 x 25 decoder rows,
+    all of them)."""
+    n_attn = cfg.num_enc_layers + 2 * cfg.num_dec_layers
+    n_ln = 2 * cfg.num_enc_layers + 3 * cfg.num_dec_layers
+    want = {"ctc_loss_fwd": 1, "ctc_loss_bwd": 1}
+    if cfg.use_pallas:
+        want.update({k: n_attn for k in ("flash_attention_fwd",
+                                          "flash_attention_bwd_dq",
+                                          "flash_attention_bwd_dkv")},
+                    layer_norm_residual_fwd=n_ln,
+                    layer_norm_residual_bwd=n_ln)
+    check_launches(what, launches, want)
+
+
+def parallel_training(card, workdir, fault=None):
+    """15a and 15b: the aishell-width step on 2 ranks sharing the card
+    (gloo) as dp 2 and, with use_pallas, as tp 2, each against the same
+    step in this process (metrics and every gradient); and the
+    1-process step through a 1-rank NCCL group. Every gap is logged
+    before any is held to its bound. `fault` (PARALLEL_FAULTS) is
+    injected into the ranks. -> ({layout: [each rank's launches]},
+    {layout: [each rank's kernel errors]})."""
+    import torch.distributed as dist
+    from tpu_asr_torch.parallel import make_mesh
+    from tpu_asr_torch.parallel.mesh import free_port, spawn_ranks
+    out_dir = os.path.join(workdir, "parallel_ranks")
+    os.makedirs(out_dir)
+    single = {key: parallel_step(
+        card, f"{PRESET} {key} 1 process", overrides,
+        grads_path=os.path.join(out_dir, f"single_{key}.pt"))
+        for key, _, _, overrides in PARALLEL_LAYOUTS}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        nccl = parallel_step(card, f"{PRESET} 1-rank nccl", {},
+                             make_mesh(1, 1), nccl=True,
+                             grads_path=os.path.join(out_dir,
+                                                     "single_dp.pt"))
+    finally:
+        dist.destroy_process_group()
+    if fault is None:
+        spawn_ranks("chip_smoke:parallel_rank", PARALLEL_RANKS, out_dir,
+                    card)
+    else:
+        spawn_ranks("chip_smoke:fault_rank", PARALLEL_RANKS, fault, out_dir,
+                    card)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(PARALLEL_RANKS)]
+    numbers = {"nccl": dict(parallel_gaps(nccl["metrics"],
+                                          single["dp"]["metrics"]),
+                            grad_gap=nccl["grad_gap"], **nccl["stats"])}
+    for key, n_data, n_model, _ in PARALLEL_LAYOUTS:
+        numbers[key] = {
+            "single": single[key]["metrics"], "mesh": ranks[0][key]["metrics"],
+            "gaps": [dict(parallel_gaps(g[key]["metrics"],
+                                        single[key]["metrics"]),
+                          grad_gap=g[key]["grad_gap"]) for g in ranks],
+            "single_step": single[key]["stats"],
+            "rank_steps": [g[key]["stats"] for g in ranks],
+            "launches": [g[key]["launches"] for g in ranks],
+            "kernel_errs": [g[key]["kernel_errs"] for g in ranks]}
+        log(f"{PRESET} {key} {n_data}x{n_model} (gloo, {PARALLEL_RANKS} "
+            f"ranks on one card): {json.dumps(numbers[key])} [{card}]")
+    log(f"{PRESET} through a 1-rank NCCL group: {json.dumps(numbers['nccl'])}"
+        f" [{card}]")
+    if not nccl["stats"]["nccl_ops"]:
+        raise AssertionError("the 1-rank NCCL step ran no NCCL collective")
+    compare_parallel_step("1-rank nccl", nccl["metrics"],
+                          single["dp"]["metrics"], PARALLEL_BOUNDS["dp"],
+                          nccl["grad_gap"])
+    launches, errs = {}, {}
+    for key, n_data, n_model, overrides in PARALLEL_LAYOUTS:
+        cfg = parallel_cfg(overrides)
+        what = f"{PRESET} {key} {n_data}x{n_model}"
+        for r, got in enumerate(ranks):
+            check_parallel_launches(f"{what} rank {r}", got[key]["launches"],
+                                    cfg)
+            if got[key]["metrics"] != ranks[0][key]["metrics"]:
+                raise AssertionError(f"{what}: ranks report other metrics "
+                                     f"{numbers[key]['mesh']}")
+            compare_parallel_step(f"{what} rank {r}", got[key]["metrics"],
+                                  single[key]["metrics"],
+                                  PARALLEL_BOUNDS[key], got[key]["grad_gap"])
+            if set(got[key]["kernel_errs"]) != set(got[key]["launches"]):
+                raise AssertionError(
+                    f"{what} rank {r}: launched {sorted(got[key]['launches'])}"
+                    f", held {sorted(got[key]['kernel_errs'])}")
+        launches[key] = numbers[key]["launches"]
+        errs[key] = numbers[key]["kernel_errs"]
+    return launches, errs
+
+
+def inject_fault(fault: str) -> None:
+    """Break this process's train step as PARALLEL_FAULTS[fault] says."""
+    from tpu_asr_torch.train import loop
+    if fault == "no_sliced_sum":
+        loop.sliced_params = lambda model: set()
+        return
+    call, counts = loop.TrainStep.__call__, loop.global_counts
+
+    def with_shard_counts(self, batch):
+        mesh = self.mesh
+
+        def shard_counts(whole, frontend, device):
+            flens, _ = counts(whole, frontend, device)
+            _, own = counts(loop.shard_batch(whole, mesh), frontend, device)
+            return flens, {k: v * mesh.n_data for k, v in own.items()}
+        loop.global_counts = counts if mesh is None else shard_counts
+        try:
+            return call(self, batch)
+        finally:
+            loop.global_counts = counts
+    loop.TrainStep.__call__ = with_shard_counts
+
+
+def fault_rank(fault: str, out_dir: str, card: str) -> None:
+    """parallel_rank with `fault` injected (spawn_ranks)."""
+    inject_fault(fault)
+    parallel_rank(out_dir, card)
+
+
+def measure_parallel_faults(card) -> int:
+    """python3 chip_smoke.py --parallel-faults: 15a and 15b once with each
+    fault of PARALLEL_FAULTS injected into the ranks; each must exceed a
+    bound of PARALLEL_BOUNDS. -> 0 when every fault was caught."""
+    missed = []
+    for fault, what in PARALLEL_FAULTS.items():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            try:
+                parallel_training(card, workdir, fault)
+            except AssertionError as e:
+                log(f"fault {fault} ({what}) caught: {e}")
+                continue
+        log(f"fault {fault} ({what}) NOT caught")
+        missed.append(fault)
+    log(f"parallel faults missed: {missed} [{card}]")
+    return 1 if missed else 0
+
+
+def parallel_trainer(card, workdir, data, cv_manifest):
+    """15c: `python -m tpu_asr_torch.train --num-devices 2` (its ranks run
+    through counted_rank) with the aishell preset on phase 8's first
+    PARALLEL_TRAIN_UTTS train utterances for 2 epochs: one metrics file
+    with a cv line an epoch and the checkpoints, from rank 0 alone, and
+    the last checkpoint loads into one process's model. -> (each rank's
+    launches, each rank's kernel errors, the checkpoint folder)."""
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.train.checkpoints import Checkpointer
+    train_utts, _, _, waves = data
+    manifest = write_wav_manifest(train_utts[:PARALLEL_TRAIN_UTTS], waves,
+                                  os.path.join(workdir, "parallel_train"))
+    save = os.path.join(workdir, "parallel_exp")
+    ranks = spawn_counted(
+        "tpu_asr_torch.train.__main__:train",
+        ["--preset", PRESET, "--train-manifest", manifest, "--cv-manifest",
+         cv_manifest, "--vocab-size", "4233", "--epochs", "2",
+         "--num-devices", str(PARALLEL_RANKS), "--save-folder", save],
+        os.path.join(workdir, "parallel_train_ranks"))
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    history = [m for m in lines if m.get("phase") == "cv"]
+    ck = Checkpointer(save)
+    if [m["epoch"] for m in history] != [0, 1] or \
+            len(ck.all_steps()) != 2:
+        raise AssertionError(f"--num-devices 2: cv lines {history}, "
+                             f"checkpoints {ck.all_steps()}")
+    model = build_model(ck.load_config())
+    model.load_state_dict(ck.restore()["model"])
+    launches = [r["launches"] for r in ranks]
+    errs = [r["kernel_errs"] for r in ranks]
+    steps = history[-1]["step"]
+    for r, got in enumerate(launches):
+        if got.get("ctc_loss_bwd") != steps or not got.get("ctc_loss_fwd") \
+                or set(errs[r]) != set(got):
+            raise AssertionError(f"--num-devices 2 rank {r}: launches {got}"
+                                 f" for {steps} steps, held {errs[r]}")
+    log(f"{PRESET} train --num-devices {PARALLEL_RANKS} (gloo, one card): "
+        f"{steps} steps, cv {json.dumps(history)}; checkpoint step "
+        f"{ck.latest_step()} loads into one process; launches by rank "
+        f"{json.dumps(launches)}; kernels against their plain versions on "
+        f"each rank's inputs {json.dumps(errs)} [{card}]")
+    return launches, errs, save
+
+
+def compare_shard_hyps(want: dict, got: dict) -> float:
+    """recognize --dp's hypothesis lines ({id: line with "hyp_tokens" and
+    "nbest"}, `got`) against one process's decode of the same shards
+    (`want`): the same ids, the 1-best equal and every n-best score
+    within PARALLEL_SCORE_TOL. -> the largest score gap."""
+    if set(want) != set(got):
+        raise AssertionError(f"--dp ids {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for uid, h in want.items():
+        g = got[uid]
+        gaps = [abs(a["score"] - b["score"])
+                for a, b in zip(g["nbest"], h["nbest"])]
+        worst = max([worst] + gaps)
+        if g["hyp_tokens"] != h["hyp_tokens"] or len(g["nbest"]) != len(
+                h["nbest"]) or max(gaps) > PARALLEL_SCORE_TOL:
+            raise AssertionError(f"recognize --dp {uid}: {g['nbest']} vs "
+                                 f"its shard in one process {h['nbest']}")
+    return worst
+
+
+def shard_decodes(argv: list) -> dict:
+    """recognize's Recognizer and batches for `argv` (its bucket sizes
+    multiples of PARALLEL_RANKS, as --dp makes them) in this process,
+    each batch cut into the ranks' shards at its padded shape and each
+    shard decoded alone: what each rank of --dp decodes, with the same
+    GEMM shapes. -> {id: a hypothesis line as recognize writes it}."""
+    from tpu_asr_torch import recognize
+    from tpu_asr_torch.parallel.mesh import Axis, Mesh, shard_batch
+    rec, _, loader, _, _ = recognize.build(
+        recognize.parse_args(argv), torch.device(DEVICE),
+        world=PARALLEL_RANKS)
+    batches = list(loader())
+    out = {}
+    for r in range(PARALLEL_RANKS):
+        mesh = Mesh(PARALLEL_RANKS, 1, r, Axis(None, PARALLEL_RANKS, r),
+                    Axis(None, 1, 0))
+        nbests = rec.decode_batches_nbest(shard_batch(b, mesh)
+                                          for b in batches)
+        for batch, nb in zip(batches, nbests):
+            rows = range(len(batch["ids"]))[r * len(nb): (r + 1) * len(nb)]
+            out.update({batch["ids"][i]: {"hyp_tokens": nb[i - rows.start][0]
+                                          ["yseq"],
+                                          "nbest": nb[i - rows.start]}
+                        for i in rows})
+    return out
+
+
+def parallel_decode(card, workdir, ckpt, cv_manifest):
+    """15d: recognize --dp 2 in joint beam 5 (its ranks through
+    counted_rank) on a checkpoint of the aishell preset (bf16) and the cv
+    manifest, against one process decoding each rank's shards alone at
+    their padded shapes (shard_decodes): the 1-best equal and the scores
+    within PARALLEL_SCORE_TOL. recognize in one process on the whole
+    batches gives the inverse RTF beside --dp's and how many 1-bests the
+    two share (bf16 rows of a half batch round otherwise than in the
+    whole one; a reading, not a check). -> (each rank's prefix-scan
+    launches, each rank's kernel errors)."""
+    from tpu_asr_torch import recognize
+    argv = ["--ckpt", ckpt, "--manifest", cv_manifest] + PARALLEL_DECODE
+    one_out = os.path.join(workdir, "hyp_one.jsonl")
+    counters = kernel_counters()
+    before = counters["ctc_prefix_scan"].launches
+    _, one = run_cli(recognize.main, argv + ["--output", one_out])
+    one_launches = counters["ctc_prefix_scan"].launches - before
+    dp_out = os.path.join(workdir, "hyp_dp.jsonl")
+    ranks = spawn_counted("tpu_asr_torch.recognize:decode",
+                          argv + ["--output", dp_out, "--dp",
+                                  str(PARALLEL_RANKS)],
+                          os.path.join(workdir, "parallel_decode_ranks"))
+    summary = last_json_line(ranks[0]["stdout"])
+    if ranks[1]["stdout"].strip():
+        raise AssertionError(f"recognize --dp rank 1 printed "
+                             f"{ranks[1]['stdout']!r}")
+
+    def read(path):
+        with open(path) as f:
+            return {h["id"]: h for h in map(json.loads, f)}
+    whole, got = read(one_out), read(dp_out)
+    if summary["n_utts"] != len(whole):
+        raise AssertionError(f"--dp summary {summary}, {len(whole)} utts")
+    worst = compare_shard_hyps(shard_decodes(argv), got)
+    launches = [r["launches"].get("ctc_prefix_scan", 0) for r in ranks]
+    errs = [r["kernel_errs"] for r in ranks]
+    if not all(launches) or not one_launches or \
+            not all("ctc_prefix_scan" in e for e in errs):
+        raise AssertionError(f"joint --dp: prefix-scan launches {launches},"
+                             f" one process {one_launches}, held {errs}")
+    numbers = {"n_utts": len(whole), "max_score_gap_to_shards": worst,
+               "one_best_equal_to_whole_batch": sum(
+                   got[u]["hyp_tokens"] == h["hyp_tokens"]
+                   for u, h in whole.items()),
+               "dp_summary": summary, "one_summary": one,
+               "one_process_launches": one_launches}
+    log(f"recognize --dp {PARALLEL_RANKS} joint beam 5 (bf16): "
+        f"{json.dumps(numbers)}; prefix-scan launches by rank {launches}; "
+        f"kernels against their plain versions on each rank's inputs "
+        f"{json.dumps(errs)} [{card}]")
+    return launches, errs
+
+
+def rank_sum(per_rank: list[dict]) -> dict:
+    """Each kernel's launches summed over the ranks."""
+    out = {}
+    for launches in per_rank:
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def rank_max(per_rank: list[dict]) -> dict:
+    """Each kernel's largest error over the ranks."""
+    out = {}
+    for errs in per_rank:
+        for k, v in errs.items():
+            out[k] = max(out.get(k, 0.0), v)
+    return out
+
+
+def run_parallel_phase(card, workdir, data, ckpt, cv_manifest):
+    """Phase 15: data- and tensor-parallel training (15a, 15b), the
+    trainer's --num-devices (15c) and recognize --dp (15d) on phase 8's
+    aishell checkpoint `ckpt`. -> (launches {"dp"|"tp"|"trainer"|"decode":
+    per rank}, {kernel name: its largest error on the phase's inputs
+    over every rank})."""
+    wall = {}
+    t0 = time.perf_counter()
+    launches, errs = parallel_training(card, workdir)
+    wall["15ab"] = time.perf_counter() - t0
+    launches["trainer"], errs["trainer"], _ = parallel_trainer(
+        card, workdir, data, cv_manifest)
+    wall["15c"] = time.perf_counter() - t0 - wall["15ab"]
+    launches["decode"], errs["decode"] = parallel_decode(card, workdir, ckpt,
+                                                         cv_manifest)
+    wall["15d"] = time.perf_counter() - t0 - wall["15ab"] - wall["15c"]
+    log("phase 15 wall seconds by part: " + json.dumps(wall))
+    return launches, rank_max([e for per_rank in errs.values()
+                               for e in per_rank])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5547,6 +6236,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--beam-ties"]:
         return measure_beam_ties(card, int(sys.argv[2]))
+    if sys.argv[1:2] == ["--parallel-faults"]:
+        from tpu_asr_torch.ops.cuda_build import load_all
+        from tpu_asr_torch.ops import (ctc_loss, flash_attention,
+                                       layernorm)
+        load_all(ctc_loss.LIBRARY, flash_attention.LIBRARY,
+                 flash_attention.BWD_LIBRARY, layernorm.LIBRARY)
+        return measure_parallel_faults(card)
 
     t0 = time.perf_counter()
     libraries = (ctc_prefix.LIBRARY, ctc_loss.LIBRARY, cif_fire.LIBRARY,
@@ -5641,6 +6337,16 @@ def main() -> int:
                              cv_manifest)
         training.update(input_launches)
         mark("1-14")
+        parallel, parallel_errs = run_parallel_phase(
+            card, workdir, data, ckpts[PRESET], cv_manifest)
+        mark("1-15")
+    tp_path = f"{pallas} tp {PARALLEL_RANKS} ranks"
+    training[f"{PRESET} dp {PARALLEL_RANKS} ranks"] = rank_sum(
+        parallel["dp"])
+    training[tp_path] = rank_sum(parallel["tp"])
+    training[f"{PRESET} --num-devices {PARALLEL_RANKS} (train CLI)"] = \
+        rank_sum(parallel["trainer"])
+    dp_decode = sum(parallel["decode"])
 
     def ctc_build(symbol):
         return {k: v for k, v in build_report.items() if symbol in k}
@@ -5652,15 +6358,19 @@ def main() -> int:
         "source": "tpu_asr_torch/csrc/ctc_prefix_scan.cu",
         "replaces": "tpu_asr/ops/pallas/ctc_prefix.py:114",
         "launches": (launches + lm_launches["joint"]["ctc_prefix_scan"]
-                     + recipe_prefix + pitch_prefix),
+                     + recipe_prefix + pitch_prefix + dp_decode),
         "launches_by_path": {
             "joint serving": launches,
             "LM-fused joint (recognize)":
                 lm_launches["joint"]["ctc_prefix_scan"],
-            RECIPE_PATH: recipe_prefix, PITCH_PATH: pitch_prefix},
+            RECIPE_PATH: recipe_prefix, PITCH_PATH: pitch_prefix,
+            f"joint --dp {PARALLEL_RANKS} (recognize)": dp_decode},
+        "parallel_launches_by_rank": {
+            f"joint --dp {PARALLEL_RANKS} (recognize)": parallel["decode"]},
         "max_abs_err": max(max_err, ctc_path_errs["prefix"],
                            lm_errs["prefix"], recipe_errs["prefix"],
-                           input_errs["prefix"]),
+                           input_errs["prefix"],
+                           parallel_errs["ctc_prefix_scan"]),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
@@ -5674,7 +6384,9 @@ def main() -> int:
                   "ring of shared-memory tiles by cp.async",
         "build": ctc_build(ctc_prefix.KERNEL_SYMBOL),
         "path_max_abs_err": max(ctc_path_errs["prefix"], lm_errs["prefix"],
-                                recipe_errs["prefix"], input_errs["prefix"]),
+                                recipe_errs["prefix"], input_errs["prefix"],
+                                parallel_errs["ctc_prefix_scan"]),
+        "parallel_max_abs_err": parallel_errs["ctc_prefix_scan"],
         "other_shapes": dict({f"T={t} hist={h}": v for (t, h), v
                               in timings.items() if (t, h) != (249, True)},
                              **{f"path {k}": v for k, v in
@@ -5710,7 +6422,8 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": max(ctc_errs[name], ctc_path_errs[name],
                                recipe_errs[name], transducer_errs[name],
-                               streaming_errs[name], input_errs[name]),
+                               streaming_errs[name], input_errs[name],
+                               parallel_errs[f"ctc_loss_{name}"]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -5724,11 +6437,16 @@ def main() -> int:
             "path_max_abs_err": max(ctc_path_errs[name],
                                     recipe_errs[name],
                                     transducer_errs[name],
-                                    streaming_errs[name], input_errs[name]),
+                                    streaming_errs[name], input_errs[name],
+                                    parallel_errs[f"ctc_loss_{name}"]),
+            "parallel_max_abs_err": parallel_errs[f"ctc_loss_{name}"],
             "shape": "B=32 T=249 S=49 (U=24)",
             "other_shapes": other,
             "ctc_loss_kernel_e2e_ms": ctc_library[49]["port_e2e"],
             "library_e2e_ms": ctc_library[49]["lib_e2e"],
+            "parallel_launches_by_rank": {
+                k: [r[f"ctc_loss_{name}"] for r in v]
+                for k, v in parallel.items() if k != "decode"},
         })
     by_path = {"cif serving": cif_serving,
                "cif training": training["cif"]["cif_fire"]}
@@ -5771,8 +6489,11 @@ def main() -> int:
              {"use_pallas serving": flash_serving,
               "use_pallas training": training[pallas]["flash_attention_fwd"],
               "LM-rescored attn_rescore (recognize)":
-                  lm_launches["attn_rescore"]["flash_attention_fwd"]},
-             max(flash_err, path_errs["flash"], lm_errs["flash"]),
+                  lm_launches["attn_rescore"]["flash_attention_fwd"],
+              f"{tp_path} training": training[tp_path][
+                  "flash_attention_fwd"]},
+             max(flash_err, path_errs["flash"], lm_errs["flash"],
+                 parallel_errs["flash_attention_fwd"]),
              {"lse_max_abs_err": max(lse_err, path_errs["lse"],
                                      lm_errs["lse"]),
               "library_call": "F.scaled_dot_product_attention, boolean "
@@ -5786,8 +6507,11 @@ def main() -> int:
               "use_pallas training":
                   training[pallas]["layer_norm_residual_fwd"],
               "LM-rescored attn_rescore (recognize)":
-                  lm_launches["attn_rescore"]["layer_norm_residual_fwd"]},
-             max(ln_err, path_errs["ln"], lm_errs["ln"]),
+                  lm_launches["attn_rescore"]["layer_norm_residual_fwd"],
+              f"{tp_path} training": training[tp_path][
+                  "layer_norm_residual_fwd"]},
+             max(ln_err, path_errs["ln"], lm_errs["ln"],
+                 parallel_errs["layer_norm_residual_fwd"]),
              {"bf16_ulps_at_output_scale": max(ln_ulps, path_errs["ln_ulps"],
                                                lm_errs["ln_ulps"]),
               "bf16_raw_ulps_max": max(ln_raw, path_errs["ln_raw"],
@@ -5807,6 +6531,7 @@ def main() -> int:
             "launches": sum(n.values()),
             "launches_by_path": n,
             "max_abs_err": err,
+            "parallel_max_abs_err": parallel_errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -5837,10 +6562,14 @@ def main() -> int:
             "route": "cuda",
             "source": "tpu_asr_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"tpu_asr/ops/pallas/{replaces}",
-            "launches": training[pallas][name],
+            "launches": training[pallas][name] + training[tp_path][name],
             "launches_by_path": {"use_pallas training":
-                                 training[pallas][name]},
-            "max_abs_err": max(e for e, _ in errs.values()),
+                                 training[pallas][name],
+                                 f"{tp_path} training":
+                                     training[tp_path][name]},
+            "max_abs_err": max([e for e, _ in errs.values()]
+                               + [parallel_errs[name]]),
+            "parallel_max_abs_err": parallel_errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -5866,14 +6595,18 @@ def main() -> int:
     other = {k: v for k, v in ln_bwd_path.items() if k != main_label}
     other.update({f"synthetic {k}": v for k, v in ln_bwd_timings.items()})
     n = training[pallas]["layer_norm_residual_bwd"]
+    n_tp = training[tp_path]["layer_norm_residual_bwd"]
     kernels.append({
         "name": "layer_norm_residual_bwd",
         "route": "cuda",
         "source": "tpu_asr_torch/csrc/layer_norm_residual.cu",
         "replaces": "tpu_asr/ops/pallas/layernorm.py:51",
-        "launches": n,
-        "launches_by_path": {"use_pallas training": n},
-        "max_abs_err": max(ln_bwd_errs["dx"], bwd_path_errs["ln"]["dx"]),
+        "launches": n + n_tp,
+        "launches_by_path": {"use_pallas training": n,
+                             f"{tp_path} training": n_tp},
+        "max_abs_err": max(ln_bwd_errs["dx"], bwd_path_errs["ln"]["dx"],
+                           parallel_errs["layer_norm_residual_bwd"]),
+        "parallel_max_abs_err": parallel_errs["layer_norm_residual_bwd"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],

@@ -69,8 +69,8 @@ def _args(batch, to):
 def encoded():
     batch = make_batch(0)
     jm = JaxCifModel(cif_jax_cfg())
-    want = jm.apply(cif_flax_params(), *_args(batch, jnp.asarray)[:2],
-                    method="encode")
+    want = jax.jit(lambda v, f, fl: jm.apply(v, f, fl, method="encode"))(
+        cif_flax_params(), *_args(batch, jnp.asarray)[:2])
     tm = cif_torch_model()
     with torch.no_grad():
         got = tm.encode(*_args(batch, torch.from_numpy)[:2])
@@ -119,7 +119,7 @@ def test_decoder_steps_match_reference_and_teacher_forcing(encoded):
 def test_forward_losses_match(encoded):
     """loss, loss_att, loss_qty, loss_ctc and acc, with a dummy row."""
     batch, jm, _, tm, _ = encoded
-    want = jm.apply(cif_flax_params(), *_args(batch, jnp.asarray))
+    want = jax.jit(jm.apply)(cif_flax_params(), *_args(batch, jnp.asarray))
     with torch.no_grad():
         got = tm(*_args(batch, torch.from_numpy))
     assert set(got) == set(want) == {"loss", "loss_att", "loss_qty",
@@ -140,7 +140,7 @@ def test_gradient_global_norm_matches(encoded):
 
     def loss(p):
         return jm.apply({"params": p}, *_args(batch, jnp.asarray))["loss"]
-    jgrads = jax.grad(loss)(params["params"])
+    jgrads = jax.jit(jax.grad(loss))(params["params"])
     tm = cif_torch_model()
     out = tm(*_args(batch, torch.from_numpy))
     tgrads = torch.autograd.grad(out["loss"], list(tm.parameters()))

@@ -73,10 +73,12 @@ def test_lm_train_steps_match_jax(smoothing):
                            jnp.asarray(tgt), smoothing)[0]
 
     want = []
+    loss_and_grads, update = jax.jit(jax.value_and_grad(loss_fn)), \
+        jax.jit(tx.update)
     for _ in range(2):
-        loss, grads = jax.value_and_grad(loss_fn)(params)
+        loss, grads = loss_and_grads(params)
         want.append((float(loss), float(optax.global_norm(grads))))
-        updates, opt_state = tx.update(grads, opt_state, params)
+        updates, opt_state = update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
 
     step = LMTrainStep(lm, NoamAdam(lm.parameters(), 32, 2, 1.0, 0.5),

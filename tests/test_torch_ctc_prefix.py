@@ -90,6 +90,27 @@ def test_beams_fold_into_candidates():
     _close(tr, jr, "r")
 
 
+@pytest.mark.parametrize("b", [1, 2])
+def test_scan_inputs_are_contiguous(monkeypatch, b):
+    """The scorer hands the kernel contiguous inputs for any batch, one
+    utterance with several beams included (the card's wrapper refuses a
+    strided x_cand; the CPU's plain version would not notice)."""
+    from tpu_asr_torch.decode import ctc_prefix as scorer_module
+    rng = np.random.default_rng(3)
+    w, t, v, k = 4, 9, 20, 5
+    logp, lens, cands, y_last = _inputs(rng, b, w, t, v, k)
+    _, ts = _scorers(logp, lens, w)
+    seen = []
+
+    def scan(*args, **kw):
+        seen.append([a.is_contiguous() for a in args])
+        return ctc_prefix_scan(*args, **kw)
+    monkeypatch.setattr(scorer_module, "ctc_prefix_scan", scan)
+    ts.score(torch.from_numpy(cands).long(), torch.from_numpy(y_last).long(),
+             torch.full((b * w,), False), ts.init_state())
+    assert seen and all(all(c) for c in seen)
+
+
 def test_multi_step_advance_and_eos():
     """Walk a 3-token prefix with advance(); states and the eos score (the
     complete-prefix probability) stay equal to the reference."""

@@ -221,3 +221,25 @@ def test_input_alignment_and_averaging_modules_are_covered():
             cwd=REPO, capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert "no CUDA device" in out.stderr, module
+
+
+def test_parallel_modules_are_covered(monkeypatch):
+    """The import checks above walk the parallel layer, and its ranks and
+    the CLIs' multi-rank launches refuse the CPU unless asked."""
+    files = {os.path.relpath(f, REPO) for f in _port_files()}
+    for name in ("parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/sharding.py"):
+        path = os.path.join("tpu_asr_torch", name)
+        assert path in files
+        assert not [m for m in _imported_roots(os.path.join(REPO, path))
+                    if m in FORBIDDEN]
+    from tpu_asr_torch.parallel.mesh import initialize_distributed, rank_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rank_device(0, None)
+    assert rank_device(3, "cpu") == torch.device("cpu")
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1")
+    monkeypatch.setenv("NUM_PROCESSES", "2")
+    monkeypatch.setenv("PROCESS_ID", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_distributed()            # before any connection

@@ -60,7 +60,7 @@ def _pair(kind):
     """(jax cfg, flax variables, port cfg, port model with those params)
     of a linear-input model of model_type `kind`."""
     jcfg = jax_cfg(model_type=kind, **LFR)
-    v = jax.device_get(JaxTransformer(jcfg).init(
+    v = jax.device_get(jax.jit(JaxTransformer(jcfg).init)(
         jax.random.PRNGKey(2), jnp.zeros((1, 12, 320)),
         jnp.full((1,), 12, jnp.int32), jnp.zeros((1, 4), jnp.int32),
         jnp.full((1,), 4, jnp.int32)))
@@ -114,9 +114,10 @@ def test_encoder_and_losses_match(lfr_pair):
     feats, flens = jfe.build_lfr_features(jnp.asarray(batch["feats"])), \
         jfe.lfr_length(jnp.asarray(batch["feat_lengths"]))
     jm = JaxTransformer(jcfg)
-    want_enc, want_len = jm.apply(v, feats, flens, method="encode")
-    want = jm.apply(v, feats, flens, jnp.asarray(batch["targets"]),
-                    jnp.asarray(batch["target_lengths"]))
+    want_enc, want_len = jax.jit(lambda *a: jm.apply(*a, method="encode"))(
+        v, feats, flens)
+    want = jax.jit(jm.apply)(v, feats, flens, jnp.asarray(batch["targets"]),
+                             jnp.asarray(batch["target_lengths"]))
     ev = EvalStep(model, device="cpu", lfr=model_lfr(model.cfg))
     got = ev(batch)
     tf = tfe.build_lfr_features(torch.from_numpy(batch["feats"]))
@@ -157,9 +158,9 @@ def test_one_train_step_matches_reference():
 
     feats, flens = jfe.build_lfr_features(jb["feats"]), jfe.lfr_length(
         jb["feat_lengths"])
-    jgrads = jax.grad(lambda p: jmodel.apply(
+    jgrads = jax.jit(jax.grad(lambda p: jmodel.apply(
         {"params": p}, feats, flens, jb["targets"], jb["target_lengths"])
-        ["loss"])(v["params"])
+        ["loss"]))(v["params"])
     want = Transformer(tcfg)
     load_jax_params(want, jax.device_get({"params": jgrads}))
     model = Transformer(tcfg)

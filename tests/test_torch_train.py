@@ -345,7 +345,7 @@ def test_cli_starts_from_flax_params_and_resumes(tmp_path):
     from tpu_asr_torch.train.__main__ import build_solver, parse_args
     from tpu_asr_torch.weights import _flatten
     cfg = dc.replace(jax_preset("hybrid_dev").model, vocab_size=VOCAB)
-    params = jax.device_get(JaxTransformer(cfg).init(
+    params = jax.device_get(jax.jit(JaxTransformer(cfg).init)(
         jax.random.PRNGKey(3), jnp.zeros((1, 80, 80)),
         jnp.full((1,), 80, jnp.int32), jnp.zeros((1, 4), jnp.int32),
         jnp.full((1,), 4, jnp.int32)))

@@ -2,8 +2,10 @@
 
 A tiny hybrid model at hybrid_dev widths (d64, h2, 2+2 layers, conv
 (8, 16), vocab 32), or the CIF model at cif_dev widths (the same, with
-ctc weight 0.5), is initialised by flax on the CPU; the same params are
-loaded into the port with load_jax_params. Inputs come from numpy with a
+ctc weight 0.5), is initialised by flax on the CPU (the ASR models'
+`init` under jax.jit: the same values as an eager init, one compile
+instead of one an op); the same params are loaded into the port with
+load_jax_params. Inputs come from numpy with a
 seed and go to both packages as numpy arrays.
 """
 
@@ -36,7 +38,7 @@ def torch_cfg(**kw):
 def flax_params(seed: int = 0):
     """Flax variables of tpu_asr.models.Transformer as numpy (host) arrays."""
     from tpu_asr.models import Transformer
-    v = Transformer(jax_cfg()).init(
+    v = jax.jit(Transformer(jax_cfg()).init)(
         jax.random.PRNGKey(seed), jnp.zeros((1, 80, 80)),
         jnp.full((1,), 80, jnp.int32), jnp.zeros((1, 4), jnp.int32),
         jnp.full((1,), 4, jnp.int32))
@@ -96,7 +98,7 @@ def cif_torch_cfg(**kw):
 def cif_flax_params(seed: int = 0):
     """Flax variables of tpu_asr.models.CifModel as numpy (host) arrays."""
     from tpu_asr.models import CifModel
-    v = CifModel(cif_jax_cfg()).init(
+    v = jax.jit(CifModel(cif_jax_cfg()).init)(
         jax.random.PRNGKey(seed), jnp.zeros((1, 80, 80)),
         jnp.full((1,), 80, jnp.int32), jnp.zeros((1, 4), jnp.int32),
         jnp.full((1,), 4, jnp.int32))
@@ -166,7 +168,7 @@ def conformer_flax_params(seed: int = 0):
     encoder, as numpy (host) arrays. The rel-pos biases u and v start at
     zero in flax; they are drawn here so that a mix-up of the two shows."""
     from tpu_asr.models import Transformer
-    v = Transformer(conformer_jax_cfg()).init(
+    v = jax.jit(Transformer(conformer_jax_cfg()).init)(
         jax.random.PRNGKey(seed), jnp.zeros((1, 80, 80)),
         jnp.full((1,), 80, jnp.int32), jnp.zeros((1, 4), jnp.int32),
         jnp.full((1,), 4, jnp.int32))
@@ -212,8 +214,8 @@ def transducer_flax_params(preset: str = "transducer_dev", seed: int = 0,
     joint bias and a conformer's rel-pos biases start at zero in flax;
     they are drawn here so that a mix-up shows."""
     from tpu_asr.models import TransducerModel
-    v = TransducerModel(transducer_jax_cfg(preset, ctc_weight=ctc_weight)
-                        ).init(jax.random.PRNGKey(seed),
+    v = jax.jit(TransducerModel(transducer_jax_cfg(
+        preset, ctc_weight=ctc_weight)).init)(jax.random.PRNGKey(seed),
                                jnp.zeros((1, 80, 80)),
                                jnp.full((1,), 80, jnp.int32),
                                jnp.zeros((1, 4), jnp.int32),

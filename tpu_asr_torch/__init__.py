@@ -19,7 +19,7 @@ CPU tensors each wrapper runs its plain PyTorch version.
 Ported so far (serving and training of the hybrid CTC/attention model,
 with the transformer or the conformer encoder, of the CIF model and of
 the transducer, the external LM, the decode CLIs, the aishell recipe's
-data and CMVN CLIs):
+data and CMVN CLIs, data and tensor parallelism):
   tpu_asr_torch.frontend   waveform -> log-mel + per-utterance or global
                            CMVN
   tpu_asr_torch.augment    SpecAugment (masks, time warp) on the device
@@ -37,6 +37,10 @@ data and CMVN CLIs):
                            the LM), CIF greedy/beam, transducer greedy,
                            beam (with the LM) and rescoring, Recognizer
   tpu_asr_torch.train      Noam/Adam, TrainStep/Solver, checkpoints, CLI
+                           (--num-devices: data-parallel ranks)
+  tpu_asr_torch.parallel   data and tensor parallelism over
+                           torch.distributed: the mesh of ranks, batch
+                           shards, the tensor-parallel weight rules
   tpu_asr_torch.data       manifests (and espnet data.json), length
                            buckets, batch loader, synthetic corpora
   tpu_asr_torch.serve      micro-batching server + HTTP front end

@@ -67,7 +67,10 @@ class CTCPrefixScorer:
         b = n // w
         idx = cands.reshape(b, 1, w * k).expand(b, t, w * k)
         x_cand = torch.gather(self.logp, 2, idx)                # [B, T, W*K]
-        x_cand = x_cand.reshape(b, t, w, k).transpose(1, 2).reshape(n, t, k)
+        # contiguous for the kernel: with one utterance (b = 1, as a
+        # data-parallel rank may hold) the reshape is a strided view
+        x_cand = x_cand.reshape(b, t, w, k).transpose(1, 2).reshape(
+            n, t, k).contiguous()
         same = cands == y_last[:, None]                         # [N, K]
         r_nb_p, r_b_p = r_prev[..., 0], r_prev[..., 1]
         phi = torch.logaddexp(

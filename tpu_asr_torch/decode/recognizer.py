@@ -12,6 +12,15 @@ n-best ranked by the transducer marginal, beam.ctc_weight) for the
 transducer. An external LM (models/lm.py) fuses into beam, joint,
 ctc_beam and transducer_beam and rescores attn_rescore's n-best,
 weighted by beam.lm_weight.
+
+With a mesh (parallel.make_mesh, data axis only, as in the reference),
+every rank is handed the same batches, decodes its rows of each at the
+batch's padded shape, and the n-best lists are gathered in row order
+(all_gather_object over the data axis, once per window of
+decode_batches_nbest), so every rank returns the whole batch's n-best.
+Every decode mode is per-utterance, so the rows decode as they would in
+the whole batch. Bucket batch sizes must be multiples of the data axis
+(make_buckets(batch_multiple=...)).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from tpu_asr_torch.models.cif import CifModel
 from tpu_asr_torch.models.lm import LMConfig, TransformerLM
 from tpu_asr_torch.models.transducer import TransducerModel
 from tpu_asr_torch.models.transformer import Transformer
+from tpu_asr_torch.parallel.mesh import shard_batch
 from tpu_asr_torch.utils.device import resolve_device
 from tpu_asr_torch.weights import cast_for_inference
 
@@ -83,6 +93,7 @@ class Recognizer:
     cif_scale_fire: bool = True
     lm_cfg: LMConfig | None = None
     lm: TransformerLM | None = None
+    mesh: object | None = None   # parallel.Mesh: data-parallel decode
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -110,6 +121,9 @@ class Recognizer:
         if self.mode == "transducer_rescore" and not aux_ctc:
             raise ValueError("transducer_rescore needs the aux CTC head "
                              "(ctc_weight > 0)")
+        if self.mesh is not None and self.mesh.n_model != 1:
+            raise ValueError("data-parallel decode takes a mesh with a "
+                             "data axis only (n_model 1)")
         if (self.lm_cfg is None) != (self.lm is None):
             raise ValueError("lm_cfg and lm go together")
         if self.lm is not None and self.beam.lm_weight > 0.0:
@@ -252,9 +266,15 @@ class Recognizer:
 
         def flush():
             fetched = _to_host(*(x for _, xs in pending for x in xs))
+            done = []
             for kind, xs in pending:
-                out.append(self._finalize(kind, fetched[:len(xs)]))
+                done.append(self._finalize(kind, fetched[:len(xs)]))
                 fetched = fetched[len(xs):]
+            if self.mesh is not None:     # every rank's rows, in order
+                shards = self.mesh.data.all_gather_object(done)
+                done = [[hyp for shard in shards for hyp in shard[i]]
+                        for i in range(len(done))]
+            out.extend(done)
             pending.clear()
 
         for batch in batches:
@@ -269,6 +289,8 @@ class Recognizer:
     def _dispatch(self, batch) -> tuple[str, tuple]:
         """One batch's device work, not fetched: (kind, output tensors)
         for _finalize."""
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
         feats, flens = self._features(batch)
         if self.mode == "greedy_ctc":
             return "greedy", self._greedy_ctc(feats, flens)

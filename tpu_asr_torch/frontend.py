@@ -484,6 +484,15 @@ def apply_global_cmvn(feats: torch.Tensor, cfg: FrontendConfig,
     return (feats - mean) * istd
 
 
+def frame_lengths_of(wav_lengths: torch.Tensor,
+                     cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
+    """Valid frames of each waveform (0 below one frame's length)."""
+    num = 1 + torch.clamp(wav_lengths - cfg.frame_length, min=0) \
+        // cfg.frame_shift
+    return torch.where(wav_lengths < cfg.frame_length,
+                       torch.zeros_like(num), num)
+
+
 def wav_to_features(wav: torch.Tensor, wav_lengths: torch.Tensor,
                     cfg: FrontendConfig = FrontendConfig(),
                     apply_cmvn: bool = True,
@@ -495,10 +504,7 @@ def wav_to_features(wav: torch.Tensor, wav_lengths: torch.Tensor,
     `cmvn_stats`: global CMVN's (mean, istd) on the device
     (cmvn_stats_for), else read from cfg's stats file at each call."""
     feats = log_mel_spectrogram(wav, cfg)
-    num = 1 + torch.clamp(wav_lengths - cfg.frame_length, min=0) \
-        // cfg.frame_shift
-    frame_lengths = torch.where(wav_lengths < cfg.frame_length,
-                                torch.zeros_like(num), num)
+    frame_lengths = frame_lengths_of(wav_lengths, cfg)
     if cfg.add_pitch:
         # Kaldi paste-feats order: the fbank, then the 3 pitch dims; CMVN
         # below normalizes the pasted feature as apply-cmvn does

@@ -12,6 +12,11 @@ the flash formulation (ops/flash_attention.py: on the card its forward
 kernel, and in training its dq and dk/dv kernels through the autograd
 Function); cached decode steps always take `attend`, as in the
 reference.
+
+Under tensor parallelism (parallel/sharding.py, `tp` set by
+shard_params) the full passes run on this rank's heads, H / n_model of
+them (the flash kernels launch on those), and out_proj's partial sums
+are added over the model axis.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from torch import nn
 
 from tpu_asr_torch.models.modules import Dense
 from tpu_asr_torch.ops.flash_attention import flash_attention
+from tpu_asr_torch.parallel.sharding import (column_parallel, copy_to_model,
+                                             row_parallel)
 
 NEG_INF = -1e30
 
@@ -42,6 +49,12 @@ def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
+    # tensor parallelism: the weights split over the model axis (dim of
+    # the [out, in] weight), and the replicated biases read by head slice
+    TP_SHARDED = {"q_proj.weight": 0, "k_proj.weight": 0,
+                  "v_proj.weight": 0, "out_proj.weight": 1}
+    TP_SLICED = ("q_proj.bias", "k_proj.bias", "v_proj.bias")
+
     def __init__(self, num_heads: int, d_model: int, dtype=torch.float32,
                  param_dtype=torch.float32, use_pallas: bool = False):
         super().__init__()
@@ -55,15 +68,28 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = dense()
         self.v_proj = dense()
         self.out_proj = dense()
+        self.tp = None       # the model axis under tensor parallelism
 
     def _heads(self, x):
-        return x.view(*x.shape[:-1], self.num_heads, self.d_head)
+        """[..., n * dh] -> [..., n, dh] (n: this rank's heads)."""
+        return x.view(*x.shape[:-1], x.shape[-1] // self.d_head,
+                      self.d_head)
+
+    def _proj(self, dense, x):
+        return dense(x) if self.tp is None else column_parallel(dense, x,
+                                                                self.tp)
 
     def _merge(self, x):
-        return self.out_proj(x.reshape(*x.shape[:-2], -1))
+        x = x.reshape(*x.shape[:-2], -1)
+        return self.out_proj(x) if self.tp is None else row_parallel(
+            self.out_proj, x, self.tp)
 
     def forward(self, q_in, kv_in, bias=None):
-        q = self._heads(self.q_proj(q_in))
+        if self.tp is not None:
+            same = kv_in is q_in
+            q_in = copy_to_model(q_in, self.tp)
+            kv_in = q_in if same else copy_to_model(kv_in, self.tp)
+        q = self._heads(self._proj(self.q_proj, q_in))
         k, v = self.project_kv(kv_in)
         if self.use_pallas:
             return self._merge(flash_attention(q, k, v, bias))
@@ -72,7 +98,8 @@ class MultiHeadAttention(nn.Module):
     def project_kv(self, kv_in):
         """K/V [B, T, H, dh]: cross-attention precompute, or one new
         position's self-attention K/V for the cache append."""
-        return self._heads(self.k_proj(kv_in)), self._heads(self.v_proj(kv_in))
+        return (self._heads(self._proj(self.k_proj, kv_in)),
+                self._heads(self._proj(self.v_proj, kv_in)))
 
     project_kv_step = project_kv
 

@@ -147,25 +147,30 @@ class CifModel(nn.Module):
     def ctc_logits(self, enc_out):
         return self.ctc_head(enc_out)
 
-    def forward(self, feats, feat_lengths, targets, target_lengths):
+    def forward(self, feats, feat_lengths, targets, target_lengths,
+                counts=None):
         """-> dict(loss, loss_att, loss_qty, acc[, loss_ctc]) of 0-d
         tensors. Rows with feat_lengths == 0 (the loader's dummy rows)
-        carry no loss."""
+        carry no loss. `counts`: as Transformer.forward's."""
         c = self.cfg
+        rows, tokens = (None, None) if counts is None else (
+            counts["rows"], counts["tokens"])
         targets = targets.long()
         enc_out, enc_lengths, alphas, valid = self.encode(feats, feat_lengths)
         row_valid = feat_lengths > 0
         u_fire = target_lengths + 1          # one fire per token, and eos
-        loss_qty = quantity_loss(alphas, valid, u_fire, row_valid=row_valid)
+        loss_qty = quantity_loss(alphas, valid, u_fire, row_valid=row_valid,
+                                 n_total=rows)
         scaled = scale_alphas(alphas, valid, u_fire)
         ys_in, ys_out = add_sos_eos(targets, target_lengths, self.sos_id,
                                     self.eos_id)
         ys_out = torch.where(row_valid[:, None], ys_out, IGNORE_ID)
         fired = self.fire(enc_out, scaled, ys_in.shape[1])
         logits = self.decode_logits(ys_in, fired)
-        loss_att, _ = label_smoothing_loss(logits, ys_out, c.label_smoothing)
+        loss_att, _ = label_smoothing_loss(logits, ys_out, c.label_smoothing,
+                                           n_total=tokens)
         out = {"loss_att": loss_att, "loss_qty": loss_qty,
-               "acc": token_accuracy(logits, ys_out)}
+               "acc": token_accuracy(logits, ys_out, n_total=tokens)}
         loss = loss_att + c.cif_quantity_weight * loss_qty
         if self.use_ctc:
             safe_targets = torch.where(targets == IGNORE_ID, 0, targets)
@@ -173,7 +178,7 @@ class CifModel(nn.Module):
                                   enc_lengths, target_lengths, blank=0,
                                   reduction="none")
             loss_ctc = masked_row_mean(nll / target_lengths.clamp(min=1),
-                                       row_valid)
+                                       row_valid, rows)
             out["loss_ctc"] = loss_ctc
             loss = loss + c.ctc_weight * loss_ctc
         out["loss"] = loss

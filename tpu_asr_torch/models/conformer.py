@@ -38,6 +38,8 @@ from torch import nn
 from tpu_asr_torch.models.config import ModelConfig
 from tpu_asr_torch.models.modules import (Dense, LayerNorm,
                                           PositionwiseFeedForward)
+from tpu_asr_torch.parallel.sharding import (column_parallel, copy_to_model,
+                                             local_part, row_parallel)
 
 
 @functools.lru_cache(maxsize=16)
@@ -77,7 +79,16 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
 
 
 class RelPosMultiHeadAttention(nn.Module):
-    """MHSA with Transformer-XL relative position scores."""
+    """MHSA with Transformer-XL relative position scores. Under tensor
+    parallelism (`tp` set by parallel.sharding.shard_params) the full
+    pass runs on this rank's heads: q/k/v and out_proj are split as
+    MultiHeadAttention's; pos_proj's weight and the [H, dh] u/v biases
+    stay whole on every rank (the reference replicates them) and are
+    read by head slice."""
+    TP_SHARDED = {"q_proj.weight": 0, "k_proj.weight": 0,
+                  "v_proj.weight": 0, "out_proj.weight": 1}
+    TP_SLICED = ("q_proj.bias", "k_proj.bias", "v_proj.bias",
+                 "pos_proj.weight", "u_bias", "v_bias")
 
     def __init__(self, c: ModelConfig):
         super().__init__()
@@ -95,14 +106,32 @@ class RelPosMultiHeadAttention(nn.Module):
                               param_dtype=c.param_dtype)
         self.u_bias = nn.Parameter(torch.zeros(h, dh, dtype=c.param_dtype))
         self.v_bias = nn.Parameter(torch.zeros(h, dh, dtype=c.param_dtype))
+        self.tp = None       # the model axis under tensor parallelism
 
     def _heads(self, x):
-        return x.view(*x.shape[:-1], self.num_heads, self.d_head)
+        """[..., n * dh] -> [..., n, dh] (n: this rank's heads)."""
+        return x.view(*x.shape[:-1], x.shape[-1] // self.d_head,
+                      self.d_head)
+
+    def _proj(self, dense, x):
+        return dense(x) if self.tp is None else column_parallel(dense, x,
+                                                                self.tp)
+
+    def _local(self, t):
+        """A whole [H, ...] tensor's rows of this rank's heads."""
+        return t if self.tp is None else local_part(t, 0, self.tp)
+
+    def _pos(self, table):
+        """pos_proj of the relative table -> [2T-1, n, dh]."""
+        dt = self.compute_dtype
+        w = self._local(self.pos_proj.weight).to(dt)
+        return self._heads(F.linear(table.to(dt), w))
 
     def _biased_queries(self, x):
-        q = self._heads(self.q_proj(x))
+        q = self._heads(self._proj(self.q_proj, x))
         dt = self.compute_dtype
-        return q + self.u_bias.to(dt), q + self.v_bias.to(dt)
+        return (q + self._local(self.u_bias).to(dt),
+                q + self._local(self.v_bias).to(dt))
 
     def _finish(self, content, pos_score, v, bias):
         dt = self.compute_dtype
@@ -113,15 +142,19 @@ class RelPosMultiHeadAttention(nn.Module):
             scores = scores + bias
         probs = torch.softmax(scores.float(), dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out_proj(out.reshape(*out.shape[:-2], -1))
+        out = out.reshape(*out.shape[:-2], -1)
+        return self.out_proj(out) if self.tp is None else row_parallel(
+            self.out_proj, out, self.tp)
 
     def forward(self, x, pos_emb, bias=None):
         """x [B, T, D], pos_emb [2T-1, D] (rel_table), bias broadcastable
         to [B, H, T, T] -> [B, T, D]."""
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         qu, qv = self._biased_queries(x)
-        k = self._heads(self.k_proj(x))
-        v = self._heads(self.v_proj(x))
-        p = self._heads(self.pos_proj(pos_emb))           # [2T-1, H, dh]
+        k = self._heads(self._proj(self.k_proj, x))
+        v = self._heads(self._proj(self.v_proj, x))
+        p = self._pos(pos_emb)                            # [2T-1, H, dh]
         content = torch.einsum("bqhd,bkhd->bhqk", qu, k)
         pos_score = rel_shift(torch.einsum("bqhd,nhd->bhqn", qv, p))
         return self._finish(content, pos_score, v, bias)

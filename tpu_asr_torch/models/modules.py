@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_asr_torch.ops.layernorm import layer_norm_residual
+from tpu_asr_torch.parallel.sharding import (column_parallel, copy_to_model,
+                                             row_parallel)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
 FUSED_LN_MIN_ROWS = 512   # the reference's switch (smaller: decode steps)
@@ -78,6 +80,12 @@ class PositionalEncoding(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
+    """w_2(dropout(relu(w_1(x)))). Under tensor parallelism (`tp` set by
+    parallel.sharding.shard_params) it runs on this rank's d_inner / n_model
+    columns, and w_2's partial sums are added over the model axis."""
+    TP_SHARDED = {"w_1.weight": 0, "w_2.weight": 1}
+    TP_SLICED = ("w_1.bias",)
+
     def __init__(self, d_model: int, d_inner: int, dropout: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32):
         super().__init__()
@@ -86,9 +94,14 @@ class PositionwiseFeedForward(nn.Module):
         self.dropout = nn.Dropout(dropout)
         self.w_2 = Dense(d_inner, d_model, dtype=dtype,
                          param_dtype=param_dtype)
+        self.tp = None       # the model axis under tensor parallelism
 
     def forward(self, x):
-        return self.w_2(self.dropout(F.relu(self.w_1(x))))
+        if self.tp is None:
+            return self.w_2(self.dropout(F.relu(self.w_1(x))))
+        h = F.relu(column_parallel(self.w_1, copy_to_model(x, self.tp),
+                                   self.tp))
+        return row_parallel(self.w_2, self.dropout(h), self.tp)
 
 
 class PostNormBlock(nn.Module):

@@ -127,11 +127,14 @@ class TransducerModel(nn.Module):
 
     # ---- training ----
 
-    def forward(self, feats, feat_lengths, targets, target_lengths):
+    def forward(self, feats, feat_lengths, targets, target_lengths,
+                counts=None):
         """feats [B, T, D], feat_lengths [B], targets [B, U] (IGNORE_ID
         padded), target_lengths [B] -> dict(loss, loss_rnnt[, loss_ctc])
-        of 0-d tensors. Rows with feat_lengths == 0 carry no loss."""
+        of 0-d tensors. Rows with feat_lengths == 0 carry no loss.
+        `counts`: as Transformer.forward's (its "rows" here)."""
         c = self.cfg
+        rows = None if counts is None else counts["rows"]
         targets = targets.long()
         enc_out, enc_lengths = self.encode(feats, feat_lengths)
         row_valid = feat_lengths > 0
@@ -145,13 +148,13 @@ class TransducerModel(nn.Module):
                               target_lengths, blank=self.blank_id,
                               reduction="none")
         per_label = target_lengths.clamp(min=1)
-        loss = masked_row_mean(nll / per_label, row_valid)
+        loss = masked_row_mean(nll / per_label, row_valid, rows)
         out = {"loss_rnnt": loss}
         if self.has_ctc:
             ctc_nll = ctc_loss_kernel(self.ctc_logits(enc_out), safe,
                                       enc_lengths, target_lengths, blank=0,
                                       reduction="none")
-            loss_ctc = masked_row_mean(ctc_nll / per_label, row_valid)
+            loss_ctc = masked_row_mean(ctc_nll / per_label, row_valid, rows)
             out["loss_ctc"] = loss_ctc
             loss = c.ctc_weight * loss_ctc + (1.0 - c.ctc_weight) * loss
         out["loss"] = loss

@@ -92,12 +92,17 @@ class Transformer(nn.Module):
     def decode_logits(self, enc_out, enc_lengths, ys_in):
         return self.decoder(enc_out, enc_lengths, ys_in)
 
-    def forward(self, feats, feat_lengths, targets, target_lengths):
+    def forward(self, feats, feat_lengths, targets, target_lengths,
+                counts=None):
         """feats [B, T, D], feat_lengths [B], targets [B, U] (IGNORE_ID
         padded), target_lengths [B] -> dict(loss, loss_att, loss_ctc, acc)
         of 0-d tensors (only the heads the model has). Rows with
-        feat_lengths == 0 (the loader's dummy rows) carry no loss."""
+        feat_lengths == 0 (the loader's dummy rows) carry no loss.
+        `counts` (ops.losses.loss_counts of the global batch) makes each
+        term a data-parallel shard's part of the global mean."""
         c = self.cfg
+        rows, tokens = (None, None) if counts is None else (
+            counts["rows"], counts["tokens"])
         targets = targets.long()
         enc_out, enc_lengths = self.encode(feats, feat_lengths)
         row_valid = feat_lengths > 0
@@ -109,9 +114,10 @@ class Transformer(nn.Module):
             ys_out = torch.where(row_valid[:, None], ys_out, IGNORE_ID)
             logits = self.decode_logits(enc_out, enc_lengths, ys_in)
             loss_att, _ = label_smoothing_loss(logits, ys_out,
-                                               c.label_smoothing)
+                                               c.label_smoothing,
+                                               n_total=tokens)
             out["loss_att"] = loss_att
-            out["acc"] = token_accuracy(logits, ys_out)
+            out["acc"] = token_accuracy(logits, ys_out, n_total=tokens)
             loss = loss_att
         if self.has_ctc:
             safe_targets = torch.where(targets == IGNORE_ID, 0, targets)
@@ -119,7 +125,7 @@ class Transformer(nn.Module):
                                   enc_lengths, target_lengths, blank=0,
                                   reduction="none")
             loss_ctc = masked_row_mean(
-                nll / target_lengths.clamp(min=1), row_valid)
+                nll / target_lengths.clamp(min=1), row_valid, rows)
             out["loss_ctc"] = loss_ctc
             loss = (loss_ctc if loss is None else
                     c.ctc_weight * loss_ctc + (1.0 - c.ctc_weight) * loss)

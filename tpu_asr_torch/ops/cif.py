@@ -47,14 +47,16 @@ def scale_alphas(alphas: torch.Tensor, valid_mask: torch.Tensor,
 
 def quantity_loss(alphas: torch.Tensor, valid_mask: torch.Tensor,
                   target_lengths: torch.Tensor,
-                  row_valid: torch.Tensor | None = None) -> torch.Tensor:
+                  row_valid: torch.Tensor | None = None,
+                  n_total: torch.Tensor | None = None) -> torch.Tensor:
     """|sum(alpha) - U| averaged over the batch (on the unscaled alphas);
-    row_valid masks the loader's dummy rows."""
+    row_valid masks the loader's dummy rows; n_total, the rows to divide
+    by (a data-parallel shard's global count), goes with row_valid."""
     total = torch.where(valid_mask, alphas, 0.0).sum(dim=-1)
     per = (total - target_lengths.to(total.dtype)).abs()
     if row_valid is None:
         return per.mean()
-    n = row_valid.sum().clamp(min=1)
+    n = (row_valid.sum() if n_total is None else n_total).clamp(min=1)
     return torch.where(row_valid, per, 0.0).sum() / n
 
 

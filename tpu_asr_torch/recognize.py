@@ -24,9 +24,19 @@ transducer_beam) or n-best rescoring (attn_rescore). Runs on the CUDA
 card unless given --device cpu; with no card and no such flag it
 raises.
 
+`--dp N` decodes data-parallel on N ranks of this host (rank r on
+cuda:(r mod the number of cards), or the CPU with --device cpu; NCCL
+when each has a card of its own, gloo when they share one; see
+parallel/mesh.py): bucket batch sizes are multiples of N, every rank
+decodes its rows of each batch, and rank 0 alone writes --output and
+prints the summary. With COORDINATOR_ADDRESS, NUM_PROCESSES and
+PROCESS_ID set, this process is one rank of such a group instead.
+
+  python -m tpu_asr_torch.recognize --ckpt exp/hybrid \\
+      --manifest test.jsonl --mode joint --dp 2 --output hyp.jsonl
+
 Not ported: the reference's --torch-ckpt (its parity/ bridge to the
-original PyTorch checkpoints) and --dp (data-parallel decode over a
-device mesh).
+original PyTorch checkpoints).
 """
 
 from __future__ import annotations
@@ -34,9 +44,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 DEFAULT_MODES = {"ctc": "greedy_ctc", "transformer": "beam",
                  "hybrid": "joint", "cif": "cif_greedy",
@@ -83,6 +95,9 @@ def parse_args(argv=None):
                    help="CIF firing: 'scaled' self-scales alphas to the "
                         "rounded fire count; 'raw' is the reference's "
                         "unscaled firing")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel decode on N ranks of this host "
+                        "(0 or 1: one process)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -94,9 +109,24 @@ def restore_step(ck, step: int, restore: str) -> int:
     return ck.latest_step() if restore == "latest" else ck.best_step()
 
 
-def main(argv=None) -> dict:
-    """-> the summary printed as the last line."""
+def main(argv=None) -> dict | None:
+    """-> the summary printed as the last line (None from a --dp launch,
+    whose ranks print it)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    if args.dp > 1 and not os.environ.get("COORDINATOR_ADDRESS"):
+        from tpu_asr_torch.parallel.mesh import spawn_ranks
+        spawn_ranks("tpu_asr_torch.recognize:decode", args.dp, argv)
+        return None
+    return decode(argv)
+
+
+def build(args, device, mesh=None, world: int = 1):
+    """The Recognizer that `args` describe on `device` (data-parallel
+    over `mesh` when given) and the manifest's batches (bucket batch
+    sizes multiples of `world`). -> (recognizer, utterances, a function
+    giving a new loader of the batches, the frontend, whether the
+    manifest holds wavs)."""
     from tpu_asr_torch.data import DataLoader, load_manifest, make_buckets
     from tpu_asr_torch.decode.beam import BeamConfig
     from tpu_asr_torch.decode.recognizer import CTC_WEIGHT_MODES, Recognizer
@@ -104,10 +134,7 @@ def main(argv=None) -> dict:
     from tpu_asr_torch.models import build_model
     from tpu_asr_torch.models.lm import load_lm
     from tpu_asr_torch.train.checkpoints import Checkpointer
-    from tpu_asr_torch.utils.cer import cer
-    from tpu_asr_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
     ck = Checkpointer(args.ckpt)
     cfg = ck.load_config()
     mode = args.mode or DEFAULT_MODES[cfg.model_type]
@@ -119,7 +146,7 @@ def main(argv=None) -> dict:
         ck, args.step, args.restore))["model"])
     lm = load_lm(args.lm_ckpt) if args.lm_ckpt else None
     rec = Recognizer(
-        cfg, model, mode=mode, frontend=frontend, device=device,
+        cfg, model, mode=mode, frontend=frontend, device=device, mesh=mesh,
         cif_scale_fire=args.cif_fire == "scaled",
         lm_cfg=None if lm is None else lm.cfg, lm=lm,
         beam=BeamConfig(beam=args.beam, max_len=args.max_len,
@@ -138,11 +165,31 @@ def main(argv=None) -> dict:
         utts, num_buckets=args.num_buckets,
         batch_frames=args.batch_frames * scale,
         max_frames_cap=3000 * scale, max_tokens_cap=200,
-        length_key="num_samples" if wav_mode else "num_frames")
+        length_key="num_samples" if wav_mode else "num_frames",
+        batch_multiple=world)
 
     def loader():
         return DataLoader(utts, buckets, mode="wav" if wav_mode else "feat",
                           shuffle=False)
+    return rec, utts, loader, frontend, wav_mode
+
+
+def decode(argv) -> dict | None:
+    """One rank's decode (the only one without --dp) -> rank 0's
+    summary, None on the other ranks."""
+    args = parse_args(argv)
+    from tpu_asr_torch.parallel.mesh import initialize_distributed, make_mesh
+    from tpu_asr_torch.utils.cer import cer
+    from tpu_asr_torch.utils.device import resolve_device
+
+    device = initialize_distributed(args.device) or resolve_device(
+        args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.dp > 1 and args.dp != world:
+        raise SystemExit(f"--dp {args.dp} in a group of {world} ranks")
+    mesh = make_mesh(n_data=world) if world > 1 else None
+    rec, utts, loader, frontend, wav_mode = build(args, device, mesh, world)
+    mode = rec.mode
 
     # decode every bucket shape once before the timed pass
     warmed = set()
@@ -170,6 +217,8 @@ def main(argv=None) -> dict:
     wall = time.perf_counter() - t0
     results = {uid: nb for ids, batch_nb in zip(batch_ids, nbests)
                for uid, nb in zip(ids, batch_nb)}
+    if mesh is not None and mesh.rank != 0:
+        return None
 
     out_path = args.output or os.path.join(args.ckpt, "hyp.jsonl")
     with open(out_path, "w") as f:

@@ -41,6 +41,18 @@ features (after SpecAugment).
 `--enc-chunk-size`/`--enc-left-chunks` set the encoder's chunk mask
 (the model then streams: decode/streaming.py, python -m
 tpu_asr_torch.stream_demo) as bin/train.py does.
+`--num-devices N` trains data-parallel on N ranks (0, the default, is
+every visible card, or 1 with --device cpu): the CLI starts N processes
+on this host, rank r on cuda:(r mod the number of cards) or on the CPU
+with --device cpu, joined by NCCL when each has a card of its own and by
+gloo when they share one (parallel/mesh.py). With COORDINATOR_ADDRESS,
+NUM_PROCESSES and PROCESS_ID set, this process is one rank of such a
+group instead, as in the reference. Bucket batch sizes are multiples of
+N; every rank reads the same batches and takes its rows; rank 0 alone
+writes the checkpoints (full weights and optimizer state, which one
+process restores) and the metrics. With one rank there is no process
+group. Tensor parallelism is an API (parallel.make_mesh(n_data,
+n_model) and TrainStep(mesh=...)), not a flag, as in the reference.
 `--pallas-ctc` sets ModelConfig.pallas_ctc as bin/train.py does; the
 port reads it nowhere, since the device picks the CTC loss's route (the
 kernels on the card, their plain versions on the CPU). `--params-npz`
@@ -59,12 +71,15 @@ import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from tpu_asr_torch.configs.presets import TrainConfig, get_preset
 from tpu_asr_torch.data import (DataLoader, Utterance, load_manifest,
                                 make_buckets)
 from tpu_asr_torch.models import build_model
 from tpu_asr_torch.models.config import ModelConfig
+from tpu_asr_torch.parallel.mesh import (initialize_distributed, make_mesh,
+                                         spawn_ranks)
 from tpu_asr_torch.train.checkpoints import Checkpointer
 from tpu_asr_torch.train.loop import Solver, TrainStep, model_lfr
 from tpu_asr_torch.train.metrics import MetricsWriter
@@ -150,6 +165,9 @@ def parse_args(argv=None):
                    help="start from flax params of the preset's tpu_asr "
                         "model (Transformer, CifModel or TransducerModel) "
                         "saved as .npz with '/'-joined keys")
+    p.add_argument("--num-devices", type=int, default=0,
+                   help="data-parallel ranks (0 = all visible cards; 1 "
+                        "with --device cpu)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -224,8 +242,17 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
     """Everything `main` trains with, built from the flags. `data`
     replaces the flags' data source with (train utterances, cv
     utterances, mode, in-memory waves); `model_overrides` replaces fields
-    of the preset's ModelConfig (saved with the checkpoint)."""
-    device = resolve_device(args.device)
+    of the preset's ModelConfig (saved with the checkpoint). In a rank
+    of a process group (initialize_distributed) it trains data-parallel
+    over all ranks; only rank 0's Solver writes."""
+    device = initialize_distributed(args.device) or resolve_device(
+        args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.num_devices not in (0, world):
+        raise SystemExit(f"--num-devices {args.num_devices} in a group of "
+                         f"{world} ranks")
+    mesh = make_mesh(n_data=world) if world > 1 else None
+    rank0 = mesh is None or mesh.rank == 0
     tc, mc = configure(args, model_overrides)
     train_utts, cv_utts, mode, waves = data or load_data(args, tc,
                                                          mc.vocab_size)
@@ -236,7 +263,7 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
         batch_frames=tc.batch_frames * scale,
         max_frames_cap=tc.max_frames_cap * scale,
         max_tokens_cap=tc.max_tokens_cap, length_key=length_key,
-        batch_size=tc.batch_size)
+        batch_size=tc.batch_size, batch_multiple=world)
     print(f"buckets: {buckets}", file=sys.stderr)
     train_loader = DataLoader(train_utts, buckets, mode=mode, waves=waves,
                               seed=tc.seed)
@@ -248,7 +275,9 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
                train_loader.load_input(train_utts[0]).shape[1])
     mc = dataclasses.replace(mc, d_input=d_input)
 
-    torch.manual_seed(tc.seed)            # dropout draws from this
+    # dropout draws from this: alike on a data row's (model axis) ranks,
+    # apart between the data shards
+    torch.manual_seed(tc.seed + (0 if mesh is None else mesh.data.index))
     model = build_model(mc)
     if args.params_npz:
         load_jax_params(model, args.params_npz)
@@ -262,11 +291,13 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
                    tc.lr_k, tc.grad_clip, tc.accum_steps)
     step = TrainStep(model, opt, tc.specaug, tc.frontend, device,
                      seed=tc.seed, debug_nans=args.debug_nans,
-                     lfr=model_lfr(mc))
+                     lfr=model_lfr(mc), mesh=mesh)
 
-    ck = Checkpointer(args.save_folder)
-    ck.save_config(mc)
-    ck.save_frontend(tc.frontend)
+    ck = None
+    if rank0:
+        ck = Checkpointer(args.save_folder)
+        ck.save_config(mc)
+        ck.save_frontend(tc.frontend)
     start_epoch = 0
     if args.continue_from:
         state = Checkpointer(args.continue_from).restore()
@@ -277,18 +308,40 @@ def build_solver(args, data: tuple[list[Utterance], list[Utterance], str,
     return Solver(step, train_loader, cv_loader, epochs=tc.epochs,
                   print_freq=tc.print_freq, checkpointer=ck,
                   metrics_writer=MetricsWriter(
-                      os.path.join(args.save_folder, "metrics.jsonl")),
+                      os.path.join(args.save_folder, "metrics.jsonl"))
+                  if rank0 else None,
                   start_epoch=start_epoch,
-                  profile_dir=args.profile_dir or None)
+                  profile_dir=(args.profile_dir or None) if rank0 else None)
 
 
-def main(argv=None):
+def train(argv=None) -> None:
+    """Build the Solver from the flags and train (one rank's part)."""
     solver = build_solver(parse_args(argv))
     try:
         solver.train()
     finally:
-        solver.metrics_writer.close()
+        if solver.metrics_writer:
+            solver.metrics_writer.close()
     print("done", file=sys.stderr)
+
+
+def world_size(args) -> int:
+    """--num-devices, 0 meaning every visible card (1 on the CPU)."""
+    if args.num_devices:
+        return args.num_devices
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    n = world_size(args)
+    if n > 1 and not os.environ.get("COORDINATOR_ADDRESS"):
+        spawn_ranks("tpu_asr_torch.train.__main__:train", n, argv)
+    else:
+        train(argv)
 
 
 if __name__ == "__main__":

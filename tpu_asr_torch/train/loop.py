@@ -9,21 +9,39 @@ compute dtype at use (as flax does), so autograd returns float32
 gradients. Steps return their metrics as device tensors: the Solver reads
 them on the host only every `print_freq` steps and once per epoch, so the
 host does not wait for the card at every step.
+
+With a mesh (tpu_asr_torch.parallel), a step is the reference's step
+under GSPMD, written out: every rank gets the same host batch and takes
+its rows (shard_batch); the losses divide by the global batch's counts
+(ops.losses.loss_counts), so each rank's loss is its part of the global
+mean; SpecAugment is drawn for the whole batch from the step generator,
+seeded alike on every rank, and each rank applies its rows' draws; the
+gradients of the replicated parameters that tensor-parallel modules
+read by slice are summed over the model axis, then every gradient and
+every metric over the data axis; the gradient norm counts the sharded
+blocks over the model axis. With dropout 0, a step on any layout equals
+the single-process step up to the order of the sums.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Any
 
 import torch
 
-from tpu_asr_torch.augment import SpecAugmentConfig, spec_augment
+from tpu_asr_torch.augment import (SpecAugmentConfig, apply_spec_augment,
+                                   draw_spec_augment, spec_augment)
 from tpu_asr_torch.frontend import (FrontendConfig, build_lfr_features,
-                                    cmvn_stats_for, lfr_length,
-                                    wav_to_features)
+                                    cmvn_stats_for, frame_lengths_of,
+                                    lfr_length, wav_to_features)
+from tpu_asr_torch.ops.losses import loss_counts
+from tpu_asr_torch.parallel.mesh import batch_sharding, shard_batch
+from tpu_asr_torch.parallel.sharding import (gather_params, shard_params,
+                                             shard_tensor, sliced_params)
 from tpu_asr_torch.train.optim import NoamAdam, global_norm
 from tpu_asr_torch.utils.device import resolve_device
 
@@ -47,6 +65,21 @@ def batch_features(batch: dict, frontend: FrontendConfig,
     else:
         feats, flens = get("feats").float(), get("feat_lengths")
     return feats, flens, get("targets").long(), get("target_lengths")
+
+
+def global_counts(batch: dict, frontend: FrontendConfig,
+                  device: torch.device):
+    """A whole host batch -> (its feat lengths [B], loss_counts) on
+    `device`: what a data-parallel shard needs of the batch it is cut
+    from."""
+    if "wav" in batch:
+        flens = frame_lengths_of(torch.as_tensor(batch["wav_lengths"]),
+                                 frontend)
+    else:
+        flens = torch.as_tensor(batch["feat_lengths"])
+    counts = loss_counts(flens, torch.as_tensor(batch["targets"]).long(),
+                         torch.as_tensor(batch["target_lengths"]))
+    return flens.to(device), {k: v.to(device) for k, v in counts.items()}
 
 
 def apply_lfr(feats, feat_lengths, lfr: tuple[int, int]):
@@ -74,13 +107,23 @@ class TrainStep:
     (model_lfr of the model's config) stacks the features after
     SpecAugment, as the reference's step does. With debug_nans, a step
     whose loss or raw gradient norm is not finite raises
-    FloatingPointError before the update (a host sync a step)."""
+    FloatingPointError before the update (a host sync a step).
+
+    `mesh` (parallel.make_mesh) runs the step data- and tensor-parallel
+    (see the module docstring): the model comes whole and the optimizer
+    untouched, and TrainStep keeps this rank's blocks of the sharded
+    weights (parallel.shard_params). Every rank of the mesh calls the
+    step with the same host batch; the metrics it returns are the global
+    ones. state_dict gathers the full weights and optimizer state (every
+    rank of the model axis takes part), and load_state_dict takes such a
+    full state on every rank."""
 
     def __init__(self, model, optimizer: NoamAdam,
                  specaug: SpecAugmentConfig | None = None,
                  frontend: FrontendConfig | None = None,
                  device: str | torch.device | None = None, seed: int = 0,
-                 debug_nans: bool = False, lfr: tuple[int, int] = (1, 1)):
+                 debug_nans: bool = False, lfr: tuple[int, int] = (1, 1),
+                 mesh=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
@@ -91,22 +134,55 @@ class TrainStep:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.debug_nans = debug_nans
         self.steps = 0       # calls taken (micro-batches)
+        self.mesh = mesh
+        self.specs = None
+        if mesh is not None:
+            if optimizer.count or optimizer.adam.state:
+                raise ValueError("shard the model before the optimizer "
+                                 "takes a step")
+            self.specs = shard_params(self.model, mesh)
+            names = {id(p): n for n, p in self.model.named_parameters()}
+            self._names = [names[id(p)] for p in optimizer.params]
+            sliced = sliced_params(self.model)
+            self._sliced = [n in sliced for n in self._names]
+            if mesh.n_model > 1:
+                optimizer.norm_fn = functools.partial(
+                    global_norm, axis=mesh.model,
+                    sharded=[self.specs[n] is not None for n in self._names])
 
     def __call__(self, batch: dict) -> dict[str, torch.Tensor]:
         """-> metrics: the model's loss dict (loss, loss_att, acc and
         loss_ctc or loss_qty as the model has them) and grad_norm (0-d
         device tensors; grad_norm of the raw, unclipped gradients)."""
         self.model.train()
+        extra = {}
+        if self.mesh is not None:
+            full_flens, extra["counts"] = global_counts(
+                batch, self.frontend, self.device)
+            rows = batch_sharding(self.mesh).rows(len(full_flens))
+            batch = shard_batch(batch, self.mesh)
         feats, flens, targets, tlens = batch_features(
             batch, self.frontend, self.device, self.cmvn_stats)
-        if self.specaug is not None:
+        if self.specaug is not None and self.mesh is None:
             feats = spec_augment(self.gen, feats, flens, self.specaug)
+        elif self.specaug is not None:
+            draws = draw_spec_augment(self.gen, full_flens, feats.shape[-1],
+                                      self.specaug)
+            feats = apply_spec_augment(
+                feats, flens, {k: v[rows] for k, v in draws.items()},
+                self.specaug)
         feats, flens = apply_lfr(feats, flens, self.lfr)
-        out = self.model(feats, flens, targets, tlens)
+        out = self.model(feats, flens, targets, tlens, **extra)
         grads = list(torch.autograd.grad(out["loss"],
                                          self.optimizer.params))
         metrics = {k: v.detach() for k, v in out.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        if self.mesh is not None:
+            if self.mesh.n_model > 1:
+                self.mesh.model.all_reduce_coalesced_(
+                    [g for g, s in zip(grads, self._sliced) if s])
+            self.mesh.data.all_reduce_coalesced_(grads)
+            self.mesh.data.all_reduce_coalesced_(list(metrics.values()))
+        metrics["grad_norm"] = self.optimizer.norm_fn(grads)
         if self.debug_nans and not bool(torch.isfinite(torch.stack(
                 [metrics["loss"].float(), metrics["grad_norm"]])).all()):
             raise FloatingPointError(
@@ -121,13 +197,41 @@ class TrainStep:
                 "torch": torch.get_rng_state()}
         if self.device.type == "cuda":
             gens["cuda"] = torch.cuda.get_rng_state(self.device)
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        return {"model": gather_params(self.model, self.mesh, self.specs),
+                "optimizer": self._optimizer_state(gather=True),
                 "step": self.steps, "generators": gens}
 
+    def _optimizer_state(self, state: dict | None = None,
+                         gather: bool = False) -> dict:
+        """The optimizer's state with its sharded tensors (Adam's moments
+        and the accumulated gradients) gathered whole, or cut from a whole
+        `state` to this rank's blocks."""
+        state = self.optimizer.state_dict() if state is None else state
+        if self.mesh is None or self.mesh.n_model == 1:
+            return state
+        dims = [self.specs[n] for n in self._names]
+
+        def convert(t, dim):
+            if dim is None or not torch.is_tensor(t) or t.dim() == 0:
+                return t
+            return (self.mesh.model.all_gather(t, dim) if gather
+                    else shard_tensor(t, dim, self.mesh))
+        adam = dict(state["adam"])
+        adam["state"] = {i: {k: convert(v, dims[i]) for k, v in st.items()}
+                         for i, st in adam["state"].items()}
+        acc = state["acc"]
+        return {**state, "adam": adam,
+                "acc": None if acc is None else
+                [convert(a, d) for a, d in zip(acc, dims)]}
+
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        model_state = state["model"]
+        if self.specs is not None:
+            model_state = {k: shard_tensor(v, self.specs.get(k), self.mesh)
+                           for k, v in model_state.items()}
+        self.model.load_state_dict(model_state)
+        self.optimizer.load_state_dict(self._optimizer_state(
+            state["optimizer"]))
         self.steps = state["step"]
         gens = state["generators"]
         self.gen.set_state(gens["specaug"])
@@ -138,24 +242,35 @@ class TrainStep:
 
 class EvalStep:
     """Forward without dropout or SpecAugment (LFR as TrainStep) -> the
-    model's loss dict."""
+    model's loss dict. With a mesh (the TrainStep's, whose model it
+    evaluates), every rank takes its rows of the same host batch and gets
+    the global losses."""
 
     def __init__(self, model, frontend: FrontendConfig | None = None,
                  device: str | torch.device | None = None,
-                 lfr: tuple[int, int] = (1, 1)):
+                 lfr: tuple[int, int] = (1, 1), mesh=None):
         self.device = resolve_device(device)
         self.model = model
         self.frontend = frontend or FrontendConfig()
         self.cmvn_stats = cmvn_stats_for(self.frontend, self.device)
         self.lfr = tuple(lfr)
+        self.mesh = mesh
 
     @torch.no_grad()
     def __call__(self, batch: dict) -> dict[str, torch.Tensor]:
         self.model.eval()
+        extra = {}
+        if self.mesh is not None:
+            _, extra["counts"] = global_counts(batch, self.frontend,
+                                               self.device)
+            batch = shard_batch(batch, self.mesh)
         feats, flens, targets, tlens = batch_features(
             batch, self.frontend, self.device, self.cmvn_stats)
         feats, flens = apply_lfr(feats, flens, self.lfr)
-        return self.model(feats, flens, targets, tlens)
+        out = self.model(feats, flens, targets, tlens, **extra)
+        if self.mesh is not None:
+            self.mesh.data.all_reduce_coalesced_(list(out.values()))
+        return out
 
 
 def _mean(values: list[torch.Tensor]) -> float:
@@ -181,7 +296,11 @@ class Solver:
     train step's frontend and LFR), metrics every print_freq steps, a
     checkpoint per epoch, best by cv loss, optional half_lr on a cv
     plateau and early stop. `history` holds one record per epoch (the
-    cv line of the metrics, with the epoch's step and cv-batch counts)."""
+    cv line of the metrics, with the epoch's step and cv-batch counts).
+    Under a mesh every rank runs the Solver: the cv loss is the global
+    one on every rank, so half_lr and early stop decide alike, and the
+    state is gathered on every rank at each epoch's end; only the rank
+    given a checkpointer and a metrics_writer (rank 0) writes."""
     train_step: TrainStep
     train_loader: Any            # iterable of batch dicts per epoch
     cv_loader: Any
@@ -197,7 +316,8 @@ class Solver:
 
     def train(self) -> TrainStep:
         ts = self.train_step
-        eval_step = EvalStep(ts.model, ts.frontend, ts.device, ts.lfr)
+        eval_step = EvalStep(ts.model, ts.frontend, ts.device, ts.lfr,
+                             ts.mesh)
         best_cv = float("inf")
         bad_epochs = 0
         profiler = None
@@ -231,10 +351,12 @@ class Solver:
                 self.metrics_writer.write(record)
             is_best = cv_loss < best_cv
             best_cv = min(best_cv, cv_loss)
-            if self.checkpointer:
-                self.checkpointer.save(ts.state_dict(), step=ts.steps,
-                                       epoch=epoch, cv_loss=cv_loss,
-                                       is_best=is_best)
+            if self.checkpointer or ts.mesh is not None:
+                state = ts.state_dict()      # a collective under a mesh
+                if self.checkpointer:
+                    self.checkpointer.save(state, step=ts.steps,
+                                           epoch=epoch, cv_loss=cv_loss,
+                                           is_best=is_best)
             if not is_best and self.half_lr:
                 ts.optimizer.lr_scale *= 0.5      # Adam moments carry over
                 if self.metrics_writer:

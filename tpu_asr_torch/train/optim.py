@@ -13,6 +13,11 @@ tpu_asr/train/optim.py, which builds the same from optax).
 - accum_steps = k works like optax.MultiSteps: micro-batch gradients are
   averaged (running mean), and clip + Adam + the schedule advance once
   per k.
+- Under tensor parallelism a rank holds blocks of the sharded gradients
+  and all of the replicated ones: `global_norm(..., sharded, axis)` sums
+  the sharded squares over the model axis and counts the replicated ones
+  once, and clipping then acts on that norm. Adam is elementwise, so it
+  runs on each rank's blocks as they are.
 """
 
 from __future__ import annotations
@@ -30,10 +35,20 @@ def noam_schedule(d_model: int, warmup_steps: int = 4000, k: float = 1.0):
     return sched
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, sharded: list[bool] | None = None,
+                axis=None) -> torch.Tensor:
     """sqrt(sum of squares) over a list of float32 tensors, as a 0-d
-    tensor (one multi-tensor launch for the per-tensor norms)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    tensor (one multi-tensor launch for the per-tensor norms). With the
+    mesh's model `axis` and a `sharded` flag per tensor, the squares of
+    the sharded tensors are summed over the axis (the replicated ones are
+    the same on every rank and count once)."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if axis is None or axis.size == 1:
+        return torch.linalg.vector_norm(norms)
+    sq = norms.square()
+    mask = torch.tensor(sharded, device=sq.device)
+    shard_sq = axis.all_reduce_(torch.where(mask, sq, 0.0).sum())
+    return torch.sqrt(torch.where(mask, 0.0, sq).sum() + shard_sq)
 
 
 def clip_by_global_norm_(grads, max_norm: float,
@@ -55,7 +70,8 @@ class NoamAdam:
     `update(grads)` takes one micro-batch's gradients (one tensor per
     param, in order) and returns True when it applied an update. `count`
     is the number of updates applied, `lr_scale` multiplies the schedule
-    (the Solver's half_lr)."""
+    (the Solver's half_lr). `norm_fn` is the gradient norm that clipping
+    takes (global_norm; a tensor-parallel TrainStep sets the mesh's)."""
 
     def __init__(self, params, d_model: int, warmup_steps: int = 4000,
                  k: float = 1.0, grad_clip: float = 5.0,
@@ -70,6 +86,7 @@ class NoamAdam:
         self.mini_step = 0
         self.lr_scale = 1.0
         self._acc: list[torch.Tensor] | None = None
+        self.norm_fn = global_norm
 
     @property
     def lr(self) -> float:
@@ -92,7 +109,9 @@ class NoamAdam:
                 return False
             grads, grad_norm = self._acc, None
         if self.grad_clip > 0:
-            clip_by_global_norm_(grads, self.grad_clip, grad_norm)
+            clip_by_global_norm_(grads, self.grad_clip,
+                                 self.norm_fn(grads) if grad_norm is None
+                                 else grad_norm)
         for p, g in zip(self.params, grads):
             p.grad = g
         for group in self.adam.param_groups:
