@@ -187,7 +187,8 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      checkpointed joint and the lattice) and the lattice recursion alone
      on the first train batch's inputs: device time, share of a step,
      peak memory against all frames' logits materialized; `python -m
-     tpu_asr_torch.recognize --ckpt` on phase 10's cv manifest in
+     tpu_asr_torch.recognize --ckpt` on the first 26 utterances of phase
+     10's cv manifest in
      transducer_greedy, transducer_beam 5, transducer_beam 5 with phase
      10's LM (lm 0.3) and transducer_rescore 10 (ctc weight 0.5): a
      hypothesis per utterance, a cer and an inverse RTF each, no kernel
@@ -204,9 +205,9 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      tpu_asr_torch.train --preset streaming` on phase 8's corpus (as
      phase 8: >= 20 steps and cv, finite losses, the CTC kernels once a
      step on their warp route, a profile, the fixed shape), beside phase
-     8's aishell numbers; 13b, on 13a's checkpoint (each of phase 10's
-     51 cv utterances) and on random weights of the preset (seed 0; the
-     first 16 of them), each utterance pushed
+     8's aishell numbers; 13b, on 13a's checkpoint (the first 26 of
+     phase 10's 51 cv utterances) and on random weights of the preset
+     (seed 0; the first 16 of them), each utterance pushed
      64 feature frames at a time through StreamingCTCRecognizer: tokens
      and times equal the offline greedy_ctc of the Recognizer on the
      card, confidences within 1e-4, the streamed encode_chunk frames
@@ -214,7 +215,8 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      against the offline ctc_beam 5 (the 1-best equal, its score within
      1e-3); the full-recompute path on 8 utterances; no kernel launched;
      13c, `python -m tpu_asr_torch.stream_demo --ckpt <13a> --manifest
-     <cv> --chunk-frames 64`, greedy and --beam 5: 13b's hypotheses and
+     <cv> --chunk-frames 64 --limit 26`, greedy and --beam 5: 13b's
+     hypotheses and
      the summary; 13d, random full-width transducer_streaming and
      conformer_transducer (chunk 16) streamed against the offline
      transducer_greedy on 8 cv utterances (tokens and times equal,
@@ -279,6 +281,27 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      kernels' inputs (record_rank_inputs) and holds each call against
      its plain version as phases 3-14 do (rank_kernel_errs); the errors
      join each kernel's max_abs_err.
+ 16. checkpoints in and out, and the recipe as users run it: 16a,
+     `python -m tpu_asr_torch.export_torch` on phase 8's aishell
+     checkpoint (the original PyTorch repo's .pth.tar), then `recognize
+     --torch-ckpt <file> --ckpt <folder>` and `recognize --ckpt <folder>`
+     in joint beam 5 (n-best 2) on phase 10's cv manifest: hypothesis
+     files equal bit for bit, scores included, ctc_prefix_scan once a
+     decoder step, its calls on the --torch-ckpt path against the plain
+     version; two reference-named fixtures (the export under the other
+     spellings KEY_ALIASES reads, and a full-width untied linear-input
+     hybrid with a `model.` head) imported on the card give the logits of
+     the files they came from bit for bit, every KEY_ALIASES rule fired;
+     16b, `bash egs_torch/aishell/run.sh --data <tmp> --synthetic
+     RECIPE_SCRIPT_UTTS --preset RECIPE_SCRIPT_PRESET --epochs
+     RECIPE_SCRIPT_EPOCHS --device cuda` in a process of its own, stages
+     -1 to 4 with the recipe's own CER-vs-beam gate, exit 0; its $PYTHON
+     is a client of a fork server (`chip_smoke.py --fork-server`, torch
+     and the port imported once), whose child for each `python -m` run
+     counts the kernels' launches (the CTC pair once a train step and cv
+     batch, the prefix scan once a joint decoder step, nothing else) and
+     holds the calls it records against their plain versions;
+     data/aishell and exp/ are left as they were.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 
@@ -293,6 +316,12 @@ logging where the two searches part for every 1-best that differs.
 runs 15a and 15b once with each fault of PARALLEL_FAULTS injected into
 the ranks, and exits 0 only if every fault exceeds a bound of
 PARALLEL_BOUNDS (it logs which).
+
+  python3 chip_smoke.py --fork-server <socket> <dir>
+
+serves phase 16b's $PYTHON (fork_server): each `python -m <module>` run
+it forks has its kernel launches counted and its kernel calls held
+against their plain versions, and writes its record to <dir>.
 """
 
 from __future__ import annotations
@@ -3891,8 +3920,8 @@ def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir,
     """python -m tpu_asr_torch.recognize --ckpt on the cv manifest in
     each of `decodes` (name, flags): a hypothesis per utterance and a
     summary with cer each; ctc_prefix_scan launches once per joint step
-    (a decoder step) and nothing launches in the other modes. The joint
-    path's first and a later prefix-scan call of each T' are kept
+    (a decoder step) and nothing launches in the other modes. The first
+    joint decode's first and later prefix-scan call of each T' are kept
     (PathLabels(path)). -> ({decode name: summary}, prefix launches, the
     kept calls)."""
     from tpu_asr_torch import recognize
@@ -3903,12 +3932,13 @@ def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir,
     summaries, caps, prefix_launches = {}, {}, 0
     for name, flags in decodes:
         hyp = os.path.join(workdir, f"hyp_{name}.jsonl")
+        joint = flags[flags.index("--mode") + 1] == "joint"
         steps = [0]
 
         def step():
             steps[0] += 1
         records = contextlib.ExitStack()
-        if name == "joint":
+        if joint:
             records.enter_context(record_inputs(
                 scorer_module, "ctc_prefix_scan", caps,
                 PathLabels(path).prefix))
@@ -3928,7 +3958,7 @@ def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir,
             raise AssertionError(f"recognize {name}: summary {summary}, "
                                  f"{len(hyps)} hypotheses for {n_cv} "
                                  f"utterances")
-        want = {"ctc_prefix_scan": steps[0]} if name == "joint" else {}
+        want = {"ctc_prefix_scan": steps[0]} if joint else {}
         check_launches(f"recognize {name} ({what})", launches, want)
         prefix_launches += launches.get("ctc_prefix_scan", 0)
         log(f"recognize {name} ({what} checkpoint): "
@@ -4051,6 +4081,8 @@ TRANSDUCER_DECODES = (        # (name, recognize flags; "LM": phase 10's)
                             "--lm-ckpt", "LM", "--lm-weight", "0.3"]),
     ("transducer_rescore", ["--mode", "transducer_rescore", "--beam", "10",
                             "--ctc-weight", "0.5"]))
+TRANSDUCER_DECODE_UTTS = 26   # phase 10's first cv utterances decoded
+#                               (26 of the 51)
 CONFORMER_TRANSDUCER_STEPS = 4
 LATTICE_CHUNK_FRAMES = 32     # frames a no-grad chunk of the log-probs
 
@@ -4320,8 +4352,12 @@ def run_transducer_phase(card, workdir, data, aishell_stats, lm_dir,
     lattice = time_transducer_lattice(card, next(iter(loss_caps.values())),
                                       stats["device_ms_per_step"])
     lap("lattice")
-    summaries = run_transducer_decodes(card, ckpt, lm_dir, cv_manifest,
-                                       cv_utts, workdir)
+    from tpu_asr_torch.data import load_manifest, save_manifest
+    decode_utts = load_manifest(cv_manifest)[:TRANSDUCER_DECODE_UTTS]
+    decode_manifest = os.path.join(workdir, "transducer_cv.jsonl")
+    save_manifest(decode_utts, decode_manifest)
+    summaries = run_transducer_decodes(card, ckpt, lm_dir, decode_manifest,
+                                       decode_utts, workdir)
     log("transducer recognize inverse RTF: " + json.dumps(
         {k: v["inverse_rtf"] for k, v in summaries.items()}) + f" [{card}]")
     lap("decodes")
@@ -4354,6 +4390,8 @@ STREAM_CONF_TOL = 1e-4
 STREAM_SCORE_TOL = 1e-3
 STREAM_TIE_MARGIN = 1e-4      # top-2 logit or beam parting margin of a tie
 STREAM_RECOMPUTE_UTTS = 8     # utterances the full-recompute oracle streams
+STREAM_CV_UTTS = 26           # cv utterances 13b and 13c stream on 13a's
+#                               checkpoint (the first 26 of the 51)
 STREAM_RANDOM_UTTS = 16       # cv utterances 13b streams on random weights
 STREAM_COMPOSE_UTTS = 8       # utterances of the one-search beam check
 STREAM_TRANSDUCER_UTTS = 8    # utterances of each transducer comparison
@@ -4689,8 +4727,9 @@ def check_stream_ctc(card, name, cfg, model, feats):
 
 def run_stream_demo(card, ckpt, cv_manifest, greedy, beams):
     """13c: python -m tpu_asr_torch.stream_demo on 13a's checkpoint and
-    the cv manifest, greedy and --beam 5: each utterance's hypothesis is
-    13b's on that checkpoint. -> the two summaries."""
+    the first len(greedy) utterances of the cv manifest (--limit),
+    greedy and --beam 5: each utterance's hypothesis is 13b's on that
+    checkpoint. -> the two summaries."""
     import io
     from tpu_asr_torch import stream_demo
     summaries = {}
@@ -4702,7 +4741,7 @@ def run_stream_demo(card, ckpt, cv_manifest, greedy, beams):
         with contextlib.redirect_stdout(buf):
             summary = stream_demo.main([
                 "--ckpt", ckpt, "--manifest", cv_manifest, "--chunk-frames",
-                str(STREAM_PUSH_FRAMES)] + flags)
+                str(STREAM_PUSH_FRAMES), "--limit", str(len(want))] + flags)
         lines = [json.loads(x) for x in buf.getvalue().splitlines()
                  if x.startswith("{")]
         pushes = [x for x in buf.getvalue().splitlines()
@@ -4909,7 +4948,7 @@ def run_streaming_phase(card, workdir, data, aishell_stats, cv_manifest):
         + f"; train loss by epoch "
         f"{[h['train_loss'] for h in stats['history']]} [{card}]")
     lap("training")
-    utts = load_manifest(cv_manifest)
+    utts = load_manifest(cv_manifest)[:STREAM_CV_UTTS]
     ck = Checkpointer(ckpt)
     cfg = ck.load_config()
     trained = build_model(cfg)
@@ -6215,7 +6254,518 @@ def run_parallel_phase(card, workdir, data, ckpt, cv_manifest):
                                for e in per_rank])
 
 
+# ---- phase 16: checkpoints in and out, and the recipe as users run it ----
+
+EXPORT_DECODE = ["--mode", "joint", "--beam", "5", "--nbest", "2",
+                 "--max-len", "40"]
+EXPORT_PATH = "aishell joint, --torch-ckpt and --ckpt (recognize)"
+# egs_torch/aishell/run.sh as a user runs it, stages -1 to 4, with the
+# preset, synthetic corpus and epochs with which its model learns the tone
+# corpus within the phase's time (PERF.md)
+RECIPE_SCRIPT = os.path.join("egs_torch", "aishell", "run.sh")
+RECIPE_SCRIPT_PRESET = "conformer_dev"
+RECIPE_SCRIPT_UTTS = 1600
+RECIPE_SCRIPT_EPOCHS = 20
+RECIPE_SCRIPT_TIMEOUT = 600
+RECIPE_SCRIPT_PATH = "egs_torch/aishell/run.sh"
+
+
+def alias_fixture(sd: dict) -> dict:
+    """A reference state_dict as export_torch writes it, renamed to the
+    other spellings KEY_ALIASES reads: a DataParallel `module.` head, a
+    `model.` head on the encoder and decoder, the conv front end as
+    encoder.conv.conv_<i> and encoder.conv.linear_out, the CTC head as a
+    bare ctc_lo."""
+    out = {}
+    for k, v in sd.items():
+        k = re.sub(r"^encoder\.subsample\.conv([12])\.",
+                   r"encoder.conv.conv_\1.", k)
+        k = re.sub(r"^encoder\.subsample\.out\.", "encoder.conv.linear_out.",
+                   k)
+        k = re.sub(r"^ctc\.ctc_lo\.", "ctc_lo.", k)
+        k = re.sub(r"^(encoder|decoder)\.", r"model.\1.", k)
+        out[f"module.{k}"] = v
+    return out
+
+
+def aliases_fired(keys) -> set:
+    """The indices of the KEY_ALIASES rules that rename some key of
+    `keys`, applied in order as the importer applies them."""
+    from tpu_asr_torch.parity.torch_import import KEY_ALIASES
+    fired = set()
+    for k in keys:
+        for i, (pat, repl) in enumerate(KEY_ALIASES):
+            k, n = re.subn(pat, repl, k)
+            if n:
+                fired.add(i)
+    return fired
+
+
+def same_hyp_files(got_path: str, want_path: str) -> int:
+    """Two hypothesis JSONL files equal line for line, scores included,
+    bit for bit (a float prints its shortest round-trip form) -> the
+    number of lines; raises at the first line that differs."""
+    with open(got_path) as f:
+        got = f.read().splitlines()
+    with open(want_path) as f:
+        want = f.read().splitlines()
+    if len(got) != len(want):
+        raise AssertionError(f"{got_path}: {len(got)} lines, {want_path}: "
+                             f"{len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            raise AssertionError(f"line {i}: {a} != {b}")
+    return len(want)
+
+
+def model_logits(model, cfg, feats, flens, ys) -> dict:
+    """The encoder's CTC logits and the teacher-forced decoder logits
+    (those the model has) of one batch on the model's device."""
+    model.eval()
+    out = {}
+    with torch.no_grad():
+        enc, el = model.encode(feats, flens)
+        if cfg.model_type in ("ctc", "hybrid"):
+            out["ctc"] = model.ctc_logits(enc)
+        if cfg.num_dec_layers > 0:
+            out["decoder"] = model.decode_logits(enc, el, ys)
+    return out
+
+
+def check_alias_fixtures(card, pth: str, workdir: str) -> dict:
+    """16a's fixtures, imported on the card by load_torch_model with the
+    config inferred: alias_fixture of the exported file, and a
+    full-width untied linear-input hybrid (attention_lfr's widths, vocab
+    4233, random weights from the seed) exported and renamed with a
+    `model.` head, as a bare state_dict. Each gives the logits of the
+    file it came from bit for bit, and the three key sets fire every
+    KEY_ALIASES rule. -> {fixture: number of tensors}."""
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.parity.torch_export import export_model
+    from tpu_asr_torch.parity.torch_import import (KEY_ALIASES,
+                                                   load_torch_model)
+    from tpu_asr_torch.weights import init_random
+
+    blob = torch.load(pth, map_location="cpu", weights_only=True)
+    lfr_cfg = dataclasses.replace(get_preset("attention_lfr").model,
+                                  model_type="hybrid", vocab_size=4233,
+                                  tie_embedding=False)
+    lfr_pth = os.path.join(workdir, "lfr_untied.pth.tar")
+    export_model(lfr_pth, init_random(build_model(lfr_cfg), SEED), lfr_cfg)
+    lfr_sd = torch.load(lfr_pth, map_location="cpu",
+                        weights_only=True)["state_dict"]
+    fixtures = {
+        "aliases of the export": (pth, dict(blob, state_dict=alias_fixture(
+            blob["state_dict"]))),
+        "untied linear-input, model. head, bare state_dict": (
+            lfr_pth, {f"model.{k}" if k.startswith(("encoder.", "decoder."))
+                      else k: v for k, v in lfr_sd.items()})}
+    fired = aliases_fired(blob["state_dict"])
+    gen = torch.Generator().manual_seed(SEED + 16)
+    out = {}
+    for name, (source, fixture) in fixtures.items():
+        fired |= aliases_fired(fixture["state_dict"] if "state_dict" in
+                               fixture else fixture)
+        path = os.path.join(workdir, "fixture.pth.tar")
+        torch.save(fixture, path)
+        want_model, cfg = load_torch_model(source)
+        got_model, got_cfg = load_torch_model(path)
+        if got_cfg != cfg:
+            raise AssertionError(f"{name}: config {got_cfg} != {cfg}")
+        t = 200
+        feats = torch.randn(2, t, cfg.encoder_input_dim, generator=gen)
+        flens = torch.tensor([t, t * 3 // 4])
+        ys = torch.randint(2, cfg.vocab_size - 2, (2, 12), generator=gen)
+        args = [x.to(DEVICE) for x in (feats, flens, ys)]
+        want = model_logits(want_model.to(DEVICE), cfg, *args)
+        got = model_logits(got_model.to(DEVICE), cfg, *args)
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"{name}: {k} logits differ by "
+                                     f"{(got[k] - want[k]).abs().max()}")
+        out[name] = len(got_model.state_dict())
+        shapes = {k: list(v.shape) for k, v in want.items()}
+        log(f"16a fixture {name}: {out[name]} tensors, logits "
+            f"{json.dumps(shapes)} equal to {os.path.basename(source)}'s "
+            f"bit for bit [{card}]")
+    if fired != set(range(len(KEY_ALIASES))):
+        raise AssertionError(f"the fixtures fire KEY_ALIASES rules "
+                             f"{sorted(fired)} of {len(KEY_ALIASES)}")
+    return out
+
+
+def run_export_check(card, workdir, ckpt, cv_manifest, n_cv):
+    """16a: `python -m tpu_asr_torch.export_torch` on phase 8's aishell
+    checkpoint; `recognize --torch-ckpt <file> --ckpt <folder>` and
+    `recognize --ckpt <folder>` in joint beam 5 (n-best 2) on the cv
+    manifest (run_recipe_decodes: ctc_prefix_scan once a decoder step),
+    their hypothesis files equal bit for bit, scores included; the
+    --torch-ckpt decode's prefix-scan calls against the plain version;
+    check_alias_fixtures. -> (prefix launches, {label: prefix timings},
+    max abs error)."""
+    from tpu_asr_torch import export_torch
+    out_dir = os.path.join(workdir, "aishell_export")
+    os.makedirs(out_dir, exist_ok=True)
+    pth = os.path.join(out_dir, "final.pth.tar")
+    t0 = time.perf_counter()
+    step = export_torch.main(["--ckpt", ckpt, "--out", pth])
+    export_s = time.perf_counter() - t0
+    summaries, launches, caps = run_recipe_decodes(
+        card, ckpt, cv_manifest, n_cv, out_dir,
+        decodes=(("torch_ckpt_joint", EXPORT_DECODE + ["--torch-ckpt", pth]),
+                 ("ckpt_joint", EXPORT_DECODE)),
+        path=EXPORT_PATH, what="aishell, exported")
+    n = same_hyp_files(os.path.join(out_dir, "hyp_torch_ckpt_joint.jsonl"),
+                       os.path.join(out_dir, "hyp_ckpt_joint.jsonl"))
+    got, want = summaries["torch_ckpt_joint"], summaries["ckpt_joint"]
+    if (got["cer"], got["n_utts"]) != (want["cer"], want["n_utts"]):
+        raise AssertionError(f"--torch-ckpt {got} != --ckpt {want}")
+    prefix_t, err = check_prefix_on_paths(caps)
+    if not prefix_t:
+        raise AssertionError("the --torch-ckpt decode recorded no prefix "
+                             "scan")
+    fixtures = check_alias_fixtures(card, pth, out_dir)
+    log(f"16a export_torch of step {step}: {os.path.getsize(pth)} bytes in "
+        f"{export_s:.2f} s; --torch-ckpt joint 5 == --ckpt joint 5 on {n} "
+        f"utterances, n-best scores bit for bit (cer {got['cer']}); "
+        f"ctc_prefix_scan vs plain on {len(prefix_t)} calls of the "
+        f"--torch-ckpt path, max abs err {err}; fixtures "
+        f"{json.dumps(fixtures)} [{card}]")
+    return launches, prefix_t, err
+
+
+# counted_python's client of fork_server (its socket path formatted in)
+FORK_CLIENT = """import json, os, socket, sys, time
+env = dict(os.environ, COUNTED_START=str(time.time()))
+msg = json.dumps({{"argv": sys.argv[1:], "cwd": os.getcwd(),
+                  "env": env}}).encode()
+with socket.socket(socket.AF_UNIX) as s:
+    s.connect({sock!r})
+    socket.send_fds(s, [len(msg).to_bytes(8, "little")], [0, 1, 2])
+    s.sendall(msg)
+    code = b""
+    while len(code) < 4:
+        part = s.recv(4 - len(code))
+        if not part:
+            sys.exit("fork_server: the run ended without an exit code")
+        code += part
+sys.exit(int.from_bytes(code, "little", signed=True))
+"""
+
+
+def counted_python(workdir: str, sock: str) -> str:
+    """An executable for the recipe's $PYTHON: a client of the
+    fork_server listening at `sock`, which runs the client's arguments
+    as the interpreter would, in a process forked from the server, with
+    the client's working directory, environment and standard streams;
+    the client exits with that run's code. -> its path."""
+    path = os.path.join(workdir, "counted_python")
+    with open(path, "w") as f:
+        f.write(f"#!{sys.executable}\n" + FORK_CLIENT.format(sock=sock))
+    os.chmod(path, 0o755)
+    return path
+
+
+def forked_run(out_dir: str, request: dict) -> int:
+    """One client request in a child of fork_server: its argv as the
+    interpreter takes it: `-m <module> ...` through counted_cli, `-c
+    <command> ...`, `- ...` (a script on standard input). -> the exit
+    code."""
+    import traceback
+    os.chdir(request["cwd"])
+    os.environ.clear()
+    os.environ.update(request["env"])
+    argv = request["argv"]
+    try:
+        if argv[:1] == ["-m"]:
+            return counted_cli(out_dir, argv)
+        if argv[:1] == ["-c"]:
+            sys.argv, source, name = ["-c"] + argv[2:], argv[1], "<string>"
+        elif argv[:1] == ["-"]:
+            sys.argv, source, name = argv, sys.stdin.read(), "<stdin>"
+        else:
+            raise SystemExit(f"fork_server: cannot run {argv[:1]}")
+        exec(compile(source, name, "exec"), {"__name__": "__main__"})
+        return 0
+    except SystemExit as e:
+        if isinstance(e.code, str):
+            print(e.code, file=sys.stderr)
+        return e.code if isinstance(e.code, int) else int(e.code is not None)
+    except BaseException:
+        traceback.print_exc()
+        return 1
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+
+
+def fork_server(sock: str, out_dir: str) -> None:
+    """`python3 chip_smoke.py --fork-server <socket> <out_dir>`: import
+    torch and the recipe's CLIs once, then for each client of
+    counted_python fork a child that runs its request (forked_run) and
+    sends back the exit code. The server never touches CUDA and runs a
+    single thread (checked before each fork), so each child sets the
+    card up itself, as a process of its own would; what the fork saves
+    is the import of torch and the port, ~9 s a process on the card's
+    host (PERF.md)."""
+    import signal
+    import socket
+    import tpu_asr_torch.compute_cmvn  # noqa: F401 (imported once, here)
+    import tpu_asr_torch.data.synthetic  # noqa: F401
+    import tpu_asr_torch.prepare_data  # noqa: F401
+    import tpu_asr_torch.recognize  # noqa: F401
+    import tpu_asr_torch.train.__main__  # noqa: F401
+    from tpu_asr_torch.models.decoder import Decoder  # noqa: F401
+    kernel_counters()
+    signal.signal(signal.SIGCHLD, signal.SIG_IGN)    # children reaped
+    with socket.socket(socket.AF_UNIX) as srv:
+        srv.bind(sock)
+        srv.listen(16)
+        while True:
+            conn, _ = srv.accept()
+            head, fds, _, _ = socket.recv_fds(conn, 8, 3)
+            size, msg = int.from_bytes(head, "little"), b""
+            while len(msg) < size:
+                msg += conn.recv(size - len(msg))
+            sys.stdout.flush()
+            sys.stderr.flush()
+            if threading.active_count() != 1:      # fork copies one thread
+                raise RuntimeError(f"fork_server has "
+                                   f"{threading.active_count()} threads")
+            if os.fork() == 0:
+                signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+                srv.close()
+                for i, fd in enumerate(fds):
+                    os.dup2(fd, i)
+                    os.close(fd)
+                code = forked_run(out_dir, json.loads(msg))
+                conn.sendall(code.to_bytes(4, "little", signed=True))
+                os._exit(0)
+            for fd in fds:
+                os.close(fd)
+            conn.close()
+
+
+@contextlib.contextmanager
+def fork_server_running(out_dir: str):
+    """A fork_server process while this runs (stopped after) -> the path
+    of its counted_python client."""
+    import shutil
+    sock_dir = tempfile.mkdtemp(prefix="cs")
+    sock = os.path.join(sock_dir, "s")
+    server = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--fork-server", sock, out_dir])
+    try:
+        t0 = time.perf_counter()
+        while not os.path.exists(sock):
+            if server.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError(f"fork_server did not start "
+                                     f"({server.poll()})")
+            time.sleep(0.1)
+        yield counted_python(sock_dir, sock)
+    finally:
+        server.kill()
+        server.wait()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+
+def counted_cli(out_dir: str, argv: list) -> int:
+    """argv `-m <module> <args>`: the module as `python -m` runs it (a
+    child of fork_server runs it so), each kernel's launches counted
+    from 0 and its inputs recorded (record_rank_inputs), the decoder
+    steps counted; then the recorded calls against their plain versions
+    (rank_kernel_errs). Writes {"module", "argv", "exit", "launches",
+    "decoder_steps", "kernel_errs", "wall_s" (the module's run),
+    "start_s" (from $COUNTED_START, counted_python's clock at its
+    start, to the module's run)} to <out_dir>/<pid>.json. -> the module's
+    exit code."""
+    import runpy
+    from tpu_asr_torch.models.decoder import Decoder
+    module, args = argv[1], argv[2:]
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    steps = [0]
+
+    def step():
+        steps[0] += 1
+    caps, code, exit_ = {}, 0, None
+    sys.argv = [module] + args
+    start = time.time() - float(os.environ.get("COUNTED_START", time.time()))
+    t0 = time.perf_counter()
+    with record_rank_inputs(caps, f"{RECIPE_SCRIPT_PATH} {module}"), \
+            wrap_method(Decoder, "step", before=step):
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            exit_ = e
+            code = e.code if isinstance(e.code, int) else int(
+                e.code is not None)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    errs = rank_kernel_errs(caps, module) if code == 0 else {}
+    with open(os.path.join(out_dir, f"{os.getpid()}.json"), "w") as f:
+        json.dump({"module": module, "argv": args, "exit": code,
+                   "launches": launches, "decoder_steps": steps[0],
+                   "kernel_errs": errs, "wall_s": wall,
+                   "start_s": start}, f)
+    if exit_ is not None:
+        raise exit_
+    return code
+
+
+@contextlib.contextmanager
+def tree_kept(paths):
+    """Each of `paths` as it was before: one that exists is moved aside
+    while this runs and put back after; what the run makes there is
+    removed, with the folders above it that the run made."""
+    made, kept = [], {}
+    for p in paths:
+        parent = os.path.dirname(p)
+        while not os.path.exists(parent):
+            made.append(parent)
+            parent = os.path.dirname(parent)
+        if os.path.exists(p):
+            kept[p] = f"{p}.chip_smoke_kept"
+            os.rename(p, kept[p])
+    try:
+        yield
+    finally:
+        import shutil
+        for p in paths:
+            shutil.rmtree(p, ignore_errors=True)
+            if p in kept:
+                os.rename(kept[p], p)
+        for d in sorted(set(made), key=len, reverse=True):
+            if os.path.isdir(d) and not os.listdir(d):
+                os.rmdir(d)
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def recipe_counts(runs: list, history: list) -> dict:
+    """The launches of the recipe's CLI runs (counted_cli's records),
+    held to what the recipe must launch: the trainer the CTC forward
+    once a step and a cv batch and the backward once a step (`history`:
+    metrics.jsonl's cv lines), recognize in joint the prefix scan once a
+    decoder step, nothing else anywhere. -> {"training", "joint":
+    {kernel: launches}}."""
+    steps = sum(h["train_steps"] for h in history)
+    cv_batches = sum(h["cv_batches"] for h in history)
+    out = {"training": {}, "joint": {}}
+    for run in runs:
+        got = run["launches"]
+        if run["exit"] != 0:
+            raise AssertionError(f"{run['module']} exited {run['exit']}")
+        if run["module"] == "tpu_asr_torch.train":
+            want, key = {"ctc_loss_fwd": steps + cv_batches,
+                         "ctc_loss_bwd": steps}, "training"
+        elif run["module"] == "tpu_asr_torch.recognize" and \
+                run["argv"][run["argv"].index("--mode") + 1] == "joint":
+            want, key = {"ctc_prefix_scan": run["decoder_steps"]}, "joint"
+        else:
+            want, key = {}, None
+        check_launches(f"{run['module']} {' '.join(run['argv'])}", got,
+                       want)
+        if key:
+            out[key] = rank_sum([out[key], got])
+    if not out["training"] or not out["joint"]:
+        raise AssertionError(f"the recipe ran no training or no joint "
+                             f"decode: {out}")
+    return out
+
+
+def run_recipe_script(card, workdir):
+    """16b: `bash egs_torch/aishell/run.sh --data <workdir> --synthetic
+    RECIPE_SCRIPT_UTTS --preset RECIPE_SCRIPT_PRESET --epochs
+    RECIPE_SCRIPT_EPOCHS --device cuda` in a process of its own, stages
+    -1 to 4 (its CER-vs-beam gate included), exit 0; every `python -m`
+    it starts counted (counted_python, recipe_counts); data/aishell and
+    the exp folder as they were before. -> (launches {"training",
+    "joint"}, {kernel: max abs error} of the recorded calls, the
+    recipe's summaries)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    exp = os.path.join(repo, "exp", f"aishell_torch_{RECIPE_SCRIPT_PRESET}")
+    counts = os.path.join(workdir, "recipe_counts")
+    os.makedirs(counts, exist_ok=True)
+    cmd = ["bash", os.path.join(repo, RECIPE_SCRIPT), "--data",
+           os.path.join(workdir, "recipe_corpus"), "--synthetic",
+           str(RECIPE_SCRIPT_UTTS), "--preset", RECIPE_SCRIPT_PRESET,
+           "--epochs", str(RECIPE_SCRIPT_EPOCHS), "--device", DEVICE]
+    with tree_kept([os.path.join(repo, "data", "aishell"), exp]), \
+            fork_server_running(counts) as python:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, env=dict(os.environ,
+                                                      PYTHON=python),
+                              capture_output=True, text=True,
+                              timeout=RECIPE_SCRIPT_TIMEOUT)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(workdir, "recipe_script.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)} exited "
+                                 f"{proc.returncode} after {wall:.1f} s:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        summaries = {
+            "decode": read_jsonl(os.path.join(exp, "decode_summary.json"))[-1],
+            "joint": read_jsonl(os.path.join(
+                exp, "decode_summary_joint.json"))[-1],
+            "cer_vs_beam": read_jsonl(os.path.join(exp, "cer_vs_beam.jsonl"))}
+        history = [h for h in read_jsonl(os.path.join(exp, "metrics.jsonl"))
+                   if h.get("phase") == "cv"]
+    runs = [json.load(open(os.path.join(counts, f)))
+            for f in sorted(os.listdir(counts))]
+    launches = recipe_counts(runs, history)
+    errs = rank_max([r["kernel_errs"] for r in runs])
+    cli_wall = {}
+    for r in runs:
+        for key in (r["module"], "starting them"):
+            cli_wall[key] = cli_wall.get(key, 0.0) + (
+                r["wall_s"] if key == r["module"] else r["start_s"])
+    log(f"16b {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s, {len(runs)} "
+        f"`python -m` runs; train {len(history)} epochs, cv loss "
+        f"{history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}; "
+        f"decode_summary {json.dumps(summaries['decode'])}; joint "
+        f"{json.dumps(summaries['joint'])}; cer_vs_beam "
+        f"{json.dumps(summaries['cer_vs_beam'])}; launches "
+        f"{json.dumps(launches)}; kernel calls vs plain "
+        f"{json.dumps(errs)}; seconds in the CLIs' runs and in starting "
+        f"their processes {json.dumps(cli_wall)} [{card}]")
+    return launches, errs, summaries
+
+
+def run_checkpoint_phase(card, workdir, ckpt, cv_manifest):
+    """Phase 16: 16a run_export_check on phase 8's aishell checkpoint and
+    phase 10's cv manifest; 16b run_recipe_script. -> (prefix launches
+    {path: n}, CTC launches of the recipe's training, {"prefix": path
+    timings}, {kernel: max abs error})."""
+    from tpu_asr_torch.data import load_manifest
+    wall = {}
+    t0 = time.perf_counter()
+    export_launches, prefix_t, export_err = run_export_check(
+        card, workdir, ckpt, cv_manifest, len(load_manifest(cv_manifest)))
+    wall["16a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recipe_launches, errs, _ = run_recipe_script(card, workdir)
+    wall["16b"] = time.perf_counter() - t0
+    log("phase 16 wall seconds by part: " + json.dumps(wall))
+    errs["ctc_prefix_scan"] = max(errs.get("ctc_prefix_scan", 0.0),
+                                  export_err)
+    prefix = {EXPORT_PATH: export_launches,
+              f"{RECIPE_SCRIPT_PATH} joint (recognize)":
+                  recipe_launches["joint"]["ctc_prefix_scan"]}
+    return prefix, recipe_launches["training"], {"prefix": prefix_t}, errs
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--fork-server"]:
+        fork_server(sys.argv[2], sys.argv[3])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -6340,6 +6890,11 @@ def main() -> int:
         parallel, parallel_errs = run_parallel_phase(
             card, workdir, data, ckpts[PRESET], cv_manifest)
         mark("1-15")
+        ckpt_prefix, training[f"{RECIPE_SCRIPT_PATH} "
+                              f"{RECIPE_SCRIPT_PRESET}"], ckpt_paths, \
+            ckpt_errs = run_checkpoint_phase(card, workdir, ckpts[PRESET],
+                                             cv_manifest)
+        mark("1-16")
     tp_path = f"{pallas} tp {PARALLEL_RANKS} ranks"
     training[f"{PRESET} dp {PARALLEL_RANKS} ranks"] = rank_sum(
         parallel["dp"])
@@ -6358,19 +6913,22 @@ def main() -> int:
         "source": "tpu_asr_torch/csrc/ctc_prefix_scan.cu",
         "replaces": "tpu_asr/ops/pallas/ctc_prefix.py:114",
         "launches": (launches + lm_launches["joint"]["ctc_prefix_scan"]
-                     + recipe_prefix + pitch_prefix + dp_decode),
-        "launches_by_path": {
+                     + recipe_prefix + pitch_prefix + dp_decode
+                     + sum(ckpt_prefix.values())),
+        "launches_by_path": dict({
             "joint serving": launches,
             "LM-fused joint (recognize)":
                 lm_launches["joint"]["ctc_prefix_scan"],
             RECIPE_PATH: recipe_prefix, PITCH_PATH: pitch_prefix,
             f"joint --dp {PARALLEL_RANKS} (recognize)": dp_decode},
+            **ckpt_prefix),
         "parallel_launches_by_rank": {
             f"joint --dp {PARALLEL_RANKS} (recognize)": parallel["decode"]},
         "max_abs_err": max(max_err, ctc_path_errs["prefix"],
                            lm_errs["prefix"], recipe_errs["prefix"],
                            input_errs["prefix"],
-                           parallel_errs["ctc_prefix_scan"]),
+                           parallel_errs["ctc_prefix_scan"],
+                           ckpt_errs["ctc_prefix_scan"]),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
@@ -6385,14 +6943,16 @@ def main() -> int:
         "build": ctc_build(ctc_prefix.KERNEL_SYMBOL),
         "path_max_abs_err": max(ctc_path_errs["prefix"], lm_errs["prefix"],
                                 recipe_errs["prefix"], input_errs["prefix"],
-                                parallel_errs["ctc_prefix_scan"]),
+                                parallel_errs["ctc_prefix_scan"],
+                                ckpt_errs["ctc_prefix_scan"]),
         "parallel_max_abs_err": parallel_errs["ctc_prefix_scan"],
         "other_shapes": dict({f"T={t} hist={h}": v for (t, h), v
                               in timings.items() if (t, h) != (249, True)},
                              **{f"path {k}": v for k, v in
                                 (prefix_path | lm_paths["prefix"]
                                  | recipe_paths["prefix"]
-                                 | input_paths["prefix"]).items()}),
+                                 | input_paths["prefix"]
+                                 | ckpt_paths["prefix"]).items()}),
     }]
     designs = {"fwd": "warp route: a chain warp an utterance, two positions "
                       "a lane, shuffles up; a helper warp stages rows of E "
@@ -6423,7 +6983,8 @@ def main() -> int:
             "max_abs_err": max(ctc_errs[name], ctc_path_errs[name],
                                recipe_errs[name], transducer_errs[name],
                                streaming_errs[name], input_errs[name],
-                               parallel_errs[f"ctc_loss_{name}"]),
+                               parallel_errs[f"ctc_loss_{name}"],
+                               ckpt_errs[f"ctc_loss_{name}"]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -6438,7 +6999,8 @@ def main() -> int:
                                     recipe_errs[name],
                                     transducer_errs[name],
                                     streaming_errs[name], input_errs[name],
-                                    parallel_errs[f"ctc_loss_{name}"]),
+                                    parallel_errs[f"ctc_loss_{name}"],
+                                    ckpt_errs[f"ctc_loss_{name}"]),
             "parallel_max_abs_err": parallel_errs[f"ctc_loss_{name}"],
             "shape": "B=32 T=249 S=49 (U=24)",
             "other_shapes": other,

@@ -1205,3 +1205,163 @@ def test_dp_hyps_equal_to_their_shards():
             want, a=_dp_line([1, 2], -3.00002, [1], -5.0)))
     with pytest.raises(AssertionError, match="ids"):
         chip_smoke.compare_shard_hyps(want, {"a": want["a"]})
+
+
+# ---- phase 16: checkpoints in and out, the recipe as users run it ----
+
+def test_alias_fixtures_fire_every_rule_and_import_alike(tmp_path):
+    """The export's keys, alias_fixture of them and an untied linear-input
+    model's keys with a `model.` head fire every KEY_ALIASES rule; the
+    fixture imports to the export's flax tree bit for bit."""
+    import dataclasses as dc
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.models import build_model
+    from tpu_asr_torch.parity.torch_export import export_model
+    from tpu_asr_torch.parity.torch_import import (KEY_ALIASES,
+                                                   load_torch_checkpoint)
+    from tpu_asr_torch.weights import init_random
+    dev = get_preset("hybrid_dev").model
+    keys = set()
+    for name, cfg in (("conv", dc.replace(dev, vocab_size=32)),
+                      ("linear", dc.replace(dev, vocab_size=32,
+                                            input_layer="linear",
+                                            tie_embedding=False))):
+        path = str(tmp_path / f"{name}.pth.tar")
+        export_model(path, init_random(build_model(cfg), 0), cfg)
+        blob = torch.load(path, weights_only=True)
+        sd = blob["state_dict"]
+        keys |= set(sd)
+        if name == "conv":
+            fixture = chip_smoke.alias_fixture(sd)
+            keys |= set(fixture)
+            assert all(k.startswith("module.") for k in fixture)
+            assert "module.ctc_lo.weight" in fixture
+            torch.save(dict(blob, state_dict=fixture),
+                       str(tmp_path / "f.pth.tar"))
+            want, want_cfg = load_torch_checkpoint(path)
+            got, got_cfg = load_torch_checkpoint(str(tmp_path / "f.pth.tar"))
+            assert got_cfg == want_cfg
+            for a, b in zip(nested_leaves(got), nested_leaves(want)):
+                assert a[0] == b[0] and np.array_equal(a[1], b[1]), a[0]
+        else:
+            keys |= {f"model.{k}" for k in sd
+                     if k.startswith(("encoder.", "decoder."))}
+    assert chip_smoke.aliases_fired(keys) == set(range(len(KEY_ALIASES)))
+    assert chip_smoke.aliases_fired({"enc_layers.0.ffn.w_1.weight"}) == set()
+
+
+def nested_leaves(tree, prefix=""):
+    """(path, array) of a nested dict, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from nested_leaves(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", np.asarray(v)
+
+
+def test_same_hyp_files(tmp_path):
+    a, b = tmp_path / "a.jsonl", tmp_path / "b.jsonl"
+    line = {"id": "u1", "hyp_tokens": [3, 4],
+            "nbest": [{"yseq": [3, 4], "score": -1.2345678901234567}]}
+    a.write_text(json.dumps(line) + "\n")
+    b.write_text(json.dumps(line) + "\n")
+    assert chip_smoke.same_hyp_files(str(a), str(b)) == 1
+    line["nbest"][0]["score"] = float(np.nextafter(-1.2345678901234567, 0))
+    b.write_text(json.dumps(line) + "\n")
+    with pytest.raises(AssertionError, match="line 0"):
+        chip_smoke.same_hyp_files(str(a), str(b))
+    b.write_text("")
+    with pytest.raises(AssertionError, match="1 lines"):
+        chip_smoke.same_hyp_files(str(a), str(b))
+
+
+def test_fork_server_runs_the_recipes_python(tmp_path):
+    """The recipe's $PYTHON (counted_python, a client of fork_server)
+    runs `-c`, `-` (a script on standard input) and `-m <cli>` with the
+    client's cwd, environment, streams and exit code; each `-m` run
+    leaves counted_cli's record."""
+    import subprocess
+    out = tmp_path / "counts"
+    out.mkdir()
+    work = tmp_path / "w"
+    work.mkdir()
+    with chip_smoke.fork_server_running(str(out)) as python:
+        def run(argv, stdin=""):
+            return subprocess.run([python] + argv, input=stdin, cwd=work,
+                                  env=dict(os.environ, MARK="m7"),
+                                  capture_output=True, text=True,
+                                  timeout=120)
+        done = run(["-c", "import os, sys; print(6 * 7, os.getcwd(), "
+                    "os.environ['MARK'], sys.argv[1:])", "a"])
+        assert done.returncode == 0, done.stderr
+        assert done.stdout.split() == ["42", str(work), "m7",
+                                              "['a']"]
+        done = run(["-", "x"], "import sys; print(sys.argv); sys.exit(3)")
+        assert (done.returncode, done.stdout) == (3, "['-', 'x']\n")
+        done = run(["-c", "raise ValueError('boom')"])
+        assert done.returncode == 1 and "ValueError: boom" in done.stderr
+        done = run(["-m", "tpu_asr_torch.recognize", "--manifest",
+                    "m.jsonl"])
+        assert done.returncode == 2           # argparse: no checkpoint
+        assert "--ckpt or --torch-ckpt is required" in done.stderr
+        assert not os.listdir(work)
+    (record,) = [json.load(open(out / f)) for f in os.listdir(out)]
+    assert record.pop("wall_s") >= 0.0 and record.pop("start_s") >= 0.0
+    assert record == {"module": "tpu_asr_torch.recognize",
+                      "argv": ["--manifest", "m.jsonl"], "exit": 2,
+                      "launches": {}, "decoder_steps": 0,
+                      "kernel_errs": {}}
+
+
+def _run(module, argv, launches, steps=0, exit=0):
+    return {"module": module, "argv": argv, "exit": exit,
+            "launches": launches, "decoder_steps": steps,
+            "kernel_errs": {}}
+
+
+def test_recipe_counts():
+    history = [{"train_steps": 7, "cv_batches": 2},
+               {"train_steps": 7, "cv_batches": 2}]
+    runs = [_run("tpu_asr_torch.prepare_data", ["--out", "x"], {}),
+            _run("tpu_asr_torch.train", ["--preset", "hybrid_dev"],
+                 {"ctc_loss_fwd": 18, "ctc_loss_bwd": 14}),
+            _run("tpu_asr_torch.recognize", ["--mode", "attn_rescore"], {}),
+            _run("tpu_asr_torch.recognize", ["--mode", "joint"],
+                 {"ctc_prefix_scan": 40}, steps=40)]
+    assert chip_smoke.recipe_counts(runs, history) == {
+        "training": {"ctc_loss_fwd": 18, "ctc_loss_bwd": 14},
+        "joint": {"ctc_prefix_scan": 40}}
+    for bad in (
+            _run("tpu_asr_torch.train", [], {"ctc_loss_fwd": 17,
+                                             "ctc_loss_bwd": 14}),
+            _run("tpu_asr_torch.recognize", ["--mode", "joint"],
+                 {"ctc_prefix_scan": 39}, steps=40),
+            _run("tpu_asr_torch.recognize", ["--mode", "attn_rescore"],
+                 {"ctc_prefix_scan": 1}),
+            _run("tpu_asr_torch.compute_cmvn", [], {}, exit=1)):
+        swapped = [r if r["module"] != bad["module"] or
+                   r["argv"][-1:] != bad["argv"][-1:] else bad for r in runs]
+        if bad not in swapped:
+            swapped.append(bad)
+        with pytest.raises(AssertionError):
+            chip_smoke.recipe_counts(swapped, history)
+    with pytest.raises(AssertionError, match="no training or no joint"):
+        chip_smoke.recipe_counts(runs[:3], history)
+
+
+def test_tree_kept(tmp_path):
+    """What exists is put back as it was; what the run made goes, with
+    the folders above it that it made."""
+    kept = tmp_path / "exp" / "run"
+    kept.mkdir(parents=True)
+    (kept / "mine.txt").write_text("keep")
+    made = tmp_path / "data" / "aishell"
+    with chip_smoke.tree_kept([str(made), str(kept)]):
+        assert not kept.exists()
+        made.mkdir(parents=True)
+        kept.mkdir()
+        (kept / "new.txt").write_text("x")
+        (made / "train.jsonl").write_text("x")
+    assert sorted(os.listdir(kept)) == ["mine.txt"]
+    assert not (tmp_path / "data").exists()

@@ -4,6 +4,7 @@ quietly."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -243,3 +244,59 @@ def test_parallel_modules_are_covered(monkeypatch):
     monkeypatch.setenv("PROCESS_ID", "1")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize_distributed()            # before any connection
+
+
+def test_checkpoint_bridge_modules_are_covered():
+    """The import checks above walk the reference-format import and
+    export (parity/), export_torch and import_params. tools/orbax_to_npz.py
+    is the JAX side of the orbax bridge and lies outside the port on
+    purpose: it imports tpu_asr and runs JAX, which the port never does,
+    and it never runs on the card."""
+    files = {os.path.relpath(f, REPO) for f in _port_files()}
+    for name in ("parity/__init__.py", "parity/torch_import.py",
+                 "parity/torch_export.py", "export_torch.py",
+                 "import_params.py", "weights.py", "recognize.py"):
+        path = os.path.join("tpu_asr_torch", name)
+        assert path in files
+        assert not [m for m in _imported_roots(os.path.join(REPO, path))
+                    if m in FORBIDDEN]
+    tool = os.path.join("tools", "orbax_to_npz.py")
+    assert tool not in files
+    assert "tpu_asr" in set(_imported_roots(os.path.join(REPO, tool)))
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("recognize", "['--torch-ckpt', 'x.pth.tar', '--manifest', 'y']"),
+    ("import_params", "['--src', 'x', '--out', {out!r}]")])
+def test_bridge_clis_refuse_cpu_without_asking(tmp_path, module, argv):
+    out = str(tmp_path / "port")
+    done = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; torch.cuda.is_available = lambda: False\n"
+         f"from tpu_asr_torch.{module} import main\n"
+         f"main({argv.format(out=out)})"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert done.returncode != 0
+    assert "no CUDA device" in done.stderr, done.stderr[-2000:]
+    assert not os.path.exists(out)
+
+
+def test_recipes_name_no_jax_and_nothing_of_tpu_asr():
+    """egs_torch/ (shell and Python) calls only the port: no bin/ script,
+    no tpu_asr module (tpu_asr_torch is the port), no JAX, no
+    --platform."""
+    root = os.path.join(REPO, "egs_torch")
+    files = [os.path.join(d, n) for d, _, names in os.walk(root)
+             for n in names if n.endswith((".sh", ".py"))]
+    assert len(files) >= 3
+    for path in files:
+        code = "\n".join(line for line in open(path).read().splitlines()
+                         if not line.lstrip().startswith("#"))
+        what = os.path.relpath(path, REPO)
+        assert not re.search(r"\bbin/\w+\.py", code), what
+        assert not re.search(r"\btpu_asr\b", code), what
+        assert not re.search(r"\b(import|from)\s+(jax|jaxlib|flax|optax|"
+                             r"orbax)\b|\bjax\.", code), what
+        assert "--platform" not in code, what
+        if path.endswith(".py"):
+            assert not [m for m in _imported_roots(path) if m in FORBIDDEN]

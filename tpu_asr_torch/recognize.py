@@ -35,8 +35,14 @@ PROCESS_ID set, this process is one rank of such a group instead.
   python -m tpu_asr_torch.recognize --ckpt exp/hybrid \\
       --manifest test.jsonl --mode joint --dp 2 --output hyp.jsonl
 
-Not ported: the reference's --torch-ckpt (its parity/ bridge to the
-original PyTorch checkpoints).
+`--torch-ckpt` decodes the original PyTorch repo's `.pth.tar`
+(parity/torch_import.py). With --ckpt beside it, that folder's
+model_config.json is the config and its frontend.json the feature
+policy; alone, the config is inferred from the file and the frontend is
+the default, and --output defaults to hyp.jsonl beside the file:
+
+  python -m tpu_asr_torch.recognize --torch-ckpt final.pth.tar \\
+      --manifest test.jsonl --mode joint --beam 5
 """
 
 from __future__ import annotations
@@ -59,8 +65,12 @@ def parse_args(argv=None):
     from tpu_asr_torch.decode.recognizer import MODES
     p = argparse.ArgumentParser(prog="python -m tpu_asr_torch.recognize",
                                 description=__doc__.split("\n\n")[0])
-    p.add_argument("--ckpt", required=True,
+    p.add_argument("--ckpt", default="",
                    help="checkpoint folder of python -m tpu_asr_torch.train")
+    p.add_argument("--torch-ckpt", default="",
+                   help="decode a reference-format .pth.tar; the config "
+                        "comes from the file, or from --ckpt's "
+                        "model_config.json when both are given")
     p.add_argument("--manifest", required=True)
     p.add_argument("--output", default="",
                    help="hypothesis JSONL (default: <ckpt>/hyp.jsonl)")
@@ -99,7 +109,10 @@ def parse_args(argv=None):
                    help="data-parallel decode on N ranks of this host "
                         "(0 or 1: one process)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if not (args.ckpt or args.torch_ckpt):
+        p.error("--ckpt or --torch-ckpt is required")
+    return args
 
 
 def restore_step(ck, step: int, restore: str) -> int:
@@ -135,15 +148,20 @@ def build(args, device, mesh=None, world: int = 1):
     from tpu_asr_torch.models.lm import load_lm
     from tpu_asr_torch.train.checkpoints import Checkpointer
 
-    ck = Checkpointer(args.ckpt)
-    cfg = ck.load_config()
+    ck = Checkpointer(args.ckpt) if args.ckpt else None
+    if args.torch_ckpt:
+        from tpu_asr_torch.parity.torch_import import load_torch_model
+        model, cfg = load_torch_model(args.torch_ckpt,
+                                      ck.load_config() if ck else None)
+    else:
+        cfg = ck.load_config()
+        model = build_model(cfg)
+        model.load_state_dict(ck.restore(restore_step(
+            ck, args.step, args.restore))["model"])
     mode = args.mode or DEFAULT_MODES[cfg.model_type]
     if mode == "joint" and cfg.model_type != "hybrid":
         mode = "beam"
-    frontend = ck.load_frontend() or FrontendConfig()
-    model = build_model(cfg)
-    model.load_state_dict(ck.restore(restore_step(
-        ck, args.step, args.restore))["model"])
+    frontend = (ck.load_frontend() if ck else None) or FrontendConfig()
     lm = load_lm(args.lm_ckpt) if args.lm_ckpt else None
     rec = Recognizer(
         cfg, model, mode=mode, frontend=frontend, device=device, mesh=mesh,
@@ -174,6 +192,25 @@ def build(args, device, mesh=None, world: int = 1):
     return rec, utts, loader, frontend, wav_mode
 
 
+def pair_results(batch_ids: list, batch_rows: list, nbests: list) -> dict:
+    """{utterance id: n-best} from each batch's ids, its row count (the
+    ids' rows, then the loader's dummy rows) and the n-bests
+    decode_batches_nbest gave for it, in order; raises unless there are
+    as many batches of n-bests as of ids and each batch has an n-best a
+    row."""
+    if not len(batch_ids) == len(batch_rows) == len(nbests):
+        raise AssertionError(f"{len(batch_ids)} batches of ids but "
+                             f"{len(nbests)} batches of n-bests")
+    results = {}
+    for i, (ids, rows, batch_nb) in enumerate(zip(batch_ids, batch_rows,
+                                                  nbests)):
+        if len(batch_nb) != rows or len(ids) > rows:
+            raise AssertionError(f"batch {i}: {len(ids)} ids in {rows} "
+                                 f"rows but {len(batch_nb)} n-bests")
+        results.update(zip(ids, batch_nb))     # the dummy rows come last
+    return results
+
+
 def decode(argv) -> dict | None:
     """One rank's decode (the only one without --dp) -> rank 0's
     summary, None on the other ranks."""
@@ -199,11 +236,12 @@ def decode(argv) -> dict | None:
             rec.decode_batch_nbest(batch)
             warmed.add(shape)
 
-    batch_ids, audio_s = [], [0.0]
+    batch_ids, batch_rows, audio_s = [], [], [0.0]
 
     def stream():
         for batch in loader():
             batch_ids.append(batch["ids"])
+            batch_rows.append(len(batch["wav" if wav_mode else "feats"]))
             if wav_mode:
                 audio_s[0] += float(np.sum(batch["wav_lengths"])) / \
                     frontend.sample_rate
@@ -215,12 +253,12 @@ def decode(argv) -> dict | None:
     t0 = time.perf_counter()
     nbests = rec.decode_batches_nbest(stream())
     wall = time.perf_counter() - t0
-    results = {uid: nb for ids, batch_nb in zip(batch_ids, nbests)
-               for uid, nb in zip(ids, batch_nb)}
+    results = pair_results(batch_ids, batch_rows, nbests)
     if mesh is not None and mesh.rank != 0:
         return None
 
-    out_path = args.output or os.path.join(args.ckpt, "hyp.jsonl")
+    out_dir = args.ckpt or os.path.dirname(args.torch_ckpt) or "."
+    out_path = args.output or os.path.join(out_dir, "hyp.jsonl")
     with open(out_path, "w") as f:
         for uid, nb in results.items():
             line = {"id": uid, "hyp_tokens": nb[0]["yseq"]}

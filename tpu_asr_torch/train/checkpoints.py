@@ -9,7 +9,10 @@ A checkpoint directory holds, as the reference's does:
                       "generators", "meta"} (the port's own format)
 
 `max_to_keep` newest saves are kept, and the best one is pinned against
-cleanup. Reading the reference's orbax checkpoints is not ported.
+cleanup. The reference's orbax folders come over through
+tools/orbax_to_npz.py and `python -m tpu_asr_torch.import_params`, which
+writes such a folder; its model_config.json names dtypes as numpy does
+("float32", "bfloat16"), which model_config_from_json reads as well.
 """
 
 from __future__ import annotations

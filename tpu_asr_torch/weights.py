@@ -25,6 +25,11 @@ flax paths, so each key maps mechanically:
     top-level params)                -> kept as they are, same names
 
 Any missing key, extra key or shape mismatch raises.
+
+`torch_to_flax(model)` is the exact inverse: the model's state_dict as
+the flat "/"-joined flax paths and layouts that `load_jax_params` reads
+(what the reference-format export and an .npz of flax params start
+from).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpu_asr_torch.models.modules import LayerNorm
+from tpu_asr_torch.models.modules import LayerNorm, PostNormBlock
 
 
 def _flatten(tree, prefix=""):
@@ -111,6 +116,66 @@ def load_jax_params(model: nn.Module, params) -> None:
                 raise ValueError(f"{key}: flax shape {arr.shape} (converted) "
                                  f"!= model shape {tuple(dst.shape)}")
             dst.copy_(torch.tensor(arr))
+
+
+def _flax_leaf(owner: nn.Module, parent: nn.Module | None, name: str,
+               leaf: str, w: np.ndarray) -> tuple[str, np.ndarray]:
+    """One port parameter `<name>.<leaf>` of module `owner` (a child of
+    `parent`) -> its flax leaf name and array: flax_to_torch's layout
+    rules run backwards."""
+    if isinstance(owner, LayerNorm):
+        return ("scale" if leaf == "weight" else leaf), w
+    if isinstance(owner, nn.Embedding):
+        return "embedding", w
+    heads = getattr(parent, "num_heads", None)
+    if isinstance(owner, nn.Linear) and heads:        # DenseGeneral
+        if name == "out_proj" and leaf == "weight":    # [D, H*dh]
+            return "kernel", w.T.reshape(heads, -1, w.shape[0])
+        if name != "out_proj":                         # q/k/v/pos_proj
+            if leaf == "weight":                       # [H*dh, D]
+                return "kernel", w.T.reshape(w.shape[1], heads, -1)
+            return leaf, w.reshape(heads, -1)
+    if leaf != "weight":
+        return leaf, w
+    if w.ndim == 4:                                    # OIHW -> HWIO
+        return "kernel", w.transpose(2, 3, 1, 0)
+    if w.ndim == 3:                                    # OIW / [C, 1, k]
+        return "kernel", w.transpose(2, 1, 0)
+    return "kernel", w.T
+
+
+def torch_to_flax(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's parameters as the flat "/"-joined flax paths (no
+    "params/" head) and flax layouts, float32: the inverse of
+    load_jax_params. Each leaf is checked by running flax_to_torch on it,
+    which must give back the state_dict key and the same bits."""
+    modules = dict(model.named_modules())
+    out = {}
+    for key, t in model.state_dict().items():
+        w = t.detach().cpu().float().numpy()
+        owner_name, _, leaf = key.rpartition(".")
+        parts = owner_name.split(".") if owner_name else []
+        flax_parts = []
+        for i, part in enumerate(parts):
+            prefix = ".".join(parts[:i])
+            if part.isdigit() and parts[i - 1] == "layers":
+                flax_parts[-1] = f"layer_{part}"
+            elif part == "norm" and isinstance(
+                    modules.get(prefix), PostNormBlock):
+                flax_parts.append("LayerNorm_0")
+            else:
+                flax_parts.append(part)
+        parent = modules.get(".".join(parts[:-1])) if parts else None
+        flax_leaf, arr = _flax_leaf(modules[owner_name], parent,
+                                    parts[-1] if parts else "", leaf, w)
+        path = "/".join(flax_parts + [flax_leaf])
+        arr = np.ascontiguousarray(arr)
+        back_key, back = flax_to_torch(path, arr)
+        if back_key != key or not np.array_equal(back, w):
+            raise ValueError(f"{key}: flax path {path} does not map back "
+                             f"(to {back_key})")
+        out[path] = arr
+    return out
 
 
 # std of a unit normal truncated to [-2, 2]; flax's variance_scaling
