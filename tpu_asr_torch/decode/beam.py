@@ -15,7 +15,8 @@ The reference's lax.while_loop becomes a Python loop. Its early exit
 (stop once every hypothesis is finished) reads `finished.all()` on the
 host, which synchronises with the device once per step; capturing the
 step in a CUDA graph to remove that and the launch overhead is later
-work.
+work. Under a profiler that read is the span beam.sync, and the rest of
+a step the span beam.step (utils.tracing).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from tpu_asr_torch.decode.ctc_prefix import CTCPrefixScorer
 from tpu_asr_torch.ops.topk import exact_top_k
+from tpu_asr_torch.utils.tracing import span
 
 NEG_INF = -1e30
 # auto threshold for BeamConfig.ctc_two_pass=None (the reference's value:
@@ -118,96 +120,109 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
     pos = 0
     # Early exit: once every hypothesis is finished, further steps are
     # output-neutral (eos continues at zero cost), so stopping is exact.
-    # bool() here is the per-step host sync noted in the module docstring.
-    while pos < cfg.max_len and not bool(finished.all()):
-        logits, cache = decoder.step(y_prev, pos, cache, cross_kv,
-                                     enc_lengths_flat)
-        att_logp = torch.log_softmax(logits.float(), dim=-1)
-        if use_lm:
-            lm_logits, lm_cache = lm.step(y_prev, pos, lm_cache)
-            lm_logp = torch.log_softmax(lm_logits.float(), dim=-1)
-        must_end = pos >= utt_maxlen[:, None]                   # [B, 1]
-        ban_eos = pos < utt_minlen[:, None]                     # [B, 1]
-        ended = finished | must_end                             # [B, W]
-
-        if use_ctc:
-            cand_logp, cand_ids = exact_top_k(att_logp, k_cand)  # [N, K]
-            cand_ids = torch.cat([cand_ids, torch.full(
-                (n, 1), eos_id, dtype=cand_ids.dtype, device=dev)], dim=1)
-            cand_logp = torch.cat([cand_logp, att_logp[:, eos_id, None]],
-                                  dim=1)
-            is_first = torch.full((n,), pos == 0, device=dev)
-            psi, new_r = scorer.score(cand_ids, y_prev, is_first, ctc_state,
-                                      return_r=not two_pass)
-            old_r, old_psi = ctc_state
-            step_score = ((1.0 - lam) * cand_logp
-                          + lam * (psi - old_psi[:, None]))     # [N, K+1]
+    # bool() here is the per-step host sync noted in the module docstring,
+    # in its own span (beam.sync) beside the step's (beam.step).
+    while pos < cfg.max_len:
+        with span("beam.sync"):
+            done = bool(finished.all())
+        if done:
+            break
+        with span("beam.step"):
+            logits, cache = decoder.step(y_prev, pos, cache, cross_kv,
+                                         enc_lengths_flat)
+            att_logp = torch.log_softmax(logits.float(), dim=-1)
             if use_lm:
-                step_score = step_score + cfg.lm_weight * torch.gather(
-                    lm_logp, 1, cand_ids)
-            ban = (cand_ids == eos_id) & ban_eos.expand(b, w).reshape(n, 1)
-            step_score = torch.where(ban, NEG_INF, step_score)
-            # finished (or maxlen-forced) beams: only the eos slot
-            # continues, at zero cost
-            eos_slot = torch.arange(k_tot, device=dev)[None, :] == k_cand
-            step_score = torch.where(
-                ended.expand(b, w).reshape(n, 1),
-                torch.where(eos_slot, 0.0, NEG_INF), step_score)
-            cand = (scores.reshape(n, 1) + step_score).reshape(b, w * k_tot)
-            top_scores, top_idx = exact_top_k(cand, w)          # [B, W]
-            beam_idx = top_idx // k_tot
-            slot_idx = top_idx % k_tot
-            flat_beam = (batch_base + beam_idx).reshape(n)
-            flat_slot = slot_idx.reshape(n)
-            tok = cand_ids[flat_beam, flat_slot].reshape(b, w)
-            psi_sel = psi[flat_beam, flat_slot]
-            old_r_g = old_r[flat_beam]
-            old_psi_g = old_psi[flat_beam]
-            if two_pass:
-                r_next, _ = scorer.advance(tok.reshape(n), y_prev[flat_beam],
-                                           is_first, (old_r_g, old_psi_g))
+                lm_logits, lm_cache = lm.step(y_prev, pos, lm_cache)
+                lm_logp = torch.log_softmax(lm_logits.float(), dim=-1)
+            must_end = pos >= utt_maxlen[:, None]                   # [B, 1]
+            ban_eos = pos < utt_minlen[:, None]                     # [B, 1]
+            ended = finished | must_end                             # [B, W]
+
+            if use_ctc:
+                cand_logp, cand_ids = exact_top_k(att_logp, k_cand)  # [N, K]
+                cand_ids = torch.cat([cand_ids, torch.full(
+                    (n, 1), eos_id, dtype=cand_ids.dtype, device=dev)],
+                    dim=1)
+                cand_logp = torch.cat([cand_logp, att_logp[:, eos_id, None]],
+                                      dim=1)
+                is_first = torch.full((n,), pos == 0, device=dev)
+                psi, new_r = scorer.score(cand_ids, y_prev, is_first,
+                                          ctc_state, return_r=not two_pass)
+                old_r, old_psi = ctc_state
+                step_score = ((1.0 - lam) * cand_logp
+                              + lam * (psi - old_psi[:, None]))     # [N, K+1]
+                if use_lm:
+                    step_score = step_score + cfg.lm_weight * torch.gather(
+                        lm_logp, 1, cand_ids)
+                ban = ((cand_ids == eos_id)
+                       & ban_eos.expand(b, w).reshape(n, 1))
+                step_score = torch.where(ban, NEG_INF, step_score)
+                # finished (or maxlen-forced) beams: only the eos slot
+                # continues, at zero cost
+                eos_slot = torch.arange(k_tot, device=dev)[None, :] == k_cand
+                step_score = torch.where(
+                    ended.expand(b, w).reshape(n, 1),
+                    torch.where(eos_slot, 0.0, NEG_INF), step_score)
+                cand = (scores.reshape(n, 1) + step_score).reshape(
+                    b, w * k_tot)
+                top_scores, top_idx = exact_top_k(cand, w)          # [B, W]
+                beam_idx = top_idx // k_tot
+                slot_idx = top_idx % k_tot
+                flat_beam = (batch_base + beam_idx).reshape(n)
+                flat_slot = slot_idx.reshape(n)
+                tok = cand_ids[flat_beam, flat_slot].reshape(b, w)
+                psi_sel = psi[flat_beam, flat_slot]
+                old_r_g = old_r[flat_beam]
+                old_psi_g = old_psi[flat_beam]
+                if two_pass:
+                    r_next, _ = scorer.advance(
+                        tok.reshape(n), y_prev[flat_beam], is_first,
+                        (old_r_g, old_psi_g))
+                else:
+                    r_next = new_r[flat_beam, flat_slot]         # [N, T, 2]
+                # finished/eos beams keep their old prefix state
+                was_finished_g = torch.gather(finished, 1,
+                                              beam_idx).reshape(n)
+                keep_old = was_finished_g | (tok.reshape(n) == eos_id)
+                r_next = torch.where(keep_old[:, None, None], old_r_g, r_next)
+                psi_next = torch.where(keep_old, old_psi_g, psi_sel)
+                ctc_state = (r_next, psi_next)
             else:
-                r_next = new_r[flat_beam, flat_slot]             # [N, T, 2]
-            # finished/eos beams keep their old prefix state
-            was_finished_g = torch.gather(finished, 1, beam_idx).reshape(n)
-            keep_old = was_finished_g | (tok.reshape(n) == eos_id)
-            r_next = torch.where(keep_old[:, None, None], old_r_g, r_next)
-            psi_next = torch.where(keep_old, old_psi_g, psi_sel)
-            ctc_state = (r_next, psi_next)
-        else:
-            fused = (att_logp + cfg.lm_weight * lm_logp if use_lm
-                     else att_logp)
-            logp = fused.reshape(b, w, -1)
-            v = logp.shape[-1]
-            is_eos_col = torch.arange(v, device=dev)[None, None, :] == eos_id
-            logp = torch.where(is_eos_col & ban_eos[..., None], NEG_INF,
-                               logp)
-            eos_forced = torch.where(is_eos_col, 0.0, NEG_INF)
-            logp = torch.where(ended[..., None], eos_forced, logp)
-            cand = (scores[..., None] + logp).reshape(b, w * v)
-            top_scores, top_idx = exact_top_k(cand, w)
-            beam_idx = top_idx // v
-            tok = top_idx % v
-            flat_beam = (batch_base + beam_idx).reshape(n)
+                fused = (att_logp + cfg.lm_weight * lm_logp if use_lm
+                         else att_logp)
+                logp = fused.reshape(b, w, -1)
+                v = logp.shape[-1]
+                is_eos_col = (torch.arange(v, device=dev)[None, None, :]
+                              == eos_id)
+                logp = torch.where(is_eos_col & ban_eos[..., None], NEG_INF,
+                                   logp)
+                eos_forced = torch.where(is_eos_col, 0.0, NEG_INF)
+                logp = torch.where(ended[..., None], eos_forced, logp)
+                cand = (scores[..., None] + logp).reshape(b, w * v)
+                top_scores, top_idx = exact_top_k(cand, w)
+                beam_idx = top_idx // v
+                tok = top_idx % v
+                flat_beam = (batch_base + beam_idx).reshape(n)
 
-        # reorder all per-beam state
-        cache = {key: x.index_select(1, flat_beam) for key, x in cache.items()}
-        if use_lm:
-            lm_cache = {key: x.index_select(1, flat_beam)
-                        for key, x in lm_cache.items()}
-        tokens = tokens.reshape(n, -1)[flat_beam].reshape(b, w, -1)
-        finished_g = torch.gather(finished, 1, beam_idx)
-        lengths_g = torch.gather(lengths, 1, beam_idx)
+            # reorder all per-beam state
+            cache = {key: x.index_select(1, flat_beam)
+                     for key, x in cache.items()}
+            if use_lm:
+                lm_cache = {key: x.index_select(1, flat_beam)
+                            for key, x in lm_cache.items()}
+            tokens = tokens.reshape(n, -1)[flat_beam].reshape(b, w, -1)
+            finished_g = torch.gather(finished, 1, beam_idx)
+            lengths_g = torch.gather(lengths, 1, beam_idx)
 
-        now_eos = tok == eos_id
-        tokens[:, :, pos] = torch.where(finished_g, eos_id, tok)
-        lengths = torch.where(finished_g, lengths_g,
-                              torch.where(now_eos, pos, pos + 1)
-                              ).to(torch.int32)
-        finished = finished_g | now_eos
-        scores = top_scores
-        y_prev = tok.reshape(n)
-        pos += 1
+            now_eos = tok == eos_id
+            tokens[:, :, pos] = torch.where(finished_g, eos_id, tok)
+            lengths = torch.where(finished_g, lengths_g,
+                                  torch.where(now_eos, pos, pos + 1)
+                                  ).to(torch.int32)
+            finished = finished_g | now_eos
+            scores = top_scores
+            y_prev = tok.reshape(n)
+            pos += 1
 
     # Unfinished hyps at max_len keep their accumulated score; optional
     # per-token length reward.

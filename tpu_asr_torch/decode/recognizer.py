@@ -21,6 +21,11 @@ decode_batches_nbest), so every rank returns the whole batch's n-best.
 Every decode mode is per-utterance, so the rows decode as they would in
 the whole batch. Bucket batch sizes must be multiples of the data axis
 (make_buckets(batch_multiple=...)).
+
+Under a profiler, a batch's phases are spans (utils.tracing):
+recognizer.features, recognizer.encode (with the joint mode's CTC
+log-softmax), the beam loop's beam.step and beam.sync (decode/beam.py),
+and recognizer.fetch (the one copy to the host and the n-best lists).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from tpu_asr_torch.models.transducer import TransducerModel
 from tpu_asr_torch.models.transformer import Transformer
 from tpu_asr_torch.parallel.mesh import shard_batch
 from tpu_asr_torch.utils.device import resolve_device
+from tpu_asr_torch.utils.tracing import span
 from tpu_asr_torch.weights import cast_for_inference
 
 TRANSDUCER_MODES = ("transducer_greedy", "transducer_beam",
@@ -148,24 +154,36 @@ class Recognizer:
 
     def _features(self, batch):
         """A wav or feats batch -> (feats, lengths) on the device, LFR
-        stacked for a linear-input model."""
+        stacked for a linear-input model (span recognizer.features)."""
         def tensor(key):
             return torch.as_tensor(batch[key], device=self.device)
-        if "wav" in batch:
-            feats, lens = wav_to_features(
-                tensor("wav"), tensor("wav_lengths"), self.frontend,
-                cmvn_stats=self.cmvn_stats)
-        else:
-            feats, lens = tensor("feats").float(), tensor("feat_lengths")
-        # the reference's own condition (tpu_asr/decode/recognizer.py:106),
-        # kept on purpose; train.loop.model_lfr also stacks (1, n > 1)
-        if self.cfg.input_layer == "linear" and self.cfg.lfr_m > 1:
-            feats = build_lfr_features(feats, self.cfg.lfr_m, self.cfg.lfr_n)
-            lens = lfr_length(lens, self.cfg.lfr_n)
+        with span("recognizer.features"):
+            if "wav" in batch:
+                feats, lens = wav_to_features(
+                    tensor("wav"), tensor("wav_lengths"), self.frontend,
+                    cmvn_stats=self.cmvn_stats)
+            else:
+                feats, lens = tensor("feats").float(), tensor("feat_lengths")
+            # the reference's own condition
+            # (tpu_asr/decode/recognizer.py:106), kept on purpose;
+            # train.loop.model_lfr also stacks (1, n > 1)
+            if self.cfg.input_layer == "linear" and self.cfg.lfr_m > 1:
+                feats = build_lfr_features(feats, self.cfg.lfr_m,
+                                           self.cfg.lfr_n)
+                lens = lfr_length(lens, self.cfg.lfr_n)
         return feats, lens
 
+    def _encode(self, feats, flens, ctc_logp: bool = False):
+        """-> (enc_out, enc_lengths, the CTC head's log-softmax or None),
+        in span recognizer.encode."""
+        with span("recognizer.encode"):
+            enc_out, el = self.model.encode(feats, flens)
+            logp = (torch.log_softmax(self.model.ctc_logits(enc_out).float(),
+                                      dim=-1) if ctc_logp else None)
+        return enc_out, el, logp
+
     def _greedy_ctc(self, feats, flens):
-        enc_out, el = self.model.encode(feats, flens)
+        enc_out, el, _ = self._encode(feats, flens)
         logits = self.model.ctc_logits(enc_out)
         toks, lens, times = ctc_greedy_decode(logits, el, return_times=True)
         # per-token confidence: max frame posterior at the emission frame,
@@ -178,11 +196,8 @@ class Recognizer:
         return toks, lens, times, confs
 
     def _beam(self, feats, flens):
-        enc_out, el = self.model.encode(feats, flens)
-        ctc_logp = None
-        if self.mode == "joint":
-            ctc_logp = torch.log_softmax(
-                self.model.ctc_logits(enc_out).float(), dim=-1)
+        enc_out, el, ctc_logp = self._encode(feats, flens,
+                                             ctc_logp=self.mode == "joint")
         out = attention_beam_search(
             self.model.decoder, enc_out, el, self.cfg.vocab_size - 2,
             self.cfg.vocab_size - 1, self.beam, ctc_logp=ctc_logp,
@@ -191,7 +206,7 @@ class Recognizer:
         return out["tokens"], out["lengths"], out["scores"]
 
     def _ctc_beam(self, feats, flens):
-        enc_out, el = self.model.encode(feats, flens)
+        enc_out, el, _ = self._encode(feats, flens)
         logits = self.model.ctc_logits(enc_out)
         return ctc_prefix_beam_search(
             logits, el, beam=self.beam.beam,
@@ -199,7 +214,7 @@ class Recognizer:
             lm_weight=self.beam.lm_weight, sos=self.cfg.vocab_size - 2)
 
     def _attn_rescore(self, feats, flens):
-        enc_out, el = self.model.encode(feats, flens)
+        enc_out, el, _ = self._encode(feats, flens)
         out = attention_rescore(
             self.model.decoder, enc_out, el, self.model.ctc_logits(enc_out),
             self.cfg.vocab_size - 2, self.cfg.vocab_size - 1,
@@ -265,11 +280,12 @@ class Recognizer:
         pending: list[tuple[str, tuple]] = []
 
         def flush():
-            fetched = _to_host(*(x for _, xs in pending for x in xs))
-            done = []
-            for kind, xs in pending:
-                done.append(self._finalize(kind, fetched[:len(xs)]))
-                fetched = fetched[len(xs):]
+            with span("recognizer.fetch"):
+                fetched = _to_host(*(x for _, xs in pending for x in xs))
+                done = []
+                for kind, xs in pending:
+                    done.append(self._finalize(kind, fetched[:len(xs)]))
+                    fetched = fetched[len(xs):]
             if self.mesh is not None:     # every rank's rows, in order
                 shards = self.mesh.data.all_gather_object(done)
                 done = [[hyp for shard in shards for hyp in shard[i]]

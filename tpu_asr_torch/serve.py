@@ -8,6 +8,11 @@ streaming sessions (port of tpu_asr/serve.py).
   [batch_size, T(, D)] batch (absent rows are length-0 dummies) and
   decoded together.
 
+`AsrServer.stats` counts requests, batches and rows decoded, and sums
+each request's wait from `submit` to the start of its group's decode
+(`queue_wait_s`: the collection window and the groups decoded first)
+and the groups' decode time (`decode_s`); GET /healthz shows them.
+
 A decode failure is caught on the collector thread (which must keep
 serving), stored on each request of the batch, and raised to the
 submitter as RuntimeError.
@@ -65,6 +70,7 @@ class _Request:
     result: list | None = None
     error: str | None = None
     cancelled: bool = False        # submitter timed out: drop, don't decode
+    t_submit: float | None = None  # perf_counter at submit; None: warm-up
 
 
 class AsrServer:
@@ -96,7 +102,8 @@ class AsrServer:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="asr-batcher")
-        self.stats = {"requests": 0, "batches": 0, "rows_decoded": 0}
+        self.stats = {"requests": 0, "batches": 0, "rows_decoded": 0,
+                      "queue_wait_s": 0.0, "decode_s": 0.0}
 
     # --- lifecycle ---
 
@@ -109,11 +116,12 @@ class AsrServer:
 
     def warmup(self, kinds=("feats", "wav")):
         """Decode one dummy batch per (kind, bucket) before taking
-        traffic (first-use kernel build, cuBLAS handles, allocator)."""
+        traffic (first-use kernel build, cuBLAS handles, allocator), then
+        zero every counter of `stats`."""
         for kind in kinds:
             for b, t in enumerate(self.bucket_frames):
                 self._decode_group(kind, b, [self._dummy_request(kind, b, t)])
-        self.stats.update(requests=0, batches=0, rows_decoded=0)
+        self.stats.update(dict.fromkeys(self.stats, 0))
 
     def _dummy_request(self, kind, bucket, t):
         if kind == "feats":
@@ -158,7 +166,8 @@ class AsrServer:
             raise UtteranceTooLong(
                 f"utterance is ~{frames} frames; longest bucket is "
                 f"{self.bucket_frames[-1]}")
-        req = _Request(kind=kind, data=data, bucket=bucket, nbest=nbest)
+        req = _Request(kind=kind, data=data, bucket=bucket, nbest=nbest,
+                       t_submit=time.perf_counter())
         self._q.put(req)
         if not req.event.wait(timeout):
             req.cancelled = True
@@ -207,6 +216,7 @@ class AsrServer:
     def _decode_group(self, kind: str, bucket: int, reqs: list[_Request]):
         """Pad a group into the bucket's STATIC [batch_size, ...] shape and
         decode it; absent rows are length-0 dummies."""
+        t0 = time.perf_counter()
         t = self.bucket_frames[bucket]
         b = self.batch_size
         if kind == "feats":
@@ -225,6 +235,9 @@ class AsrServer:
         self.stats["requests"] += len(reqs)
         self.stats["batches"] += 1
         self.stats["rows_decoded"] += b
+        self.stats["queue_wait_s"] += sum(t0 - r.t_submit for r in reqs
+                                          if r.t_submit is not None)
+        self.stats["decode_s"] += time.perf_counter() - t0
 
 
 class StreamSessions:

@@ -8,7 +8,11 @@ jitted step does. Parameters stay float32; each Dense casts them to the
 compute dtype at use (as flax does), so autograd returns float32
 gradients. Steps return their metrics as device tensors: the Solver reads
 them on the host only every `print_freq` steps and once per epoch, so the
-host does not wait for the card at every step.
+host does not wait for the card at every step. Under a profiler, a step's
+phases are spans (utils.tracing): train.h2d (the batch's host-to-device
+copies), train.specaug (SpecAugment and LFR), train.forward,
+train.backward (with the mesh's all-reduces) and train.optimizer (the
+gradient norm, the debug_nans check and NoamAdam.update).
 
 With a mesh (tpu_asr_torch.parallel), a step is the reference's step
 under GSPMD, written out: every rank gets the same host batch and takes
@@ -44,6 +48,7 @@ from tpu_asr_torch.parallel.sharding import (gather_params, shard_params,
                                              shard_tensor, sliced_params)
 from tpu_asr_torch.train.optim import NoamAdam, global_norm
 from tpu_asr_torch.utils.device import resolve_device
+from tpu_asr_torch.utils.tracing import span
 
 # the train steps of the first epoch that Solver(profile_dir=...) traces:
 # from the first to before the second (the reference's 10..15)
@@ -56,15 +61,17 @@ def batch_features(batch: dict, frontend: FrontendConfig,
     feat_lengths [B], targets [B, U] int64, target_lengths [B]) on
     `device`; wav batches go through the frontend there (`cmvn_stats`:
     cmvn_stats_for's pair on `device`)."""
-    def get(key):
-        return torch.as_tensor(batch[key]).to(device, non_blocking=True)
-
+    keys = (("wav", "wav_lengths") if "wav" in batch
+            else ("feats", "feat_lengths")) + ("targets", "target_lengths")
+    with span("train.h2d"):
+        x = {k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
+             for k in keys}
     if "wav" in batch:
-        feats, flens = wav_to_features(get("wav"), get("wav_lengths"),
+        feats, flens = wav_to_features(x["wav"], x["wav_lengths"],
                                        frontend, cmvn_stats=cmvn_stats)
     else:
-        feats, flens = get("feats").float(), get("feat_lengths")
-    return feats, flens, get("targets").long(), get("target_lengths")
+        feats, flens = x["feats"].float(), x["feat_lengths"]
+    return feats, flens, x["targets"].long(), x["target_lengths"]
 
 
 def global_counts(batch: dict, frontend: FrontendConfig,
@@ -163,32 +170,36 @@ class TrainStep:
             batch = shard_batch(batch, self.mesh)
         feats, flens, targets, tlens = batch_features(
             batch, self.frontend, self.device, self.cmvn_stats)
-        if self.specaug is not None and self.mesh is None:
-            feats = spec_augment(self.gen, feats, flens, self.specaug)
-        elif self.specaug is not None:
-            draws = draw_spec_augment(self.gen, full_flens, feats.shape[-1],
-                                      self.specaug)
-            feats = apply_spec_augment(
-                feats, flens, {k: v[rows] for k, v in draws.items()},
-                self.specaug)
-        feats, flens = apply_lfr(feats, flens, self.lfr)
-        out = self.model(feats, flens, targets, tlens, **extra)
-        grads = list(torch.autograd.grad(out["loss"],
-                                         self.optimizer.params))
-        metrics = {k: v.detach() for k, v in out.items()}
-        if self.mesh is not None:
-            if self.mesh.n_model > 1:
-                self.mesh.model.all_reduce_coalesced_(
-                    [g for g, s in zip(grads, self._sliced) if s])
-            self.mesh.data.all_reduce_coalesced_(grads)
-            self.mesh.data.all_reduce_coalesced_(list(metrics.values()))
-        metrics["grad_norm"] = self.optimizer.norm_fn(grads)
-        if self.debug_nans and not bool(torch.isfinite(torch.stack(
-                [metrics["loss"].float(), metrics["grad_norm"]])).all()):
-            raise FloatingPointError(
-                f"step {self.steps}: loss {float(metrics['loss'])}, grad "
-                f"norm {float(metrics['grad_norm'])}")
-        self.optimizer.update(grads, metrics["grad_norm"])
+        with span("train.specaug"):
+            if self.specaug is not None and self.mesh is None:
+                feats = spec_augment(self.gen, feats, flens, self.specaug)
+            elif self.specaug is not None:
+                draws = draw_spec_augment(self.gen, full_flens,
+                                          feats.shape[-1], self.specaug)
+                feats = apply_spec_augment(
+                    feats, flens, {k: v[rows] for k, v in draws.items()},
+                    self.specaug)
+            feats, flens = apply_lfr(feats, flens, self.lfr)
+        with span("train.forward"):
+            out = self.model(feats, flens, targets, tlens, **extra)
+        with span("train.backward"):
+            grads = list(torch.autograd.grad(out["loss"],
+                                             self.optimizer.params))
+            metrics = {k: v.detach() for k, v in out.items()}
+            if self.mesh is not None:
+                if self.mesh.n_model > 1:
+                    self.mesh.model.all_reduce_coalesced_(
+                        [g for g, s in zip(grads, self._sliced) if s])
+                self.mesh.data.all_reduce_coalesced_(grads)
+                self.mesh.data.all_reduce_coalesced_(list(metrics.values()))
+        with span("train.optimizer"):
+            metrics["grad_norm"] = self.optimizer.norm_fn(grads)
+            if self.debug_nans and not bool(torch.isfinite(torch.stack(
+                    [metrics["loss"].float(), metrics["grad_norm"]])).all()):
+                raise FloatingPointError(
+                    f"step {self.steps}: loss {float(metrics['loss'])}, "
+                    f"grad norm {float(metrics['grad_norm'])}")
+            self.optimizer.update(grads, metrics["grad_norm"])
         self.steps += 1
         return metrics
 
