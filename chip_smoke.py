@@ -1187,7 +1187,11 @@ def record_inputs(owner, name, captures, label):
 
     def recording(*args, **kwargs):
         key = label(*args, **kwargs)   # None: a call not to keep
-        if key is not None and key not in captures:
+        # a call while a CUDA graph is captured runs nothing: its inputs
+        # hold no values yet, and a clone would join the graph
+        if key is not None and key not in captures and not (
+                torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
             captures[key] = tuple(a.detach().clone()
                                   if isinstance(a, torch.Tensor) else a
                                   for a in args)
@@ -1246,6 +1250,62 @@ class PathLabels:
 
     def ln(self, r, *_):
         return f"{self.head}T'={self.t} {self.part} LN"
+
+
+@contextlib.contextmanager
+def record_prefix_inputs(caps: dict, labels: PathLabels):
+    """record_inputs of ctc_prefix_scan into caps under labels.prefix, on
+    a path whose Recognizer may replay its beam step as a CUDA graph. A
+    replay calls no Python wrapper, so while a T' has had fewer than
+    LATER_PREFIX_CALL calls, each joint search made with a graph runs once
+    more with its step eager: its launches are taken back off the kernels'
+    counters, and it must give the graphed search's tokens, lengths,
+    scores and steps bit for bit."""
+    from tpu_asr_torch.decode import beam, ctc_prefix as scorer_module
+    from tpu_asr_torch.decode import recognizer as rec_module
+    installed = rec_module.attention_beam_search
+
+    def searched(decoder, enc_out, *args, graphs=None, **kwargs):
+        out = installed(decoder, enc_out, *args, graphs=graphs, **kwargs)
+        ctc_logp = kwargs.get("ctc_logp")
+        if graphs is None or ctc_logp is None or labels.calls.get(
+                ctc_logp.shape[1], 0) >= LATER_PREFIX_CALL:
+            return out
+        kernels = beam._step_kernels()
+        before = [getattr(m, name).launches for m, name in kernels]
+        eager = beam.attention_beam_search(decoder, enc_out, *args, **kwargs)
+        for (m, name), n in zip(kernels, before):
+            getattr(m, name).launches = n
+        differ = [k for k in ("tokens", "lengths", "scores")
+                  if not torch.equal(out[k], eager[k])]
+        if differ or out["steps"] != eager["steps"]:
+            raise AssertionError(
+                f"the graphed joint beam at T'={ctc_logp.shape[1]} is not "
+                f"the eager one's: {differ}, steps {out['steps']} / "
+                f"{eager['steps']}")
+        return out
+    with record_inputs(scorer_module, "ctc_prefix_scan", caps,
+                       labels.prefix):
+        rec_module.attention_beam_search = searched
+        try:
+            yield
+        finally:
+            rec_module.attention_beam_search = installed
+
+
+def check_prefix_labels(caps: dict, what: str):
+    """Every T' at which a path kept prefix-scan inputs kept both its
+    first call and its LATER_PREFIX_CALL-th, so that a lost label fails
+    the check instead of shrinking it."""
+    kept = {}
+    for label in caps:
+        head, _, n = label.rpartition(" call ")
+        kept.setdefault(head, set()).add(int(n))
+    short = sorted(h for h, calls in kept.items()
+                   if calls != {1, LATER_PREFIX_CALL})
+    if short:
+        raise AssertionError(f"{what}: calls 1 and {LATER_PREFIX_CALL} of "
+                             f"the prefix scan not both kept at {short}")
 
 
 def check_cif_fire_on_paths(captures):
@@ -2023,6 +2083,7 @@ def check_prefix_on_paths(prefix_caps):
     path ran, after its counts were read) against its plain version,
     timed and bounded. -> ({label: timings, shape and max abs error},
     max abs error)."""
+    check_prefix_labels(prefix_caps, "the paths")
     err, prefix_t = 0.0, {}
     for label, args in prefix_caps.items():
         lengths = args[6]
@@ -2744,8 +2805,8 @@ def check_lm_agreement():
 def profile_device(fn, what, card, host_top=0, warmup=False):
     """Run fn() under torch.profiler: device time by kernel, and the
     device's busy share of the wall time (-> wall ms, device ms, device
-    events; with host_top, also the host's self CPU ms and its host_top
-    largest ops by self CPU time are logged). Only device-side events
+    events, {device event: count}; with host_top, also the host's self
+    CPU ms and its host_top largest ops by self CPU time are logged). Only device-side events
     (kernels, copies, memsets) count: a CPU op's self device time is the
     time of the kernels it launched, which are listed themselves, and a
     record_function range (Optimizer.step) spans its kernels and the gaps
@@ -2781,7 +2842,8 @@ def profile_device(fn, what, card, host_top=0, warmup=False):
         log(f"profile {what}:   {e.key[:70]:70s} "
             f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count}")
     out = {"wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
-           "device_events": events}
+           "device_events": events,
+           "kernels": {e.key: e.count for e in avg}}
     if host_top:
         ops = [e for e in averages if e.device_type == DeviceType.CPU]
         out["host_self_ms"] = sum(e.self_cpu_time_total for e in ops) / 1e3
@@ -2794,12 +2856,13 @@ def profile_device(fn, what, card, host_top=0, warmup=False):
 
 
 def profile_serving(server, wavs, card, what="serving"):
-    """The same requests again under torch.profiler (not counted above)."""
+    """The same requests again under torch.profiler (not counted above)
+    -> what profile_device gives."""
     def run():
         with concurrent.futures.ThreadPoolExecutor(8) as pool:
             list(pool.map(lambda w: server.submit("wav", w, timeout=600.0),
                           wavs))
-    profile_device(run, what, card)
+    return profile_device(run, what, card)
 
 
 def post_recognize(server, wav, chars=None):
@@ -2970,16 +3033,44 @@ def run_pallas_serving(card, flash_caps, ln_caps):
     return flash_n, ln_n
 
 
+def eager_beam_inputs(server, wavs, caps, labels):
+    """The server's recognizer decodes `wavs` once more, a batch a bucket
+    padded as the server pads it, with its beam step run eagerly, and
+    ctc_prefix_scan's inputs are kept under labels.prefix: the replay of
+    the step's CUDA graph calls no Python wrapper, and the graphed step
+    gives the eager one's bits (tests/test_torch_gpu.py)."""
+    from tpu_asr_torch.decode import ctc_prefix as scorer_module
+    rec = server.rec
+    graphs, rec.beam_graphs = rec.beam_graphs, None
+    try:
+        with record_inputs(scorer_module, "ctc_prefix_scan", caps,
+                           labels.prefix):
+            for bucket, t in enumerate(server.bucket_frames):
+                mine = [w for w in wavs if server._bucket_for(
+                    len(w) // server.frontend.frame_shift) == bucket]
+                if not mine:
+                    continue
+                wav = np.zeros((server.batch_size,
+                                t * server.frontend.frame_shift), np.float32)
+                lens = np.zeros(server.batch_size, np.int32)
+                for i, w in enumerate(mine[:server.batch_size]):
+                    wav[i, :len(w)] = w
+                    lens[i] = len(w)
+                rec.decode_batch_nbest({"wav": wav, "wav_lengths": lens})
+    finally:
+        rec.beam_graphs = graphs
+
+
 def run_serving(card, prefix_caps):
     """The aishell-width hybrid model in joint beam 5 behind AsrServer;
     the inputs of ctc_prefix_scan's first call and its LATER_PREFIX_CALL-th
-    call in each bucket go into prefix_caps. -> launches."""
+    call in each bucket go into prefix_caps (eager_beam_inputs). ->
+    launches."""
     from tpu_asr_torch.configs.presets import get_preset
-    from tpu_asr_torch.decode import ctc_prefix as scorer_module
     from tpu_asr_torch.decode.beam import BeamConfig
     from tpu_asr_torch.decode.recognizer import Recognizer
     from tpu_asr_torch.models.transformer import Transformer
-    from tpu_asr_torch.ops.ctc_prefix import ctc_prefix_scan
+    from tpu_asr_torch.ops.ctc_prefix import KERNEL_SYMBOL, ctc_prefix_scan
     from tpu_asr_torch.serve import AsrServer
     from tpu_asr_torch.weights import init_random
 
@@ -3008,10 +3099,9 @@ def run_serving(card, prefix_caps):
     # main path: counts from 0 just before, read just after
     ctc_prefix_scan.launches = 0
     rec.decode_steps = 0
-    with record_inputs(scorer_module, "ctc_prefix_scan", prefix_caps,
-                       labels.prefix):
-        results, wall = serve_requests(server, wavs)
+    results, wall = serve_requests(server, wavs)
     launches, steps = ctc_prefix_scan.launches, rec.decode_steps
+    eager_beam_inputs(server, wavs, prefix_caps, labels)
 
     for nbest, _ in results:
         toks = nbest[0]["yseq"]
@@ -3028,7 +3118,22 @@ def run_serving(card, prefix_caps):
         f"inverse RTF {audio_s / wall:.2f} [{card}]")
     log("serving: first hypotheses " + json.dumps(
         [r[0][0]["yseq"][:8] for r in results[:3]]))
-    profile_serving(server, wavs, card)
+    # the kernels the card ran, as its trace counts them (a graph replay's
+    # too), against the steps and the wrapper's count, which replays add
+    rec.decode_steps = rec.graph_steps = 0
+    counted = ctc_prefix_scan.launches
+    kernels = profile_serving(server, wavs, card)["kernels"]
+    traced = sum(n for k, n in kernels.items() if KERNEL_SYMBOL in k)
+    counted = ctc_prefix_scan.launches - counted
+    if not (traced == counted == rec.decode_steps > 0) or \
+            rec.graph_steps != rec.decode_steps:
+        raise AssertionError(
+            f"serving under the profiler: {traced} {KERNEL_SYMBOL} events "
+            f"traced, {counted} launches counted, {rec.decode_steps} "
+            f"decode steps ({rec.graph_steps} replayed)")
+    log(f"serving under the profiler: {traced} {KERNEL_SYMBOL} events "
+        f"traced == launches counted == decode steps, all replayed from "
+        f"a graph [{card}]")
 
     # greedy_ctc: one batch straight through a second Recognizer
     greedy = Recognizer(cfg, model, mode="greedy_ctc", device=DEVICE)
@@ -3427,6 +3532,26 @@ def check_launches(what, got: dict, want: dict):
 
 
 @contextlib.contextmanager
+def count_beam_steps(steps: list):
+    """steps[0] += the decoder steps of each attention beam search that a
+    Recognizer runs while this is on, as the search reports them (on the
+    card most steps replay the step's CUDA graph, and no Python method of
+    the decoder runs in those)."""
+    from tpu_asr_torch.decode import recognizer as rec_module
+    search = rec_module.attention_beam_search
+
+    def counted(*args, **kwargs):
+        out = search(*args, **kwargs)
+        steps[0] += out["steps"]
+        return out
+    rec_module.attention_beam_search = counted
+    try:
+        yield
+    finally:
+        rec_module.attention_beam_search = search
+
+
+@contextlib.contextmanager
 def wrap_method(owner, name, before=None, after=None):
     """owner.<name> calls before() and after(result) around itself while
     this runs."""
@@ -3608,8 +3733,6 @@ def run_lm_decodes(card, workdir, ckpts, lm_dir, cv_manifest, n_cv):
     counts from 0 just before each decode, read just after; {"prefix",
     "flash", "ln": {label: timings, shape and max abs error}}; errors)."""
     from tpu_asr_torch import recognize, score
-    from tpu_asr_torch.decode import ctc_prefix as scorer_module
-    from tpu_asr_torch.models.lm import TransformerLM
     from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
 
     counters = kernel_counters()
@@ -3617,20 +3740,16 @@ def run_lm_decodes(card, workdir, ckpts, lm_dir, cv_manifest, n_cv):
     caps = {"prefix": {}, "flash": {}, "ln": {}}
     for name, ckpt, flags in LM_DECODES:
         hyp = os.path.join(workdir, f"hyp_{name}.jsonl")
-        calls = {"lm_step": 0, "flash_attention_fwd": 0,
-                 "layer_norm_residual_fwd": 0, "decoder_passes": 0}
+        calls = {"flash_attention_fwd": 0, "layer_norm_residual_fwd": 0,
+                 "decoder_passes": 0}
+        beam_steps = [0]          # LM-fused joint steps
         labels = PathLabels(LM_PATHS[name])
-
-        def lm_step():
-            calls["lm_step"] += 1
         # main path: counts from 0 just before, read just after
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        with count_full_passes(calls), \
-                wrap_method(TransformerLM, "step", before=lm_step), \
-                record_inputs(scorer_module, "ctc_prefix_scan",
-                              caps["prefix"], labels.prefix), \
+        with count_full_passes(calls), count_beam_steps(beam_steps), \
+                record_prefix_inputs(caps["prefix"], labels), \
                 record_inputs(fa, "flash_attention_fwd", caps["flash"],
                               labels.flash), \
                 record_inputs(ln, "layer_norm_residual_fwd", caps["ln"],
@@ -3646,7 +3765,7 @@ def run_lm_decodes(card, workdir, ckpts, lm_dir, cv_manifest, n_cv):
             raise AssertionError(f"recognize {name}: summary {summary}, "
                                  f"printed {printed}, {len(hyps)} "
                                  f"hypotheses for {n_cv} utterances")
-        want = {"ctc_prefix_scan": calls["lm_step"]} if name == "joint" \
+        want = {"ctc_prefix_scan": beam_steps[0]} if name == "joint" \
             else {}
         if name == "attn_rescore":
             want = {k: calls[k] for k in PATH_KERNELS[1:]}
@@ -3656,7 +3775,7 @@ def run_lm_decodes(card, workdir, ckpts, lm_dir, cv_manifest, n_cv):
                       want.items()} if calls["decoder_passes"] else {})
         log(f"recognize {name} with the LM: {json.dumps(summary)}; "
             f"{wall:.2f} s with model load and warm-up; kernel launches "
-            f"{json.dumps(launches)} for {calls['lm_step']} LM-fused joint "
+            f"{json.dumps(launches)} for {beam_steps[0]} LM-fused joint "
             f"steps and {calls['decoder_passes']} decoder passes (per "
             f"pass {json.dumps(per_batch)}) [{card}]")
         out[name] = (launches, summary)
@@ -3925,8 +4044,6 @@ def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir,
     (PathLabels(path)). -> ({decode name: summary}, prefix launches, the
     kept calls)."""
     from tpu_asr_torch import recognize
-    from tpu_asr_torch.decode import ctc_prefix as scorer_module
-    from tpu_asr_torch.models.decoder import Decoder
 
     counters = kernel_counters()
     summaries, caps, prefix_launches = {}, {}, 0
@@ -3934,18 +4051,14 @@ def run_recipe_decodes(card, ckpt, cv_manifest, n_cv, workdir,
         hyp = os.path.join(workdir, f"hyp_{name}.jsonl")
         joint = flags[flags.index("--mode") + 1] == "joint"
         steps = [0]
-
-        def step():
-            steps[0] += 1
         records = contextlib.ExitStack()
         if joint:
-            records.enter_context(record_inputs(
-                scorer_module, "ctc_prefix_scan", caps,
-                PathLabels(path).prefix))
+            records.enter_context(record_prefix_inputs(
+                caps, PathLabels(path)))
         # main path: counts from 0 just before, read just after
         for fn in counters.values():
             fn.launches = 0
-        with records, wrap_method(Decoder, "step", before=step):
+        with records, count_beam_steps(steps):
             summary, printed = run_cli(recognize.main, [
                 "--ckpt", ckpt, "--manifest", cv_manifest, "--output",
                 hyp] + flags)
@@ -5707,8 +5820,7 @@ def record_rank_inputs(caps: dict, path: str):
     forward's inputs and outputs), each kind of flash call and each
     post-norm LN part a T' (PathLabels), the flash and LN backward a
     shape, and the prefix scan's first and LATER_PREFIX_CALL-th call a
-    T'."""
-    from tpu_asr_torch.decode import ctc_prefix as scorer_module
+    T' (record_prefix_inputs)."""
     from tpu_asr_torch.ops import ctc_loss as ctc_module
     from tpu_asr_torch.ops import flash_attention as fa, layernorm as ln
     labels = PathLabels(path)
@@ -5719,11 +5831,11 @@ def record_rank_inputs(caps: dict, path: str):
                 (fa, "flash_attention_fwd", "flash", labels.flash),
                 (ln, "layer_norm_residual_fwd", "ln", labels.ln),
                 (fa, "flash_attention_bwd", "flash_bwd", flash_bwd_label),
-                (ln, "layer_norm_residual_bwd", "ln_bwd", ln_bwd_label),
-                (scorer_module, "ctc_prefix_scan", "prefix",
-                 labels.prefix)):
+                (ln, "layer_norm_residual_bwd", "ln_bwd", ln_bwd_label)):
             stack.enter_context(record_inputs(
                 owner, name, caps.setdefault(kind, {}), label))
+        stack.enter_context(record_prefix_inputs(
+            caps.setdefault("prefix", {}), labels))
         yield
 
 
@@ -5758,6 +5870,7 @@ def rank_kernel_errs(caps: dict, what: str) -> dict:
     for label, args in caps.get("ln_bwd", {}).items():
         keep("layer_norm_residual_bwd", compare_ln_bwd(
             *args, f"{what}, {label}")[0])
+    check_prefix_labels(caps.get("prefix", {}), what)
     for label, args in caps.get("prefix", {}).items():
         keep("ctc_prefix_scan", compare_prefix(list(args),
                                                f"{what}, {label}"))
@@ -6581,21 +6694,17 @@ def counted_cli(out_dir: str, argv: list) -> int:
     start, to the module's run)} to <out_dir>/<pid>.json. -> the module's
     exit code."""
     import runpy
-    from tpu_asr_torch.models.decoder import Decoder
     module, args = argv[1], argv[2:]
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     steps = [0]
-
-    def step():
-        steps[0] += 1
     caps, code, exit_ = {}, 0, None
     sys.argv = [module] + args
     start = time.time() - float(os.environ.get("COUNTED_START", time.time()))
     t0 = time.perf_counter()
     with record_rank_inputs(caps, f"{RECIPE_SCRIPT_PATH} {module}"), \
-            wrap_method(Decoder, "step", before=step):
+            count_beam_steps(steps):
         try:
             runpy.run_module(module, run_name="__main__", alter_sys=True)
         except SystemExit as e:

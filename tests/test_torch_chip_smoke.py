@@ -485,6 +485,100 @@ def test_wrap_method_calls_around_and_restores():
     assert "step" in vars(Thing)
 
 
+def test_count_beam_steps_counts_the_steps_the_search_reports():
+    """The decoder steps of each beam search a Recognizer runs inside the
+    context, as the search reports them (a step replayed from its CUDA
+    graph runs no Python method of the decoder); none once it is left."""
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from torch_port_util import torch_cfg, torch_model, wav_batch
+    rec = Recognizer(torch_cfg(), torch_model(), mode="joint", device="cpu",
+                     beam=BeamConfig(beam=2, max_len=6, ctc_weight=0.3))
+    batch = wav_batch([9600, 6400], seed=5)
+    steps = [0]
+    with chip_smoke.count_beam_steps(steps):
+        rec.decode_batch_nbest(batch)
+        rec.decode_batch_nbest(batch)
+    assert steps[0] == rec.decode_steps > 0
+    rec.decode_batch_nbest(batch)
+    assert 2 * rec.decode_steps == 3 * steps[0]
+
+
+def test_record_prefix_inputs_runs_a_graphed_search_again_eagerly(
+        monkeypatch):
+    """A joint search made with beam graphs (here a stand-in that runs the
+    eager step unseen by the recording, as a replay calls no Python
+    wrapper, and credits its launches) runs once more eagerly while its
+    T' has had fewer than LATER_PREFIX_CALL prefix-scan calls: both labels
+    of the T' are kept, the steps counted and the launches left are the
+    graphed searches' alone, and the next search at that T' runs once."""
+    from tpu_asr_torch.decode import beam
+    from tpu_asr_torch.decode import ctc_prefix as scorer_module
+    from tpu_asr_torch.decode import recognizer as rec_module
+    from tpu_asr_torch.decode.beam import BeamConfig
+    from tpu_asr_torch.decode.recognizer import Recognizer
+    from torch_port_util import torch_cfg, torch_model, wav_batch
+    eager_search, runs = beam.attention_beam_search, []
+
+    def eager(*args, **kwargs):
+        out = eager_search(*args, **kwargs)
+        ctc_prefix.ctc_prefix_scan.launches += out["steps"]
+        runs.append("eager")
+        return out
+
+    def graphed(*args, graphs=None, **kwargs):
+        assert graphs is not None
+        with monkeypatch.context() as m:
+            m.setattr(scorer_module, "ctc_prefix_scan",
+                      ctc_prefix.ctc_prefix_scan)
+            out = eager_search(*args, **kwargs)
+        ctc_prefix.ctc_prefix_scan.launches += out["steps"]
+        runs.append("graphed")
+        return dict(out, graph_steps=out["steps"])
+
+    class Graphs:
+        def ctc_logp_buffer(self, shape, device):
+            return torch.empty(shape, device=device)
+    monkeypatch.setattr(beam, "attention_beam_search", eager)
+    monkeypatch.setattr(rec_module, "attention_beam_search", graphed)
+    monkeypatch.setattr(ctc_prefix.ctc_prefix_scan, "launches", 0)
+    rec = Recognizer(torch_cfg(), torch_model(), mode="joint", device="cpu",
+                     beam=BeamConfig(beam=2, max_len=12, ctc_weight=0.3,
+                                     minlenratio=1.0))
+    rec.beam_graphs = Graphs()
+    batch = wav_batch([9600, 6400], seed=5)
+    caps, steps = {}, [0]
+    labels = chip_smoke.PathLabels("p")
+    with chip_smoke.count_beam_steps(steps), \
+            chip_smoke.record_prefix_inputs(caps, labels):
+        rec.decode_batch_nbest(batch)
+        rec.decode_batch_nbest(batch)
+    assert runs == ["graphed", "eager", "graphed"]
+    assert steps[0] == rec.decode_steps == rec.graph_steps >= 20
+    assert ctc_prefix.ctc_prefix_scan.launches == rec.decode_steps
+    (t,) = labels.calls
+    assert sorted(caps) == [f"p T'={t} call 1",
+                            f"p T'={t} call {chip_smoke.LATER_PREFIX_CALL}"]
+    chip_smoke.check_prefix_labels(caps, "p")
+    assert rec_module.attention_beam_search is graphed        # restored
+
+
+@pytest.mark.parametrize("kept,ok", [
+    ((), True),
+    (("p T'=7 call 1", "p T'=7 call 10", "p T'=9 call 1",
+      "p T'=9 call 10"), True),
+    (("p T'=7 call 1",), False),
+    (("p T'=7 call 1", "p T'=7 call 10", "p T'=9 call 1"), False)])
+def test_check_prefix_labels_wants_both_calls_at_each_t(kept, ok):
+    """A T' whose later prefix-scan call was not kept fails the check."""
+    caps = {label: () for label in kept}
+    if ok:
+        chip_smoke.check_prefix_labels(caps, "p")
+    else:
+        with pytest.raises(AssertionError, match="T'=9|T'=7"):
+            chip_smoke.check_prefix_labels(caps, "p")
+
+
 def test_path_labels_name_each_kind_once_per_bucket():
     """The kernel calls of two attn_rescore batches (encoder T' 62 and
     30; 2 encoder and 2 decoder blocks, as a use_pallas model makes them)

@@ -758,8 +758,8 @@ def test_lm_fusion_on_the_card_equals_the_cpu(mode, use_pallas, lm_weight,
 
 @pytest.mark.gpu
 def test_lm_steps_on_the_card_equal_teacher_forced(no_tf32):
-    """The LM's cached step and step_at on the card against its own
-    teacher-forced pass, atol 1e-5."""
+    """The LM's cached step_at on the card against its own teacher-forced
+    pass, atol 1e-5."""
     _need_card()
     from tpu_asr_torch.models.lm import LMConfig, TransformerLM
     from tpu_asr_torch.weights import init_random
@@ -769,15 +769,12 @@ def test_lm_steps_on_the_card_equal_teacher_forced(no_tf32):
     with torch.no_grad():
         full = lm(ys)
         cache = lm.init_cache(6, 9, device="cuda")
-        cache_at = lm.init_cache(6, 9, device="cuda")
         for pos in range(9):
-            step, cache = lm.step(ys[:, pos], pos, cache)
-            at, cache_at = lm.step_at(ys[:, pos],
-                                      torch.full((6,), pos, device="cuda"),
-                                      cache_at)
-            torch.testing.assert_close(step, full[:, pos], atol=1e-5,
+            at, cache = lm.step_at(ys[:, pos],
+                                   torch.full((6,), pos, device="cuda"),
+                                   cache)
+            torch.testing.assert_close(at, full[:, pos], atol=1e-5,
                                        rtol=0)
-            torch.testing.assert_close(at, step, atol=1e-5, rtol=0)
 
 
 @pytest.mark.gpu
@@ -860,3 +857,87 @@ def test_viterbi_alignment_on_the_card_equals_the_cpu():
                                  log_input=quantize)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch,batch,kw", [
+    ("joint one-pass", 4, dict(ctc_weight=0.3, ctc_two_pass=False)),
+    ("joint two-pass", 4, dict(ctc_weight=0.3, ctc_two_pass=True)),
+    ("beam", 4, dict()),
+    ("LM-fused joint", 4, dict(ctc_weight=0.3, lm_weight=0.4)),
+    ("beam over 512 rows (the fused LN kernel)", 128, dict(beam=4))])
+def test_graphed_beam_equals_the_eager_static_beam(branch, batch, kw,
+                                                   no_tf32):
+    """The beam step replayed from its CUDA graph against the same static
+    step run eagerly, on hybrid_dev in bf16 with use_pallas: tokens,
+    lengths, scores and steps equal bit for bit, over a batch shape, a
+    smaller one and the first again, then a larger one and the smallest
+    again. Each shape is captured once (its first step runs eagerly), the
+    smaller views the front of the larger's buffers, a larger shape
+    regrows them and drops the graphs (captured anew when next used), and
+    the kernels count one launch a step that ran."""
+    _need_card()
+    import dataclasses
+
+    from tpu_asr_torch.configs.presets import get_preset
+    from tpu_asr_torch.decode.beam import (BeamConfig, BeamGraphs,
+                                           attention_beam_search)
+    from tpu_asr_torch.models.lm import LMConfig, TransformerLM
+    from tpu_asr_torch.models.transformer import Transformer
+    from tpu_asr_torch.ops import layernorm as ln
+    from tpu_asr_torch.weights import cast_for_inference, init_random
+
+    v = 64
+    cfg = dataclasses.replace(get_preset("hybrid_dev").model, vocab_size=v,
+                              use_pallas=True, dtype=torch.bfloat16)
+    model = cast_for_inference(
+        init_random(Transformer(cfg), 0).cuda().eval(), cfg.dtype)
+    lm = None
+    if "lm_weight" in kw:
+        lm_cfg = LMConfig(vocab_size=v, d_model=32, d_inner=64, num_heads=2,
+                          num_layers=2, dropout=0.0)
+        lm = init_random(TransformerLM(lm_cfg), 1).cuda().eval()
+    beam = BeamConfig(**dict(dict(beam=5, max_len=12), **kw))
+    graphs = BeamGraphs()
+    gen = torch.Generator().manual_seed(7)
+    per_step = {"ctc_prefix_scan": 0, "layer_norm_residual_fwd": 0}
+    if beam.ctc_weight > 0:
+        per_step["ctc_prefix_scan"] = 2 if beam.ctc_two_pass else 1
+    if batch * beam.beam >= 512:
+        per_step["layer_norm_residual_fwd"] = 3 * cfg.num_dec_layers
+    counters = {"ctc_prefix_scan": ctc_prefix_scan,
+                "layer_norm_residual_fwd": ln.layer_norm_residual_fwd}
+    # (T', captures after it, whether its first step ran eagerly): a
+    # shape, a smaller one viewing the front of its buffers, the first
+    # again; then a larger one, which regrows the buffers and drops both
+    # graphs, and the smallest again, captured anew in a new pool
+    visits = ((30, 1, True), (20, 2, True), (30, 2, False), (40, 3, True),
+              (20, 4, True))
+    ptrs = []
+    for t, captures, eager_first in visits:
+        enc = torch.randn((batch, t, cfg.d_model), generator=gen).to(
+            "cuda", cfg.dtype)
+        lens = torch.randint(t // 2, t + 1, (batch,), generator=gen).cuda()
+        logp = torch.log_softmax(
+            3.0 * torch.randn((batch, t, v), generator=gen), -1).cuda()
+        with torch.inference_mode():
+            want = attention_beam_search(model.decoder, enc, lens, v - 2,
+                                         v - 1, beam, ctc_logp=logp, lm=lm)
+            before = {k: c.launches for k, c in counters.items()}
+            got = attention_beam_search(model.decoder, enc, lens, v - 2,
+                                        v - 1, beam, ctc_logp=logp, lm=lm,
+                                        graphs=graphs)
+            torch.cuda.synchronize()
+        steps = got["steps"]
+        assert steps == want["steps"] > 2, branch
+        for k in ("tokens", "lengths", "scores"):
+            assert torch.equal(got[k], want[k]), (branch, t, k)
+        assert got["graph_steps"] == steps - eager_first
+        assert graphs.captures == captures
+        assert {k: c.launches - before[k] for k, c in counters.items()} == \
+            {k: n * steps for k, n in per_step.items()}
+        entry = next(e for e in graphs._shapes.values()
+                     if e.search.cross_kv["k"].shape[2] == t)
+        ptrs.append(entry.search.cross_kv["k"].data_ptr())
+    assert ptrs[0] == ptrs[1] == ptrs[2] and ptrs[3] == ptrs[4]
+    assert len(graphs._shapes) == 2

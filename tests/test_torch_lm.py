@@ -62,19 +62,16 @@ def test_logits_match_jax(tie):
 
 
 def test_step_and_step_at_equal_teacher_forced():
+    """The cached step with all rows at one position gives the
+    teacher-forced logits at that position."""
     _, _, lm = lm_pair(LM_VOCAB)
     ys = torch.from_numpy(_tokens(4, 8, LM_VOCAB, 2)).long()
     with torch.no_grad():
         full = lm(ys)
         cache = lm.init_cache(4, 8)
-        cache_at = lm.init_cache(4, 8)
         for pos in range(8):
-            logits, cache = lm.step(ys[:, pos], pos, cache)
-            torch.testing.assert_close(logits, full[:, pos], atol=1e-5,
-                                       rtol=0)
-            at, cache_at = lm.step_at(ys[:, pos], torch.full((4,), pos),
-                                      cache_at)
-            torch.testing.assert_close(at, logits, atol=1e-5, rtol=0)
+            at, cache = lm.step_at(ys[:, pos], torch.full((4,), pos), cache)
+            torch.testing.assert_close(at, full[:, pos], atol=1e-5, rtol=0)
 
 
 def test_step_at_ragged_positions():

@@ -59,22 +59,28 @@ def test_teacher_forced_decoder_matches(setup):
 
 
 def test_cached_steps_match(setup):
-    """Three cached decode steps equal the reference's step API."""
+    """Cached decode steps (`step_at`: the position a device tensor, all
+    cache rows attended with those after pos masked; the beam's static
+    step) at every position of the cache equal the reference's step API
+    and the teacher-forced logits."""
     jd = JaxDecoder(jax_cfg())
     dp = {"params": setup["params"]["params"]["decoder"]}
     enc = setup["enc"]
-    jcache = jd.apply(dp, 3, 6, method="init_cache")
+    u_max = setup["ys"].shape[1]
+    jcache = jd.apply(dp, 3, u_max, method="init_cache")
     jkv = jd.apply(dp, enc, method="precompute_cross_kv")
     td = setup["tm"].decoder
-    tcache = td.init_cache(3, 6)
+    tcache = td.init_cache(3, u_max)
+    tkv = td.init_cache(3, setup["tenc"].shape[1])
     with torch.no_grad():
-        tkv = td.precompute_cross_kv(setup["tenc"])
-        for pos in range(3):
+        td.write_cross_kv(setup["tenc"], tkv)
+        for pos in range(u_max):
             y = setup["ys"][:, pos]
             jl, jcache = jd.apply(dp, jnp.asarray(y), pos, jcache, jkv,
                                   setup["el"], method="step")
-            tl, tcache = td.step(torch.from_numpy(y).long(), pos, tcache,
-                                 tkv, setup["tel"])
+            tl, tcache = td.step_at(torch.from_numpy(y).long(),
+                                    torch.tensor([pos]), tcache, tkv,
+                                    setup["tel"])
             np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
                                        err_msg=f"step {pos}")
             # step logits == teacher-forced logits at the same position

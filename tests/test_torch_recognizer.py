@@ -1,6 +1,8 @@
 """Port Recognizer vs tpu_asr.decode.recognizer.Recognizer on the CPU:
 the same flax params and the same wav batch give the same tokens, with
-scores within 1e-4."""
+scores within 1e-4. And the beam's static step, which the card replays
+as a CUDA graph: its state keeps its storage and its position stays on
+the device."""
 
 import dataclasses
 
@@ -10,11 +12,15 @@ import torch
 
 from tpu_asr.decode.beam import BeamConfig as JaxBeam
 from tpu_asr.decode.recognizer import Recognizer as JaxRecognizer
-from tpu_asr_torch.decode.beam import BeamConfig
+from tpu_asr_torch.decode.beam import (BeamConfig, BeamSearch,
+                                       attention_beam_search)
 from tpu_asr_torch.decode.recognizer import Recognizer
+from tpu_asr_torch.models.decoder import Decoder
+from tpu_asr_torch.models.lm import TransformerLM
 from torch_port_util import (VOCAB, cif_flax_params, cif_jax_cfg,
                              cif_torch_cfg, cif_torch_model, flax_params,
-                             jax_cfg, torch_cfg, torch_model, wav_batch)
+                             jax_cfg, lm_pair, torch_cfg, torch_model,
+                             wav_batch)
 
 # a short row, a longer row and a length-0 dummy row, padded to 0.6 s
 BATCH = wav_batch([9600, 6400, 3000, 0], seed=5)
@@ -140,3 +146,71 @@ def test_mode_needs_matching_heads():
             torch_cfg(), torch_model(), mode=mode, device="cpu",
             beam=BeamConfig(**beam)).decode_batch_nbest(BATCH)
     assert VOCAB == torch_cfg().vocab_size
+
+
+# ---- the beam's static step (what the card captures and replays) ----
+
+def _state(search: BeamSearch) -> dict:
+    """Every tensor of the search that a step reads or writes."""
+    out = {k: getattr(search, k) for k in (
+        "pos", "y_prev", "scores", "finished", "lengths", "tokens", "done",
+        "enc_lengths", "utt_maxlen", "utt_minlen")}
+    for prefix, cache in (("cache", search.cache), ("cross", search.cross_kv),
+                          ("lm", search.lm_cache or {})):
+        out.update({f"{prefix}_{k}": x for k, x in cache.items()})
+    if search.scorer is not None:
+        out.update(ctc_r=search.ctc_r, ctc_psi=search.ctc_psi,
+                   ctc_logp=search.ctc_logp, x_blank=search.scorer.x_blank)
+    return out
+
+
+@pytest.mark.parametrize("branch,kw", [
+    ("joint one-pass", dict(ctc_weight=0.3, ctc_two_pass=False)),
+    ("joint two-pass", dict(ctc_weight=0.3, ctc_two_pass=True)),
+    ("beam", dict()),
+    ("LM-fused joint", dict(ctc_weight=0.3, lm_weight=0.4))])
+def test_beam_step_keeps_its_storage_and_its_position_on_the_device(
+        branch, kw, monkeypatch):
+    """Across every step of one search each state tensor keeps its
+    storage, the position reaches the decoder (and the LM) as a device
+    tensor and never as a Python int, and the result is in new tensors:
+    what lets the card replay one captured step for all of them."""
+    rng = np.random.default_rng(3)
+    enc = torch.from_numpy(rng.standard_normal((3, 14, 64)).astype(
+        np.float32))
+    lens = torch.tensor([14, 9, 5])
+    lg = torch.from_numpy((2.0 * rng.standard_normal((3, 14, VOCAB))).astype(
+        np.float32))
+    seen, positions = [], []
+    step = BeamSearch.step
+
+    def spy(search):
+        before = {k: x.data_ptr() for k, x in _state(search).items()}
+        step(search)
+        seen.append((before, {k: x.data_ptr()
+                              for k, x in _state(search).items()}))
+
+    def device_step(real):
+        def at(self, y_prev, pos, *a, **kw):
+            positions.append(pos)
+            return real(self, y_prev, pos, *a, **kw)
+        return at
+    monkeypatch.setattr(BeamSearch, "step", spy)
+    monkeypatch.setattr(Decoder, "step_at", device_step(Decoder.step_at))
+    monkeypatch.setattr(TransformerLM, "step_at",
+                        device_step(TransformerLM.step_at))
+    lm = lm_pair()[2] if "lm_weight" in kw else None
+    with torch.no_grad():
+        out = attention_beam_search(
+            torch_model().decoder, enc, lens, VOCAB - 2, VOCAB - 1,
+            BeamConfig(beam=3, max_len=8, **kw),
+            ctc_logp=torch.log_softmax(lg, -1), lm=lm)
+    steps = out["steps"]
+    assert steps > 2 and len(seen) == steps and out["graph_steps"] == 0
+    first = seen[0][0]
+    assert all(a == first and b == first for a, b in seen), branch
+    assert len(positions) == steps * (2 if lm is not None else 1)
+    assert all(isinstance(p, torch.Tensor) and p.device == enc.device
+               and p.dtype == torch.long for p in positions)
+    assert not {out[k].data_ptr() for k in ("tokens", "scores", "lengths")} \
+        & set(first.values())

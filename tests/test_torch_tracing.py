@@ -234,11 +234,12 @@ def test_server_counts_queue_wait_and_decode_and_warmup_zeroes_all():
                     window_ms=20.0, device="cpu")
     srv.warmup(kinds=("wav",))
     assert set(srv.stats.values()) == {0}
-    assert {"queue_wait_s", "decode_s"} <= set(srv.stats)
+    assert {"queue_wait_s", "decode_s", "beam_steps",
+            "beam_graph_steps"} <= set(srv.stats)
     b = wav_batch([9600, 6400, 12000], seed=9)
     srv.start()
     try:
-        before = dict(srv.stats)
+        before, steps0 = dict(srv.stats), rec.decode_steps
         threads = [threading.Thread(target=srv.submit,
                                     args=("wav", b["wav"][i, :n]),
                                     kwargs={"timeout": 120})
@@ -256,6 +257,10 @@ def test_server_counts_queue_wait_and_decode_and_warmup_zeroes_all():
     ctx = {"kind": "serve", "stats0": before, "stats1": after}
     assert metric("queue_wait_ms").read(ctx) == pytest.approx(
         1e3 * after["queue_wait_s"] / 3)
+    # the recognizer's steps, none of them a graph's on the CPU
+    assert after["beam_steps"] == rec.decode_steps - steps0 > 0
+    assert after["beam_graph_steps"] == rec.graph_steps == 0
+    assert metric("beam_graph_share").read(ctx) == 0.0
     srv.warmup(kinds=("wav",))
     assert set(srv.stats.values()) == {0}
 
@@ -268,7 +273,8 @@ PARENT_STATS = {"requests": 10, "batches": 2, "rows_decoded": 64}
 
 
 @pytest.mark.parametrize("name", ["h2d_ms", "optimizer_ms", "queue_wait_ms",
-                                  "beam_step_ms", "beam_sync_ms"])
+                                  "beam_step_ms", "beam_sync_ms",
+                                  "beam_graph_share"])
 def test_reader_finds_nothing_without_its_input(name):
     read = metric(name).read
     for kind in ("train", "serve"):
@@ -280,7 +286,8 @@ def test_reader_finds_nothing_without_its_input(name):
     other = "serve" if name in ("h2d_ms", "optimizer_ms") else "train"
     marks = [(n, 0.0, 1000.0, 1) for n in TRAIN_SPANS + ["beam.step",
                                                          "beam.sync"]]
-    stats = dict(PARENT_STATS, queue_wait_s=1.0, decode_s=1.0)
+    stats = dict(PARENT_STATS, queue_wait_s=1.0, decode_s=1.0,
+                 beam_steps=10, beam_graph_steps=10)
     assert read({"kind": other, "traced_steps": [[(100, 3)]],
                  "trace": {"marks": marks}, "stats0": stats,
                  "stats1": dict(stats, requests=20)}) is None
@@ -315,6 +322,13 @@ def test_reader_finds_nothing_without_its_input(name):
                                           ("beam.step", 0.0, 6000.0, 1),
                                           ("beam.sync", 0.0, 3000.0, 1)]}},
      3.0),
+    ("beam_graph_share", {"kind": "serve",
+                          "stats0": dict(PARENT_STATS, beam_steps=22,
+                                         beam_graph_steps=21),
+                          "stats1": dict(PARENT_STATS, requests=50,
+                                         beam_steps=62,
+                                         beam_graph_steps=51)},
+     0.75),
 ])
 def test_reader_value_on_a_small_context(name, ctx, want):
     assert metric(name).read(ctx) == pytest.approx(want)

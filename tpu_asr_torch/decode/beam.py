@@ -7,21 +7,28 @@ continuation for finished hypotheses, and joint scoring through the
 CTCPrefixScorer:  S = (1-l) * logP_att + l * logP_ctc, accumulated
 incrementally (psi differences). With an external LM (models/lm.py) and
 lm_weight b > 0, S += b * logP_lm: the LM advances once a step on the
-same tokens through its cached `step`, and its caches are reordered
+same tokens through its cached `step_at`, and its caches are reordered
 with the decoder's. In the joint search the candidates stay the
 attention top-k (espnet's pre-beam); the LM only reweights them.
 
-The reference's lax.while_loop becomes a Python loop. Its early exit
-(stop once every hypothesis is finished) reads `finished.all()` on the
-host, which synchronises with the device once per step; capturing the
-step in a CUDA graph to remove that and the launch overhead is later
-work. Under a profiler that read is the span beam.sync, and the rest of
-a step the span beam.step (utils.tracing).
+The reference's lax.while_loop becomes a Python loop over one step of
+static shape (BeamSearch.step): the position is a device tensor, the
+decoder and the LM attend over all max_len cache rows under a position
+mask (Decoder.step_at, TransformerLM.step_at), and every piece of state
+is updated in place in buffers that keep their storage from step to
+step. So on the card the whole step is captured once per shape in a CUDA
+graph (BeamGraphs, which the Recognizer owns) and replayed for every
+step; on the CPU, and for callers that pass no BeamGraphs, the same step
+runs eagerly. The early exit (stop once every hypothesis is finished)
+reads a flag the step writes, on the host once a step: under a profiler
+that read is the span beam.sync, and the rest of a step (on the card,
+the replay) the span beam.step (utils.tracing).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -55,182 +62,392 @@ class BeamConfig:
     ctc_two_pass: bool | None = None
 
 
+class BeamSearch:
+    """One search's state, in buffers that keep their storage from step
+    to step, and its static-shape step.
+
+    `alloc(name, shape, dtype)` gives the large buffers (the
+    cross-attention K/V, the self-attention caches of the decoder and the
+    LM, the CTC log-probs): BeamGraphs hands out views of storage it
+    shares between shapes; without it they are allocated here. `load`
+    writes a batch's inputs into the buffers and resets the state, then
+    each `step` advances the search by one position in place, reading no
+    Python value that changes from step to step, and `result` sorts the
+    hypotheses out."""
+
+    def __init__(self, decoder, lm, cfg: BeamConfig, b: int, t: int,
+                 sos_id: int, eos_id: int, ctc_vocab: int | None, device,
+                 alloc=None):
+        if alloc is None:
+            def alloc(name, shape, dtype):
+                return torch.empty(shape, dtype=dtype, device=device)
+        w = cfg.beam
+        n = b * w
+        self.decoder, self.lm, self.cfg = decoder, lm, cfg
+        self.b, self.w, self.n = b, w, n
+        self.sos, self.eos = sos_id, eos_id
+        self.device = torch.device(device)
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        def caches(owner, prefix, rows, u):
+            shape, dt = owner.cache_shape(rows, u), owner.cfg.dtype
+            return {key: alloc(f"{prefix}_{key}", shape, dt)
+                    for key in ("k", "v")}
+        # cross K/V: one row an utterance (each step repeats it per beam)
+        self.cross_kv = caches(decoder, "cross", b, t)
+        self.cache = caches(decoder, "cache", n, cfg.max_len)
+        self.lm_cache = caches(lm, "lm", n, cfg.max_len) if lm else None
+        self.enc_lengths = empty((n,), torch.int32)
+        self.scorer = None
+        if cfg.ctc_weight > 0.0:
+            self.ctc_logp = alloc("ctc_logp", (b, t, ctc_vocab),
+                                  torch.float32)
+            self.scorer = CTCPrefixScorer(self.ctc_logp, self.enc_lengths,
+                                          blank=0, eos=eos_id, beams=w)
+            self.ctc_r = empty((n, t, 2), torch.float32)
+            self.ctc_psi = empty((n,), torch.float32)
+        k_cand = cfg.ctc_cand or 2 * w
+        self.k_cand = min(k_cand, ctc_vocab) if ctc_vocab else k_cand
+        self.two_pass = (cfg.ctc_two_pass if cfg.ctc_two_pass is not None
+                         else w >= CTC_TWO_PASS_BEAM)
+        self.utt_maxlen = empty((b,), torch.int32)
+        self.utt_minlen = empty((b,), torch.int32)
+        self.batch_base = (torch.arange(b, device=device) * w)[:, None]
+        # the state
+        self.pos = empty((1,), torch.long)
+        self.y_prev = empty((n,), torch.long)
+        self.scores = empty((b, w), torch.float32)
+        self.finished = empty((b, w), torch.bool)
+        self.lengths = empty((b, w), torch.int32)
+        self.tokens = empty((b, w, cfg.max_len), torch.long)
+        self.done = empty((), torch.bool)     # the early exit's flag
+
+    def load(self, enc_out, enc_lengths, ctc_logp=None):
+        """A batch's inputs into the buffers, then the state reset."""
+        cfg, w = self.cfg, self.w
+        self.decoder.write_cross_kv(enc_out, self.cross_kv)
+        self.enc_lengths.copy_(enc_lengths.repeat_interleave(w))
+        if self.scorer is not None:
+            if ctc_logp.data_ptr() != self.ctc_logp.data_ptr():
+                self.ctc_logp.copy_(ctc_logp)
+            self.scorer.refresh()
+        if cfg.maxlenratio > 0:
+            self.utt_maxlen.copy_(torch.clamp(
+                torch.floor(cfg.maxlenratio * enc_lengths).to(torch.int32),
+                1, cfg.max_len))
+        else:
+            self.utt_maxlen.fill_(cfg.max_len)
+        if cfg.minlenratio > 0:
+            self.utt_minlen.copy_(torch.floor(
+                cfg.minlenratio * enc_lengths).to(torch.int32))
+        else:
+            self.utt_minlen.zero_()
+        self.reset()
+
+    def reset(self):
+        """The state of an empty search: position 0, sos, beam 0 alone
+        alive, no hypothesis finished, eos-padded tokens, empty caches
+        and the empty prefix's CTC state."""
+        self.pos.zero_()
+        self.y_prev.fill_(self.sos)
+        self.scores.fill_(NEG_INF)
+        self.scores[:, 0] = 0.0
+        self.finished.zero_()
+        self.lengths.zero_()
+        self.tokens.fill_(self.eos)
+        for cache in (self.cache, self.lm_cache or {}):
+            for x in cache.values():
+                x.zero_()
+        if self.scorer is not None:
+            r, psi = self.scorer.init_state()
+            self.ctc_r.copy_(r)
+            self.ctc_psi.copy_(psi)
+        self.done.zero_()
+
+    def step(self):
+        """Advance every hypothesis by one token, in place."""
+        cfg, lam, eos_id = self.cfg, self.cfg.ctc_weight, self.eos
+        b, w, n, dev = self.b, self.w, self.n, self.device
+        pos, y_prev, finished = self.pos, self.y_prev, self.finished
+        logits, _ = self.decoder.step_at(y_prev, pos, self.cache,
+                                         self.cross_kv, self.enc_lengths,
+                                         beams=w)
+        att_logp = torch.log_softmax(logits.float(), dim=-1)
+        if self.lm is not None:
+            lm_logits, _ = self.lm.step_at(y_prev, pos.expand(n),
+                                           self.lm_cache)
+            lm_logp = torch.log_softmax(lm_logits.float(), dim=-1)
+        must_end = pos >= self.utt_maxlen[:, None]                  # [B, 1]
+        ban_eos = pos < self.utt_minlen[:, None]                    # [B, 1]
+        ended = finished | must_end                                 # [B, W]
+
+        if self.scorer is not None:
+            k_cand, scorer = self.k_cand, self.scorer
+            k_tot = k_cand + 1
+            cand_logp, cand_ids = exact_top_k(att_logp, k_cand)      # [N, K]
+            cand_ids = torch.cat([cand_ids, torch.full(
+                (n, 1), eos_id, dtype=cand_ids.dtype, device=dev)], dim=1)
+            cand_logp = torch.cat([cand_logp, att_logp[:, eos_id, None]],
+                                  dim=1)
+            is_first = (pos == 0).expand(n)
+            old_r, old_psi = self.ctc_r, self.ctc_psi
+            psi, new_r = scorer.score(cand_ids, y_prev, is_first,
+                                      (old_r, old_psi),
+                                      return_r=not self.two_pass)
+            step_score = ((1.0 - lam) * cand_logp
+                          + lam * (psi - old_psi[:, None]))         # [N, K+1]
+            if self.lm is not None:
+                step_score = step_score + cfg.lm_weight * torch.gather(
+                    lm_logp, 1, cand_ids)
+            ban = (cand_ids == eos_id) & ban_eos.expand(b, w).reshape(n, 1)
+            step_score = torch.where(ban, NEG_INF, step_score)
+            # finished (or maxlen-forced) beams: only the eos slot
+            # continues, at zero cost
+            eos_slot = torch.arange(k_tot, device=dev)[None, :] == k_cand
+            step_score = torch.where(
+                ended.expand(b, w).reshape(n, 1),
+                torch.where(eos_slot, 0.0, NEG_INF), step_score)
+            cand = (self.scores.reshape(n, 1) + step_score).reshape(
+                b, w * k_tot)
+            top_scores, top_idx = exact_top_k(cand, w)              # [B, W]
+            beam_idx = top_idx // k_tot
+            slot_idx = top_idx % k_tot
+            flat_beam = (self.batch_base + beam_idx).reshape(n)
+            flat_slot = slot_idx.reshape(n)
+            tok = cand_ids[flat_beam, flat_slot].reshape(b, w)
+            psi_sel = psi[flat_beam, flat_slot]
+            old_r_g = old_r[flat_beam]
+            old_psi_g = old_psi[flat_beam]
+            if self.two_pass:
+                r_next, _ = scorer.advance(
+                    tok.reshape(n), y_prev[flat_beam], is_first,
+                    (old_r_g, old_psi_g))
+            else:
+                r_next = new_r[flat_beam, flat_slot]             # [N, T, 2]
+            # finished/eos beams keep their old prefix state
+            was_finished_g = torch.gather(finished, 1, beam_idx).reshape(n)
+            keep_old = was_finished_g | (tok.reshape(n) == eos_id)
+            self.ctc_r.copy_(torch.where(keep_old[:, None, None], old_r_g,
+                                         r_next))
+            self.ctc_psi.copy_(torch.where(keep_old, old_psi_g, psi_sel))
+        else:
+            fused = (att_logp + cfg.lm_weight * lm_logp
+                     if self.lm is not None else att_logp)
+            logp = fused.reshape(b, w, -1)
+            v = logp.shape[-1]
+            is_eos_col = torch.arange(v, device=dev)[None, None, :] == eos_id
+            logp = torch.where(is_eos_col & ban_eos[..., None], NEG_INF,
+                               logp)
+            eos_forced = torch.where(is_eos_col, 0.0, NEG_INF)
+            logp = torch.where(ended[..., None], eos_forced, logp)
+            cand = (self.scores[..., None] + logp).reshape(b, w * v)
+            top_scores, top_idx = exact_top_k(cand, w)
+            beam_idx = top_idx // v
+            tok = top_idx % v
+            flat_beam = (self.batch_base + beam_idx).reshape(n)
+
+        # reorder all per-beam state, each back into its own buffer
+        for cache in (self.cache, self.lm_cache or {}):
+            for x in cache.values():
+                x.copy_(x.index_select(1, flat_beam))
+        self.tokens.copy_(self.tokens.view(n, -1).index_select(
+            0, flat_beam).view(b, w, -1))
+        finished_g = torch.gather(finished, 1, beam_idx)
+        lengths_g = torch.gather(self.lengths, 1, beam_idx)
+
+        now_eos = tok == eos_id
+        self.tokens.index_copy_(
+            2, pos, torch.where(finished_g, eos_id, tok)[..., None])
+        self.lengths.copy_(torch.where(
+            finished_g, lengths_g, torch.where(now_eos, pos, pos + 1)))
+        finished.copy_(finished_g | now_eos)
+        self.scores.copy_(top_scores)
+        y_prev.copy_(tok.reshape(n))
+        pos.add_(1)
+        # the early exit: once every hypothesis is finished, further
+        # steps are output-neutral (eos continues at zero cost)
+        self.done.copy_(finished.all())
+
+    def result(self, steps: int) -> dict:
+        """The hypotheses sorted best-first, in new tensors. Unfinished
+        hyps at max_len keep their accumulated score; optional per-token
+        length reward."""
+        final = self.scores + self.cfg.length_penalty * self.lengths.float()
+        order = torch.argsort(-final, dim=1, stable=True)
+        tokens = self.tokens
+        return {
+            "tokens": torch.gather(tokens, 1,
+                                   order[..., None].expand_as(tokens)),
+            "scores": torch.gather(final, 1, order),
+            "lengths": torch.gather(self.lengths, 1, order),
+            "steps": steps,
+        }
+
+
+def _step_kernels():
+    """(module, name) of each kernel wrapper a beam step can launch: each
+    counts its launches in `.launches` of its module's name, which a
+    replay of the captured step adds to."""
+    from tpu_asr_torch.ops import ctc_prefix, flash_attention, layernorm
+    return ((ctc_prefix, "ctc_prefix_scan"),
+            (layernorm, "layer_norm_residual_fwd"),
+            (flash_attention, "flash_attention_fwd"))
+
+
+@dataclasses.dataclass(eq=False)
+class _Captured:
+    search: BeamSearch
+    graph: object = None            # torch.cuda.CUDAGraph once captured
+    launches: dict = dataclasses.field(default_factory=dict)
+
+
+class BeamGraphs:
+    """CUDA graphs of the beam step, one per step shape: captured the
+    first time a shape is searched, then replayed for every step.
+
+    A shape is a BeamSearch's (batch, encoder frames, CTC vocabulary,
+    BeamConfig, sos/eos, decoder and LM). Every shape's large buffers
+    view the front of one storage per buffer, sized for the largest shape
+    seen: a larger one regrows that storage and drops the graphs, which
+    are captured again on their next use. The graphs share one memory
+    pool. Both are safe because one thread searches at a time (a
+    Recognizer decodes one batch after another). `captures` counts the
+    captures."""
+
+    def __init__(self):
+        self._storage: dict[str, torch.Tensor] = {}
+        self._shapes: dict[tuple, _Captured] = {}
+        self._pool = None
+        self.captures = 0
+
+    def buffer(self, name: str, shape: tuple, dtype, device):
+        """The view of `name`'s storage as a `shape` tensor."""
+        numel = math.prod(shape)
+        flat = self._storage.get(name)
+        if flat is None or flat.numel() < numel or flat.dtype != dtype \
+                or flat.device != torch.device(device):
+            if self._shapes:
+                # the graphs read the old storage: let them finish, then
+                # drop them and it before the new one is allocated; their
+                # pool goes with the last of them, so the next capture
+                # takes a new one
+                torch.cuda.synchronize(device)
+                self._shapes.clear()
+                self._pool = None
+            self._storage.pop(name, None)
+            del flat
+            flat = self._storage[name] = torch.empty(numel, dtype=dtype,
+                                                     device=device)
+        return flat[:numel].view(shape)
+
+    def ctc_logp_buffer(self, shape: tuple, device):
+        """Where the CTC log-probs [B, T, V] of the next search of that
+        shape go: writing them here spares the search's copy."""
+        return self.buffer("ctc_logp", shape, torch.float32, device)
+
+    def search(self, decoder, lm, cfg, b, t, sos_id, eos_id, ctc_vocab,
+               device) -> _Captured:
+        key = (b, t, ctc_vocab, cfg, sos_id, eos_id, id(decoder), id(lm))
+        entry = self._shapes.get(key)
+        if entry is None:
+            search = BeamSearch(
+                decoder, lm, cfg, b, t, sos_id, eos_id, ctc_vocab, device,
+                alloc=lambda name, shape, dt: self.buffer(name, shape, dt,
+                                                          device))
+            entry = self._shapes[key] = _Captured(search)
+        return entry
+
+    def step(self, entry: _Captured) -> bool:
+        """One step of entry's search: a replay of its graph (True), or,
+        the first time, the step run eagerly on a side stream (which also
+        builds and loads what it launches) and then captured (False). The
+        kernel counters count the launches of every step the device runs
+        and none of the capture's."""
+        if entry.graph is not None:
+            entry.graph.replay()
+            for (module, name), k in entry.launches.items():
+                getattr(module, name).launches += k
+            return True
+        search = entry.search
+        main = torch.cuda.current_stream(search.device)
+        side = torch.cuda.Stream(search.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            search.step()
+        main.wait_stream(side)
+        kernels = _step_kernels()
+        before = [getattr(m, name).launches for m, name in kernels]
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: a server's other threads may call into CUDA
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            search.step()
+        for (module, name), n in zip(kernels, before):
+            fn = getattr(module, name)
+            if fn.launches != n:
+                entry.launches[module, name] = fn.launches - n
+                fn.launches = n
+        entry.graph = graph
+        self.captures += 1
+        return False
+
+
 def attention_beam_search(decoder, enc_out: torch.Tensor,
                           enc_lengths: torch.Tensor, sos_id: int, eos_id: int,
                           cfg: BeamConfig = BeamConfig(),
-                          ctc_logp: torch.Tensor | None = None, lm=None):
+                          ctc_logp: torch.Tensor | None = None, lm=None,
+                          graphs: BeamGraphs | None = None):
     """Run beam search over a batch of utterances.
 
     decoder: tpu_asr_torch.models.decoder.Decoder; enc_out [B, T, D];
     ctc_logp [B, T, V] (log-softmaxed) required when cfg.ctc_weight > 0;
     lm: a models.lm.TransformerLM, fused when cfg.lm_weight > 0 (without
-    one, the search runs as with lm_weight 0, as the reference's does).
+    one, the search runs as with lm_weight 0, as the reference's does);
+    graphs: a BeamGraphs on the card, to replay the step as a CUDA graph
+    (None: the same step runs eagerly).
 
     Returns dict(tokens [B, W, max_len] eos-padded, scores [B, W],
-    lengths [B, W]) sorted best-first, and steps (decode steps taken).
+    lengths [B, W]) sorted best-first, steps (decode steps taken) and
+    graph_steps (those replayed from a graph).
     """
     b, t, _ = enc_out.shape
-    w = cfg.beam
-    n = b * w
     dev = enc_out.device
-    use_ctc = cfg.ctc_weight > 0.0
-    lam = cfg.ctc_weight
+    if cfg.ctc_weight > 0.0 and ctc_logp is None:
+        raise ValueError("joint scoring needs ctc log-probs")
+    if not (cfg.lm_weight > 0.0 and lm is not None):
+        lm = None
+    ctc_vocab = ctc_logp.shape[-1] if ctc_logp is not None else None
+    if graphs is None:
+        search = BeamSearch(decoder, lm, cfg, b, t, sos_id, eos_id,
+                            ctc_vocab, dev)
 
-    cross_kv = {key: x.repeat_interleave(w, dim=1)
-                for key, x in decoder.precompute_cross_kv(enc_out).items()}
-    enc_lengths_flat = enc_lengths.repeat_interleave(w)
-    cache = decoder.init_cache(n, cfg.max_len, device=dev)
-    use_lm = cfg.lm_weight > 0.0 and lm is not None
-    lm_cache = lm.init_cache(n, cfg.max_len, device=dev) if use_lm else None
-
-    scorer = ctc_state = None
-    if use_ctc:
-        if ctc_logp is None:
-            raise ValueError("joint scoring needs ctc log-probs")
-        scorer = CTCPrefixScorer(ctc_logp, enc_lengths_flat, blank=0,
-                                 eos=eos_id, beams=w)
-        ctc_state = scorer.init_state()
-    k_cand = cfg.ctc_cand or 2 * w
-    if ctc_logp is not None:
-        k_cand = min(k_cand, ctc_logp.shape[-1])
-    k_tot = k_cand + 1
-    two_pass = (cfg.ctc_two_pass if cfg.ctc_two_pass is not None
-                else w >= CTC_TWO_PASS_BEAM)
-
-    if cfg.maxlenratio > 0:
-        utt_maxlen = torch.clamp(
-            torch.floor(cfg.maxlenratio * enc_lengths).to(torch.int32),
-            1, cfg.max_len)
+        def step():
+            search.step()
+            return False
     else:
-        utt_maxlen = torch.full((b,), cfg.max_len, dtype=torch.int32,
-                                device=dev)
-    utt_minlen = (torch.floor(cfg.minlenratio * enc_lengths).to(torch.int32)
-                  if cfg.minlenratio > 0
-                  else torch.zeros((b,), dtype=torch.int32, device=dev))
+        entry = graphs.search(decoder, lm, cfg, b, t, sos_id, eos_id,
+                              ctc_vocab, dev)
+        search = entry.search
 
-    batch_base = (torch.arange(b, device=dev) * w)[:, None]     # [B, 1]
-    y_prev = torch.full((n,), sos_id, dtype=torch.long, device=dev)
-    scores = torch.where(torch.arange(w, device=dev)[None, :] == 0, 0.0,
-                         NEG_INF).repeat(b, 1)
-    finished = torch.zeros((b, w), dtype=torch.bool, device=dev)
-    lengths = torch.zeros((b, w), dtype=torch.int32, device=dev)
-    tokens = torch.full((b, w, cfg.max_len), eos_id, dtype=torch.long,
-                        device=dev)
+        def step():
+            return graphs.step(entry)
+    search.load(enc_out, enc_lengths, ctc_logp)
 
-    pos = 0
-    # Early exit: once every hypothesis is finished, further steps are
-    # output-neutral (eos continues at zero cost), so stopping is exact.
-    # bool() here is the per-step host sync noted in the module docstring,
-    # in its own span (beam.sync) beside the step's (beam.step).
-    while pos < cfg.max_len:
+    steps = graph_steps = 0
+    # bool() here is the one host sync a step, in its own span
+    # (beam.sync) beside the step's (beam.step)
+    while steps < cfg.max_len:
         with span("beam.sync"):
-            done = bool(finished.all())
+            done = bool(search.done)
         if done:
             break
         with span("beam.step"):
-            logits, cache = decoder.step(y_prev, pos, cache, cross_kv,
-                                         enc_lengths_flat)
-            att_logp = torch.log_softmax(logits.float(), dim=-1)
-            if use_lm:
-                lm_logits, lm_cache = lm.step(y_prev, pos, lm_cache)
-                lm_logp = torch.log_softmax(lm_logits.float(), dim=-1)
-            must_end = pos >= utt_maxlen[:, None]                   # [B, 1]
-            ban_eos = pos < utt_minlen[:, None]                     # [B, 1]
-            ended = finished | must_end                             # [B, W]
-
-            if use_ctc:
-                cand_logp, cand_ids = exact_top_k(att_logp, k_cand)  # [N, K]
-                cand_ids = torch.cat([cand_ids, torch.full(
-                    (n, 1), eos_id, dtype=cand_ids.dtype, device=dev)],
-                    dim=1)
-                cand_logp = torch.cat([cand_logp, att_logp[:, eos_id, None]],
-                                      dim=1)
-                is_first = torch.full((n,), pos == 0, device=dev)
-                psi, new_r = scorer.score(cand_ids, y_prev, is_first,
-                                          ctc_state, return_r=not two_pass)
-                old_r, old_psi = ctc_state
-                step_score = ((1.0 - lam) * cand_logp
-                              + lam * (psi - old_psi[:, None]))     # [N, K+1]
-                if use_lm:
-                    step_score = step_score + cfg.lm_weight * torch.gather(
-                        lm_logp, 1, cand_ids)
-                ban = ((cand_ids == eos_id)
-                       & ban_eos.expand(b, w).reshape(n, 1))
-                step_score = torch.where(ban, NEG_INF, step_score)
-                # finished (or maxlen-forced) beams: only the eos slot
-                # continues, at zero cost
-                eos_slot = torch.arange(k_tot, device=dev)[None, :] == k_cand
-                step_score = torch.where(
-                    ended.expand(b, w).reshape(n, 1),
-                    torch.where(eos_slot, 0.0, NEG_INF), step_score)
-                cand = (scores.reshape(n, 1) + step_score).reshape(
-                    b, w * k_tot)
-                top_scores, top_idx = exact_top_k(cand, w)          # [B, W]
-                beam_idx = top_idx // k_tot
-                slot_idx = top_idx % k_tot
-                flat_beam = (batch_base + beam_idx).reshape(n)
-                flat_slot = slot_idx.reshape(n)
-                tok = cand_ids[flat_beam, flat_slot].reshape(b, w)
-                psi_sel = psi[flat_beam, flat_slot]
-                old_r_g = old_r[flat_beam]
-                old_psi_g = old_psi[flat_beam]
-                if two_pass:
-                    r_next, _ = scorer.advance(
-                        tok.reshape(n), y_prev[flat_beam], is_first,
-                        (old_r_g, old_psi_g))
-                else:
-                    r_next = new_r[flat_beam, flat_slot]         # [N, T, 2]
-                # finished/eos beams keep their old prefix state
-                was_finished_g = torch.gather(finished, 1,
-                                              beam_idx).reshape(n)
-                keep_old = was_finished_g | (tok.reshape(n) == eos_id)
-                r_next = torch.where(keep_old[:, None, None], old_r_g, r_next)
-                psi_next = torch.where(keep_old, old_psi_g, psi_sel)
-                ctc_state = (r_next, psi_next)
-            else:
-                fused = (att_logp + cfg.lm_weight * lm_logp if use_lm
-                         else att_logp)
-                logp = fused.reshape(b, w, -1)
-                v = logp.shape[-1]
-                is_eos_col = (torch.arange(v, device=dev)[None, None, :]
-                              == eos_id)
-                logp = torch.where(is_eos_col & ban_eos[..., None], NEG_INF,
-                                   logp)
-                eos_forced = torch.where(is_eos_col, 0.0, NEG_INF)
-                logp = torch.where(ended[..., None], eos_forced, logp)
-                cand = (scores[..., None] + logp).reshape(b, w * v)
-                top_scores, top_idx = exact_top_k(cand, w)
-                beam_idx = top_idx // v
-                tok = top_idx % v
-                flat_beam = (batch_base + beam_idx).reshape(n)
-
-            # reorder all per-beam state
-            cache = {key: x.index_select(1, flat_beam)
-                     for key, x in cache.items()}
-            if use_lm:
-                lm_cache = {key: x.index_select(1, flat_beam)
-                            for key, x in lm_cache.items()}
-            tokens = tokens.reshape(n, -1)[flat_beam].reshape(b, w, -1)
-            finished_g = torch.gather(finished, 1, beam_idx)
-            lengths_g = torch.gather(lengths, 1, beam_idx)
-
-            now_eos = tok == eos_id
-            tokens[:, :, pos] = torch.where(finished_g, eos_id, tok)
-            lengths = torch.where(finished_g, lengths_g,
-                                  torch.where(now_eos, pos, pos + 1)
-                                  ).to(torch.int32)
-            finished = finished_g | now_eos
-            scores = top_scores
-            y_prev = tok.reshape(n)
-            pos += 1
-
-    # Unfinished hyps at max_len keep their accumulated score; optional
-    # per-token length reward.
-    final = scores + cfg.length_penalty * lengths.float()
-    order = torch.argsort(-final, dim=1, stable=True)
-    return {
-        "tokens": torch.gather(tokens, 1, order[..., None].expand_as(tokens)),
-        "scores": torch.gather(final, 1, order),
-        "lengths": torch.gather(lengths, 1, order),
-        "steps": pos,
-    }
+            graph_steps += step()
+        steps += 1
+    out = search.result(steps)
+    out["graph_steps"] = graph_steps
+    return out

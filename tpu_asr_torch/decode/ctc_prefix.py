@@ -38,10 +38,20 @@ class CTCPrefixScorer:
         b, t, v = ctc_logp.shape
         self.n, self.t, self.v = b * beams, t, v
         # [N, T], the same every step
-        self.x_blank = self.logp[:, :, blank].repeat_interleave(
-            beams, dim=0).contiguous()
-        self.active = (torch.arange(t, device=ctc_logp.device)[None, :]
-                       < self.lengths[:, None])                 # [N, T]
+        dev = ctc_logp.device
+        self.x_blank = torch.empty((self.n, t), dtype=torch.float32,
+                                   device=dev)
+        self.active = torch.empty((self.n, t), dtype=torch.bool, device=dev)
+        self.refresh()
+
+    def refresh(self):
+        """Recompute in place what the scorer derives from its log-probs
+        and lengths: for a caller that rewrote those tensors with another
+        batch of the same shape (the beam search's static buffers)."""
+        self.x_blank.copy_(self.logp[:, :, self.blank].repeat_interleave(
+            self.beams, dim=0))
+        torch.lt(torch.arange(self.t, device=self.logp.device)[None, :],
+                 self.lengths[:, None], out=self.active)
 
     def init_state(self):
         """State for the empty prefix: (r [N, T, 2], psi_prev [N]).

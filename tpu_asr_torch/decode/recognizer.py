@@ -26,6 +26,11 @@ Under a profiler, a batch's phases are spans (utils.tracing):
 recognizer.features, recognizer.encode (with the joint mode's CTC
 log-softmax), the beam loop's beam.step and beam.sync (decode/beam.py),
 and recognizer.fetch (the one copy to the host and the n-best lists).
+
+On the card the beam and joint modes replay the beam step from a CUDA
+graph, one a batch shape, which the Recognizer keeps (`beam_graphs`);
+`decode_steps` counts the steps, `graph_steps` those replayed and
+`graph_captures` the graphs captured.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_asr_torch.decode.beam import BeamConfig, attention_beam_search
+from tpu_asr_torch.decode.beam import (BeamConfig, BeamGraphs,
+                                       attention_beam_search)
 from tpu_asr_torch.decode.cif_decode import cif_beam_decode, cif_greedy_decode
 from tpu_asr_torch.decode.ctc_beam import ctc_prefix_beam_search
 from tpu_asr_torch.decode.greedy_ctc import ctc_greedy_decode
@@ -149,6 +155,17 @@ class Recognizer:
             self.lm = cast_for_inference(self.lm.to(self.device).eval(),
                                          self.lm_cfg.dtype)
         self.decode_steps = 0    # decoder/transducer steps, all batches
+        self.graph_steps = 0     # of those, beam steps replayed as a graph
+        # the beam step's CUDA graphs, on the card (the CPU runs the same
+        # static step eagerly)
+        self.beam_graphs = (BeamGraphs() if self.device.type == "cuda"
+                            else None)
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs of the beam step captured so far, one per shape
+        (again after a larger shape regrew their buffers)."""
+        return 0 if self.beam_graphs is None else self.beam_graphs.captures
 
     # --- device work ---
 
@@ -175,11 +192,18 @@ class Recognizer:
 
     def _encode(self, feats, flens, ctc_logp: bool = False):
         """-> (enc_out, enc_lengths, the CTC head's log-softmax or None),
-        in span recognizer.encode."""
+        in span recognizer.encode. On the card the log-softmax is written
+        straight into the beam graphs' buffer for it, so that no second
+        copy of it is ever held beside that one."""
         with span("recognizer.encode"):
             enc_out, el = self.model.encode(feats, flens)
-            logp = (torch.log_softmax(self.model.ctc_logits(enc_out).float(),
-                                      dim=-1) if ctc_logp else None)
+            logp = None
+            if ctc_logp:
+                logits = self.model.ctc_logits(enc_out).float()
+                out = (None if self.beam_graphs is None else
+                       self.beam_graphs.ctc_logp_buffer(logits.shape,
+                                                        self.device))
+                logp = torch.log_softmax(logits, dim=-1, out=out)
         return enc_out, el, logp
 
     def _greedy_ctc(self, feats, flens):
@@ -201,8 +225,9 @@ class Recognizer:
         out = attention_beam_search(
             self.model.decoder, enc_out, el, self.cfg.vocab_size - 2,
             self.cfg.vocab_size - 1, self.beam, ctc_logp=ctc_logp,
-            lm=self.lm)
+            lm=self.lm, graphs=self.beam_graphs)
         self.decode_steps += out["steps"]
+        self.graph_steps += out["graph_steps"]
         return out["tokens"], out["lengths"], out["scores"]
 
     def _ctc_beam(self, feats, flens):

@@ -5,7 +5,7 @@ A decoder-only transformer over the ASR model's token ids (sos =
 vocab - 2, eos = vocab - 1; a sequence is scored as P(y_1 .. y_U, eos |
 sos)), trained on transcripts by `python -m tpu_asr_torch.train_lm`. It
 plugs into the attention/joint beam (decode/beam.py) and the CTC prefix
-beam (decode/ctc_beam.py) through the cached `step` / `step_at`, and
+beam (decode/ctc_beam.py) through the cached `step_at`, and
 into attn_rescore (decode/rescore.py) through one teacher-forced pass.
 
 The modules are the ASR decoder's minus cross-attention, and the
@@ -70,8 +70,9 @@ class LMLayer(nn.Module):
         y = self.post_slf(y, self.slf_attn(y, y, self_bias))
         return self.post_ffn(y, self.ffn(y))
 
-    def step(self, y_t, k_self, v_self, self_bias=None):
-        """One position against its cache rows (already written)."""
+    def step(self, y_t, k_self, v_self, self_bias):
+        """One position against its cache rows (already written), those
+        after the position masked by self_bias."""
         y = self.post_slf(y_t, self.slf_attn.step(y_t, k_self, v_self,
                                                   self_bias))
         return self.post_ffn(y, self.ffn(y))
@@ -97,35 +98,13 @@ class TransformerLM(TokenDecoder):
             y = layer(y, self_bias)
         return self._project_out(y)
 
-    def _cached_layers(self, y, cache, write, rows: slice, bias):
-        """Run every layer on one position [N, 1, D]: `write(i, k_t, v_t)`
-        stores its K/V in layer i's cache, then the position attends over
-        cache rows `rows` with `bias`."""
-        for i, layer in enumerate(self.layers):
-            k_t, v_t = layer.slf_attn.project_kv(y)
-            write(i, k_t[:, 0], v_t[:, 0])
-            y = layer.step(y, cache["k"][i, :, rows], cache["v"][i, :, rows],
-                           bias)
-        return self._project_out(y)[:, 0]
-
-    def step(self, y_prev, pos: int, cache):
-        """One step at a position shared by all rows: y_prev [N] at
-        0-based position `pos` -> (logits [N, V] of the NEXT token,
-        cache). Writes cache row `pos` in place and attends over rows
-        0..pos."""
-        y = self.pe(self._embed(y_prev[:, None]), offset=pos)
-
-        def write(i, k, v):
-            cache["k"][i, :, pos] = k
-            cache["v"][i, :, pos] = v
-        return self._cached_layers(y, cache, write, slice(0, pos + 1),
-                                   None), cache
-
     def step_at(self, y_prev, pos: torch.Tensor, cache):
-        """Like `step` with a position per row, pos [N] (the CTC prefix
-        beam, where each beam is at its own prefix length): row n writes
-        cache row pos[n] and attends over rows 0..pos[n]. Equals `step`
-        when all rows share one position."""
+        """One cached step with a position per row: y_prev [N] at 0-based
+        positions pos [N] (the CTC prefix beam, where each beam is at its
+        own prefix length; the attention beam, where all rows share one)
+        -> (logits [N, V] of the NEXT token, cache). Row n writes cache
+        row pos[n] in place and attends over all U_max rows, those after
+        pos[n] masked."""
         u_max = cache["k"].shape[2]
         rows = torch.arange(y_prev.shape[0], device=y_prev.device)
         y = self._embed(y_prev[:, None]) + \
@@ -133,12 +112,12 @@ class TransformerLM(TokenDecoder):
         allowed = torch.arange(u_max, device=pos.device)[None, :] <= \
             pos[:, None]
         bias = mask_to_bias(allowed[:, None, None, :], self.cfg.dtype)
-
-        def write(i, k, v):
-            cache["k"][i, rows, pos] = k
-            cache["v"][i, rows, pos] = v
-        return self._cached_layers(y, cache, write, slice(None),
-                                   bias), cache
+        for i, layer in enumerate(self.layers):
+            k_t, v_t = layer.slf_attn.project_kv(y)
+            cache["k"][i, rows, pos] = k_t[:, 0]
+            cache["v"][i, rows, pos] = v_t[:, 0]
+            y = layer.step(y, cache["k"][i], cache["v"][i], bias)
+        return self._project_out(y)[:, 0], cache
 
 
 # ---- config sidecar: lm_config.json in the LM's checkpoint folder (the

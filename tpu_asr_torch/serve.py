@@ -10,8 +10,10 @@ streaming sessions (port of tpu_asr/serve.py).
 
 `AsrServer.stats` counts requests, batches and rows decoded, and sums
 each request's wait from `submit` to the start of its group's decode
-(`queue_wait_s`: the collection window and the groups decoded first)
-and the groups' decode time (`decode_s`); GET /healthz shows them.
+(`queue_wait_s`: the collection window and the groups decoded first),
+the groups' decode time (`decode_s`) and the recognizer's decode steps
+(`beam_steps`) and those of them replayed from a CUDA graph
+(`beam_graph_steps`); GET /healthz shows them.
 
 A decode failure is caught on the collector thread (which must keep
 serving), stored on each request of the batch, and raised to the
@@ -103,7 +105,8 @@ class AsrServer:
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="asr-batcher")
         self.stats = {"requests": 0, "batches": 0, "rows_decoded": 0,
-                      "queue_wait_s": 0.0, "decode_s": 0.0}
+                      "queue_wait_s": 0.0, "decode_s": 0.0,
+                      "beam_steps": 0, "beam_graph_steps": 0}
 
     # --- lifecycle ---
 
@@ -116,10 +119,12 @@ class AsrServer:
 
     def warmup(self, kinds=("feats", "wav")):
         """Decode one dummy batch per (kind, bucket) before taking
-        traffic (first-use kernel build, cuBLAS handles, allocator), then
-        zero every counter of `stats`."""
+        traffic (first-use kernel build, cuBLAS handles, allocator, the
+        beam step's CUDA graph of each bucket), then zero every counter
+        of `stats`. The longest bucket goes first, so that the graphs'
+        shared buffers take their largest size at once."""
         for kind in kinds:
-            for b, t in enumerate(self.bucket_frames):
+            for b, t in reversed(list(enumerate(self.bucket_frames))):
                 self._decode_group(kind, b, [self._dummy_request(kind, b, t)])
         self.stats.update(dict.fromkeys(self.stats, 0))
 
@@ -229,6 +234,7 @@ class AsrServer:
             lens[i] = r.data.shape[0]
         batch = ({"feats": arr, "feat_lengths": lens} if kind == "feats"
                  else {"wav": arr, "wav_lengths": lens})
+        steps0, graphed0 = self.rec.decode_steps, self.rec.graph_steps
         nbest = self.rec.decode_batch_nbest(batch)
         for r, nb in zip(reqs, nbest):
             r.result = nb[: max(r.nbest, 1)]
@@ -238,6 +244,8 @@ class AsrServer:
         self.stats["queue_wait_s"] += sum(t0 - r.t_submit for r in reqs
                                           if r.t_submit is not None)
         self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["beam_steps"] += self.rec.decode_steps - steps0
+        self.stats["beam_graph_steps"] += self.rec.graph_steps - graphed0
 
 
 class StreamSessions:
