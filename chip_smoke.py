@@ -302,8 +302,25 @@ Phases (any failure ends the run with a nonzero exit before the last line):
      batch, the prefix scan once a joint decoder step, nothing else) and
      holds the calls it records against their plain versions;
      data/aishell and exp/ are left as they were.
+ 17. Whisper large-v3 (phase 17, run_whisper_phase): flash_attention_fwd
+     at the shape its encoder gives it as served (32 windows, Tq = Tk =
+     1500, 20 heads of 64, no mask, bf16) against its plain version at
+     FLASH_BF16_TOL, timed beside it with its bound; the model at its
+     published widths on random weights behind the AsrServer that `python
+     -m tpu_asr_torch.serve --random-init --preset whisper_large_v3`
+     builds (beam 5, batch 32, one 1000-frame bucket, maxlenratio
+     0.0625), 32 wav requests at once, then again under torch.profiler:
+     the flash kernel launches once an encoder layer a batch (32) and
+     nowhere else, counted from 0 before each run and, in the second, as
+     many events in the trace; every beam step a graph replay; each
+     1-best within the vocabulary and its cap; the path's first flash
+     call against the plain version, timed.
 Then one JSON line for the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
+
+  python3 chip_smoke.py --whisper
+
+runs phases 1, 2 (the flash forward's library alone) and 17 only.
 
   python3 chip_smoke.py --beam-ties N
 
@@ -2855,11 +2872,11 @@ def profile_device(fn, what, card, host_top=0, warmup=False):
     return out
 
 
-def profile_serving(server, wavs, card, what="serving"):
-    """The same requests again under torch.profiler (not counted above)
-    -> what profile_device gives."""
+def profile_serving(server, wavs, card, what="serving", threads=8):
+    """The same requests again under torch.profiler (not counted above),
+    from `threads` threads -> what profile_device gives."""
     def run():
-        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
             list(pool.map(lambda w: server.submit("wav", w, timeout=600.0),
                           wavs))
     return profile_device(run, what, card)
@@ -2886,15 +2903,16 @@ def post_recognize(server, wav, chars=None):
         thread.join(timeout=10)
 
 
-def serve_requests(server, wavs):
-    """The requests from 8 threads -> ([(nbest, latency s)], wall s)."""
+def serve_requests(server, wavs, threads=8):
+    """The requests from `threads` threads -> ([(nbest, latency s)],
+    wall s)."""
     def one(wav):
         start = time.perf_counter()
         nbest = server.submit("wav", wav, timeout=600.0)
         return nbest, time.perf_counter() - start
 
     wall0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
         results = list(pool.map(one, wavs))
     return results, time.perf_counter() - wall0
 
@@ -6871,6 +6889,193 @@ def run_checkpoint_phase(card, workdir, ckpt, cv_manifest):
     return prefix, recipe_launches["training"], {"prefix": prefix_t}, errs
 
 
+# ---- phase 17: Whisper large-v3 behind the server ----
+
+WHISPER_PRESET = "whisper_large_v3"
+WHISPER_PATH = "Whisper large-v3 serving"
+# as the serving cell whisper_lv3_serve_beam5_c64 serves it: batches of
+# 32, one bucket (every request pads to the 30 s window anyway), beam 5,
+# at most floor(0.0625 x speech encoder frames) tokens after the prompt
+WHISPER_BATCH = 32
+WHISPER_BUCKET = 1000
+WHISPER_MAXLENRATIO = 0.0625
+
+
+def check_whisper_flash():
+    """flash_attention_fwd at the shape Whisper large-v3's encoder gives
+    it as served: WHISPER_BATCH windows, Tq = Tk = 1500, 20 heads of 64,
+    every key valid (the encoder passes no mask), bf16, q, k and v as
+    three projections give them; against its plain version at
+    FLASH_BF16_TOL and timed beside it, with its bound. -> (max abs err
+    of out, of lse, {shape: times})."""
+    from tpu_asr_torch.configs.presets import get_preset
+    cfg = get_preset(WHISPER_PRESET).model
+    b, t, h = WHISPER_BATCH, cfg.audio_ctx, cfg.num_heads
+    dh = cfg.d_model // h
+    q, k, v, valid = flash_case(b, t, t, h, dh, torch.bfloat16, [t] * b,
+                                SEED)
+    what = (f"Whisper encoder B={b} Tq={t} Tk={t} H={h} dh={dh} no mask "
+            f"{q.dtype}")
+    out_err, lse_err = compare_flash(q, k, v, valid, False, what)
+    timing = dict(time_flash(q, k, v, valid, False, what), shape=what,
+                  max_abs_err=out_err, lse_max_abs_err=lse_err)
+    log(f"flash_attention_fwd vs plain at {what}: max abs err out "
+        f"{out_err:.3e} (atol {FLASH_BF16_TOL['atol']}), lse {lse_err:.3e}")
+    del q, k, v, valid
+    torch.cuda.empty_cache()
+    return out_err, lse_err, {what: timing}
+
+
+def whisper_server():
+    """The AsrServer that `python -m tpu_asr_torch.serve --random-init
+    --preset whisper_large_v3` builds, with the serving cell's batch,
+    bucket and cap, warmed up."""
+    from tpu_asr_torch import serve
+    server = serve.build_server(serve.parse_args([
+        "--random-init", "--preset", WHISPER_PRESET, "--seed", str(SEED),
+        "--device", DEVICE, "--beam", "5",
+        "--maxlenratio", str(WHISPER_MAXLENRATIO),
+        "--bucket-frames", str(WHISPER_BUCKET),
+        "--batch-size", str(WHISPER_BATCH), "--inputs", "wav"]))
+    server.warmup(kinds=("wav",))
+    torch.cuda.synchronize()
+    return server
+
+
+def check_whisper_answers(cfg, wavs, results):
+    """Each 1-best a list of token ids of the vocabulary, no longer than
+    the cap the speech frames give it."""
+    for wav, (nbest, _) in zip(wavs, results):
+        toks = nbest[0]["yseq"]
+        frames = len(wav) // 160
+        cap = int(WHISPER_MAXLENRATIO * cfg.subsampled_length(frames))
+        if not (len(toks) <= cap and
+                all(0 <= x < cfg.vocab_size for x in toks)):
+            raise AssertionError(f"{WHISPER_PATH}: a 1-best of "
+                                 f"{len(toks)} tokens for {frames} frames "
+                                 f"(cap {cap}): {toks}")
+
+
+def run_whisper_serving(card, flash_caps):
+    """Whisper large-v3 (1.55 B parameters, random weights from SEED)
+    behind whisper_server(): WHISPER_BATCH wav requests from 8 threads,
+    then the same again under torch.profiler. Per encoder batch the flash
+    kernel launches once an encoder layer and nowhere else (the beam's
+    steps attend by matmuls): counted from 0 just before each run and read
+    just after, and in the profiler's trace, whose count must equal the
+    launches counted in that run. Every beam step of both runs is a graph
+    replay. The inputs of the first flash call go into flash_caps. ->
+    {"launches", "batches", "per_batch"}."""
+    from tpu_asr_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    server = whisper_server()
+    rec, cfg = server.rec, server.rec.cfg
+    log(f"{WHISPER_PATH}: d{cfg.d_model}, h{cfg.num_heads}, "
+        f"{cfg.num_enc_layers}+{cfg.num_dec_layers} layers, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, flash attention "
+        f"{cfg.attention_pallas}; beam {rec.beam.beam}, maxlenratio "
+        f"{rec.beam.maxlenratio}, batch {WHISPER_BATCH}; built and warmed "
+        f"up in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at most")
+    server.start()
+    rng = np.random.default_rng(SEED)
+    wavs = [synth_wav(n, rng)
+            for n in request_lengths(WHISPER_BATCH, SEED)]
+    audio_s = sum(len(w) for w in wavs) / 16000.0
+    per_batch = cfg.num_enc_layers
+    flash_fwd = fa.flash_attention_fwd
+    symbol = flash_symbol("fwd", cfg.dtype)
+    try:
+        # main path: counts from 0 just before, read just after
+        stats0 = dict(server.stats)
+        flash_fwd.launches = 0
+        with record_inputs(fa, "flash_attention_fwd", flash_caps,
+                           PathLabels(WHISPER_PATH).flash):
+            results, wall = serve_requests(server, wavs, WHISPER_BATCH)
+        launches = flash_fwd.launches
+        d = {k: server.stats[k] - stats0[k] for k in stats0}
+        batches = d["batches"]
+        check_whisper_answers(cfg, wavs, results)
+        if not (d["batches"] > 0 and launches == per_batch * d["batches"]
+                and d["beam_graph_steps"] == d["beam_steps"] > 0):
+            raise AssertionError(
+                f"{WHISPER_PATH}: {launches} flash launches for "
+                f"{d['batches']} batches ({per_batch} a batch expected); "
+                f"{d['beam_graph_steps']} of {d['beam_steps']} beam steps "
+                f"replayed")
+        lat = sorted(dt for _, dt in results)
+        log(f"{WHISPER_PATH}: {len(wavs)} requests ({audio_s:.1f} s of "
+            f"audio) in {wall:.3f} s; {d['batches']} batches, {launches} "
+            f"flash_attention_fwd launches ({per_batch} a batch), "
+            f"{d['beam_steps']} beam steps, all replayed; latency p50 "
+            f"{statistics.median(lat) * 1e3:.1f} ms, max "
+            f"{lat[-1] * 1e3:.1f} ms; {audio_s / wall:.2f} audio s/s "
+            f"[{card}]; random weights: 1-best lengths "
+            f"{[len(nb[0]['yseq']) for nb, _ in results]}")
+        # the kernels the card ran, as its trace counts them
+        stats0 = dict(server.stats)
+        counted = flash_fwd.launches
+        kernels = profile_serving(server, wavs, card, WHISPER_PATH,
+                                  WHISPER_BATCH)["kernels"]
+        traced = sum(n for k, n in kernels.items() if symbol in k)
+        counted = flash_fwd.launches - counted
+        d = {k: server.stats[k] - stats0[k] for k in stats0}
+        if not (traced == counted == per_batch * d["batches"] > 0
+                and d["beam_graph_steps"] == d["beam_steps"]):
+            raise AssertionError(
+                f"{WHISPER_PATH} under the profiler: {traced} {symbol} "
+                f"events traced, {counted} launches counted, "
+                f"{d['batches']} batches ({per_batch} a batch expected); "
+                f"{d['beam_graph_steps']} of {d['beam_steps']} beam steps "
+                f"replayed")
+        log(f"{WHISPER_PATH} under the profiler: {traced} {symbol} events "
+            f"traced == launches counted == {per_batch} x {d['batches']} "
+            f"batches; every beam step replayed [{card}]")
+    finally:
+        server.stop()
+    del server, rec
+    torch.cuda.empty_cache()
+    return {"launches": launches, "batches": batches,
+            "per_batch": per_batch}
+
+
+def run_whisper_phase(card):
+    """Phase 17: check_whisper_flash, run_whisper_serving, and the flash
+    calls it recorded against the plain version (check_flash_ln_on_paths).
+    -> (launches, {"flash", "lse"} max abs errors, {label: timings})."""
+    t0 = time.perf_counter()
+    out_err, lse_err, timings = check_whisper_flash()
+    caps = {}
+    launches = run_whisper_serving(card, caps)
+    if len(caps) != 1:
+        raise AssertionError(f"{WHISPER_PATH}: flash inputs kept under "
+                             f"{sorted(caps)}, expected the encoder's")
+    path_t, _, errs = check_flash_ln_on_paths(caps, {}, WHISPER_PATH)
+    timings.update({f"path {k}": v for k, v in path_t.items()})
+    log(f"phase 17 wall seconds: {time.perf_counter() - t0:.1f}")
+    return launches, {"flash": max(out_err, errs["flash"]),
+                      "lse": max(lse_err, errs["lse"])}, timings
+
+
+def whisper_only(card) -> int:
+    """`python3 chip_smoke.py --whisper`: phases 1, 2 (the flash
+    forward's library alone) and 17; one JSON line of what phase 17
+    found, then the last line."""
+    from tpu_asr_torch.ops import flash_attention
+    from tpu_asr_torch.ops.cuda_build import load_all
+    load_all(flash_attention.LIBRARY)
+    launches, errs, timings = run_whisper_phase(card)
+    log(json.dumps({"whisper": {"launches_by_path": {
+        WHISPER_PATH: launches["launches"]}, "batches": launches["batches"],
+        "max_abs_err": errs["flash"], "lse_max_abs_err": errs["lse"],
+        "timings": timings}}))
+    log(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--fork-server"]:
         fork_server(sys.argv[2], sys.argv[3])
@@ -6895,6 +7100,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--beam-ties"]:
         return measure_beam_ties(card, int(sys.argv[2]))
+    if sys.argv[1:2] == ["--whisper"]:
+        return whisper_only(card)
     if sys.argv[1:2] == ["--parallel-faults"]:
         from tpu_asr_torch.ops.cuda_build import load_all
         from tpu_asr_torch.ops import (ctc_loss, flash_attention,
@@ -7004,6 +7211,8 @@ def main() -> int:
             ckpt_errs = run_checkpoint_phase(card, workdir, ckpts[PRESET],
                                              cv_manifest)
         mark("1-16")
+    whisper_launches, whisper_errs, whisper_timings = run_whisper_phase(card)
+    mark("1-17")
     tp_path = f"{pallas} tp {PARALLEL_RANKS} ranks"
     training[f"{PRESET} dp {PARALLEL_RANKS} ranks"] = rank_sum(
         parallel["dp"])
@@ -7162,11 +7371,14 @@ def main() -> int:
               "LM-rescored attn_rescore (recognize)":
                   lm_launches["attn_rescore"]["flash_attention_fwd"],
               f"{tp_path} training": training[tp_path][
-                  "flash_attention_fwd"]},
+                  "flash_attention_fwd"],
+              WHISPER_PATH: whisper_launches["launches"]},
              max(flash_err, path_errs["flash"], lm_errs["flash"],
-                 parallel_errs["flash_attention_fwd"]),
+                 parallel_errs["flash_attention_fwd"],
+                 whisper_errs["flash"]),
              {"lse_max_abs_err": max(lse_err, path_errs["lse"],
-                                     lm_errs["lse"]),
+                                     lm_errs["lse"], whisper_errs["lse"]),
+              "whisper_shapes": whisper_timings,
               "library_call": "F.scaled_dot_product_attention, boolean "
                               "attn_mask, [B, H, T, dh] inputs",
               "design": "sm90 wgmma",

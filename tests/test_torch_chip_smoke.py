@@ -887,6 +887,94 @@ def test_time_transducer_lattice_counts_what_it_times(monkeypatch):
     assert tt.JOINT_CHUNK_BYTES > 0
 
 
+# ---- phase 17's helpers ----
+
+@pytest.mark.parametrize("fault", [None, "twice a layer", "an eager step"])
+def test_whisper_serving_counts_the_encoders_flash_launches(monkeypatch,
+                                                            fault):
+    """Phase 17's serving on the CPU at whisper_dev's size, with the card's
+    parts stood in for: the flash forward (counting its launches as the
+    wrapper does, on the plain version), the graphed beam (crediting every
+    step as replayed) and the profiler (counting the launches it saw). The
+    launches equal one an encoder layer a batch in both runs, the
+    encoder's first call is kept, and a second launch a layer or a step
+    left eager fails the phase."""
+    from tpu_asr_torch.configs import presets
+    from tpu_asr_torch.decode import recognizer as rec_module
+    from tpu_asr_torch.models import attention
+    from tpu_asr_torch.ops import flash_attention as fa
+    search = rec_module.attention_beam_search
+    dev = presets.PRESETS["whisper_dev"]       # as large-v3: flash attention
+    monkeypatch.setitem(presets.PRESETS, "whisper_dev", dataclasses.replace(
+        dev, model=dataclasses.replace(dev.model, use_pallas=True)))
+
+    def fwd(q, k, v, valid, causal=False):
+        fa.flash_attention_fwd.launches += 2 if fault == "twice a layer" \
+            else 1
+        return flash_attention_reference(q, k, v, valid, causal)
+
+    def flash(q, k, v, bias=None):
+        assert bias is None                      # Whisper's encoder: no mask
+        valid = torch.ones(k.shape[:2], dtype=torch.bool)
+        return fa.flash_attention_fwd(q, k, v, valid, False)[0]
+
+    def graphed(*args, **kwargs):
+        out = search(*args, **kwargs)
+        return out if fault == "an eager step" else dict(
+            out, graph_steps=out["steps"])
+
+    def profile_serving(server, wavs, card, what, threads):
+        n = fa.flash_attention_fwd.launches
+        chip_smoke.serve_requests(server, wavs, 1)      # a batch a request
+        symbol = chip_smoke.flash_symbol("fwd", server.rec.cfg.dtype)
+        return {"kernels": {symbol: fa.flash_attention_fwd.launches - n}}
+
+    fwd.launches = 0
+    monkeypatch.setattr(fa, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(attention, "flash_attention", flash)
+    monkeypatch.setattr(rec_module, "attention_beam_search", graphed)
+    monkeypatch.setattr(chip_smoke, "profile_serving", profile_serving)
+    for name, value in (("DEVICE", "cpu"), ("WHISPER_PRESET", "whisper_dev"),
+                        ("WHISPER_BATCH", 4), ("WHISPER_BUCKET", 100),
+                        ("WHISPER_MAXLENRATIO", 0.25)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "request_lengths",
+                        lambda n, seed: [160 * f for f in (100, 70, 41, 96)])
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    caps = {}
+    if fault:
+        with pytest.raises(AssertionError, match="flash launches"):
+            chip_smoke.run_whisper_serving("card", caps)
+        return
+    out = chip_smoke.run_whisper_serving("card", caps)
+    assert out["per_batch"] == 2 and 1 <= out["batches"] <= 4
+    assert out["launches"] == 2 * out["batches"]      # of the first run
+    assert list(caps) == [f"{chip_smoke.WHISPER_PATH} T'=50 encoder "
+                          f"self-attention"]
+    q, k, v, valid, causal = caps[list(caps)[0]]
+    assert q.shape == (4, 50, 2, 32) and valid.all() and not causal
+
+
+@pytest.mark.parametrize("n_tokens,ok", [(0, True), (6, True), (7, False)])
+def test_check_whisper_answers_holds_each_1best_to_its_cap(n_tokens, ok):
+    """0.0625 x the speech encoder frames of 1000 mel frames (500) caps a
+    1-best at 31 tokens; of 200 frames (100), at 6."""
+    from tpu_asr_torch.configs.presets import get_preset
+    cfg = get_preset("whisper_large_v3").model
+    wavs = [np.zeros(160 * 1000, np.float32), np.zeros(160 * 200,
+                                                       np.float32)]
+    results = [([{"yseq": [5] * 31}], 0.1), ([{"yseq": [7] * n_tokens}],
+                                              0.1)]
+    if ok:
+        chip_smoke.check_whisper_answers(cfg, wavs, results)
+    else:
+        with pytest.raises(AssertionError, match="cap 6"):
+            chip_smoke.check_whisper_answers(cfg, wavs, results)
+
+
 # ---- phase 13's helpers ----
 
 def test_latency_summary():

@@ -13,7 +13,7 @@ from tpu_asr.utils import results as jax_results
 from tpu_asr.utils.cer import cer as jax_corpus_cer
 from tpu_asr.utils.cer import edit_distance as jax_edit_distance
 from tpu_asr.utils.vocab import Vocab as JaxVocab
-from tpu_asr_torch.configs.presets import PRESETS, get_preset
+from tpu_asr_torch.configs.presets import PORT_ONLY, PRESETS, get_preset
 from tpu_asr_torch.utils import results
 from tpu_asr_torch.utils.cer import batch_edit_distance, cer, edit_distance
 from tpu_asr_torch.utils.vocab import Vocab
@@ -109,5 +109,12 @@ def test_new_presets_match_jax(name):
 
 
 def test_every_port_preset_matches_jax():
+    """Every preset equals the reference's, but those of the models the
+    reference does not have (PORT_ONLY: Whisper), which it lacks."""
     for name in PRESETS:
-        assert _plain(get_preset(name)) == _plain(jax_preset(name)), name
+        if name in PORT_ONLY:
+            with pytest.raises(KeyError):
+                jax_preset(name)
+        else:
+            assert _plain(get_preset(name)) == _plain(jax_preset(name)), name
+    assert set(PORT_ONLY) < set(PRESETS)

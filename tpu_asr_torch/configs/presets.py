@@ -4,7 +4,8 @@ Only the presets of the families the port runs are here (CTC,
 attention, with the conv2d or the LFR + linear input layer, hybrid
 CTC/attention with the transformer or the conformer encoder, CIF, the
 transducer with either encoder, and the chunk-masked streaming CTC and
-transducer models).
+transducer models), and Whisper, which the reference has not (openai/
+whisper: large-v3 at its published dimensions, and a CPU-sized slice).
 Each preset is a TrainConfig with the reference's field names and
 values; the CLIs override fields from flags.
 """
@@ -17,8 +18,8 @@ import torch
 
 from tpu_asr_torch.augment import SpecAugmentConfig
 from tpu_asr_torch.decode.beam import BeamConfig
-from tpu_asr_torch.frontend import FrontendConfig
-from tpu_asr_torch.models.config import ModelConfig
+from tpu_asr_torch.frontend import FrontendConfig, WhisperFrontendConfig
+from tpu_asr_torch.models.config import ModelConfig, WhisperConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,7 +183,36 @@ PRESETS: dict[str, TrainConfig] = {
                                   enc_chunk_size=16),
         decode_mode="greedy_ctc",
         beam=BeamConfig(beam=1, max_len=100)),
+    # Whisper large-v3 (openai/whisper __init__.py _MODELS["large-v3"],
+    # model.py ModelDimensions): n_mels 128, n_audio_ctx 1500, n_state
+    # 1280, 20 heads, 32 + 32 layers, n_vocab 51866, n_text_ctx 448;
+    # bf16 compute over float32 parameters (openai serves fp16); decoded
+    # by the attention beam after its 4-token prompt (<|zh|>
+    # <|transcribe|> <|notimestamps|>), beam 5 as openai's CLI
+    "whisper_large_v3": TrainConfig(
+        model=WhisperConfig(
+            vocab_size=51866, d_input=128, d_model=1280, d_inner=5120,
+            num_heads=20, num_enc_layers=32, num_dec_layers=32,
+            pe_maxlen=448, audio_ctx=1500, dtype=torch.bfloat16,
+            use_pallas=True),
+        frontend=WhisperFrontendConfig(),
+        decode_mode="beam",
+        beam=BeamConfig(beam=5, max_len=100)),
+    # CPU-runnable Whisper slice (tests, demos): 1 s windows of 128 mel
+    # bins, a 96-id vocabulary whose last six ids are the specials
+    "whisper_dev": TrainConfig(
+        model=WhisperConfig(
+            vocab_size=96, d_input=128, d_model=64, d_inner=256,
+            num_heads=2, num_enc_layers=2, num_dec_layers=2, pe_maxlen=128,
+            audio_ctx=50, eot=90, sot_sequence=(91, 92, 93, 94)),
+        frontend=WhisperFrontendConfig(chunk_s=1.0),
+        decode_mode="beam",
+        beam=BeamConfig(beam=5, max_len=24)),
 }
+
+
+# the presets of models the reference (tpu_asr) does not have
+PORT_ONLY = ("whisper_large_v3", "whisper_dev")
 
 
 def get_preset(name: str) -> TrainConfig:

@@ -23,6 +23,13 @@ runs eagerly. The early exit (stop once every hypothesis is finished)
 reads a flag the step writes, on the host once a step: under a profiler
 that read is the span beam.sync, and the rest of a step (on the card,
 the replay) the span beam.step (utils.tracing).
+
+A forced prompt (Whisper's language and task ids after its start token)
+is fed to the decoder after sos and before the first scored step, in
+the span beam.prompt: its positions fill the first rows of the
+self-attention caches, the scored steps' decoder positions follow them,
+and the hypotheses, their lengths and the length ratios count the
+scored tokens alone. On the card the prompt is a CUDA graph of its own.
 """
 
 from __future__ import annotations
@@ -71,34 +78,41 @@ class BeamSearch:
     LM, the CTC log-probs): BeamGraphs hands out views of storage it
     shares between shapes; without it they are allocated here. `load`
     writes a batch's inputs into the buffers and resets the state, then
+    `write_prompt` feeds a forced prompt (`prompt`: the ids after sos),
     each `step` advances the search by one position in place, reading no
     Python value that changes from step to step, and `result` sorts the
     hypotheses out."""
 
     def __init__(self, decoder, lm, cfg: BeamConfig, b: int, t: int,
                  sos_id: int, eos_id: int, ctc_vocab: int | None, device,
-                 alloc=None):
+                 alloc=None, prompt: tuple = ()):
         if alloc is None:
             def alloc(name, shape, dtype):
                 return torch.empty(shape, dtype=dtype, device=device)
+        if prompt and lm is not None:
+            raise ValueError("LM fusion takes no forced prompt")
         w = cfg.beam
         n = b * w
         self.decoder, self.lm, self.cfg = decoder, lm, cfg
         self.b, self.w, self.n = b, w, n
         self.sos, self.eos = sos_id, eos_id
+        self.prompt = tuple(prompt)
         self.device = torch.device(device)
 
         def empty(shape, dtype):
             return torch.empty(shape, dtype=dtype, device=device)
 
-        def caches(owner, prefix, rows, u):
-            shape, dt = owner.cache_shape(rows, u), owner.cfg.dtype
-            return {key: alloc(f"{prefix}_{key}", shape, dt)
+        def caches(owner, prefix, shape):
+            return {key: alloc(f"{prefix}_{key}", shape, owner.cfg.dtype)
                     for key in ("k", "v")}
-        # cross K/V: one row an utterance (each step repeats it per beam)
-        self.cross_kv = caches(decoder, "cross", b, t)
-        self.cache = caches(decoder, "cache", n, cfg.max_len)
-        self.lm_cache = caches(lm, "lm", n, cfg.max_len) if lm else None
+        # cross K/V: one row an utterance, which each step reads for all
+        # of its beams
+        self.cross_kv = caches(decoder, "cross",
+                               decoder.cross_kv_shape(b, t))
+        self.cache = caches(decoder, "cache", decoder.cache_shape(
+            n, cfg.max_len + len(self.prompt)))
+        self.lm_cache = (caches(lm, "lm", lm.cache_shape(n, cfg.max_len))
+                         if lm else None)
         self.enc_lengths = empty((n,), torch.int32)
         self.scorer = None
         if cfg.ctc_weight > 0.0:
@@ -115,8 +129,10 @@ class BeamSearch:
         self.utt_maxlen = empty((b,), torch.int32)
         self.utt_minlen = empty((b,), torch.int32)
         self.batch_base = (torch.arange(b, device=device) * w)[:, None]
-        # the state
+        # the state: pos counts the scored steps, dec_pos is the
+        # decoder's position (pos itself without a prompt)
         self.pos = empty((1,), torch.long)
+        self.dec_pos = empty((1,), torch.long) if self.prompt else self.pos
         self.y_prev = empty((n,), torch.long)
         self.scores = empty((b, w), torch.float32)
         self.finished = empty((b, w), torch.bool)
@@ -151,6 +167,7 @@ class BeamSearch:
         alive, no hypothesis finished, eos-padded tokens, empty caches
         and the empty prefix's CTC state."""
         self.pos.zero_()
+        self.dec_pos.zero_()
         self.y_prev.fill_(self.sos)
         self.scores.fill_(NEG_INF)
         self.scores[:, 0] = 0.0
@@ -166,12 +183,27 @@ class BeamSearch:
             self.ctc_psi.copy_(psi)
         self.done.zero_()
 
+    def write_prompt(self):
+        """Feed sos and the prompt but its last id to the decoder, each
+        at its position, into the self-attention caches of every row; the
+        last id is the first scored step's input, at the position after
+        them. Static shapes, in place: captured like a step."""
+        fed = (self.sos,) + self.prompt[:-1]
+        for i, tok in enumerate(fed):
+            self.y_prev.fill_(tok)
+            self.dec_pos.fill_(i)
+            self.decoder.step_at(self.y_prev, self.dec_pos, self.cache,
+                                 self.cross_kv, self.enc_lengths,
+                                 beams=self.w)
+        self.y_prev.fill_(self.prompt[-1])
+        self.dec_pos.fill_(len(fed))
+
     def step(self):
         """Advance every hypothesis by one token, in place."""
         cfg, lam, eos_id = self.cfg, self.cfg.ctc_weight, self.eos
         b, w, n, dev = self.b, self.w, self.n, self.device
         pos, y_prev, finished = self.pos, self.y_prev, self.finished
-        logits, _ = self.decoder.step_at(y_prev, pos, self.cache,
+        logits, _ = self.decoder.step_at(y_prev, self.dec_pos, self.cache,
                                          self.cross_kv, self.enc_lengths,
                                          beams=w)
         att_logp = torch.log_softmax(logits.float(), dim=-1)
@@ -266,6 +298,8 @@ class BeamSearch:
         self.scores.copy_(top_scores)
         y_prev.copy_(tok.reshape(n))
         pos.add_(1)
+        if self.dec_pos is not pos:
+            self.dec_pos.add_(1)
         # the early exit: once every hypothesis is finished, further
         # steps are output-neutral (eos continues at zero cost)
         self.done.copy_(finished.all())
@@ -299,22 +333,25 @@ def _step_kernels():
 @dataclasses.dataclass(eq=False)
 class _Captured:
     search: BeamSearch
-    graph: object = None            # torch.cuda.CUDAGraph once captured
+    # torch.cuda.CUDAGraph of each captured method ("step", and
+    # "write_prompt" where there is a prompt), and its kernel launches
+    graphs: dict = dataclasses.field(default_factory=dict)
     launches: dict = dataclasses.field(default_factory=dict)
 
 
 class BeamGraphs:
-    """CUDA graphs of the beam step, one per step shape: captured the
-    first time a shape is searched, then replayed for every step.
+    """CUDA graphs of the beam step (and of the forced prompt), one per
+    step shape: captured the first time a shape is searched, then
+    replayed for every step.
 
     A shape is a BeamSearch's (batch, encoder frames, CTC vocabulary,
-    BeamConfig, sos/eos, decoder and LM). Every shape's large buffers
-    view the front of one storage per buffer, sized for the largest shape
-    seen: a larger one regrows that storage and drops the graphs, which
-    are captured again on their next use. The graphs share one memory
-    pool. Both are safe because one thread searches at a time (a
-    Recognizer decodes one batch after another). `captures` counts the
-    captures."""
+    BeamConfig, sos/eos and prompt, decoder and LM). Every shape's large
+    buffers view the front of one storage per buffer, sized for the
+    largest shape seen: a larger one regrows that storage and drops the
+    graphs, which are captured again on their next use. The graphs share
+    one memory pool. Both are safe because one thread searches at a time
+    (a Recognizer decodes one batch after another). `captures` counts
+    the captures."""
 
     def __init__(self):
         self._storage: dict[str, torch.Tensor] = {}
@@ -348,34 +385,39 @@ class BeamGraphs:
         return self.buffer("ctc_logp", shape, torch.float32, device)
 
     def search(self, decoder, lm, cfg, b, t, sos_id, eos_id, ctc_vocab,
-               device) -> _Captured:
-        key = (b, t, ctc_vocab, cfg, sos_id, eos_id, id(decoder), id(lm))
+               device, prompt: tuple = ()) -> _Captured:
+        key = (b, t, ctc_vocab, cfg, sos_id, eos_id, tuple(prompt),
+               id(decoder), id(lm))
         entry = self._shapes.get(key)
         if entry is None:
             search = BeamSearch(
                 decoder, lm, cfg, b, t, sos_id, eos_id, ctc_vocab, device,
                 alloc=lambda name, shape, dt: self.buffer(name, shape, dt,
-                                                          device))
+                                                          device),
+                prompt=prompt)
             entry = self._shapes[key] = _Captured(search)
         return entry
 
-    def step(self, entry: _Captured) -> bool:
-        """One step of entry's search: a replay of its graph (True), or,
-        the first time, the step run eagerly on a side stream (which also
-        builds and loads what it launches) and then captured (False). The
-        kernel counters count the launches of every step the device runs
-        and none of the capture's."""
-        if entry.graph is not None:
-            entry.graph.replay()
-            for (module, name), k in entry.launches.items():
+    def step(self, entry: _Captured, what: str = "step") -> bool:
+        """One call of entry's search's method `what` ("step" or
+        "write_prompt"): a replay of its graph (True), or, the first
+        time, the method run eagerly on a side stream (which also builds
+        and loads what it launches) and then captured (False). The kernel
+        counters count the launches of every call the device runs and
+        none of the capture's."""
+        graph = entry.graphs.get(what)
+        if graph is not None:
+            graph.replay()
+            for (module, name), k in entry.launches[what].items():
                 getattr(module, name).launches += k
             return True
         search = entry.search
+        run = getattr(search, what)
         main = torch.cuda.current_stream(search.device)
         side = torch.cuda.Stream(search.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            search.step()
+            run()
         main.wait_stream(side)
         kernels = _step_kernels()
         before = [getattr(m, name).launches for m, name in kernels]
@@ -385,13 +427,14 @@ class BeamGraphs:
         # thread-local: a server's other threads may call into CUDA
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):
-            search.step()
+            run()
+        launches = entry.launches[what] = {}
         for (module, name), n in zip(kernels, before):
             fn = getattr(module, name)
             if fn.launches != n:
-                entry.launches[module, name] = fn.launches - n
+                launches[module, name] = fn.launches - n
                 fn.launches = n
-        entry.graph = graph
+        entry.graphs[what] = graph
         self.captures += 1
         return False
 
@@ -400,7 +443,8 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
                           enc_lengths: torch.Tensor, sos_id: int, eos_id: int,
                           cfg: BeamConfig = BeamConfig(),
                           ctc_logp: torch.Tensor | None = None, lm=None,
-                          graphs: BeamGraphs | None = None):
+                          graphs: BeamGraphs | None = None,
+                          prompt: tuple = ()):
     """Run beam search over a batch of utterances.
 
     decoder: tpu_asr_torch.models.decoder.Decoder; enc_out [B, T, D];
@@ -408,7 +452,8 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
     lm: a models.lm.TransformerLM, fused when cfg.lm_weight > 0 (without
     one, the search runs as with lm_weight 0, as the reference's does);
     graphs: a BeamGraphs on the card, to replay the step as a CUDA graph
-    (None: the same step runs eagerly).
+    (None: the same step runs eagerly); prompt: ids forced after sos
+    before the first scored step (BeamSearch.write_prompt).
 
     Returns dict(tokens [B, W, max_len] eos-padded, scores [B, W],
     lengths [B, W]) sorted best-first, steps (decode steps taken) and
@@ -423,19 +468,22 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
     ctc_vocab = ctc_logp.shape[-1] if ctc_logp is not None else None
     if graphs is None:
         search = BeamSearch(decoder, lm, cfg, b, t, sos_id, eos_id,
-                            ctc_vocab, dev)
+                            ctc_vocab, dev, prompt=prompt)
 
-        def step():
-            search.step()
+        def run(what="step"):
+            getattr(search, what)()
             return False
     else:
         entry = graphs.search(decoder, lm, cfg, b, t, sos_id, eos_id,
-                              ctc_vocab, dev)
+                              ctc_vocab, dev, prompt=prompt)
         search = entry.search
 
-        def step():
-            return graphs.step(entry)
+        def run(what="step"):
+            return graphs.step(entry, what)
     search.load(enc_out, enc_lengths, ctc_logp)
+    if prompt:
+        with span("beam.prompt"):
+            run("write_prompt")
 
     steps = graph_steps = 0
     # bool() here is the one host sync a step, in its own span
@@ -446,7 +494,7 @@ def attention_beam_search(decoder, enc_out: torch.Tensor,
         if done:
             break
         with span("beam.step"):
-            graph_steps += step()
+            graph_steps += run()
         steps += 1
     out = search.result(steps)
     out["graph_steps"] = graph_steps

@@ -1,6 +1,12 @@
 """High-level batched recognizer: padded batches -> hypothesis tokens
 (port of tpu_asr/decode/recognizer.py).
 
+Whisper (models/whisper.py, a WhisperConfig) decodes in mode beam from
+its frontend's 30 s window (a WhisperFrontendConfig): its prompt is
+forced after the start token, its end token ends a hypothesis, and the
+length ratios read the frames that carry speech while the decoder
+attends the whole window.
+
 Modes: greedy_ctc and ctc_beam (CTC prefix beam search) for the models
 with a CTC head (a transducer's aux head included), joint (CTC/attention
 beam) and beam (the same loop with ctc_weight = 0) for those with an
@@ -49,9 +55,9 @@ from tpu_asr_torch.decode.rescore import attention_rescore
 from tpu_asr_torch.decode.transducer_decode import (transducer_beam_search,
                                                     transducer_greedy_decode,
                                                     transducer_rescore)
-from tpu_asr_torch.frontend import (FrontendConfig, build_lfr_features,
-                                    cmvn_stats_for, lfr_length,
-                                    wav_to_features)
+from tpu_asr_torch.frontend import (FrontendConfig, WhisperFrontendConfig,
+                                    build_lfr_features, cmvn_stats_for,
+                                    lfr_length, wav_to_features)
 from tpu_asr_torch.models.cif import CifModel
 from tpu_asr_torch.models.lm import LMConfig, TransformerLM
 from tpu_asr_torch.models.transducer import TransducerModel
@@ -98,7 +104,7 @@ class Recognizer:
     model: Transformer | CifModel | TransducerModel
     beam: BeamConfig = BeamConfig()
     mode: str = "beam"   # one of MODES
-    frontend: FrontendConfig = FrontendConfig()
+    frontend: FrontendConfig | WhisperFrontendConfig = FrontendConfig()
     device: str | torch.device | None = None
     # CIF fire-time alphas: True = scaled to the rounded fire count (the
     # boundary geometry of training); False = the reference's raw alphas
@@ -175,6 +181,10 @@ class Recognizer:
         def tensor(key):
             return torch.as_tensor(batch[key], device=self.device)
         with span("recognizer.features"):
+            if isinstance(self.frontend, WhisperFrontendConfig) and \
+                    "wav" not in batch:
+                raise ValueError("Whisper decodes waveforms (its window's "
+                                 "log-mel is made from them), not feats")
             if "wav" in batch:
                 feats, lens = wav_to_features(
                     tensor("wav"), tensor("wav_lengths"), self.frontend,
@@ -223,9 +233,9 @@ class Recognizer:
         enc_out, el, ctc_logp = self._encode(feats, flens,
                                              ctc_logp=self.mode == "joint")
         out = attention_beam_search(
-            self.model.decoder, enc_out, el, self.cfg.vocab_size - 2,
-            self.cfg.vocab_size - 1, self.beam, ctc_logp=ctc_logp,
-            lm=self.lm, graphs=self.beam_graphs)
+            self.model.decoder, enc_out, el, self.cfg.sos_id,
+            self.cfg.eos_id, self.beam, ctc_logp=ctc_logp, lm=self.lm,
+            graphs=self.beam_graphs, prompt=self.cfg.prompt_ids)
         self.decode_steps += out["steps"]
         self.graph_steps += out["graph_steps"]
         return out["tokens"], out["lengths"], out["scores"]
@@ -349,7 +359,7 @@ class Recognizer:
     def _finalize(self, kind: str, fetched) -> list[list[dict]]:
         """Host post-processing -> per-utterance n-best; eos and pads
         stripped (reference semantics)."""
-        eos = self.cfg.vocab_size - 1
+        eos = self.cfg.eos_id
 
         def clean(row, length):
             return [int(t) for t in row[:length]

@@ -19,6 +19,16 @@ projection (TF32 off), the shortest lag within 0.025 of the peak or,
 with `pitch_smooth_weight` > 0, a Viterbi lag track, then a parabolic
 refinement. `build_lfr_features` stacks frames for the linear input
 layer (the reference lineage's LFR(4, 3)).
+
+Whisper's log-mel (`WhisperFrontendConfig`, `whisper_log_mel`; openai/
+whisper audio.py, which the reference has no counterpart of) is another
+feature space: the waveform zero-padded (or cut) to the 30 s window,
+a centred, reflect-padded STFT of n_fft 400 and hop 160 under a periodic
+Hann window, its power with the last frame dropped, 128 Slaney mel
+filters (librosa's filters.mel, htk False) from 0 to 8 kHz, log10 over a
+1e-10 floor, clamped to the utterance's maximum minus 8, then (x + 4) /
+4; no pre-emphasis, DC removal or CMVN. `wav_to_features` takes it when
+given a WhisperFrontendConfig.
 """
 
 from __future__ import annotations
@@ -83,6 +93,114 @@ class FrontendConfig:
     @property
     def feature_dim(self) -> int:
         return self.num_mel_bins + (3 if self.add_pitch else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperFrontendConfig:
+    """openai/whisper audio.py: SAMPLE_RATE 16000, N_FFT 400 (the 25 ms
+    frame_length, no zero padding), HOP_LENGTH 160, n_mels 128 (80 before
+    large-v3) over 0-8000 Hz, the window of CHUNK_LENGTH 30 s. Only what
+    whisper_log_mel reads: Whisper has no pre-emphasis, DC removal,
+    dither, pitch or CMVN to set."""
+    sample_rate: int = 16000
+    frame_length_ms: float = 25.0
+    frame_shift_ms: float = 10.0
+    num_mel_bins: int = 128
+    low_freq: float = 0.0
+    high_freq: float = 8000.0
+    log_floor: float = 1e-10
+    chunk_s: float = 30.0
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def frame_length(self) -> int:
+        return int(self.sample_rate * self.frame_length_ms / 1000.0)
+
+    @property
+    def frame_shift(self) -> int:
+        return int(self.sample_rate * self.frame_shift_ms / 1000.0)
+
+    @property
+    def fft_size(self) -> int:
+        return self.frame_length
+
+    @property
+    def feature_dim(self) -> int:
+        return self.num_mel_bins
+
+    @property
+    def window_samples(self) -> int:
+        """N_SAMPLES: the window every waveform is padded or cut to."""
+        return int(round(self.chunk_s * self.sample_rate))
+
+    @property
+    def window_frames(self) -> int:
+        """N_FRAMES: the mel frames of the window (3000 for 30 s)."""
+        return self.window_samples // self.frame_shift
+
+
+def slaney_mel_filters(cfg: WhisperFrontendConfig) -> np.ndarray:
+    """[fft_size//2+1, num_mel_bins] float64: librosa's filters.mel with
+    htk=False and norm "slaney" (Whisper's mel_filters.npz): triangles on
+    the Slaney scale (linear to 1 kHz, logarithmic above) between
+    low_freq and high_freq, each scaled by 2 / its width in Hz."""
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+
+    def hz_to_mel(f):
+        f = np.asarray(f, np.float64)
+        return np.where(f >= min_log_hz, min_log_mel + np.log(
+            np.maximum(f, min_log_hz) / min_log_hz) / logstep, f / f_sp)
+
+    def mel_to_hz(m):
+        return np.where(m >= min_log_mel, min_log_hz * np.exp(
+            logstep * (m - min_log_mel)), f_sp * m)
+
+    n_bins = cfg.fft_size // 2 + 1
+    fft_freqs = np.arange(n_bins, dtype=np.float64) * cfg.sample_rate \
+        / cfg.fft_size
+    mel_f = mel_to_hz(np.linspace(hz_to_mel(cfg.low_freq),
+                                  hz_to_mel(cfg.high_freq),
+                                  cfg.num_mel_bins + 2))
+    ramps = mel_f[:, None] - fft_freqs[None, :]
+    fdiff = np.diff(mel_f)
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (mel_f[2:] - mel_f[:-2]))[:, None]
+    return weights.T
+
+
+@functools.lru_cache(maxsize=8)
+def _whisper_constants(cfg: WhisperFrontendConfig, device: torch.device):
+    """(periodic Hann window [n_fft], mel filters [n_mels, bins]) float32
+    on `device`, made there once."""
+    window = torch.hann_window(cfg.fft_size, periodic=True,
+                               dtype=torch.float32)
+    mel = torch.from_numpy(slaney_mel_filters(cfg).T.astype(np.float32))
+    return window.to(device), mel.to(device)
+
+
+def whisper_log_mel(wav: torch.Tensor,
+                    cfg: WhisperFrontendConfig = WhisperFrontendConfig()
+                    ) -> torch.Tensor:
+    """Waveforms [B, S] (zeros past each one's end) -> Whisper's log-mel
+    [B, window_frames, num_mel_bins] of each one's 30 s window (the
+    module docstring's steps; the maximum is each row's own)."""
+    window, mel = _whisper_constants(cfg, wav.device)
+    n = cfg.window_samples
+    x = wav.float()[..., :n]
+    x = torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    spec = torch.stft(x, cfg.fft_size, cfg.frame_shift, window=window,
+                      center=True, pad_mode="reflect", return_complex=True)
+    power = torch.view_as_real(spec[..., :-1]).square().sum(-1)
+    with _full_fp32_matmul():
+        melspec = mel @ power                          # [B, n_mels, T]
+    log_spec = torch.clamp(melspec, min=cfg.log_floor).log10()
+    top = log_spec.amax(dim=(-2, -1), keepdim=True)
+    log_spec = torch.maximum(log_spec, top - 8.0)
+    return ((log_spec + 4.0) / 4.0).transpose(-1, -2).to(cfg.dtype)
 
 
 def _window_coeffs(cfg: FrontendConfig) -> np.ndarray:
@@ -466,10 +584,13 @@ def global_cmvn_tensors(cfg: FrontendConfig, device: torch.device | str
             torch.from_numpy(istd).to(device))
 
 
-def cmvn_stats_for(cfg: FrontendConfig, device: torch.device | str
+def cmvn_stats_for(cfg: FrontendConfig | WhisperFrontendConfig,
+                   device: torch.device | str
                    ) -> tuple[torch.Tensor, torch.Tensor] | None:
-    """global_cmvn_tensors under cmvn_mode "global", else None."""
-    return (global_cmvn_tensors(cfg, device) if cfg.cmvn_mode == "global"
+    """global_cmvn_tensors under cmvn_mode "global", else None (also
+    for a WhisperFrontendConfig, which has no CMVN)."""
+    return (global_cmvn_tensors(cfg, device)
+            if isinstance(cfg, FrontendConfig) and cfg.cmvn_mode == "global"
             else None)
 
 
@@ -494,7 +615,8 @@ def frame_lengths_of(wav_lengths: torch.Tensor,
 
 
 def wav_to_features(wav: torch.Tensor, wav_lengths: torch.Tensor,
-                    cfg: FrontendConfig = FrontendConfig(),
+                    cfg: FrontendConfig | WhisperFrontendConfig
+                    = FrontendConfig(),
                     apply_cmvn: bool = True,
                     cmvn_stats: tuple[torch.Tensor, torch.Tensor] | None
                     = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -502,7 +624,13 @@ def wav_to_features(wav: torch.Tensor, wav_lengths: torch.Tensor,
     frame_lengths [B]); D = cfg.feature_dim (83 with add_pitch). Frames
     past frame_lengths[b] are zeroed.
     `cmvn_stats`: global CMVN's (mean, istd) on the device
-    (cmvn_stats_for), else read from cfg's stats file at each call."""
+    (cmvn_stats_for), else read from cfg's stats file at each call.
+    A WhisperFrontendConfig gives whisper_log_mel's whole window
+    (window_frames frames, none zeroed) and the frames that carry speech
+    (samples // hop, at most the window's)."""
+    if isinstance(cfg, WhisperFrontendConfig):
+        return whisper_log_mel(wav, cfg), torch.clamp(
+            wav_lengths // cfg.frame_shift, max=cfg.window_frames)
     feats = log_mel_spectrogram(wav, cfg)
     frame_lengths = frame_lengths_of(wav_lengths, cfg)
     if cfg.add_pitch:

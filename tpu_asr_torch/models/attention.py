@@ -56,16 +56,18 @@ class MultiHeadAttention(nn.Module):
     TP_SLICED = ("q_proj.bias", "k_proj.bias", "v_proj.bias")
 
     def __init__(self, num_heads: int, d_model: int, dtype=torch.float32,
-                 param_dtype=torch.float32, use_pallas: bool = False):
+                 param_dtype=torch.float32, use_pallas: bool = False,
+                 key_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.d_head = d_model // num_heads
         self.compute_dtype = dtype
         self.use_pallas = use_pallas
-        dense = lambda: Dense(d_model, d_model, dtype=dtype,     # noqa: E731
-                              param_dtype=param_dtype)
+        dense = lambda bias=True: Dense(  # noqa: E731
+            d_model, d_model, bias=bias, dtype=dtype,
+            param_dtype=param_dtype)
         self.q_proj = dense()
-        self.k_proj = dense()
+        self.k_proj = dense(key_bias)
         self.v_proj = dense()
         self.out_proj = dense()
         self.tp = None       # the model axis under tensor parallelism

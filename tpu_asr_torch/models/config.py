@@ -16,6 +16,13 @@ CPU. `ctc_pallas` and `cif_pallas` are resolved but not read: the CTC
 loss and the CIF fire always go through their kernel dispatchers, since
 the two forms of each agree (`train --pallas-ctc 0` sets the field and
 changes no route).
+
+`WhisperConfig` is a ModelConfig of the one model the reference lacks,
+openai's Whisper: its own fields are a subclass's, so that ModelConfig
+keeps exactly the reference's fields. `sos_id`, `eos_id` and
+`prompt_ids` (the ids the decoder is fed after sos before its first
+scored step) are properties: the last two of the vocabulary and no
+prompt for the reference's models, Whisper's tokenizer ids for Whisper.
 """
 
 from __future__ import annotations
@@ -101,6 +108,18 @@ class ModelConfig:
             return (t1 - 1) // 2
         return (t + self.lfr_n - 1) // self.lfr_n
 
+    @property
+    def sos_id(self) -> int:
+        return self.vocab_size - 2
+
+    @property
+    def eos_id(self) -> int:
+        return self.vocab_size - 1
+
+    @property
+    def prompt_ids(self) -> tuple:
+        return ()
+
     # The conv2d front-end's geometry, from its two k=3 s=2 VALID convs
     # (models/conv.py). Streaming (decode/streaming.py) sizes its feature
     # windows from these.
@@ -127,3 +146,43 @@ class ModelConfig:
         """Input frames that produce n_out encoder frames from an output
         frame boundary: stride * (n_out - 1) + receptive field (4n + 3)."""
         return self.conv_total_stride * (n_out - 1) + self.conv_receptive_field
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig(ModelConfig):
+    """openai/whisper's ModelDimensions (whisper/model.py) in the port's
+    names: d_input n_mels, d_model n_audio_state = n_text_state,
+    num_heads n_audio_head = n_text_head, num_enc_layers n_audio_layer,
+    num_dec_layers n_text_layer, d_inner 4 n_state, vocab_size n_vocab,
+    pe_maxlen n_text_ctx (the decoder's learned positions), audio_ctx
+    n_audio_ctx (the encoder's frames over the 30 s window, after the
+    stride-2 stem: input_layer "conv1d"). `eot` ends a hypothesis and
+    `sot_sequence` starts it (<|startoftranscript|>, language, task,
+    <|notimestamps|> of the multilingual tokenizer: the first is the
+    sos, the rest are forced before the first scored step). Pre-LN
+    blocks with exact-erf GELU MLPs, LayerNorm eps 1e-5, no key bias,
+    the output tied to the token embedding unscaled (models/whisper.py).
+    Only model_type "transformer" (no CTC head): decoded in mode beam."""
+    model_type: str = "transformer"
+    input_layer: str = "conv1d"
+    dropout: float = 0.0
+    audio_ctx: int = 1500
+    eot: int = 50257
+    sot_sequence: tuple = (50258, 50260, 50360, 50364)
+
+    @property
+    def sos_id(self) -> int:
+        return self.sot_sequence[0]
+
+    @property
+    def eos_id(self) -> int:
+        return self.eot
+
+    @property
+    def prompt_ids(self) -> tuple:
+        return tuple(self.sot_sequence[1:])
+
+    def subsampled_length(self, t):
+        """Encoder frames of t mel frames: conv k3 s1 p1, then k3 s2 p1
+        (ceil(t / 2))."""
+        return (t + 1) // 2

@@ -24,6 +24,7 @@ from tpu_asr_torch.models.modules import (Dense, PositionalEncoding,
                                           PositionwiseFeedForward,
                                           PostNormBlock)
 from tpu_asr_torch.utils.padding import make_causal_mask, make_valid_mask
+from tpu_asr_torch.utils.tracing import span
 
 
 class DecoderLayer(nn.Module):
@@ -97,6 +98,11 @@ class TokenDecoder(nn.Module):
         c = self.cfg
         return (len(self.layers), batch, u_max, c.num_heads, c.d_head)
 
+    def cross_kv_shape(self, batch: int, t: int) -> tuple:
+        """The stacked cross-attention K/V of a batch (write_cross_kv):
+        cache_shape's layout [L, B, T, H, dh]."""
+        return self.cache_shape(batch, t)
+
     def init_cache(self, batch: int, u_max: int, device=None):
         shape, dt = self.cache_shape(batch, u_max), self.cfg.dtype
         return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -130,11 +136,12 @@ class Decoder(TokenDecoder):
     def write_cross_kv(self, enc_out, out):
         """The cross-attention K/V of every layer, computed once per
         utterance batch and written layer by layer into out["k"] /
-        out["v"] [L, B, T, H, dh]."""
-        for i, layer in enumerate(self.layers):
-            k, v = layer.crs_attn.project_kv(enc_out)
-            out["k"][i].copy_(k)
-            out["v"][i].copy_(v)
+        out["v"] [L, B, T, H, dh] (span decoder.cross_kv)."""
+        with span("decoder.cross_kv"):
+            for i, layer in enumerate(self.layers):
+                k, v = layer.crs_attn.project_kv(enc_out)
+                out["k"][i].copy_(k)
+                out["v"][i].copy_(v)
 
     def step_at(self, y_prev, pos: torch.Tensor, cache, cross_kv,
                 enc_lengths, beams: int = 1):

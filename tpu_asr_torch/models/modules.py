@@ -49,18 +49,20 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with float32 statistics, eps 1e-6, output in `dtype`."""
+    """LayerNorm with float32 statistics, eps 1e-6 (flax's; torch's 1e-5
+    for Whisper), output in `dtype`."""
 
     def __init__(self, d: int, dtype=torch.float32,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, eps: float = LN_EPS):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(d, dtype=param_dtype))
         self.bias = nn.Parameter(torch.zeros(d, dtype=param_dtype))
         self.compute_dtype = dtype
+        self.eps = eps
 
     def forward(self, x):
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                         self.bias.float(), LN_EPS)
+                         self.bias.float(), self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -80,15 +82,18 @@ class PositionalEncoding(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w_2(dropout(relu(w_1(x)))). Under tensor parallelism (`tp` set by
-    parallel.sharding.shard_params) it runs on this rank's d_inner / n_model
-    columns, and w_2's partial sums are added over the model axis."""
+    """w_2(dropout(act(w_1(x)))), act ReLU (Whisper: exact-erf GELU).
+    Under tensor parallelism (`tp` set by parallel.sharding.shard_params)
+    it runs on this rank's d_inner / n_model columns, and w_2's partial
+    sums are added over the model axis."""
     TP_SHARDED = {"w_1.weight": 0, "w_2.weight": 1}
     TP_SLICED = ("w_1.bias",)
 
     def __init__(self, d_model: int, d_inner: int, dropout: float = 0.1,
-                 dtype=torch.float32, param_dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 activation=F.relu):
         super().__init__()
+        self.activation = activation
         self.w_1 = Dense(d_model, d_inner, dtype=dtype,
                          param_dtype=param_dtype)
         self.dropout = nn.Dropout(dropout)
@@ -98,9 +103,9 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, x):
         if self.tp is None:
-            return self.w_2(self.dropout(F.relu(self.w_1(x))))
-        h = F.relu(column_parallel(self.w_1, copy_to_model(x, self.tp),
-                                   self.tp))
+            return self.w_2(self.dropout(self.activation(self.w_1(x))))
+        h = self.activation(column_parallel(
+            self.w_1, copy_to_model(x, self.tp), self.tp))
         return row_parallel(self.w_2, self.dropout(h), self.tp)
 
 

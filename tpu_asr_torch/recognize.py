@@ -43,6 +43,14 @@ the default, and --output defaults to hyp.jsonl beside the file:
 
   python -m tpu_asr_torch.recognize --torch-ckpt final.pth.tar \\
       --manifest test.jsonl --mode joint --beam 5
+
+`--random-init` decodes a preset's model on seeded random weights
+(`--preset`, `--seed`; the preset's frontend), e.g. Whisper large-v3,
+whose tokenizer's files this repository does not hold (token ids only):
+
+  python -m tpu_asr_torch.recognize --random-init \\
+      --preset whisper_large_v3 --manifest wavs.jsonl --beam 5 \\
+      --maxlenratio 0.0625 --output hyp.jsonl
 """
 
 from __future__ import annotations
@@ -71,6 +79,13 @@ def parse_args(argv=None):
                    help="decode a reference-format .pth.tar; the config "
                         "comes from the file, or from --ckpt's "
                         "model_config.json when both are given")
+    p.add_argument("--random-init", action="store_true",
+                   help="seeded random weights of --preset (no "
+                        "checkpoint)")
+    p.add_argument("--preset", default="aishell",
+                   help="with --random-init: the model and frontend preset")
+    p.add_argument("--seed", type=int, default=0,
+                   help="with --random-init: the weights' seed")
     p.add_argument("--manifest", required=True)
     p.add_argument("--output", default="",
                    help="hypothesis JSONL (default: <ckpt>/hyp.jsonl)")
@@ -110,8 +125,8 @@ def parse_args(argv=None):
                         "(0 or 1: one process)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if not (args.ckpt or args.torch_ckpt):
-        p.error("--ckpt or --torch-ckpt is required")
+    if not (args.ckpt or args.torch_ckpt or args.random_init):
+        p.error("--ckpt or --torch-ckpt is required (or --random-init)")
     return args
 
 
@@ -149,7 +164,14 @@ def build(args, device, mesh=None, world: int = 1):
     from tpu_asr_torch.train.checkpoints import Checkpointer
 
     ck = Checkpointer(args.ckpt) if args.ckpt else None
-    if args.torch_ckpt:
+    frontend = None
+    if args.random_init:
+        from tpu_asr_torch.configs.presets import get_preset
+        from tpu_asr_torch.weights import init_random
+        preset = get_preset(args.preset)
+        cfg, frontend = preset.model, preset.frontend
+        model = init_random(build_model(cfg), args.seed)
+    elif args.torch_ckpt:
         from tpu_asr_torch.parity.torch_import import load_torch_model
         model, cfg = load_torch_model(args.torch_ckpt,
                                       ck.load_config() if ck else None)
@@ -161,7 +183,8 @@ def build(args, device, mesh=None, world: int = 1):
     mode = args.mode or DEFAULT_MODES[cfg.model_type]
     if mode == "joint" and cfg.model_type != "hybrid":
         mode = "beam"
-    frontend = (ck.load_frontend() if ck else None) or FrontendConfig()
+    frontend = (frontend or (ck.load_frontend() if ck else None)
+                or FrontendConfig())
     lm = load_lm(args.lm_ckpt) if args.lm_ckpt else None
     rec = Recognizer(
         cfg, model, mode=mode, frontend=frontend, device=device, mesh=mesh,

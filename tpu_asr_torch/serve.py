@@ -30,6 +30,8 @@ Run as a module to serve over HTTP:
   python -m tpu_asr_torch.serve --ckpt exp/aishell --mode attn_rescore \\
       --beam 10 --dict dict.txt --lm-ckpt exp/lm --lm-weight 0.3
   python -m tpu_asr_torch.serve --random-init --preset cif --mode cif_greedy
+  python -m tpu_asr_torch.serve --random-init --preset whisper_large_v3 \\
+      --beam 5 --bucket-frames 3000 --batch-size 32 --inputs wav
   python -m tpu_asr_torch.serve --ckpt exp/transducer \\
       --mode transducer_rescore --beam 10 --ctc-weight 0.5
   python -m tpu_asr_torch.serve --ckpt exp/streaming --stream-beam 5
@@ -492,14 +494,18 @@ def parse_args(argv=None):
                         "attention | ctc_dev | conformer | conformer_dev | "
                         "cif | cif_dev | transducer | transducer_dev | "
                         "conformer_transducer | conformer_transducer_dev "
-                        "| transducer_streaming | streaming); not read "
-                        "with --ckpt")
+                        "| transducer_streaming | streaming | "
+                        "whisper_large_v3 | whisper_dev), with its "
+                        "frontend; not read with --ckpt")
     p.add_argument("--mode", default=None, choices=MODES,
                    help="default: by model type (hybrid -> joint, "
                         "transformer -> beam, ctc -> greedy_ctc, cif -> "
                         "cif_greedy, transducer -> transducer_greedy)")
     p.add_argument("--beam", type=int, default=5)
     p.add_argument("--max-len", type=int, default=100)
+    p.add_argument("--maxlenratio", type=float, default=0.0,
+                   help="per-utterance max decode length = ratio * encoder "
+                        "length; 0 = --max-len only")
     p.add_argument("--ctc-weight", type=float, default=0.3,
                    help="CTC weight of joint, attn_rescore and "
                         "transducer_rescore")
@@ -553,7 +559,8 @@ def build_server(args) -> AsrServer:
         model.load_state_dict(ck.restore(restore_step(
             ck, args.step, args.restore))["model"])
     else:
-        cfg = get_preset(args.preset).model
+        preset = get_preset(args.preset)
+        cfg, frontend = preset.model, preset.frontend
         model = build_model(cfg)
         if args.params_npz:
             load_jax_params(model, args.params_npz)
@@ -566,6 +573,7 @@ def build_server(args) -> AsrServer:
         lm_cfg=None if lm is None else lm.cfg, lm=lm,
         beam=BeamConfig(beam=args.beam, max_len=args.max_len,
                         nbest=args.beam,   # requests slice their own nbest
+                        maxlenratio=args.maxlenratio,
                         ctc_weight=args.ctc_weight
                         if mode in CTC_WEIGHT_MODES else 0.0,
                         lm_weight=args.lm_weight if lm is not None

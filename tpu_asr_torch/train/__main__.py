@@ -77,7 +77,7 @@ from tpu_asr_torch.configs.presets import TrainConfig, get_preset
 from tpu_asr_torch.data import (DataLoader, Utterance, load_manifest,
                                 make_buckets)
 from tpu_asr_torch.models import build_model
-from tpu_asr_torch.models.config import ModelConfig
+from tpu_asr_torch.models.config import ModelConfig, WhisperConfig
 from tpu_asr_torch.parallel.mesh import (initialize_distributed, make_mesh,
                                          spawn_ranks)
 from tpu_asr_torch.train.checkpoints import Checkpointer
@@ -177,6 +177,9 @@ def configure(args, model_overrides: dict | None = None
     """The preset with the flags' overrides applied, and then
     `model_overrides` (ModelConfig fields) to its model."""
     tc = get_preset(args.preset)
+    if isinstance(tc.model, WhisperConfig):
+        raise SystemExit(f"{args.preset}: the port serves Whisper "
+                         f"(recognize, serve) and does not train it")
     vocab = args.vocab_size
     if not vocab and args.dict_path:
         from tpu_asr_torch.utils.vocab import Vocab

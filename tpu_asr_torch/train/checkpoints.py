@@ -24,8 +24,8 @@ import re
 
 import torch
 
-from tpu_asr_torch.frontend import FrontendConfig
-from tpu_asr_torch.models.config import ModelConfig
+from tpu_asr_torch.frontend import FrontendConfig, WhisperFrontendConfig
+from tpu_asr_torch.models.config import ModelConfig, WhisperConfig
 
 _CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -43,18 +43,23 @@ def config_to_json(cfg) -> dict:
 
 
 def model_config_from_json(d: dict) -> ModelConfig:
+    """A ModelConfig, or a WhisperConfig where Whisper's own keys are."""
     d = dict(d)
     d["dtype"] = getattr(torch, d["dtype"])
     d["param_dtype"] = getattr(torch, d["param_dtype"])
-    if isinstance(d.get("conv_channels"), list):
-        d["conv_channels"] = tuple(d["conv_channels"])
-    return ModelConfig(**d)
+    for key in ("conv_channels", "sot_sequence"):
+        if isinstance(d.get(key), list):
+            d[key] = tuple(d[key])
+    return (WhisperConfig if "audio_ctx" in d else ModelConfig)(**d)
 
 
-def frontend_config_from_json(d: dict) -> FrontendConfig:
+def frontend_config_from_json(d: dict
+                              ) -> FrontendConfig | WhisperFrontendConfig:
+    """A FrontendConfig, or a WhisperFrontendConfig (its key chunk_s)."""
     d = dict(d)
     d["dtype"] = getattr(torch, d["dtype"])
-    return FrontendConfig(**d)
+    return (WhisperFrontendConfig if "chunk_s" in d
+            else FrontendConfig)(**d)
 
 
 class Checkpointer:
@@ -87,10 +92,12 @@ class Checkpointer:
                                     f"model_config.json")
         return model_config_from_json(d)
 
-    def save_frontend(self, fcfg: FrontendConfig) -> None:
+    def save_frontend(self, fcfg: FrontendConfig | WhisperFrontendConfig
+                      ) -> None:
         self._write_json("frontend.json", config_to_json(fcfg))
 
-    def load_frontend(self) -> FrontendConfig | None:
+    def load_frontend(self
+                      ) -> FrontendConfig | WhisperFrontendConfig | None:
         """FrontendConfig from the sidecar; None if absent."""
         d = self._read_json("frontend.json")
         return None if d is None else frontend_config_from_json(d)
